@@ -22,11 +22,30 @@ exits non-zero:
    ``torch.profiler`` breakdown of one call at 1 MiB and 1 GiB (device
    time by kernel, the device's busy share); then the dry run of the
    whole collective surface;
-4. DDP — ``entry()`` for 5 fused steps: loss falls, replicas stay
+4. tuned — a fresh ``init(device="cuda", nranks=8)`` with no algorithm
+   var pinned and tracing on: ``coll/tuned`` serves the device slots; f32
+   PROD at 4 KiB, 4 MiB, 64 MiB and 256 MiB per rank decides (from the
+   ``tuned_decision`` trace instants) recursive doubling, Rabenseifner,
+   ``cuda_ring`` and ``cuda_ring``; each ``cuda_ring`` call takes exactly
+   (n-1) + (n-1) kernel launches and is bit-equal to the forced plain
+   ring; SUM at 64 MiB decides ``psum`` with no launch; p50 of the
+   default call beside forced ``ring_segmented`` (what tuned picks where
+   no kernel runs) at 64 and 256 MiB.  Its Chrome trace goes to
+   ``chiprun_out/trace.json`` and is checked for api, coll and request
+   lanes, ``tuned`` coll spans and a ``cuda_ring`` decision;
+5. observability — p50 (and host µs per call) of an 8 B and a 1 MiB SUM
+   allreduce (``cuda_ring`` forced) with every hook off and with tracing,
+   metrics and SPC on; the 8 B unpinned p50 under tuned beside ``--mca
+   coll ^tuned`` (each pair in three rounds of a, b, b, a); SPC's
+   ``allreduce`` count against the calls made; ``allreduce_init`` on the
+   world and a ``dup`` hitting the schedule cache, bit-equal to the
+   blocking call;
+6. DDP — ``entry()`` for 5 fused steps: loss falls, replicas stay
    bitwise identical.
 
 Before the last line it prints the card's name and power limit
-(``nvidia-smi``) and one ``{"kernels": [...]}`` line; the last line is
+(``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
+those of the main path and the tuned phase; the last line is
 ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -52,6 +71,10 @@ N = 8
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def launched(ck, before) -> dict:
+    return {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
 
 
 def event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -407,6 +430,231 @@ def kernel_rows(ck, launches):
 
 # -- phase 4 ----------------------------------------------------------------
 
+#: per-rank bytes of the tuned phase's PROD calls, with the decision the
+#: shipped thresholds (large 1 MiB, huge 64 MiB) give on an sm_90 card
+TUNED_SIZES = ((4 << 10, "recursive_doubling"), (4 << 20, "rabenseifner"),
+               (64 << 20, "cuda_ring"), (256 << 20, "cuda_ring"))
+#: per-rank bytes of the persistent-plan check
+PERSIST_BYTES = 64 << 20
+
+
+def phase_tuned(ck, outdir):
+    """The default decision layer on the card, unpinned, traced."""
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.coll.cuda import ALLREDUCE_ALGOS
+    from ompi_tpu_torch.core import mca
+    from ompi_tpu_torch.op import PROD, SUM
+    from ompi_tpu_torch.trace import core as trace
+
+    api.finalize()
+    trace.reset()
+    world = api.init({"trace_enable": "1", "trace_output": str(outdir / "trace")},
+                     device="cuda", nranks=N)
+    store = mca.default_context().store
+    pinned = {v.full_name: v.value for v in store.all_vars()
+              if v.full_name.startswith("coll_cuda_") and v.full_name.endswith("_algorithm")
+              and v.value != 0}
+    if world.coll.providers["allreduce"] != "tuned" or pinned:
+        raise SystemExit(f"tuned is not the default: {world.coll.providers['allreduce']}, "
+                         f"pinned {pinned}")
+
+    def forced(algo, fn):
+        store.set("coll_cuda_allreduce_algorithm", algo)
+        try:
+            return fn()
+        finally:
+            store.set("coll_cuda_allreduce_algorithm", 0)
+
+    def decided(fn):
+        start = trace.event_count()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [e[7]["algorithm"] for e in trace.events()[start:]
+                     if e[4] == "tuned_decision"]
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    ck.reset_launches()  # the tuned path's launches are counted from here
+    rows = []
+    for nbytes, want in TUNED_SIZES:
+        x = 1 + 1e-3 * torch.randn((N, nbytes // 4), generator=gen, device="cuda")
+        before = dict(ck.LAUNCHES)
+        out, dec = decided(lambda: world.allreduce(x, PROD))
+        per_call = launched(ck, before)
+        kernel = want == "cuda_ring"
+        expect = ({"ring_hop": N - 1, "ring_hop_fold": N - 1} if kernel
+                  else {"ring_hop": 0, "ring_hop_fold": 0})
+        ring = forced(ALLREDUCE_ALGOS["ring"], lambda: world.allreduce(x, PROD))
+        row = {"bytes": nbytes, "op": "MPI_PROD", "decision": dec, "launches": per_call,
+               "finite": bool(torch.isfinite(out).all()),
+               "bitwise_vs_plain_ring": torch.equal(bits(out), bits(ring)),
+               "max_rel_vs_plain_ring": ((out - ring).abs() / ring.abs()).max().item()}
+        if dec != [want] or per_call != expect or not row["finite"] \
+                or (kernel and not row["bitwise_vs_plain_ring"]) \
+                or row["max_rel_vs_plain_ring"] > 1e-5:
+            raise SystemExit(f"tuned at {nbytes} B: {row}, expected {want}, {expect}")
+        if kernel:
+            iters = 10 if nbytes == TUNED_SIZES[2][0] else 5
+            default = lambda: world.allreduce(x, PROD)  # noqa: E731
+            seg = lambda: forced(  # noqa: E731
+                ALLREDUCE_ALGOS["ring_segmented"],
+                lambda: event_ms(lambda: world.allreduce(x, PROD), 3, warmup=1))
+            # in turns on one card: default, segmented, segmented, default
+            ms = [event_ms(default, iters)]
+            seg_ms = [seg(), seg()]
+            ms.append(event_ms(default, iters))
+            row.update(p50_ms=ms, ring_segmented_p50_ms=seg_ms,
+                       speedup=min(seg_ms) / max(ms))
+        rows.append(row)
+        emit({"phase": "tuned_size", **row})
+        del x, out, ring
+        torch.cuda.empty_cache()
+    x = torch.randn((N, TUNED_SIZES[2][0] // 4), generator=gen, device="cuda")
+    before = dict(ck.LAUNCHES)
+    _, dec = decided(lambda: world.allreduce(x, SUM))
+    sum_row = {"bytes": TUNED_SIZES[2][0], "op": "MPI_SUM", "decision": dec,
+               "launches": launched(ck, before)}
+    if dec != ["psum"] or any(sum_row["launches"].values()):
+        raise SystemExit(f"tuned SUM: {sum_row}")
+    del x
+    small = torch.randn((N, 1024), generator=gen, device="cuda")
+    world.iallreduce(small, PROD).wait()  # the request lane
+    world.barrier()  # a table-path call: the coll lane, provider tuned
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)  # the tuned path's run ends here
+    api.finalize()
+    trace.enable(False)
+    path = outdir / "trace.json"
+    (outdir / "trace.0.json").replace(path)
+    doc = json.loads(path.read_text())
+    evs = doc["traceEvents"]
+    lanes = {e["args"]["name"] for e in evs if e["ph"] == "M" and e["name"] == "thread_name"}
+    coll_providers = {e["args"].get("provider") for e in evs
+                      if e["ph"] == "X" and e["cat"] == "coll"}
+    ring_decisions = [e for e in evs if e["ph"] == "i" and e["name"] == "tuned_decision"
+                      and e["args"]["algorithm"] == "cuda_ring"]
+    trace_ok = ({"api", "coll", "request"} <= lanes and "tuned" in coll_providers
+                and bool(ring_decisions))
+    summary = {"phase": "tuned", "provider": "tuned", "sizes": [
+        {k: r[k] for k in ("bytes", "decision", "launches", "bitwise_vs_plain_ring",
+                           "p50_ms", "ring_segmented_p50_ms", "speedup") if k in r}
+        for r in rows], "sum": sum_row, "launches": launches,
+        "trace": {"path": "chiprun_out/trace.json", "lanes": sorted(lanes),
+                  "coll_providers": sorted(p for p in coll_providers if p),
+                  "cuda_ring_decisions": len(ring_decisions),
+                  "events": len(evs), "dropped": doc["otherData"]["dropped_events"]}}
+    emit(summary)
+    if not trace_ok:
+        raise SystemExit(f"trace.json lacks lanes, tuned spans or a cuda_ring decision: "
+                         f"{summary['trace']}")
+    return summary
+
+
+# -- phase 5 ----------------------------------------------------------------
+
+
+def phase_observability(ck):
+    """The host cost of the hooks and of the decision layer, in turns."""
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.coll import sched
+    from ompi_tpu_torch.op import PROD, SUM
+    from ompi_tpu_torch.tool import spc
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    xs = {b: torch.randn((N, b // 4), generator=gen, device="cuda") for b in (8, 1 << 20)}
+    ring = {"coll_cuda_allreduce_algorithm": "7"}
+    hooks_on = dict(ring, trace_enable="1", metrics_enable="1", runtime_spc_attach="all")
+    iters = 200
+
+    def p50s(params, sizes):
+        """CUDA-event p50 per size, and the host's µs per call over a
+        loop of ``iters`` calls (the dispatch cost these calls are bound
+        by); SPC's allreduce count against the calls made."""
+        api.finalize()
+        spc.attach(False)
+        world = api.init(params, device="cuda", nranks=N)
+        spc.clear()
+        calls = 0
+        out = {}
+        for b in sizes:
+            out[b] = event_ms(lambda: world.allreduce(xs[b], SUM), iters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                world.allreduce(xs[b], SUM)
+            torch.cuda.synchronize()
+            out[f"host_us_{b}"] = (time.perf_counter() - t0) / iters * 1e6
+            calls += 2 * iters + 2
+        out["spc_allreduce"] = spc.get("allreduce")
+        out["calls"] = calls
+        return out
+
+    def in_turns(a, b, rounds=3):
+        """(a, b, b, a) repeated: each side's runs, in the order made."""
+        runs = {a[0]: [], b[0]: []}
+        for _ in range(rounds):
+            for name, fn in (a, b, b, a):
+                runs[name].append(fn())
+        return runs
+
+    hooks = in_turns(("off", lambda: p50s(ring, (8, 1 << 20))),
+                     ("on", lambda: p50s(hooks_on, (8, 1 << 20))))
+    spc_ok = all(r["spc_allreduce"] == r["calls"] for r in hooks["on"])
+    # the decision layer on the host-bound path: unpinned SUM (tuned → psum)
+    # against coll/cuda alone (auto → psum)
+    dec = in_turns(("tuned", lambda: p50s({}, (8,))),
+                   ("no_tuned", lambda: p50s({"coll": "^tuned"}, (8,))))
+    spc.attach(False)
+    # persistent plans: world and a dup of it share one cached schedule
+    api.finalize()
+    world = api.init(device="cuda", nranks=N)
+    x = 1 + 1e-3 * torch.randn((N, PERSIST_BYTES // 4), generator=gen, device="cuda")
+    h0 = sched.CACHE.stats()
+    before = dict(ck.LAUNCHES)
+    p1 = world.allreduce_init(x, PROD).start().wait()
+    p2 = world.dup().allreduce_init(x, PROD).start().wait()
+    blocking = world.allreduce(x, PROD)
+    torch.cuda.synchronize()
+    h1 = sched.CACHE.stats()
+    sched_row = {"hits": h1["sched_cache_hits"] - h0["sched_cache_hits"],
+                 "misses": h1["sched_cache_misses"] - h0["sched_cache_misses"],
+                 "bitwise_vs_blocking": torch.equal(bits(p1), bits(blocking))
+                 and torch.equal(bits(p2), bits(blocking)),
+                 "launches": launched(ck, before)}
+    api.finalize()
+
+    def pick(runs, key):
+        return [r[key] for r in runs]
+
+    row = {"phase": "observability", "iters": iters,
+           "cuda_ring_8B_off_ms": pick(hooks["off"], 8),
+           "cuda_ring_8B_on_ms": pick(hooks["on"], 8),
+           "cuda_ring_1MiB_off_ms": pick(hooks["off"], 1 << 20),
+           "cuda_ring_1MiB_on_ms": pick(hooks["on"], 1 << 20),
+           "cuda_ring_8B_off_host_us": pick(hooks["off"], "host_us_8"),
+           "cuda_ring_8B_on_host_us": pick(hooks["on"], "host_us_8"),
+           "spc_allreduce_vs_calls": [(r["spc_allreduce"], r["calls"])
+                                      for r in hooks["on"]],
+           "unpinned_8B_tuned_ms": pick(dec["tuned"], 8),
+           "unpinned_8B_no_tuned_ms": pick(dec["no_tuned"], 8),
+           "unpinned_8B_tuned_host_us": pick(dec["tuned"], "host_us_8"),
+           "unpinned_8B_no_tuned_host_us": pick(dec["no_tuned"], "host_us_8"),
+           "sched": sched_row}
+    emit(row)
+    if not spc_ok:
+        raise SystemExit(f"SPC allreduce count != calls made: {row['spc_allreduce_vs_calls']}")
+    if sched_row["hits"] < 1 or not sched_row["bitwise_vs_blocking"]:
+        raise SystemExit(f"persistent schedule cache: {sched_row}")
+    return row
+
+
+# -- phase 6 ----------------------------------------------------------------
+
 
 def phase_ddp():
     import torch
@@ -442,15 +690,19 @@ def main() -> int:
     from ompi_tpu_torch.coll import cuda_kernels as ck
     from ompi_tpu_torch.op import MAX, MIN, PROD, SUM
 
+    outdir = REPO / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
     smi = phase_env(ck)
     phase_kernels(ck, (SUM, PROD, MAX, MIN))
     rows, profiles, launches = phase_main(ck, args.max_bytes)
+    tuned = phase_tuned(ck, outdir)
+    observability = phase_observability(ck)
+    launches = {k: launches[k] + tuned["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
     phase_ddp()
-    outdir = REPO / "chiprun_out"
-    outdir.mkdir(exist_ok=True)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
+         "tuned": tuned, "observability": observability,
          "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})

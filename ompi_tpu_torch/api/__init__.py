@@ -1,14 +1,17 @@
 """MPI API layer, single-process part (port of ``ompi_tpu/api``).
 
 ``init()`` ≈ MPI_Init: builds the MCA context from ``--mca``-style
-params, brings up the world mesh of virtual ranks on the chosen device
-(CUDA unless the caller asks for the CPU), and constructs COMM_WORLD
-and COMM_SELF.  ``finalize()`` ≈ MPI_Finalize.
+params, syncs the observability stack from it (tracing, metrics, SPC),
+brings up the world mesh of virtual ranks on the chosen device (CUDA
+unless the caller asks for the CPU), and constructs COMM_WORLD and
+COMM_SELF.  ``finalize()`` ≈ MPI_Finalize: writes the configured
+exports (monitoring dump, metrics ``.prom``/``.jsonl``, Chrome trace)
+and frees the world.  Both fire the ``core.hooks`` lifecycle hooks.
 """
 
 from __future__ import annotations
 
-from ompi_tpu_torch.core import mca, output
+from ompi_tpu_torch.core import hooks, mca, output
 from ompi_tpu_torch.core.errors import MPICommError
 
 from .comm import COLOR_UNDEFINED, Comm  # noqa: F401
@@ -29,11 +32,19 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     global _world, _self_comm
     if _world is not None:
         return _world
+    hooks.fire("mpi_init_top")
     if mca_params:
         mca.init(mca_params)
     ctx = mca.default_context()
     ctx.open_all()
     output.register_verbose_var(ctx.store, "runtime")
+    from ompi_tpu_torch import metrics
+    from ompi_tpu_torch.tool import spc
+    from ompi_tpu_torch.trace import core as trace_core
+
+    for subsystem in (trace_core, metrics, spc):
+        subsystem.register_vars(ctx.store)
+        subsystem.sync_from_store(ctx.store)
     from ompi_tpu_torch.mesh.mesh import world_mesh
 
     wm = world_mesh(device, nranks)
@@ -41,6 +52,7 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     _self_comm = Comm(Group([0]), wm.submesh([0]), name="MPI_COMM_SELF")
     output.verbose(1, "runtime", "MPI_Init complete: world size %d on %s",
                    _world.size, wm.device)
+    hooks.fire("mpi_init_bottom", world=_world)
     return _world
 
 
@@ -65,13 +77,43 @@ def comm_self() -> Comm:
     return _self_comm
 
 
+def _export_at_finalize(store) -> None:
+    """The finalize-time files, each when its output var is set: the
+    monitoring dump, the metrics ``<out>.0.prom``/``.jsonl`` and the
+    Chrome trace ``<out>.0.json`` (one process drives every rank)."""
+    from ompi_tpu_torch import metrics
+    from ompi_tpu_torch.trace import chrome
+    from ompi_tpu_torch.trace import core as trace_core
+
+    mon = store.get("monitoring_base_output", "")
+    if mon:
+        from ompi_tpu_torch.tool import monitoring
+
+        monitoring.dump(str(mon))
+    mout = store.get("metrics_output", "")
+    if mout and metrics.enabled():
+        from ompi_tpu_torch.metrics import export
+
+        export.write(str(mout), proc=0)
+    tout = store.get("trace_output", "")
+    if tout and trace_core.enabled():
+        chrome.dump(f"{tout}.0.json", pid=0)
+
+
 def finalize() -> None:
-    """MPI_Finalize: free the world objects and drop the MCA context."""
+    """MPI_Finalize: write the exports, free the world objects and drop
+    the MCA context."""
     global _world, _self_comm
+    hooks.fire("mpi_finalize_top", world=_world)
     if _world is not None:
+        try:
+            _export_at_finalize(mca.default_context().store)
+        except OSError as e:  # an unwritable path must not break finalize
+            output.show_help("finalize", "export", "could not write an export: %s", e)
         _world.free()
         _world = None
     if _self_comm is not None:
         _self_comm.free()
         _self_comm = None
     mca.reset()
+    hooks.fire("mpi_finalize_bottom")

@@ -14,7 +14,17 @@ out (staged onto the mesh device and back), tensor in → tensor out
 Dispatch: an entry point checks its arguments once per call signature,
 then asks the winning module's ``resolve()`` for the callable of that
 signature and caches it under the MCA store's version, so later calls
-are one dict hit plus the kernels.
+are one dict hit plus the kernels.  The winner of the device slots is
+``coll/tuned``, whose resolver bakes its algorithm decision into the
+callable.  Persistent ``*_init`` plans come from the process-wide
+schedule cache (:mod:`ompi_tpu_torch.coll.sched`), keyed by the comm's
+shape so that a ``dup`` hits.  Entries with no resolver (barrier, the
+jagged variants, ``reduce_scatter``) take the table path.
+
+Observability hooks, each one flag test when off: SPC counts every
+collective once (here on the fast path, in ``CollTable.lookup`` on the
+table path); with tracing on, each entry records an ``api`` span keyed
+(comm, op, seq), timed on the host.
 
 Point-to-point, intercommunicators, ULFM and RMA are not in this slice.
 """
@@ -27,6 +37,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ompi_tpu_torch.coll import sched
 from ompi_tpu_torch.coll.module import CollTable, select_coll_modules
 from ompi_tpu_torch.core import mca
 from ompi_tpu_torch.core.errors import (
@@ -39,6 +50,8 @@ from ompi_tpu_torch.ddt.datatype import from_torch_dtype, torch_dtype
 from ompi_tpu_torch.mesh.mesh import CommMesh
 from ompi_tpu_torch.op.op import SUM, Op
 from ompi_tpu_torch.request import ArrayRequest, PersistentRequest, Request
+from ompi_tpu_torch.tool import spc
+from ompi_tpu_torch.trace import core as _trace
 
 from .group import UNDEFINED, Group
 
@@ -189,19 +202,27 @@ class Comm:
 
     # -- dispatch ------------------------------------------------------------
 
-    def _resolved(self, base: str, args: tuple, key: tuple):
-        """The winning module's callable for this call signature, or None
-        when the module exposes no resolver (coll/basic)."""
-        ctx = mca.default_context()
+    def _resolved(self, slot: str, base: str, args: tuple, key: tuple):
+        """The slot owner's callable for this call signature, or None
+        when the owner exposes no resolver (coll/basic, sync, monitoring)
+        — then the caller takes the table path, which counts the call.
+        The context is read as ``mca._default``, as the reference's fast
+        path does: ``default_context()`` would re-scan the component
+        registry on every call."""
+        ctx = mca._default or mca.default_context()
         ent = self._fast.get(key)
         if ent is not None and ent[0] is ctx and ent[1] == ctx.store.version:
+            if spc._attached:  # inlined flag test: this is the hot loop
+                spc.inc(slot)
             return ent[2]
-        resolve = getattr(self.coll.owners.get(base), "resolve", None)
+        resolve = getattr(self.coll.owners.get(slot), "resolve", None)
         fn = resolve(base, *args) if resolve is not None else None
-        if fn is not None:
-            if len(self._fast) > 4096:  # user-op churn backstop
-                self._fast.clear()
-            self._fast[key] = (ctx, ctx.store.version, fn)
+        if fn is None:
+            return None
+        if len(self._fast) > 4096:  # user-op churn backstop
+            self._fast.clear()
+        self._fast[key] = (ctx, ctx.store.version, fn)
+        spc.inc(slot)
         return fn
 
     def _prepare(self, base: str, x, depth: int, op: Op | None, root: int | None):
@@ -213,31 +234,68 @@ class Comm:
         xd, host = self._stage(x, depth)
         args = (xd,) + ((op,) if op is not None else ()) \
             + ((root,) if root is not None else ())
-        key = (base, op, root, tuple(xd.shape), xd.dtype)
-        return xd, host, args, self._resolved(base, args, key)
+        return xd, host, args, (base, op, root, tuple(xd.shape), xd.dtype)
+
+    def _span(self, slot: str, t0: int, xd) -> None:
+        _trace.complete("api", slot, t0, comm=self.name,
+                        seq=_trace.next_seq(self.name, slot),
+                        nbytes=spc.payload_nbytes(xd))
 
     def _call(self, base: str, x, depth: int, op: Op | None = None,
               root: int | None = None):
-        xd, host, args, fn = self._prepare(base, x, depth, op, root)
+        xd, host, args, key = self._prepare(base, x, depth, op, root)
+        t0 = _trace.now() if _trace._enabled else 0
+        fn = self._resolved(base, base, args, key)
         out = fn(xd) if fn is not None else self.coll.lookup(base)(*args)
+        if t0:
+            self._span(base, t0, xd)
         return self._unstage(out, host)
 
     def _icall(self, base: str, x, depth: int, op: Op | None = None,
                root: int | None = None) -> Request:
-        xd, host, args, fn = self._prepare(base, x, depth, op, root)
+        xd, host, args, key = self._prepare(base, x, depth, op, root)
+        slot = "i" + base
+        t0 = _trace.now() if _trace._enabled else 0
+        fn = self._resolved(slot, base, args, key)
         req = (ArrayRequest(fn(xd)) if fn is not None
-               else self.coll.lookup("i" + base)(*args))
+               else self.coll.lookup(slot)(*args))
+        if t0:
+            self._span(slot, t0, xd)
         return _wrap_unstage(req, self, host)
 
     def _init(self, base: str, x, depth: int, op: Op | None = None,
               root: int | None = None) -> Request:
-        """Persistent collective: staged and resolved once, each
-        ``start()`` re-dispatches on the same buffer."""
-        xd, host, args, fn = self._prepare(base, x, depth, op, root)
+        """Persistent collective: staged once, its plan taken from the
+        process-wide schedule cache, each ``start()`` re-dispatching on
+        the same buffer."""
+        xd, host, args, _ = self._prepare(base, x, depth, op, root)
+        fn = self._sched_fn(base, args, op, root)
         if fn is None:
-            return self.coll.lookup(base + "_init")(*args)
+            return self._lookup(base + "_init")(*args)
         return PersistentRequest(
             lambda: _wrap_unstage(ArrayRequest(fn(xd)), self, host))
+
+    def _sched_fn(self, base: str, args: tuple, op: Op | None, root: int | None):
+        """The persistent plan from :mod:`~ompi_tpu_torch.coll.sched`,
+        keyed by the comm's shape (device, rank count) and never its
+        identity, so a fresh comm of the same shape replays the plan;
+        None when the owner exposes no resolver."""
+        resolve = getattr(self.coll.owners.get(base), "resolve", None)
+        if resolve is None:
+            return None
+        xd = args[0]
+        key = ("pers", base, str(self.mesh.device), self.size, op, root,
+               tuple(xd.shape), str(xd.dtype), mca.default_context().store.version)
+        return sched.lookup(key, lambda: resolve(base, *args))
+
+    def _lookup(self, slot: str):
+        """Table-path entry: the slot's callable, in an ``api`` span when
+        tracing (the table's own lookup counts SPC and adds the coll
+        span)."""
+        fn = self.coll.lookup(slot)
+        if _trace._enabled:
+            return _trace.wrap_call("api", slot, fn, comm=self.name)
+        return fn
 
     # -- collectives ---------------------------------------------------------
 
@@ -308,23 +366,27 @@ class Comm:
         return self._init("reduce_scatter_block", x, 2, op=op)
 
     def reduce_scatter(self, x, op: Op = SUM, counts: Sequence[int] | None = None):
-        """MPI_Reduce_scatter: jagged ``counts`` → host path (list
-        results); equal counts c → (n, n*c, …) sendbufs reduced as
-        blocks, returning (n, c, …); counts=None → x is (n, n, *s)."""
+        """MPI_Reduce_scatter, through the table as in the reference:
+        jagged ``counts`` → host path (list results); equal counts c →
+        (n, n*c, …) sendbufs reduced as blocks, returning (n, c, …);
+        counts=None → x is (n, n, *s)."""
+        self._check()
         self._check_op(op, x)
-        if counts is None:
-            return self.reduce_scatter_block(x, op)
-        if len(counts) != self.size:
-            raise MPIArgError("reduce_scatter counts length != comm size")
-        if len(set(counts)) > 1:
-            xd, _ = self._stage(x, 2)
-            return self.coll.lookup("reduce_scatter")(xd, op, list(counts))
-        c = counts[0]
-        if x.shape[1] != self.size * c:
-            raise MPIArgError(
-                f"reduce_scatter sendbuf dim1 {x.shape[1]} != n*count {self.size * c}")
-        return self.reduce_scatter_block(
-            x.reshape((self.size, self.size, c) + tuple(x.shape[2:])), op)
+        if counts is not None:
+            if len(counts) != self.size:
+                raise MPIArgError("reduce_scatter counts length != comm size")
+            if len(set(counts)) > 1:
+                host = x if isinstance(x, torch.Tensor) else np.asarray(x)
+                return self._lookup("reduce_scatter")(host, op, list(counts))
+            c = counts[0]
+            if x.shape[1] != self.size * c:
+                raise MPIArgError(
+                    f"reduce_scatter sendbuf dim1 {x.shape[1]} != n*count {self.size * c}")
+            blocks = x.reshape((self.size, self.size, c) + tuple(x.shape[2:]))
+            xd, host = self._stage(blocks, 2)
+            return self._unstage(self._lookup("reduce_scatter_block")(xd, op), host)
+        xd, host = self._stage(x, 2)
+        return self._unstage(self._lookup("reduce_scatter")(xd, op, None), host)
 
     def alltoall(self, x):
         return self._call("alltoall", x, 2)
@@ -354,35 +416,32 @@ class Comm:
         return self._init("exscan", x, 1, op=op)
 
     def barrier(self) -> None:
-        self._check()
-        self.coll.lookup("barrier")()
+        self._lookup("barrier")()
 
     def ibarrier(self) -> Request:
-        self._check()
-        return self.coll.lookup("ibarrier")()
+        return self._lookup("ibarrier")()
 
     def barrier_init(self) -> Request:
-        self._check()
-        return self.coll.lookup("barrier_init")()
+        return self._lookup("barrier_init")()
 
     # jagged variants (host path)
     def allgatherv(self, blocks):
         if len(blocks) != self.size:
             raise MPIArgError("allgatherv needs one block per rank")
-        return self.coll.lookup("allgatherv")(blocks)
+        return self._lookup("allgatherv")(blocks)
 
     def alltoallv(self, matrix):
         if len(matrix) != self.size:
             raise MPIArgError("alltoallv needs n rows")
-        return self.coll.lookup("alltoallv")(matrix)
+        return self._lookup("alltoallv")(matrix)
 
     def gatherv(self, blocks, root: int = 0):
         self._check_root(root)
-        return self.coll.lookup("gatherv")(blocks, root)
+        return self._lookup("gatherv")(blocks, root)
 
     def scatterv(self, blocks, root: int = 0):
         self._check_root(root)
-        return self.coll.lookup("scatterv")(blocks, root)
+        return self._lookup("scatterv")(blocks, root)
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"<Comm {self.name} size={self.size} cid={self.cid} on {self.device}>"
@@ -406,9 +465,14 @@ class _Chained(Request):
         return self._post(self._inner.wait())
 
 
+class _Unstage(_Chained):
+    """The D2H copy of a host caller's result (the reference's class
+    name, which names its ``request`` wait span)."""
+
+
 def _wrap_unstage(req: Request, comm: Comm, host: bool) -> Request:
     """Chain the D2H copy onto a device request for host callers."""
-    return _Chained(req, lambda out: comm._unstage(out, True)) if host else req
+    return _Unstage(req, lambda out: comm._unstage(out, True)) if host else req
 
 
 def _select(req: Request, root: int) -> Request:

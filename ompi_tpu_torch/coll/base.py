@@ -51,6 +51,15 @@ import torch
 
 from ompi_tpu_torch.ddt.datatype import SIGNED_TWIN
 from ompi_tpu_torch.op.op import Op, fused_reduce, on_carrier, ordered_reduce_torch
+from ompi_tpu_torch.trace import core as _trace
+
+
+def compile_event(algorithm: str, n: int) -> None:
+    """Trace instant where a collective's callable is first built (the
+    reference emits it where XLA traces a new program): a ``coll``-lane
+    point that tells first-call cost apart from steady-state dispatch."""
+    if _trace._enabled:
+        _trace.instant("coll", "compile", algorithm=algorithm, comm_size=n)
 
 
 def _carried(fn):

@@ -11,9 +11,11 @@ is one dict hit.
   ``pallas_ring`` slot is named ``cuda_ring`` here (allreduce 7,
   allgather 4, reduce_scatter 4) and runs the hand-written ring-hop
   kernels of :mod:`.cuda_kernels`.
-* ``auto`` applies the reference's decision: the fused rank-axis
+* ``auto`` applies the reference's module default: the fused rank-axis
   reduction (``psum``/``direct``: one torch reduction over the rank
   axis, broadcast back) when the op has one, the ordered fold otherwise.
+  It governs only where ``coll/tuned`` is excluded: tuned stacks above
+  this module and forces its per-call choice through :meth:`forced`.
 * The fallback rules are the reference's: psum → ring for ops without a
   fused reduction, Rabenseifner with non-power-of-two n → ring,
   non-commutative ``cuda_ring`` → ordered, jagged ``reduce_scatter`` →
@@ -26,6 +28,7 @@ is one dict hit.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Callable
 
 import torch
@@ -37,6 +40,7 @@ from ompi_tpu_torch.request import (
     CompletedRequest,
     PersistentRequest,
     Request,
+    block_until_ready,
 )
 
 from . import base as algos
@@ -62,6 +66,11 @@ REDUCE_ALGOS = {"auto": 0, "binomial": 1, "ordered": 2}
 BARRIER_ALGOS = {"auto": 0, "allreduce": 1, "dissemination": 2}
 
 
+def _named(coll: str, enum: dict[str, int], algo: int) -> str:
+    """``<coll>_<algorithm name>``, the name of a compile event."""
+    return coll + "_" + next(k for k, v in enum.items() if v == algo)
+
+
 class CudaCollModule(CollModule):
     """Per-communicator module: resolved-callable cache over the mesh."""
 
@@ -69,12 +78,28 @@ class CudaCollModule(CollModule):
         super().__init__(comm)
         self.component = component
         self._cache: dict[tuple, Callable] = {}
+        #: per-call var overrides installed by a decision layer (the
+        #: coll/tuned module forces its chosen algorithm through here)
+        self._forced: dict[str, int] = {}
 
-    def _compiled(self, key: tuple, builder: Callable[[], Callable]) -> Callable:
+    @contextmanager
+    def forced(self, **overrides):
+        """Temporarily force algorithm/segcount vars (tuned's decision);
+        nests, and restores the previous overrides on exception."""
+        prev = self._forced
+        self._forced = {k: v for k, v in overrides.items() if v is not None}
+        try:
+            yield
+        finally:
+            self._forced = prev
+
+    def _compiled(self, key: tuple, builder: Callable[[], Callable],
+                  algorithm: str) -> Callable:
         fn = self._cache.get(key)
         if fn is None:
             if len(self._cache) > 4096:  # user-op churn backstop
                 self._cache.clear()
+            algos.compile_event(algorithm, self._n())
             fn = builder()
             self._cache[key] = fn
         return fn
@@ -83,12 +108,16 @@ class CudaCollModule(CollModule):
         return self.comm.size
 
     def _algo(self, var: str, enum: dict[str, int]) -> int:
+        if var in self._forced:
+            return int(self._forced[var])
         return int(self.component.store.get(f"coll_cuda_{var}", enum["auto"]))
 
     def _reproducible(self) -> bool:
         return bool(self.component.store.get("coll_cuda_reproducible", False))
 
     def _segcount(self) -> int:
+        if "segcount" in self._forced:
+            return int(self._forced["segcount"])
         return int(self.component.store.get("coll_cuda_segcount", 1 << 16))
 
     # -- fast-path resolution ------------------------------------------
@@ -158,7 +187,7 @@ class CudaCollModule(CollModule):
                 ALLREDUCE_ALGOS["cuda_ring"]: lambda v: ck.ring_allreduce(v, op),
             }[algo]
 
-        return self._compiled(key, build)
+        return self._compiled(key, build, _named("allreduce", ALLREDUCE_ALGOS, algo))
 
     def allreduce(self, x, op: Op):
         return self._allreduce_fn(x, op)(x)
@@ -189,7 +218,7 @@ class CudaCollModule(CollModule):
                     lambda v: algos.bcast_pipeline(v, root, seg),
             }[algo]
 
-        return self._compiled(key, build)
+        return self._compiled(key, build, _named("bcast", BCAST_ALGOS, algo))
 
     def bcast(self, x, root: int = 0):
         return self._bcast_fn(x, root)(x)
@@ -216,7 +245,7 @@ class CudaCollModule(CollModule):
                 REDUCE_ALGOS["ordered"]: lambda v: algos.reduce_ordered(v, op, root),
             }[algo]
 
-        return self._compiled(key, build)
+        return self._compiled(key, build, _named("reduce", REDUCE_ALGOS, algo))
 
     def reduce(self, x, op: Op, root: int = 0):
         return self._reduce_fn(x, op, root)(x)
@@ -246,7 +275,7 @@ class CudaCollModule(CollModule):
                 ALLGATHER_ALGOS["cuda_ring"]: ck.ring_allgather,
             }[algo]
 
-        return self._compiled(key, build)
+        return self._compiled(key, build, _named("allgather", ALLGATHER_ALGOS, algo))
 
     def allgather(self, x):
         """(n, *s) → (n, n, *s): out[r, j] is rank j's contribution."""
@@ -265,7 +294,7 @@ class CudaCollModule(CollModule):
         recvbuf (gather) and every rank's row (scatter) — the collective
         is a copy into a fresh buffer (MPI keeps sendbuf and recvbuf apart)."""
         return self._compiled((kind, tuple(x.shape), x.dtype),
-                              lambda: torch.clone)
+                              lambda: torch.clone, f"{kind}_copy")
 
     def gather(self, x, root: int = 0):
         return self._copy_fn(x, "gather")(x)
@@ -322,7 +351,8 @@ class CudaCollModule(CollModule):
                     lambda v: ck.ring_reduce_scatter(v, op),
             }[algo]
 
-        return self._compiled(key, build)
+        return self._compiled(key, build, _named(
+            "reduce_scatter", REDUCE_SCATTER_ALGOS, algo))
 
     def reduce_scatter_block(self, x, op: Op):
         """x: (n, n, *s), x[r, j] rank r's part for rank j → (n, *s)."""
@@ -373,7 +403,7 @@ class CudaCollModule(CollModule):
         return self._compiled(key, lambda: {
             ALLTOALL_ALGOS["direct"]: algos.alltoall_direct,
             ALLTOALL_ALGOS["pairwise"]: algos.alltoall_pairwise,
-        }[algo])
+        }[algo], _named("alltoall", ALLTOALL_ALGOS, algo))
 
     def alltoall(self, x):
         """x: (n, n, *s), x[r, j] from rank r to rank j → out[j, r]."""
@@ -399,7 +429,8 @@ class CudaCollModule(CollModule):
                 else algos.barrier_dissemination)
         # the program reads the token, so its completion orders after it
         return self._compiled(("barrier", algo),
-                              lambda: lambda tok: impl(n, tok.device) + 0 * tok)
+                              lambda: lambda tok: impl(n, tok.device) + 0 * tok,
+                              _named("barrier", BARRIER_ALGOS, algo))
 
     def _token(self):
         """Pooled barrier token from the mesh arena (a pool hit after the
@@ -410,7 +441,7 @@ class CudaCollModule(CollModule):
     def barrier(self):
         tok = self._token()
         try:
-            ArrayRequest(self._barrier_fn()(tok)).wait()
+            block_until_ready(self._barrier_fn()(tok))
         finally:
             self.comm.mesh.arena.release(tok)
 
@@ -436,7 +467,8 @@ class CudaCollModule(CollModule):
     def _scan_fn(self, x, op: Op, exclusive: bool):
         key = ("scan", exclusive, tuple(x.shape), x.dtype, op)
         return self._compiled(
-            key, lambda: lambda v: algos.scan_ordered(v, op, exclusive))
+            key, lambda: lambda v: algos.scan_ordered(v, op, exclusive),
+            "exscan_ordered" if exclusive else "scan_ordered")
 
     def scan(self, x, op: Op):
         return self._scan_fn(x, op, False)(x)

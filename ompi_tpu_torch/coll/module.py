@@ -5,15 +5,21 @@ Port of ``ompi_tpu/coll/module.py`` (≈ ``mca_coll_base_module_t`` and
 returns a module providing a subset of the collective slots; modules
 are applied in ascending priority order, each overwriting the slots it
 provides, so the highest-priority provider of each slot wins and
-``coll/basic`` backfills what ``coll/cuda`` does not serve.
+``coll/basic`` backfills what ``coll/cuda`` does not serve.  A
+component whose ``query`` carries ``wants_table`` sees the partly built
+table, so that it can wrap the modules below it: ``coll/tuned`` (95)
+wraps ``coll/cuda`` (90), ``coll/monitoring`` (99) and ``coll/sync``
+(100) wrap every slot.
 
 Data convention (rank-major): every buffer is a tensor whose leading
 axis is the communicator rank — ``allreduce: (n,*s)→(n,*s)`` (equal
 rows), ``allgather: (n,*s)→(n,n,*s)``, ``reduce_scatter_block:
 (n,n,*s)→(n,*s)``, ``alltoall: (n,n,*s)→(n,n,*s)``.
 
-The reference's call-counter, straggler and trace hooks in
-``CollTable.lookup`` are not in this slice.
+``CollTable.lookup`` is the table path's choke point: it counts the
+slot in SPC and, with tracing on, hands out the callable wrapped in a
+``coll`` span naming the winning component.  The reference's straggler
+note there comes with the port of ``metrics/straggler.py``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Any, Callable
 
 from ompi_tpu_torch.core import output
 from ompi_tpu_torch.core.errors import MPIInternalError
+from ompi_tpu_torch.tool import spc
+from ompi_tpu_torch.trace import core as _trace
 
 #: every collective operation slot (blocking form); i-variants and
 #: persistent *_init variants are derived slots: "i"+name, name+"_init"
@@ -87,6 +95,11 @@ class CollTable:
         if fn is None:
             raise MPIInternalError(
                 f"no coll component provides {slot!r} on this communicator")
+        spc.inc(slot)
+        if _trace._enabled:
+            # the coll span nests inside the caller's api span
+            return _trace.wrap_call("coll", slot, fn,
+                                    provider=self.providers.get(slot, "?"))
         return fn
 
 
@@ -96,7 +109,10 @@ def select_coll_modules(comm, framework) -> CollTable:
     table = CollTable()
     comps = sorted(framework.selectable(), key=lambda c: (c.priority, c.NAME))
     for comp in comps:
-        module = comp.query(comm)
+        if getattr(comp.query, "wants_table", False):
+            module = comp.query(comm, table)
+        else:
+            module = comp.query(comm)
         if module is None:
             continue
         table.modules.append(module)

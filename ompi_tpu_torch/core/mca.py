@@ -10,6 +10,7 @@ _default: MCAContext | None = None
 _BUILTIN_COMPONENT_MODULES = (
     "ompi_tpu_torch.mesh.mesh",
     "ompi_tpu_torch.coll",
+    "ompi_tpu_torch.tool.monitoring",
 )
 
 

@@ -10,7 +10,12 @@ from __future__ import annotations
 
 from typing import Iterable, Type
 
-from .var import VarStore, register_device_vars
+from .var import (
+    VarStore,
+    register_device_vars,
+    register_observability_vars,
+    register_schedule_vars,
+)
 
 
 class ComponentError(Exception):
@@ -168,6 +173,8 @@ class MCAContext:
     ):
         self.store = VarStore(cmdline=cmdline, env=env, param_files=param_files)
         register_device_vars(self.store)
+        register_observability_vars(self.store)
+        register_schedule_vars(self.store)
         self.frameworks: dict[str, Framework] = {}
         self.refresh_components()
 

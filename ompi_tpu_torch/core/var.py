@@ -5,9 +5,12 @@ Same store, same precedence, same enum handling as the JAX package::
     api set()  >  cmdline ``--mca k v``  >  env ``OMPI_MCA_k``  >
     param files  >  default
 
-Of the reference's centrally registered variables, only the one this
-slice reads is kept: ``dcn_device_interpret``, the kernel-leg override
-read by ``coll/cuda_kernels.mode``.
+Of the reference's centrally registered variables, the port keeps the
+ones it reads: ``dcn_device_interpret`` (the kernel-leg override read by
+``coll/cuda_kernels.mode``), the ``trace_*``/``metrics_*`` rows of
+``OBSERVABILITY_VARS`` and ``SCHEDULE_VARS``, registered on every store
+at construction so that they show in the MPI_T cvar listing before
+init.
 """
 
 from __future__ import annotations
@@ -272,3 +275,54 @@ def register_device_vars(store: VarStore) -> None:
         "rung) even for CUDA tensors; default off: the hand-written CUDA "
         "kernels for CUDA tensors, the row-permutation emulation for CPU "
         "tensors")
+
+
+#: (framework, component, name, default, type, help) — the reference's
+#: trace_* and metrics_* rows (the telemetry, causal and hang rows come
+#: with the modules that read them)
+OBSERVABILITY_VARS = (
+    ("trace", "", "enable", False, "bool",
+     "Record cross-layer event spans into the trace ring buffer "
+     "(api/coll/request timelines; default off — zero-cost hooks)"),
+    ("trace", "", "buffer_events", 65536, "int",
+     "Trace ring-buffer capacity in events; the oldest events "
+     "are dropped (and counted) once full"),
+    ("trace", "", "output", "", "string",
+     "Chrome trace-event JSON path written at finalize as "
+     "<output>.<proc>.json (read it with tools/trace_report.py)"),
+    ("metrics", "", "enable", False, "bool",
+     "Record telemetry (counters, per-op size/latency histograms, "
+     "flight recorder); default off — one boolean test per hook"),
+    ("metrics", "", "output", "", "string",
+     "Telemetry export base path: finalize writes <output>.<proc>.prom "
+     "(Prometheus text format) and <output>.<proc>.jsonl (snapshots + "
+     "flight records; analyze with tools/metrics_report.py); flight "
+     "records also append live to <output>.flight.<proc>.jsonl"),
+    ("metrics", "", "flight_records", 64, "int",
+     "Flight-recorder ring capacity: how many counter snapshots are "
+     "retained in memory"),
+)
+
+
+def register_observability_vars(store: VarStore) -> None:
+    """Register the trace/metrics knobs on a store (idempotent)."""
+    for fw, comp, name, default, typ, help_ in OBSERVABILITY_VARS:
+        store.register(fw, comp, name, default, type=typ, help=help_)
+
+
+#: (framework, component, name, default, type, help)
+SCHEDULE_VARS = (
+    ("coll", "sched", "cache_enable", True, "bool",
+     "Cache persistent-collective schedules (algorithm choice and the "
+     "resolved callable) keyed (comm shape, op, dtype, count, root) and "
+     "replay them on start() with no per-call planning.  Off = every "
+     "lookup plans afresh"),
+    ("coll", "sched", "cache_max", 256, "int",
+     "Upper bound on cached schedules (FIFO eviction)"),
+)
+
+
+def register_schedule_vars(store: VarStore) -> None:
+    """Register the schedule-cache knobs on a store (idempotent)."""
+    for fw, comp, name, default, typ, help_ in SCHEDULE_VARS:
+        store.register(fw, comp, name, default, type=typ, help=help_)

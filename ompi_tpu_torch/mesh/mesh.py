@@ -24,7 +24,7 @@ import torch
 from ompi_tpu_torch.core import mca
 from ompi_tpu_torch.core.errors import MPIArgError, MPIInternalError
 from ompi_tpu_torch.core.registry import Component, register_component
-from ompi_tpu_torch.ddt.datatype import from_numpy, to_numpy
+from ompi_tpu_torch.ddt.datatype import to_numpy
 
 from .arena import DeviceArena
 
@@ -73,7 +73,7 @@ class CommMesh:
                 f"rank-major buffer leading dim {host_array.shape[0]} != "
                 f"comm size {self.size}"
             )
-        return from_numpy(host_array, self.device)
+        return self.arena.stage_in(host_array, self.device)
 
     def stage_out(self, t: torch.Tensor) -> np.ndarray:
         return to_numpy(t)

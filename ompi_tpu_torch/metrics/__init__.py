@@ -1,0 +1,31 @@
+"""``ompi_tpu_torch.metrics`` — counters, histograms and their exports.
+
+Port of ``ompi_tpu/metrics``: :mod:`.core` (counter/histogram
+aggregation, ``--mca metrics_enable 1``), :mod:`.export` (Prometheus
+text + JSONL at finalize, ``--mca metrics_output``) and :mod:`.flight`
+(the flight recorder).  The straggler profiler and the live telemetry
+plane of the reference belong to the multi-process planes and are not
+ported yet.
+"""
+
+from .core import (  # noqa: F401
+    GAUGES,
+    LAT_BUCKETS,
+    NATIVE_COUNTERS,
+    SIZE_BUCKETS,
+    enable,
+    enabled,
+    native_counters,
+    native_value,
+    observe,
+    observe_size,
+    op_stats,
+    register_provider,
+    register_vars,
+    reset,
+    size_histogram,
+    size_ops,
+    snapshot,
+    sync_from_store,
+    zero_stats,
+)

@@ -1,0 +1,118 @@
+"""Snapshot exporters — Prometheus text format + JSONL.
+
+Port of ``ompi_tpu/metrics/export.py``, with the same ``ompi_tpu_``
+metric names and file layout, so ``tools/metrics_report.py`` reads the
+port's files unchanged.  Written at finalize when ``--mca
+metrics_enable 1`` is on and ``--mca metrics_output <path>`` names a
+base path:
+
+* ``<path>.<proc>.prom``  — Prometheus text exposition format;
+* ``<path>.<proc>.jsonl`` — every flight record in order, then the
+  final snapshot.
+"""
+
+from __future__ import annotations
+
+import json
+
+from . import core as _core
+from . import flight as _flight
+
+PREFIX = "ompi_tpu"
+
+
+def _size_bucket_edges() -> list[int]:
+    """Upper bucket edges in bytes: 1, 2, 4, … (last is +Inf)."""
+    return [1 << i for i in range(_core.SIZE_BUCKETS - 1)]
+
+
+def _lat_bucket_edges_us() -> list[int]:
+    return [1 << i for i in range(_core.LAT_BUCKETS - 1)]
+
+
+def _prom_hist(lines: list[str], name: str, labels: str, hist: list[int],
+               edges: list[int], total: int | None = None) -> None:
+    """Cumulative Prometheus _bucket series from a disjoint log2
+    histogram."""
+    cum = 0
+    for i, edge in enumerate(edges):
+        cum += hist[i] if i < len(hist) else 0
+        lines.append(f'{name}_bucket{{{labels}le="{edge}"}} {cum}')
+    cum += hist[len(edges)] if len(hist) > len(edges) else 0
+    lines.append(f'{name}_bucket{{{labels}le="+Inf"}} {cum}')
+    lines.append(f"{name}_count{{{labels.rstrip(',')}}} {cum}"
+                 if labels else f"{name}_count {cum}")
+    if total is not None:
+        lines.append(f"{name}_sum{{{labels.rstrip(',')}}} {total}"
+                     if labels else f"{name}_sum {total}")
+
+
+def dcn_kind(k: str) -> str:
+    """gauge-vs-counter classification of a ``dcn_<k>`` family."""
+    return "gauge" if k in _core.GAUGES or k.endswith("_hwm") else "counter"
+
+
+def dcn_family(lines: list[str], k: str, samples: list[tuple[str, int]],
+               origin: str = "Native", suffix: str = "") -> None:
+    """Append one ``{PREFIX}_dcn_<k>`` metric family: HELP/TYPE header
+    plus one sample per ``(labels, value)`` row."""
+    kind = dcn_kind(k)
+    lines.append(f"# HELP {PREFIX}_dcn_{k} {origin} DCN transport "
+                 f"{kind} {k}{suffix}")
+    lines.append(f"# TYPE {PREFIX}_dcn_{k} {kind}")
+    for labels, v in samples:
+        lines.append(f"{PREFIX}_dcn_{k}{labels} {int(v)}")
+
+
+def to_prometheus(snap: dict) -> str:
+    """Render one snapshot as Prometheus text exposition format."""
+    proc = snap.get("proc")
+    plabel = f'proc="{proc}",' if proc is not None else ""
+    lines: list[str] = []
+    for k, v in (snap.get("native") or {}).items():
+        labels = f'{{{plabel.rstrip(",")}}}' if plabel else ""
+        dcn_family(lines, k, [(labels, int(v))],
+                   suffix=" (libtpudcn TdcnStats block)")
+    lines.append(f"# HELP {PREFIX}_op_size_bytes Per-op payload size "
+                 "histogram (log2 buckets)")
+    lines.append(f"# TYPE {PREFIX}_op_size_bytes histogram")
+    for op, st in (snap.get("ops") or {}).items():
+        labels = f'{plabel}op="{op}",'
+        _prom_hist(lines, f"{PREFIX}_op_size_bytes", labels,
+                   st["size_hist"], _size_bucket_edges(),
+                   total=st.get("bytes"))
+    lines.append(f"# HELP {PREFIX}_op_latency_us Per-op latency "
+                 "histogram (log2 µs buckets)")
+    lines.append(f"# TYPE {PREFIX}_op_latency_us histogram")
+    for op, st in (snap.get("ops") or {}).items():
+        if not any(st["lat_hist"]):
+            continue
+        labels = f'{plabel}op="{op}",'
+        _prom_hist(lines, f"{PREFIX}_op_latency_us", labels,
+                   st["lat_hist"], _lat_bucket_edges_us(),
+                   total=(st.get("total_ns", 0) + 999) // 1000)
+    spc = snap.get("spc") or {}
+    if spc:
+        lines.append(f"# HELP {PREFIX}_spc_total SPC software "
+                     "performance counters")
+        lines.append(f"# TYPE {PREFIX}_spc_total counter")
+        for k, v in sorted(spc.items()):
+            lines.append(f'{PREFIX}_spc_total{{{plabel}counter="{k}"}} '
+                         f"{int(v)}")
+    lines.append("")
+    return "\n".join(lines)
+
+
+def write(path_base: str, proc: int = 0) -> list[str]:
+    """Export the final snapshot (+ flight records) for one process;
+    returns the paths written."""
+    snap = _core.snapshot(reason="finalize", proc=proc)
+    prom_path = f"{path_base}.{proc}.prom"
+    with open(prom_path, "w") as f:
+        f.write(to_prometheus(snap))
+    jsonl_path = f"{path_base}.{proc}.jsonl"
+    with open(jsonl_path, "w") as f:
+        for rec in _flight.records():
+            f.write(json.dumps(rec) + "\n")
+        f.write(json.dumps(snap) + "\n")
+    return [prom_path, jsonl_path]

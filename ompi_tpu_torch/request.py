@@ -21,6 +21,8 @@ from typing import Any, Callable, Sequence
 import torch
 
 from ompi_tpu_torch.core.errors import MPIRequestError
+from ompi_tpu_torch.metrics import core as _metrics
+from ompi_tpu_torch.trace import core as _trace
 
 
 class Request:
@@ -48,11 +50,23 @@ class Request:
         return self._complete
 
     def wait(self) -> Any:
-        """MPI_Wait: block until complete, return the operation result."""
+        """MPI_Wait: block until complete, return the operation result.
+
+        With tracing or metrics on, the blocked time is recorded as a
+        ``request`` span and a latency observation: for a request over
+        CUDA tensors it includes the wait for the card."""
         if not self._complete:
+            t0 = (time.perf_counter_ns()
+                  if (_trace._enabled or _metrics._enabled) else 0)
             self._block()
             self._result = self._finalize()
             self._complete = True
+            if t0:
+                if _trace._enabled:
+                    _trace.complete("request", f"{type(self).__name__}.wait", t0)
+                if _metrics._enabled:
+                    _metrics.observe(f"request_wait_{type(self).__name__}", 0,
+                                     time.perf_counter_ns() - t0)
         return self._result
 
     def _block(self) -> None:
@@ -108,6 +122,13 @@ class ArrayRequest(Request):
         if self._user_finalize is not None:
             return self._user_finalize(self._arrays)
         return self._arrays
+
+
+def block_until_ready(arrays: Any) -> Any:
+    """Wait until the kernels producing ``arrays`` have finished (≈
+    ``jax.block_until_ready``; records no request span)."""
+    ArrayRequest(arrays)._block()
+    return arrays
 
 
 class PersistentRequest(Request):

@@ -76,7 +76,7 @@ def same(got, want, exact=True):
 def test_world_on_cpu(worlds):
     _, tw = worlds
     assert tw.size == N and tw.device == torch.device("cpu")
-    assert tw.coll.providers["allreduce"] == "cuda"
+    assert tw.coll.providers["allreduce"] == "tuned"  # tuned wraps coll/cuda
     assert tw.coll.providers["allgatherv"] == "basic"
 
 

@@ -62,9 +62,11 @@ def test_exclude_list_leaves_the_host_component(tmp_path):
 
     ctx = treg.MCAContext(cmdline={"coll": "^cuda"}, env={}, param_files=[])
     fw = ctx.framework("coll")
-    assert [c.NAME for c in fw.selectable()] == ["basic"]
+    # tuned opens but has no coll/cuda module to wrap: basic serves
+    assert [c.NAME for c in fw.selectable()] == ["tuned", "basic"]
     ctx = treg.MCAContext(cmdline={}, env={}, param_files=[])
-    assert [c.NAME for c in ctx.framework("coll").selectable()] == ["cuda", "basic"]
+    # sync and monitoring open only when their vars ask for them
+    assert [c.NAME for c in ctx.framework("coll").selectable()] == ["tuned", "cuda", "basic"]
     with pytest.raises(treg.SelectionError):
         treg.MCAContext(cmdline={"coll": "nope"}, env={}, param_files=[]).framework(
             "coll").selectable()
