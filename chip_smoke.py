@@ -41,12 +41,32 @@ exits non-zero:
    world and a ``dup`` hitting the schedule cache, bit-equal to the
    blocking call;
 6. DDP — ``entry()`` for 5 fused steps: loss falls, replicas stay
-   bitwise identical.
+   bitwise identical;
+7. p2p — 8 ranks each ``sendrecv`` a 4096×4096 bf16 activation (32 MiB,
+   a pipeline-stage boundary) to r+1 for 20 rounds: every payload
+   bit-equal and on the card; a scripted wildcard/non-overtaking
+   sequence; one 8-partition ``psend_init``/``precv_init`` round; p50
+   per round beside the copy bound and host µs per 8 B send+recv pair;
+8. osc — ``win_allocate`` of 16 Mi f32 per rank on the card; fence
+   epochs where each rank accumulates (SUM) 64 MiB into r+1 and gets
+   r-1, bit-equal to the same sums in plain torch; 1000
+   ``fetch_and_op`` on one counter under ``lock_all`` and a
+   ``compare_and_swap``; p50 per epoch beside its byte bound, host µs
+   per ``fetch_and_op``;
+9. ddt — ``allreduce_ddt`` MPI_PROD over a vector datatype packing
+   64 MiB per rank from CUDA buffers: packed and stacked on the card,
+   tuned's ``cuda_ring`` with exactly 7 + 7 launches, bit-equal to the
+   plain ring forced; pack and unpack of a CUDA tensor bit-equal to the
+   numpy convertor;
+10. io — ``checkpoint.save`` of an (8, 8388608) f32 tensor (256 MiB)
+    from the card through ``write_at_all`` and ``restore`` onto the
+    card, bit-equal; one ``save_async``; one collective write/read
+    through a strided file view; write/read MB/s (bound by the disk).
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
-those of the main path and the tuned phase; the last line is
-``{"ok": true, "device": {...}}``.  The sweep's rows also go to
+those of the main path, the tuned phase and the ddt phase; the last
+line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
 """
@@ -56,6 +76,7 @@ from __future__ import annotations
 import argparse
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -672,6 +693,344 @@ def phase_ddp():
         raise SystemExit("DDP replicas diverged")
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+#: one pipeline-stage activation: 4096 tokens at hidden 4096, bf16
+ACT_ROWS = ACT_COLS = 4096
+P2P_ROUNDS = 20
+
+
+def phase_p2p(smi):
+    """Point-to-point on the card: a pipeline exchange, matching rules,
+    a partitioned round and the host cost of a small message."""
+    import torch
+
+    import ompi_tpu_torch.api as api
+
+    api.finalize()
+    world = api.init(device="cuda", nranks=N)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    acts = torch.randn((N, ACT_ROWS, ACT_COLS), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def round_trip():
+        # one controller drives every rank: the last rank's send goes
+        # first, so each sendrecv finds its left neighbour's message
+        world.send(acts[N - 1], N - 1, 0, tag=3)
+        got = [world.sendrecv(acts[r], r, r + 1, (r - 1) % N, 3, 3) for r in range(N - 1)]
+        got.append(world.recv(N - 1, N - 2, 3))
+        return got
+
+    def exact(got):
+        return all(p.device.type == "cuda" and st.source == (r - 1) % N
+                   and st.nbytes == ACT_ROWS * ACT_COLS * 2
+                   and torch.equal(bits(p), bits(acts[(r - 1) % N]))
+                   for r, (p, st) in enumerate(got))
+
+    first_ok = exact(round_trip())
+    times = []
+    for i in range(P2P_ROUNDS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = round_trip()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    last_ok = exact(got)
+    del got
+    times.sort()
+    # matching: wildcards and non-overtaking on card payloads
+    for i in range(4):
+        world.send(torch.full((2,), i, device="cuda"), 1 + i % 2, 6, tag=i % 2)
+    seq = [world.recv(6, None, 1), world.recv(6, 2, None), world.recv(6), world.recv(6)]
+    matching = [(p.tolist(), st.source, st.tag) for p, st in seq]
+    matching_ok = matching == [([1.0, 1.0], 2, 1), ([3.0, 3.0], 2, 1),
+                               ([0.0, 0.0], 1, 0), ([2.0, 2.0], 1, 0)]
+    # partitioned: 8 partitions of 512 rows, readied out of order
+    ps = world.psend_init(acts[0], partitions=8, source=0, dest=5, tag=11)
+    pr = world.precv_init(partitions=8, dest=5, source=0, tag=11)
+    pr.start()
+    ps.start()
+    early = []
+    for part in (3, 0, 7, 1, 6, 2, 4):
+        ps.pready(part)
+        early.append(pr.parrived(part))
+    ps.pready(5)
+    part_ok = (not any(early) and torch.equal(bits(pr.wait()), bits(acts[0]))
+               and pr.status.source == 0 and pr.parrived(5))
+    # the host cost of an 8-byte message, send + recv, on the card
+    small = torch.zeros(2, device="cuda")
+    pairs = 1000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(pairs):
+        world.send(small, 0, 1)
+        world.recv(1, 0)
+    host_us = (time.perf_counter() - t0) / pairs * 1e6
+    bound_ms = 2 * N * ACT_ROWS * ACT_COLS * 2 / HBM_BYTES_PER_S * 1e3
+    row = {"phase": "p2p", "nvidia_smi": smi, "rounds": P2P_ROUNDS,
+           "round_p50_ms": times[len(times) // 2], "round_min_ms": times[0],
+           "round_max_ms": times[-1], "copy_bound_ms": bound_ms,
+           "bound_share": bound_ms / times[len(times) // 2],
+           "bitwise_first_round": first_ok, "bitwise_last_round": last_ok,
+           "matching": matching, "matching_ok": matching_ok, "partitioned_ok": part_ok,
+           "host_us_per_8B_pair": host_us}
+    emit(row)
+    api.finalize()
+    del acts
+    torch.cuda.empty_cache()
+    if not (first_ok and last_ok and matching_ok and part_ok):
+        raise SystemExit(f"p2p checks failed: {row}")
+    return row
+
+
+# -- phase 8 ----------------------------------------------------------------
+
+#: f32 elements per rank of the window (64 MiB)
+WIN_ELEMS = 16 * 1024 * 1024
+OSC_EPOCHS = 10
+FOPS = 1000
+
+
+def phase_osc(smi):
+    """RMA on the card: fence epochs of 64 MiB accumulates and gets, a
+    counter under lock_all, compare-and-swap."""
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.op import SUM
+
+    api.finalize()
+    world = api.init(device="cuda", nranks=N)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    win = world.win_allocate(WIN_ELEMS, torch.float32)
+    mem = win.device_view()
+    on_card = mem.device.type == "cuda" and mem.data_ptr() == win.memory(0).data_ptr()
+    init = torch.randn((N, WIN_ELEMS), generator=gen, device="cuda")
+    data = torch.randn((N, WIN_ELEMS), generator=gen, device="cuda")
+
+    def epoch():
+        win.fence()
+        gets = []
+        for r in range(N):
+            win.accumulate(r, (r + 1) % N, data[r], op=SUM)
+            gets.append(win.get(r, (r - 1) % N, WIN_ELEMS))
+        win.fence()
+        return gets
+
+    mem.copy_(init)
+    gets = [g.wait() for g in epoch()]
+    # the same sums in plain torch, in the issue order
+    want = init.clone()
+    want_gets = []
+    for r in range(N):
+        want[(r + 1) % N] = want[(r + 1) % N] + data[r]
+        want_gets.append(want[(r - 1) % N].clone())
+    epoch_ok = torch.equal(bits(mem), bits(want)) and all(
+        torch.equal(bits(g), bits(w)) for g, w in zip(gets, want_gets))
+    del gets, want_gets, want
+    times = []
+    for _ in range(OSC_EPOCHS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        epoch()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    win.fence(16)  # MODE_NOSUCCEED: close the fence epochs
+    # a shared counter: fetch_and_op SUM from every rank under lock_all
+    mem[0, 0] = 0.0
+    for r in range(N):
+        win.lock_all(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [win.fetch_and_op(i % N, 0, 1.0, 0, SUM) for i in range(FOPS)]
+    for r in range(N):
+        win.unlock_all(r)
+    fetched = torch.cat([q.wait() for q in reqs])
+    torch.cuda.synchronize()
+    fop_us = (time.perf_counter() - t0) / FOPS * 1e6
+    counter = float(mem[0, 0])
+    # each unlock_all applies its origin's ops in issue order, origin by
+    # origin: op i fetches the count of the ops applied before it
+    order = sorted(range(FOPS), key=lambda i: (i % N, i))
+    want = torch.empty(FOPS, dtype=torch.float32)
+    want[torch.tensor(order)] = torch.arange(FOPS, dtype=torch.float32)
+    fop_ok = counter == FOPS and torch.equal(fetched.cpu(), want)
+    win.lock(2, 0)
+    hit = win.compare_and_swap(2, 0, -5.0, float(FOPS))
+    miss = win.compare_and_swap(2, 0, 7.0, 123.0)
+    win.unlock(2, 0)
+    cas_ok = float(hit.wait()) == FOPS and float(miss.wait()) == -5.0 and float(mem[0, 0]) == -5.0
+    nbytes = WIN_ELEMS * 4
+    bound_ms = N * 5 * nbytes / HBM_BYTES_PER_S * 1e3  # acc 3 passes + get 2, per rank
+    row = {"phase": "osc", "nvidia_smi": smi, "window_bytes_per_rank": nbytes,
+           "window_on_card": on_card, "epoch_bitwise": epoch_ok, "epochs": OSC_EPOCHS,
+           "epoch_p50_ms": times[len(times) // 2], "epoch_min_ms": times[0],
+           "epoch_max_ms": times[-1], "epoch_bound_ms": bound_ms,
+           "bound_share": bound_ms / times[len(times) // 2],
+           "fetch_and_op": FOPS, "counter": counter, "fop_ok": fop_ok,
+           "host_us_per_fetch_and_op": fop_us, "cas_ok": cas_ok}
+    emit(row)
+    win.free()
+    api.finalize()
+    del win, mem, init, data, fetched
+    torch.cuda.empty_cache()
+    if not (on_card and epoch_ok and fop_ok and cas_ok):
+        raise SystemExit(f"osc checks failed: {row}")
+    return row
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+
+def phase_ddt(ck, smi):
+    """A typed allreduce on the default path: packed on the card, tuned's
+    cuda_ring, against the plain ring; the convertor against numpy."""
+    import numpy as np
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.core import mca
+    from ompi_tpu_torch.ddt import FLOAT, pack, unpack
+    from ompi_tpu_torch.op import PROD
+
+    api.finalize()
+    world = api.init(device="cuda", nranks=N)
+    store = mca.default_context().store
+    vec = FLOAT.create_vector(1024, 4, 5).commit()  # 16 KiB of data per element
+    count = (64 << 20) // vec.size  # 64 MiB packed per rank
+    nfloat = (vec.lb + vec.span(count)) // 4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    bufs = [1 + 1e-3 * torch.randn(nfloat, generator=gen, device="cuda") for _ in range(N)]
+    torch.cuda.synchronize()
+    ck.reset_launches()  # the ddt path's launches are counted from here
+    t0 = time.perf_counter()
+    out = world.allreduce_ddt(bufs, count, vec, PROD)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)  # the ddt path's run ends here
+    store.set("coll_cuda_allreduce_algorithm", 2)
+    try:
+        ref = world.allreduce_ddt(bufs, count, vec, PROD)
+    finally:
+        store.set("coll_cuda_allreduce_algorithm", 0)
+    ring_ok = out.device.type == "cuda" and out.shape == (N, count * 4096) \
+        and torch.equal(bits(out), bits(ref))
+    del ref
+    # the convertor on the card against the numpy convertor
+    host = bufs[3].cpu().numpy()
+    packed, host_packed = pack(bufs[3], vec, count), pack(host, vec, count)
+    pack_ok = packed.device.type == "cuda" and np.array_equal(packed.cpu().numpy(), host_packed)
+    recv = torch.zeros_like(bufs[3])
+    unpack(recv, vec, count, packed)
+    host_recv = np.zeros_like(host)
+    unpack(host_recv, vec, count, host_packed)
+    unpack_ok = recv.device.type == "cuda" and np.array_equal(
+        recv.cpu().numpy().view(np.uint32), host_recv.view(np.uint32))
+    # unpacked into receive buffers on the card
+    recvbufs = [torch.zeros_like(b) for b in bufs]
+    world.allreduce_ddt(bufs, count, vec, PROD, recvbufs=recvbufs)
+    back = pack(recvbufs[5], vec, count).view(torch.float32)
+    recv_ok = torch.equal(bits(back), bits(out[5]))
+    torch.cuda.synchronize()
+    row = {"phase": "ddt", "nvidia_smi": smi, "datatype": "vector(1024, 4, 5) of MPI_FLOAT",
+           "count": count, "packed_bytes_per_rank": count * vec.size,
+           "buffer_bytes_per_rank": nfloat * 4, "launches": launches,
+           "call_s": call_s, "bitwise_vs_plain_ring": ring_ok, "pack_vs_numpy": pack_ok,
+           "unpack_vs_numpy": unpack_ok, "recvbufs_ok": recv_ok}
+    emit(row)
+    api.finalize()
+    del bufs, out, packed, recv, recvbufs, back
+    torch.cuda.empty_cache()
+    if launches != {"ring_hop": N - 1, "ring_hop_fold": N - 1}:
+        raise SystemExit(f"ddt allreduce launches: {launches}")
+    if not (ring_ok and pack_ok and unpack_ok and recv_ok):
+        raise SystemExit(f"ddt checks failed: {row}")
+    return row
+
+
+# -- phase 10 ---------------------------------------------------------------
+
+CKPT_ELEMS = 8388608  # f32 per rank: 32 MiB, 256 MiB in all
+
+
+def phase_io(smi):
+    """Checkpoint and MPI-IO from the card; the numbers are the disk's."""
+    import numpy as np
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.ddt import DOUBLE
+    from ompi_tpu_torch.io import MODE_CREATE, MODE_RDWR, checkpoint
+
+    api.finalize()
+    world = api.init(device="cuda", nranks=N)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    x = torch.randn((N, CKPT_ELEMS), generator=gen, device="cuda")
+    workdir = REPO / "build" / "chip_smoke_io"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        path = str(workdir / "ckpt.bin")
+        nbytes = x.numel() * 4
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(world, path, x, {"step": 1})
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, manifest = checkpoint.restore(world, path)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        restore_ok = back.device.type == "cuda" and torch.equal(bits(back), bits(x)) \
+            and manifest["dtype"] == "float32" and manifest["step"] == 1
+        del back
+        # asynchronous: the tensor is overwritten as soon as save returns
+        snap = x[:, :1024].clone()
+        apath = str(workdir / "async.bin")
+        t0 = time.perf_counter()
+        req = checkpoint.save_async(world, apath, x)
+        return_s = time.perf_counter() - t0
+        x.zero_()
+        req.wait()
+        back, _ = checkpoint.restore(world, apath)
+        async_ok = torch.equal(bits(back[:, :1024]), bits(snap)) and not bool((back == 0).all())
+        del back
+        # a collective write and read through a strided (cyclic) view
+        per = 1 << 16  # doubles per rank
+        vals = torch.randn((N, per), generator=gen, device="cuda", dtype=torch.float64)
+        f = world.file_open(str(workdir / "view.bin"), MODE_CREATE | MODE_RDWR)
+        cyclic = DOUBLE.create_resized(0, N * DOUBLE.extent).commit()
+        for r in range(N):
+            f.set_view(r, r * DOUBLE.extent, DOUBLE, cyclic)
+        counts = f.write_at_all([0] * N, [vals[r] for r in range(N)])
+        reads = f.read_at_all([0] * N, [per] * N, np.float64)
+        f.close()
+        raw = np.fromfile(workdir / "view.bin", np.float64).reshape(per, N).T
+        host = vals.cpu().numpy()
+        view_ok = counts == [per] * N and np.array_equal(raw, host) and all(
+            np.array_equal(reads[r], host[r]) for r in range(N))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    row = {"phase": "io", "nvidia_smi": smi, "checkpoint_bytes": nbytes,
+           "write_s": write_s, "write_MBs": nbytes / write_s / 1e6,
+           "read_s": read_s, "read_MBs": nbytes / read_s / 1e6,
+           "bound_by": "the disk (write includes fsync); not a device rate",
+           "restore_bitwise": restore_ok, "save_async_return_s": return_s,
+           "save_async_ok": async_ok, "strided_view_ok": view_ok}
+    emit(row)
+    api.finalize()
+    del x, vals
+    torch.cuda.empty_cache()
+    if not (restore_ok and async_ok and view_ok):
+        raise SystemExit(f"io checks failed: {row}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-bytes", type=int, default=1 << 30,
@@ -697,13 +1056,17 @@ def main() -> int:
     rows, profiles, launches = phase_main(ck, args.max_bytes)
     tuned = phase_tuned(ck, outdir)
     observability = phase_observability(ck)
-    launches = {k: launches[k] + tuned["launches"][k] for k in launches}
+    p2p = phase_p2p(smi)
+    osc = phase_osc(smi)
+    ddt = phase_ddt(ck, smi)
+    io = phase_io(smi)
+    launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
     phase_ddp()
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
-         "tuned": tuned, "observability": observability,
-         "kernels": kernels}, indent=1))
+         "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
+         "ddt": ddt, "io": io, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

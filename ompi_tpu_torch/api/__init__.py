@@ -1,7 +1,8 @@
 """MPI API layer, single-process part (port of ``ompi_tpu/api``).
 
 ``init()`` ≈ MPI_Init: builds the MCA context from ``--mca``-style
-params, syncs the observability stack from it (tracing, metrics, SPC),
+params, syncs the observability stack from it (tracing, metrics, SPC,
+the memory checker),
 brings up the world mesh of virtual ranks on the chosen device (CUDA
 unless the caller asks for the CPU), and constructs COMM_WORLD and
 COMM_SELF.  ``finalize()`` ≈ MPI_Finalize: writes the configured
@@ -39,8 +40,11 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     ctx.open_all()
     output.register_verbose_var(ctx.store, "runtime")
     from ompi_tpu_torch import metrics
-    from ompi_tpu_torch.tool import spc
+    from ompi_tpu_torch.tool import memchecker, spc
     from ompi_tpu_torch.trace import core as trace_core
+
+    memchecker.register_var(ctx.store)
+    memchecker.sync_from_store(ctx.store)
 
     for subsystem in (trace_core, metrics, spc):
         subsystem.register_vars(ctx.store)

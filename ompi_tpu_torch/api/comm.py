@@ -26,7 +26,14 @@ collective once (here on the fast path, in ``CollTable.lookup`` on the
 table path); with tracing on, each entry records an ``api`` span keyed
 (comm, op, seq), timed on the host.
 
-Point-to-point, intercommunicators, ULFM and RMA are not in this slice.
+Beyond the collectives: point-to-point through the comm's pml engine
+(single-controller form — each call names both endpoints), persistent
+and partitioned channels (:class:`~ompi_tpu_torch.p2p.part.PersistentP2PMixin`),
+the ``win_*`` window constructors (osc), ``file_open`` (io), the
+datatype-typed ``allreduce_ddt``/``bcast_ddt`` (convertor pack → the
+collective on the leaf dtype → unpack, on the buffers' own device),
+errhandlers and attribute caching.  Intercommunicators, topologies and
+ULFM are not in the port yet.
 """
 
 from __future__ import annotations
@@ -40,16 +47,30 @@ import torch
 from ompi_tpu_torch.coll import sched
 from ompi_tpu_torch.coll.module import CollTable, select_coll_modules
 from ompi_tpu_torch.core import mca
+from ompi_tpu_torch.core import errors as _errors
 from ompi_tpu_torch.core.errors import (
     MPIArgError,
     MPICommError,
+    MPIKeyvalError,
     MPIRankError,
     MPIRootError,
+    MPITypeError,
 )
-from ompi_tpu_torch.ddt.datatype import from_torch_dtype, torch_dtype
+from ompi_tpu_torch.ddt.convertor import pack as ddt_pack
+from ompi_tpu_torch.ddt.convertor import packed_to_typed, typed_to_packed
+from ompi_tpu_torch.ddt.convertor import unpack as ddt_unpack
+from ompi_tpu_torch.ddt.datatype import Datatype, from_torch_dtype, to_numpy, torch_dtype
 from ompi_tpu_torch.mesh.mesh import CommMesh
 from ompi_tpu_torch.op.op import SUM, Op
-from ompi_tpu_torch.request import ArrayRequest, PersistentRequest, Request
+from ompi_tpu_torch.p2p.part import PersistentP2PMixin
+from ompi_tpu_torch.p2p.pml import ANY_SOURCE, ANY_TAG
+from ompi_tpu_torch.request import (
+    ArrayRequest,
+    CompletedRequest,
+    PersistentRequest,
+    Request,
+    _poll_backoff,
+)
 from ompi_tpu_torch.tool import spc
 from ompi_tpu_torch.trace import core as _trace
 
@@ -73,7 +94,7 @@ def _next_cid() -> int:
         return c
 
 
-class Comm:
+class Comm(PersistentP2PMixin):
     """An intra-communicator over virtual ranks."""
 
     def __init__(self, group: Group, mesh: CommMesh, name: str = ""):
@@ -84,6 +105,9 @@ class Comm:
         self.cid = _next_cid()
         self.name = name or f"comm#{self.cid}"
         self._coll: CollTable | None = None
+        self._pml = None
+        self._attrs: dict[int, Any] = {}
+        self._errhandler = _errors.ERRORS_RETURN
         self._freed = False
         #: dispatch cache: key → (mca context, store version, callable)
         self._fast: dict[tuple, tuple] = {}
@@ -108,11 +132,55 @@ class Comm:
             self._coll = select_coll_modules(self, mca.default_context().framework("coll"))
         return self._coll
 
+    def set_name(self, name: str) -> None:
+        self.name = name
+
+    @property
+    def pml(self):
+        """The comm's matching engine, from the selected pml component."""
+        self._check()
+        if self._pml is None:
+            comp = mca.default_context().framework("pml").select_one()
+            self._pml = comp.make_engine(self.size, self.name)
+        return self._pml
+
+    # -- errhandlers and attribute caching -----------------------------------
+
+    def set_errhandler(self, errhandler) -> None:
+        """MPI_Comm_set_errhandler.  The Python surface raises typed
+        exceptions either way (≈ ERRORS_RETURN)."""
+        if not isinstance(errhandler, _errors.Errhandler):
+            raise MPIArgError(f"not an Errhandler: {errhandler!r}")
+        self._errhandler = errhandler
+
+    def get_errhandler(self):
+        """MPI_Comm_get_errhandler (default ERRORS_RETURN)."""
+        return self._errhandler
+
+    def set_attr(self, keyval: int, value: Any) -> None:
+        self._check()
+        self._attrs[keyval] = value
+
+    def get_attr(self, keyval: int) -> Any:
+        self._check()
+        if keyval not in self._attrs:
+            raise MPIKeyvalError(f"no attribute {keyval}")
+        return self._attrs[keyval]
+
+    def delete_attr(self, keyval: int) -> None:
+        self._check()
+        self._attrs.pop(keyval, None)
+
     # -- construction (dup/split/create) -----------------------------------
+
+    def _inherit(self, c: "Comm") -> "Comm":
+        """dup/create/split inherit the errhandler (MPI-4 §9.5)."""
+        c._errhandler = self._errhandler
+        return c
 
     def dup(self, name: str = "") -> "Comm":
         self._check()
-        return Comm(Group(self.group.ranks), self.mesh, name or f"{self.name}.dup")
+        return self._inherit(Comm(Group(self.group.ranks), self.mesh, name or f"{self.name}.dup"))
 
     def create_group(self, group: Group, name: str = "") -> "Comm | None":
         """MPI_Comm_create_group over a subset of this comm's ranks."""
@@ -124,7 +192,7 @@ class Comm:
             return None
         sub = self.mesh.submesh(group.ranks)
         world_ranks = [self.group.ranks[r] for r in group.ranks]
-        return Comm(Group(world_ranks), sub, name)
+        return self._inherit(Comm(Group(world_ranks), sub, name))
 
     def split(self, colors: Sequence[int],
               keys: Sequence[int] | None = None) -> list["Comm | None"]:
@@ -150,6 +218,41 @@ class Comm:
             for r in members:
                 out[r] = comm
         return out
+
+    def split_type_shared(self) -> "Comm":
+        """MPI_Comm_split_type(MPI_COMM_TYPE_SHARED): every rank shares
+        one device, so the whole comm is one shared domain."""
+        return self.dup(name=f"{self.name}.shared")
+
+    # -- one-sided windows (osc) and MPI-IO ----------------------------------
+
+    def _osc(self):
+        return mca.default_context().framework("osc").select_one()
+
+    def win_create(self, bases, name: str = ""):
+        """MPI_Win_create: expose per-rank 1-D buffers (aliased) for RMA."""
+        self._check()
+        return self._osc().win_create(self, bases, name=name)
+
+    def win_allocate(self, size: int, dtype=torch.float32, name: str = ""):
+        """MPI_Win_allocate: window memory on the comm's device."""
+        self._check()
+        return self._osc().win_allocate(self, size, dtype, name=name)
+
+    def win_allocate_shared(self, size: int, dtype=torch.float32, name: str = ""):
+        self._check()
+        return self._osc().win_allocate_shared(self, size, dtype, name=name)
+
+    def win_create_dynamic(self, dtype=torch.float32, name: str = ""):
+        self._check()
+        return self._osc().win_create_dynamic(self, dtype, name=name)
+
+    def file_open(self, path: str, amode: int, hints: dict | None = None):
+        """MPI_File_open through the selected io component (io/ompio);
+        ``hints`` are MPI_Info key/values (striping_factor/unit)."""
+        self._check()
+        comp = mca.default_context().framework("io").select_one()
+        return comp.file_open(self, path, amode, hints=hints)
 
     def free(self) -> None:
         self._check()
@@ -442,6 +545,95 @@ class Comm:
     def scatterv(self, blocks, root: int = 0):
         self._check_root(root)
         return self._lookup("scatterv")(blocks, root)
+
+    # -- point-to-point (pml) ------------------------------------------------
+
+    def send(self, buf, source: int, dest: int, tag: int = 0) -> None:
+        """MPI_Send from rank ``source`` to ``dest``.  Eager-buffered:
+        returns at once, the sender's buffer reusable."""
+        self.pml.send(source, dest, buf, tag)
+
+    def isend(self, buf, source: int, dest: int, tag: int = 0) -> Request:
+        self.send(buf, source, dest, tag)
+        return CompletedRequest()  # an eager send completes locally
+
+    def irecv(self, dest: int, source: int | None = None, tag: int | None = None) -> Request:
+        return self.pml.irecv(dest, ANY_SOURCE if source is None else source,
+                              ANY_TAG if tag is None else tag)
+
+    def recv(self, dest: int, source: int | None = None, tag: int | None = None):
+        """MPI_Recv at rank ``dest``; returns (payload, Status)."""
+        req = self.irecv(dest, source, tag)
+        payload = req.wait()
+        return payload, req.status
+
+    def sendrecv(self, sendbuf, source: int, dest: int, recv_source: int,
+                 sendtag: int = 0, recvtag: int | None = None):
+        """MPI_Sendrecv at rank ``source``: send to ``dest``, receive from
+        ``recv_source``; deadlock-free by eager buffering."""
+        self.send(sendbuf, source, dest, sendtag)
+        return self.recv(source, recv_source, recvtag)
+
+    def probe(self, dest: int, source: int | None = None, tag: int | None = None):
+        """MPI_Probe (blocking): wait for a matching envelope."""
+        sleep = 0.0
+        while True:
+            st = self.iprobe(dest, source, tag)
+            if st is not None:
+                return st
+            sleep = _poll_backoff(sleep)
+
+    def iprobe(self, dest: int, source: int | None = None, tag: int | None = None):
+        return self.pml.iprobe(dest, ANY_SOURCE if source is None else source,
+                               ANY_TAG if tag is None else tag)
+
+    # -- datatype (convertor) entry points -------------------------------------
+
+    def allreduce_ddt(self, sendbufs: Sequence[Any], count: int, datatype: Datatype,
+                      op: Op = SUM, recvbufs: Sequence[Any] | None = None):
+        """MPI_Allreduce over typed byte buffers: each rank's buffer is
+        packed by the convertor, the packed rows are reduced in the leaf
+        dtype, and unpacked into ``recvbufs`` (or returned packed).
+        Tensors are packed and stacked on their own device, so nothing
+        crosses to the host; numpy buffers stay numpy, as in the
+        reference."""
+        op.check(datatype)
+        if len(sendbufs) != self.size:
+            raise MPIArgError("one send buffer per rank required")
+        if datatype.uniform_leaf is None:
+            raise MPITypeError("reductions need a uniform-leaf datatype")
+        packed = [packed_to_typed(ddt_pack(b, datatype, count), datatype, count)
+                  for b in sendbufs]
+        if all(isinstance(p, torch.Tensor) for p in packed):
+            stacked = torch.stack(packed)  # (n, count*leaves) on the device
+        else:
+            stacked = np.stack([to_numpy(p) if isinstance(p, torch.Tensor) else p
+                                for p in packed])
+        red = self.allreduce(stacked, op)
+        if recvbufs is None:
+            return red
+        if len(recvbufs) != self.size:
+            raise MPIArgError("one recv buffer per rank required")
+        for r in range(self.size):
+            ddt_unpack(recvbufs[r], datatype, count, typed_to_packed(red[r]))
+        return recvbufs
+
+    def bcast_ddt(self, buf, count: int, datatype: Datatype, root: int = 0):
+        """Typed bcast: packs root's buffer, broadcasts it and returns each
+        rank's unpacked byte buffer (on the buffer's device)."""
+        self._check_root(root)
+        packed = ddt_pack(buf, datatype, count)
+        nbytes = datatype.lb + datatype.span(count)
+        if isinstance(packed, torch.Tensor):
+            out = self.bcast(torch.stack([packed] * self.size), root)
+            dsts = [torch.zeros(nbytes, dtype=torch.uint8, device=packed.device)
+                    for _ in range(self.size)]
+        else:
+            out = np.asarray(self.bcast(np.stack([packed] * self.size), root))
+            dsts = [np.zeros(nbytes, np.uint8) for _ in range(self.size)]
+        for r, dst in enumerate(dsts):
+            ddt_unpack(dst, datatype, count, typed_to_packed(out[r]))
+        return dsts
 
     def __repr__(self) -> str:  # pragma: no cover
         return f"<Comm {self.name} size={self.size} cid={self.cid} on {self.device}>"

@@ -11,6 +11,9 @@ _BUILTIN_COMPONENT_MODULES = (
     "ompi_tpu_torch.mesh.mesh",
     "ompi_tpu_torch.coll",
     "ompi_tpu_torch.tool.monitoring",
+    "ompi_tpu_torch.p2p",
+    "ompi_tpu_torch.osc",
+    "ompi_tpu_torch.io",
 )
 
 

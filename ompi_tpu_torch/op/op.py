@@ -86,17 +86,28 @@ def _signed(fn):
     return wrapped
 
 
-def _ordered(pick):
+def _ordered(pick, want_max: bool):
     """MAX/MIN: ``pick`` (torch.maximum/minimum) on ordered keys; an
-    unsigned value's key is its signed view with the sign bit flipped."""
+    unsigned value's key is its signed view with the sign bit flipped.
+
+    On floats the result is chosen explicitly, as the CUDA kernel and
+    XLA choose it: a NaN operand wins bit for bit (the first when both
+    are NaN), and a ±0 tie gives +0 for MAX and -0 for MIN.  torch's
+    CPU kernels return a canonical NaN and the first zero instead."""
 
     def fn(a, b):
         twin = SIGNED_TWIN.get(a.dtype)
-        if twin is None:
-            return pick(a, b)
-        flip = torch.iinfo(twin).min
-        key = pick(a.view(twin) ^ flip, b.view(twin) ^ flip)
-        return (key ^ flip).view(a.dtype)
+        if twin is not None:
+            flip = torch.iinfo(twin).min
+            key = pick(a.view(twin) ^ flip, b.view(twin) ^ flip)
+            return (key ^ flip).view(a.dtype)
+        out = pick(a, b)
+        if not a.is_floating_point():
+            return out
+        zero_tie = (a == b) & (torch.signbit(a) == want_max)
+        out = torch.where(zero_tie, b, out)
+        out = torch.where(torch.isnan(b), b, out)
+        return torch.where(torch.isnan(a), a, out)
 
     return fn
 
@@ -124,9 +135,9 @@ SUM = Op("MPI_SUM", torch_fn=_signed(lambda a, b: a + b),
          np_fn=lambda a, b: a + b, collective="sum", kinds=("i", "u", "f", "c"))
 PROD = Op("MPI_PROD", torch_fn=_signed(lambda a, b: a * b),
           np_fn=lambda a, b: a * b, kinds=("i", "u", "f", "c"))
-MAX = Op("MPI_MAX", torch_fn=_ordered(torch.maximum), np_fn=np.maximum,
+MAX = Op("MPI_MAX", torch_fn=_ordered(torch.maximum, True), np_fn=np.maximum,
          collective="max", kinds=("i", "u", "f"))
-MIN = Op("MPI_MIN", torch_fn=_ordered(torch.minimum), np_fn=np.minimum,
+MIN = Op("MPI_MIN", torch_fn=_ordered(torch.minimum, False), np_fn=np.minimum,
          collective="min", kinds=("i", "u", "f"))
 LAND = Op("MPI_LAND", torch_fn=_logical(torch.logical_and), np_fn=_land_np,
           kinds=("i", "u", "b"))

@@ -10,7 +10,9 @@ current CUDA stream, and
 The event is recorded on the current stream when the request is made.
 A request over CPU tensors is complete at once (CPU ops run eagerly).
 Persistent requests (``MPI_*_init``/``MPI_Start``) hold the resolved
-callable and re-dispatch on ``start()``.
+callable and re-dispatch on ``start()``.  A :class:`FutureRequest`
+completes when work on a background thread does (the asynchronous
+checkpoint writer).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class Request:
     def __init__(self):
         self._complete = False
         self._result: Any = None
+        self._cancelled = False
 
     def _poll(self) -> bool:
         """True if the underlying work finished (non-blocking)."""
@@ -73,9 +76,17 @@ class Request:
         while not self._poll():  # pragma: no cover - subclasses override
             time.sleep(0)
 
+    def cancel(self) -> None:
+        """MPI_Cancel: best effort; work already queued on the card
+        cannot be revoked, so this only marks the request."""
+        self._cancelled = True
+
     @property
     def completed(self) -> bool:
         return self._complete
+
+    def free(self) -> None:
+        self._result = None
 
 
 class CompletedRequest(Request):
@@ -131,6 +142,25 @@ def block_until_ready(arrays: Any) -> Any:
     return arrays
 
 
+class FutureRequest(Request):
+    """Request over work on a background thread: wraps a
+    ``concurrent.futures.Future``; a failure of that work re-raises at
+    ``wait()``/``test()`` completion."""
+
+    def __init__(self, future):
+        super().__init__()
+        self._future = future
+
+    def _poll(self) -> bool:
+        return self._future.done()
+
+    def _block(self) -> None:
+        self._future.exception()  # waits without raising; _finalize raises
+
+    def _finalize(self) -> Any:
+        return self._future.result()
+
+
 class PersistentRequest(Request):
     """MPI persistent collective (``*_init`` → ``start`` → ``wait``,
     repeatable): holds the dispatcher, ``start()`` launches a round."""
@@ -157,6 +187,11 @@ class PersistentRequest(Request):
 
     def _finalize(self) -> Any:
         return None if self._active is None else self._active.wait()
+
+    @property
+    def status(self):
+        """Envelope of the most recent round (persistent receive)."""
+        return getattr(self._active, "status", None)
 
 
 # -- wait/test families (MPI_Waitall etc.) -----------------------------
@@ -189,3 +224,21 @@ def waitany(requests: Sequence[Request]) -> tuple[int, Any]:
                 return i, r.wait()
         sleep = _poll_backoff(sleep)
 
+
+def testany(requests: Sequence[Request]) -> tuple[int, Any] | None:
+    for i, r in enumerate(requests):
+        if r.test():
+            return i, r.wait()
+    return None
+
+
+def waitsome(requests: Sequence[Request]) -> list[tuple[int, Any]]:
+    """Block until at least one completes; all completed (index, result)."""
+    if not requests:
+        return []
+    sleep = 0.0
+    while True:
+        done = [(i, r.wait()) for i, r in enumerate(requests) if r.test()]
+        if done:
+            return done
+        sleep = _poll_backoff(sleep)

@@ -1,2 +1,3 @@
-"""Tools layer (port of ``ompi_tpu/tool``): SPC counters, MPI_T, and the
-coll half of monitoring.  The memory checker is not ported yet."""
+"""Tools layer (port of ``ompi_tpu/tool``): SPC counters, MPI_T,
+monitoring (point-to-point matrices and collective accounting) and the
+memory checker."""

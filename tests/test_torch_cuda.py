@@ -94,3 +94,42 @@ def test_cuda_ring_allreduce_counts_its_launches(dev):
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
         "ring_hop": n - 1, "ring_hop_fold": n - 1}
     assert torch.equal(got, want)
+
+
+def test_p2p_payload_is_a_clone_on_the_card_that_wait_fences(dev):
+    from ompi_tpu_torch.api.comm import Comm
+    from ompi_tpu_torch.api.group import Group
+    from ompi_tpu_torch.mesh import CommMesh
+
+    comm = Comm(Group(range(4)), CommMesh(dev, 4))
+    x = torch.randn(1 << 22, device=dev)
+    want = x.clone()
+    comm.send(x, 0, 1)
+    x.zero_()  # the sender's buffer is reusable at once
+    got, st = comm.recv(1, 0)
+    assert got.device == x.device and st.nbytes == x.nbytes
+    assert torch.equal(got, want)  # wait() returned after the clone landed
+
+
+def test_window_epoch_and_convertor_stay_on_the_card(dev):
+    from ompi_tpu_torch.api.comm import Comm
+    from ompi_tpu_torch.api.group import Group
+    from ompi_tpu_torch.ddt import FLOAT, pack, unpack
+    from ompi_tpu_torch.mesh import CommMesh
+
+    comm = Comm(Group(range(4)), CommMesh(dev, 4))
+    win = comm.win_allocate(1000)
+    assert win.device_view().device.type == "cuda"
+    win.fence()
+    win.accumulate(0, 1, torch.ones(1000, device=dev), op=SUM)
+    cas = win.compare_and_swap(2, 1, 5.0, 1.0)
+    win.fence()
+    assert float(cas.wait()) == 1.0 and float(win.memory(1)[0]) == 5.0
+    vec = FLOAT.create_vector(10, 3, 7)
+    x = torch.randn(10 * 7 * 4, device=dev)
+    packed = pack(x, vec, 4)
+    assert packed.device.type == "cuda"
+    assert torch.equal(packed.cpu(), torch.from_numpy(pack(x.cpu().numpy(), vec, 4)))
+    y = torch.zeros_like(x)
+    unpack(y, vec, 4, packed)
+    assert torch.equal(pack(y, vec, 4), packed)

@@ -3,7 +3,9 @@
 * ``ompi_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the
   JAX package — checked in a fresh interpreter (this test process has
   JAX loaded already, by ``tests/conftest.py``) and on the source's AST;
-* the entry points default to CUDA and raise where there is none;
+* the entry points default to CUDA and raise where there is none, and
+  the point-to-point, window and convertor paths keep a tensor on its
+  own device (checked on the meta device, which has no host copy);
 * the kernel wrappers launch or raise for tensors that are not on the
   CPU, and never hand back their plain result instead.
 """
@@ -41,6 +43,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys\n"
         "import ompi_tpu_torch, ompi_tpu_torch.api, ompi_tpu_torch.coll, ompi_tpu_torch.entry\n"
         "import ompi_tpu_torch.coll.cuda_kernels, ompi_tpu_torch.examples.ddp_training\n"
+        "import ompi_tpu_torch.p2p, ompi_tpu_torch.p2p.part, ompi_tpu_torch.osc\n"
+        "import ompi_tpu_torch.io, ompi_tpu_torch.io.checkpoint, ompi_tpu_torch.ddt.convertor\n"
+        "import ompi_tpu_torch.tool.memchecker, ompi_tpu_torch.p2p.vprotocol\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -67,6 +72,36 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
             call()
     assert not api.initialized()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_new_entry_points_keep_tensors_on_the_comms_device():
+    """A comm on the meta device: window memory, RMA epochs, messages
+    and packs all stay there — none of them has a host fallback."""
+    import numpy as np
+
+    from ompi_tpu_torch.api import Comm, Group
+    from ompi_tpu_torch.ddt import FLOAT, pack
+    from ompi_tpu_torch.mesh import CommMesh
+    from ompi_tpu_torch.op import SUM
+
+    comm = Comm(Group(range(4)), CommMesh("meta", 4), name="meta")
+    win = comm.win_allocate(8)
+    assert win.device_view().device.type == "meta"
+    win.fence()
+    win.accumulate(0, 1, torch.empty(8, device="meta"), op=SUM)
+    got = win.get(2, 1, 8)
+    fop = win.fetch_and_op(3, 1, 1.0)
+    cas = win.compare_and_swap(3, 1, 2.0, 1.0)
+    win.fence()
+    for r in (got, fop, cas):
+        assert r.wait().device.type == "meta"
+    comm.send(torch.empty(5, device="meta"), 0, 2)
+    payload, status = comm.recv(2, 0)
+    assert payload.device.type == "meta" and status.nbytes == 20
+    vec = FLOAT.create_vector(2, 1, 3)
+    assert pack(torch.empty(8, device="meta"), vec, 2).device.type == "meta"
+    comm.send(np.arange(3), 1, 3)  # host payloads stay host
+    assert isinstance(comm.recv(3, 1)[0], np.ndarray)
 
 
 def test_kernel_wrappers_raise_instead_of_running_the_plain_twin():
