@@ -61,11 +61,26 @@ exits non-zero:
 10. io — ``checkpoint.save`` of an (8, 8388608) f32 tensor (256 MiB)
     from the card through ``write_at_all`` and ``restore`` onto the
     card, bit-equal; one ``save_async``; one collective write/read
-    through a strided file view; write/read MB/s (bound by the disk).
+    through a strided file view; write/read MB/s (bound by the disk);
+11. multiproc — ``python -m ompi_tpu_torch run -np 2 --nranks 4`` of
+    ``ompi_tpu_torch/examples/multiproc_smoke.py`` on the card (8 global
+    ranks, han: the local leg on the card, one row over the DCN): an
+    ``iallreduce`` stream-ordering check; every collective on tensors
+    bit-equal to the numpy call; osu_allreduce f32 SUM 8 B … 256 MiB
+    per rank (p50 of the slower process's host clock, busbw over 8
+    ranks); a 64 MiB PROD with ``cuda_ring`` forced, 3 + 3 launches per
+    process, bit-equal to the plain ring and to the numpy model of its
+    bracket; calls of 8 B, 64 KiB, 4 MiB and 64 MiB split into their
+    legs; a 32 MiB bf16 activation from rank 3 to rank 4 for 20 rounds
+    (each from a barrier to the payload on the card), bit-equal; 5
+    ``train_step_host`` DDP steps whose losses are ``allclose`` to phase
+    6's; no JAX module in any worker.  The job's output goes to
+    ``chiprun_out/multiproc.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
-those of the main path, the tuned phase and the ddt phase; the last
+those of the main path, the tuned phase, the ddt phase and the
+multiproc workers; the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -75,8 +90,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -678,12 +695,14 @@ def phase_observability(ck):
 
 
 def phase_ddp():
+    """Returns the per-rank losses of the 5 steps."""
     import torch
 
     from ompi_tpu_torch.entry import entry
 
     step, (model, x, y) = entry(device="cuda")
-    losses = [step(model, x, y).mean().item() for _ in range(5)]
+    per_rank = [step(model, x, y).tolist() for _ in range(5)]
+    losses = [sum(r) / len(r) for r in per_rank]
     identical = all(torch.equal(bits(p), bits(p[:1].expand_as(p)))
                     for p in model.parameters())
     emit({"phase": "ddp", "losses": losses, "replicas_identical": identical})
@@ -691,6 +710,7 @@ def phase_ddp():
         raise SystemExit(f"DDP loss did not fall: {losses}")
     if not identical:
         raise SystemExit("DDP replicas diverged")
+    return per_rank
 
 
 # -- phase 7 ----------------------------------------------------------------
@@ -1031,6 +1051,102 @@ def phase_io(smi):
     return row
 
 
+# -- phase 11 ---------------------------------------------------------------
+
+#: the multi-process job: P processes of K virtual ranks on the one card
+MP_PROCS, MP_RANKS = 2, 4
+
+
+def phase_multiproc(smi, ddp_losses):
+    """A tpurun job of 2 processes × 4 ranks on the card: the
+    ``ompi_tpu_torch/examples/multiproc_smoke.py`` worker's JSON lines,
+    collected and checked (see its docstring for what each measures)."""
+    import numpy as np
+
+    cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(MP_PROCS),
+           "--nranks", str(MP_RANKS), str(REPO / "ompi_tpu_torch" / "examples"
+                                          / "multiproc_smoke.py")]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    # a process group of its own: a job that outlives its limit goes with
+    # every worker the launcher started
+    job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           env=env, cwd=str(REPO), start_new_session=True)
+    try:
+        out, err = job.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(job.pid, signal.SIGKILL)
+        out, err = job.communicate()
+        (REPO / "chiprun_out" / "multiproc.log").write_text(out + err)
+        raise SystemExit("multiproc job exceeded 600 s")
+    wall_s = time.perf_counter() - t0
+    (REPO / "chiprun_out" / "multiproc.log").write_text(out + err)
+    if job.returncode != 0:
+        print(out[-6000:] + err[-6000:], file=sys.stderr)
+        raise SystemExit(f"multiproc job failed (rc={job.returncode})")
+    by: dict[str, dict[int, list]] = {}
+    for line in out.splitlines():
+        m = re.match(r"\[(\d+)\] MPJSON (.*)$", line)
+        if m:
+            rec = json.loads(m.group(2))
+            by.setdefault(rec.pop("kind"), {}).setdefault(int(m.group(1)), []).append(rec)
+    procs = range(MP_PROCS)
+    missing = [k for k in ("modules", "stream", "colls", "osu", "prod", "split", "p2p",
+                           "ddp", "launches") if sorted(by.get(k, {})) != list(procs)]
+    if missing:
+        raise SystemExit(f"multiproc: no {missing} lines from every process")
+    n = MP_PROCS * MP_RANKS
+    sweep = []
+    for i, r0 in enumerate(by["osu"][0]):
+        # per call, the slower process's host clock; then the median
+        t = [max(by["osu"][p][i]["times_ms"][j] for p in procs)
+             for j in range(len(r0["times_ms"]))]
+        t.sort()
+        p50 = t[len(t) // 2]
+        sweep.append({"bytes": r0["bytes"], "p50_ms": p50, "min_ms": t[0],
+                      "busbw_GBs": 2 * (n - 1) / n * r0["bytes"] / (p50 / 1e3) / 1e9,
+                      "ok": all(by["osu"][p][i]["ok"] for p in procs)})
+    split = []  # per size: each leg's median of the slower process's times
+    for i, r0 in enumerate(by["split"][0]):
+        row = {"bytes": r0["bytes"]}
+        for key in ("local_ms", "d2h_ms", "dcn_ms", "h2d_bcast_ms", "call_ms"):
+            vals = sorted(max(by["split"][p][i][key][j] for p in procs)
+                          for j in range(len(r0[key])))
+            row[key] = vals[len(vals) // 2]
+        split.append(row)
+    recv = next(by["p2p"][p][0] for p in procs if by["p2p"][p][0]["role"] == "recv")
+    rt = sorted(recv["times_ms"])
+    mp_losses = [sum((by["ddp"][p][0]["losses"][s] for p in procs), []) for s in range(5)]
+    ddp_close = bool(np.allclose(mp_losses, ddp_losses, rtol=1e-5, atol=1e-6))
+    launches = {k: sum(by["launches"][p][0][k] for p in procs) for k in ("ring_hop",
+                                                                          "ring_hop_fold")}
+    prod = {p: by["prod"][p][0] for p in procs}
+    row = {"phase": "multiproc", "nvidia_smi": smi, "procs": MP_PROCS, "ranks_per_proc": MP_RANKS,
+           "wall_s": wall_s, "osu_allreduce": sweep,
+           "split_ms": split,
+           "prod_64MiB": {"launches_per_call": [prod[p]["per_call"] for p in procs],
+                          "bitwise_vs_plain": all(prod[p]["bitwise_vs_plain"] for p in procs),
+                          "bitwise_vs_numpy": all(prod[p]["bitwise_vs_numpy"] for p in procs)},
+           "p2p": {"dtype": recv["dtype"], "bytes": recv["bytes"], "rounds": len(rt),
+                   "round_p50_ms": rt[len(rt) // 2], "bitwise": recv["bitwise"]},
+           "stream_ok": all(by["stream"][p][0]["ok"] for p in procs),
+           "colls_ok": all(by["colls"][p][0]["ok"] for p in procs),
+           "ddp_losses": [sum(s) / len(s) for s in mp_losses],
+           "ddp_allclose_single_process": ddp_close,
+           "forbidden_modules": sorted({m for p in procs for m in by["modules"][p][0]["forbidden"]}),
+           "launches": launches}
+    emit(row)
+    want = {"ring_hop": MP_RANKS - 1, "ring_hop_fold": MP_RANKS - 1}
+    if not (all(r["ok"] for r in sweep) and row["stream_ok"] and row["colls_ok"] and ddp_close
+            and all(prod[p]["per_call"] == want for p in procs)
+            and row["prod_64MiB"]["bitwise_vs_plain"] and row["prod_64MiB"]["bitwise_vs_numpy"]
+            and recv["bitwise"] and not row["forbidden_modules"]
+            and min(launches.values()) > 0):
+        raise SystemExit(f"multiproc checks failed: {row}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-bytes", type=int, default=1 << 30,
@@ -1060,13 +1176,19 @@ def main() -> int:
     osc = phase_osc(smi)
     ddt = phase_ddt(ck, smi)
     io = phase_io(smi)
-    launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k] for k in launches}
+    ddp_losses = phase_ddp()
+    import ompi_tpu_torch.api as api
+
+    api.finalize()
+    torch.cuda.empty_cache()
+    multiproc = phase_multiproc(smi, ddp_losses)
+    launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
+                + multiproc["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
-    phase_ddp()
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
-         "ddt": ddt, "io": io, "kernels": kernels}, indent=1))
+         "ddt": ddt, "io": io, "multiproc": multiproc, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

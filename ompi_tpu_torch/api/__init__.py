@@ -8,6 +8,14 @@ unless the caller asks for the CPU), and constructs COMM_WORLD and
 COMM_SELF.  ``finalize()`` ≈ MPI_Finalize: writes the configured
 exports (monitoring dump, metrics ``.prom``/``.jsonl``, Chrome trace)
 and frees the world.  Both fire the ``core.hooks`` lifecycle hooks.
+
+Under ``tpurun`` (``python -m ompi_tpu_torch run``) ``init()`` builds
+this process's :class:`~ompi_tpu_torch.boot.proc.ProcContext` (the KVS
+modex and the DCN engine) and returns a
+:class:`~ompi_tpu_torch.api.multiproc.MultiProcComm` spanning every
+process; COMM_SELF is the process's first rank.  The per-process
+exports then name the process (``<out>.<proc>.*``, ``pid=proc``), and
+``finalize()`` fences every process before closing the ProcContext.
 """
 
 from __future__ import annotations
@@ -49,11 +57,32 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     for subsystem in (trace_core, metrics, spc):
         subsystem.register_vars(ctx.store)
         subsystem.sync_from_store(ctx.store)
+    # hang diagnosis (default on) and fault injection (default off) are
+    # armed before the ProcContext, so engine bring-up is under them
+    from ompi_tpu_torch import faultsim
+    from ompi_tpu_torch.trace import waitgraph
+
+    waitgraph.sync_from_store(ctx.store)
+    faultsim.sync_from_store(ctx.store)
+    from ompi_tpu_torch.boot.proc import launched_by_tpurun
     from ompi_tpu_torch.mesh.mesh import world_mesh
 
     wm = world_mesh(device, nranks)
-    _world = Comm(Group(range(wm.size)), wm, name="MPI_COMM_WORLD")
-    _self_comm = Comm(Group([0]), wm.submesh([0]), name="MPI_COMM_SELF")
+    if launched_by_tpurun():
+        from ompi_tpu_torch.boot.proc import ProcContext
+
+        from .multiproc import MultiProcComm
+
+        _world = MultiProcComm(ProcContext(local_size=wm.size), wm,
+                               name="MPI_COMM_WORLD")
+        _self_comm = Comm(Group([_world.local_offset]), wm.submesh([0]),
+                          name="MPI_COMM_SELF")
+    else:
+        _world = Comm(Group(range(wm.size)), wm, name="MPI_COMM_WORLD")
+        _self_comm = Comm(Group([0]), wm.submesh([0]), name="MPI_COMM_SELF")
+    from ompi_tpu_torch.metrics import flight
+
+    flight.set_proc(int(getattr(_world, "proc", 0)))
     output.verbose(1, "runtime", "MPI_Init complete: world size %d on %s",
                    _world.size, wm.device)
     hooks.fire("mpi_init_bottom", world=_world)
@@ -81,10 +110,11 @@ def comm_self() -> Comm:
     return _self_comm
 
 
-def _export_at_finalize(store) -> None:
+def _export_at_finalize(store, proc: int) -> None:
     """The finalize-time files, each when its output var is set: the
-    monitoring dump, the metrics ``<out>.0.prom``/``.jsonl`` and the
-    Chrome trace ``<out>.0.json`` (one process drives every rank)."""
+    monitoring dump, the metrics ``<out>.<proc>.prom``/``.jsonl`` and
+    the Chrome trace ``<out>.<proc>.json`` (``proc`` 0 outside tpurun,
+    where one process drives every rank)."""
     from ompi_tpu_torch import metrics
     from ompi_tpu_torch.trace import chrome
     from ompi_tpu_torch.trace import core as trace_core
@@ -98,10 +128,10 @@ def _export_at_finalize(store) -> None:
     if mout and metrics.enabled():
         from ompi_tpu_torch.metrics import export
 
-        export.write(str(mout), proc=0)
+        export.write(str(mout), proc=proc)
     tout = store.get("trace_output", "")
     if tout and trace_core.enabled():
-        chrome.dump(f"{tout}.0.json", pid=0)
+        chrome.dump(f"{tout}.{proc}.json", pid=proc)
 
 
 def finalize() -> None:
@@ -111,9 +141,14 @@ def finalize() -> None:
     hooks.fire("mpi_finalize_top", world=_world)
     if _world is not None:
         try:
-            _export_at_finalize(mca.default_context().store)
+            _export_at_finalize(mca.default_context().store,
+                                int(getattr(_world, "proc", 0)))
         except OSError as e:  # an unwritable path must not break finalize
             output.show_help("finalize", "export", "could not write an export: %s", e)
+        pc = getattr(_world, "procctx", None)
+        if pc is not None:
+            pc.fence("finalize")  # all procs reach finalize before teardown
+            pc.close()
         _world.free()
         _world = None
     if _self_comm is not None:

@@ -94,6 +94,24 @@ def _next_cid() -> int:
         return c
 
 
+def _peek_cid() -> int:
+    """The next CID this process would hand out — the proposal each
+    process contributes to the multi-process CID agreement."""
+    with _cid_lock:
+        return _cid_next
+
+
+def _reserve_cid_block(floor: int, n: int) -> int:
+    """Multi-process CID agreement commit (≈ ompi_comm_nextcid's
+    MAX-allreduce): having agreed ``floor`` = max over processes of
+    ``_peek_cid()``, every participant reserves the identical block
+    ``[floor, floor + n)`` and jumps its local counter past it."""
+    global _cid_next
+    with _cid_lock:
+        _cid_next = max(_cid_next, floor + n)
+        return floor
+
+
 class Comm(PersistentP2PMixin):
     """An intra-communicator over virtual ranks."""
 

@@ -1,0 +1,739 @@
+"""Multi-process communicators.
+
+Port of ``ompi_tpu/api/multiproc.py``.  A ``tpurun`` job is P worker
+processes, each owning a slice of the global rank space (its virtual
+ranks: rows of rank-major tensors on the process's device).  Global
+rank space is the ordered concatenation of each process's local ranks.
+Collectives go through the MCA coll selection exactly like
+single-process comms — ``coll/han`` wins on these communicators and
+composes the local collectives on the card with inter-process DCN
+traffic; ``coll/cuda``/``coll/basic`` (and so ``coll/tuned``) decline
+them.
+
+p2p: the local matching engine holds this process's posted/unexpected
+queues (keyed by GLOBAL ranks); sends to remote ranks travel as DCN
+frames (a tensor payload crosses to the host first) and are injected
+into the destination's engine by the receiver thread — the btl_tcp →
+ob1 callback path.  A remote payload arrives as numpy; ``recv(...,
+out=tensor)`` lands it in a posted tensor of the receiver's dtype (the
+one place a bfloat16 payload, which rides the wire as raw two-byte
+words, is reinterpreted).
+
+Not ported yet: windows across processes (``win_*``), spawn, and the
+recovery legs (``shrink``/``replace``/``replace_partial``, respawn).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from ompi_tpu_torch.boot.proc import ProcContext
+from ompi_tpu_torch.coll.module import COLL_OPS, CollTable, select_coll_modules
+from ompi_tpu_torch.core import mca
+from ompi_tpu_torch.core import errors as _errors
+from ompi_tpu_torch.core.errors import (
+    MPIArgError,
+    MPICommError,
+    MPIInternalError,
+    MPIRankError,
+)
+from ompi_tpu_torch.mesh.mesh import CommMesh
+from ompi_tpu_torch.op.op import SUM, Op
+from ompi_tpu_torch.p2p.part import PersistentP2PMixin
+from ompi_tpu_torch.p2p.pml import ANY_SOURCE, ANY_TAG, MatchingEngine
+from ompi_tpu_torch.request import Request, _poll_backoff
+from ompi_tpu_torch.trace import core as _trace
+
+from .comm import COLOR_UNDEFINED, Comm, _next_cid, _peek_cid, _reserve_cid_block
+from .group import Group
+
+
+class MultiProcComm(PersistentP2PMixin):
+    """A communicator spanning processes of the job: the world (built by
+    ``init`` via the modex) or any cross-process subset produced by
+    :meth:`split` — sub-comms ride a :class:`~ompi_tpu_torch.dcn.collops.
+    DcnSubEngine` over the shared transport with a globally agreed CID."""
+
+    def __init__(self, ctx: ProcContext, local_mesh: CommMesh, name: str = "MPI_COMM_WORLD"):
+        self.procctx = ctx
+        self.proc = ctx.proc
+        self.nprocs = ctx.nprocs
+        self.dcn = ctx.engine
+        self.local_mesh = local_mesh
+        self.cid = _next_cid()
+        self.name = name
+        self._freed = False
+
+        # modex: exchange local sizes → global rank layout.  Every first
+        # boot publishes its size to the KVS so a respawned incarnation
+        # can rebuild the SAME layout without the live allgather.
+        ctx.kvs.put(f"{ctx.ns}wsize.{ctx.proc}", int(local_mesh.size))
+        if ctx.incarnation and not ctx.rejoined:
+            self.proc_sizes = [
+                int(ctx.kvs.get(f"{ctx.ns}wsize.{p}"))
+                for p in range(self.nprocs)]
+        elif (getattr(ctx, "wsizes", None) is not None
+              and len(ctx.wsizes) == self.nprocs):
+            # the sharded modex already collected every rank's size
+            # through the group leader's one bulk scan — no boot
+            # collective at all (the instant-on path)
+            self.proc_sizes = [int(w) for w in ctx.wsizes]
+        else:
+            sizes = self.dcn.allgather(
+                np.array([local_mesh.size], np.int64), self.cid)
+            self.proc_sizes = [int(s[0]) for s in sizes]
+        self.offsets = np.cumsum([0] + self.proc_sizes).tolist()
+        self.local_size = local_mesh.size
+        self.local_offset = self.offsets[self.proc]
+        self.size = self.offsets[-1]
+        self.group = Group(range(self.size))
+
+        # intra-process communicator (the han low_comm)
+        self.local = Comm(
+            Group(range(self.local_offset, self.local_offset + self.local_size)),
+            local_mesh,
+            name=f"{name}.local{self.proc}",
+        )
+        self._wire()
+
+    def _wire(self) -> None:
+        """Per-comm runtime wiring — ONE path shared by __init__ / dup /
+        _make_sub: fresh coll/pml/NBC/FT state, frame routing, and
+        failure fan-out registration."""
+        self._coll = None
+        self._pml = None
+        self._pml_lock = threading.Lock()
+        self._nbc_count = 0
+        self._nbc_lock = threading.Lock()
+        self._ft = None
+        self._shrink_count = 0
+        self._freed = False
+        self.dcn.register_p2p(self.cid, self._on_p2p_frame)
+        self.dcn.register_comm(self.cid, self)
+        self.procctx.register_comm(self)
+
+    def _next_nbc(self) -> int:
+        """Per-comm non-blocking-collective issue counter: identical on
+        every process by MPI's same-issue-order rule, it names each
+        i-collective's private DCN stream (``<cid>#nbc<k>``)."""
+        with self._nbc_lock:
+            k = self._nbc_count
+            self._nbc_count += 1
+            return k
+
+    # -- rank geometry ---------------------------------------------------
+
+    def locate(self, global_rank: int) -> tuple[int, int]:
+        """(owning process, local index) of a global rank."""
+        if not 0 <= global_rank < self.size:
+            raise MPIRankError(f"rank {global_rank} outside [0, {self.size})")
+        for p in range(self.nprocs):
+            if global_rank < self.offsets[p + 1]:
+                return p, global_rank - self.offsets[p]
+        raise MPIRankError(str(global_rank))  # pragma: no cover
+
+    def proc_range(self, p: int) -> tuple[int, int]:
+        return self.offsets[p], self.offsets[p + 1]
+
+    def _check(self):
+        if self._freed:
+            raise MPICommError(f"{self.name} has been freed")
+
+    @property
+    def device(self) -> torch.device:
+        return self.local_mesh.device
+
+    # -- coll table ------------------------------------------------------
+
+    @property
+    def coll(self) -> CollTable:
+        self._check()
+        if self._coll is None:
+            self._coll = select_coll_modules(self, mca.default_context().framework("coll"))
+        return self._coll
+
+    @property
+    def mesh(self) -> CommMesh:
+        return self.local_mesh
+
+    # -- collectives (local rank-major buffers (local_n, ...)) ----------
+
+    def _lookup(self, slot: str):
+        """FT-guarded coll-table lookup — multi-process collectives honor
+        ULFM state (revoked comm / failed member raises before any
+        traffic)."""
+        if self._ft is not None:
+            from ompi_tpu_torch.ft import ulfm
+
+            ulfm.check(self, collective=True)
+        fn = self.coll.lookup(slot)
+        if _trace._enabled:
+            # api-layer span with the (comm, op, seq) merge key — the
+            # per-(comm, op) issue counter is identical on every process
+            # (MPI same-issue-order), so merged multi-process timelines
+            # align one collective's spans across ranks
+            return _trace.wrap_call("api", slot, fn, comm=self.name)
+        return fn
+
+    def allreduce(self, x, op: Op = SUM):
+        return self._lookup("allreduce")(x, op)
+
+    def bcast(self, x, root: int = 0):
+        return self._lookup("bcast")(x, root)
+
+    def reduce(self, x, op: Op = SUM, root: int = 0):
+        """Root's recvbuf on the process owning ``root``; None elsewhere."""
+        self.locate(root)  # MPI_ERR_RANK/ROOT before any traffic
+        return self._lookup("reduce")(x, op, root)
+
+    def allgather(self, x):
+        return self._lookup("allgather")(x)
+
+    def gather(self, x, root: int = 0):
+        """Root's recvbuf (global_n, *s) on the process owning ``root``;
+        None elsewhere (MPI: recvbuf significant only at root)."""
+        return self._lookup("gather")(x, root)
+
+    def scatter(self, x, root: int = 0):
+        return self._lookup("scatter")(x, root)
+
+    def reduce_scatter_block(self, x, op: Op = SUM):
+        return self._lookup("reduce_scatter_block")(x, op)
+
+    def reduce_scatter(self, x, op: Op = SUM, counts=None):
+        """Jagged counts: x is each local rank's flat (sum(counts), …)
+        contribution; returns this process's local ranks' segments."""
+        return self._lookup("reduce_scatter")(x, op, counts)
+
+    def alltoall(self, x):
+        return self._lookup("alltoall")(x)
+
+    def scan(self, x, op: Op = SUM):
+        return self._lookup("scan")(x, op)
+
+    def exscan(self, x, op: Op = SUM):
+        return self._lookup("exscan")(x, op)
+
+    def barrier(self) -> None:
+        self._lookup("barrier")()
+
+    def set_errhandler(self, errhandler) -> None:
+        if not isinstance(errhandler, _errors.Errhandler):
+            raise MPIArgError(f"not an Errhandler: {errhandler!r}")
+        self._errhandler = errhandler
+
+    def get_errhandler(self):
+        return getattr(self, "_errhandler", _errors.ERRORS_RETURN)
+
+    def __getattr__(self, name: str):
+        """Non-blocking (i*) and persistent (*_init) variants of every
+        collective, served from the coll table like their blocking
+        counterparts."""
+        if (name.startswith("i") and name[1:] in COLL_OPS) or (
+            name.endswith("_init") and name[: -len("_init")] in COLL_OPS
+        ):
+            try:
+                fn = self.coll.lookup(name)
+            except MPIInternalError as e:
+                # slot genuinely unserved → AttributeError keeps the
+                # hasattr/getattr probe contract
+                raise AttributeError(name) from e
+
+            def guarded(*a, **k):
+                # FT guard at CALL time (same choke as _lookup)
+                if self._ft is not None:
+                    from ompi_tpu_torch.ft import ulfm
+
+                    ulfm.check(self, collective=True)
+                return fn(*a, **k)
+
+            return guarded
+        raise AttributeError(name)
+
+    def allgatherv(self, blocks: Sequence):
+        return self._lookup("allgatherv")(blocks)
+
+    def gatherv(self, blocks: Sequence, root: int = 0):
+        return self._lookup("gatherv")(blocks, root)
+
+    def scatterv(self, blocks: Sequence | None, root: int = 0):
+        """blocks: one array per GLOBAL rank, meaningful on root's
+        process; returns this process's local ranks' blocks."""
+        return self._lookup("scatterv")(blocks, root)
+
+    def alltoallv(self, matrix: Sequence[Sequence]):
+        """matrix[l][j]: block from local rank l to global rank j;
+        returns out[l][src] = block global rank src sent to l."""
+        return self._lookup("alltoallv")(matrix)
+
+    # -- p2p -------------------------------------------------------------
+
+    @property
+    def pml(self) -> MatchingEngine:
+        self._check()
+        if self._pml is None:
+            # raced by the receiver thread (first inbound frame) vs the
+            # main thread's first recv — double-checked lock
+            with self._pml_lock:
+                if self._pml is None:
+                    comp = mca.default_context().framework("pml").select_one()
+                    self._pml = comp.make_engine(self.size, self.name)
+        return self._pml
+
+    def _on_p2p_frame(self, env: dict, payload: np.ndarray) -> None:
+        # relayed delivery: already accounted on the sending process
+        self.pml.send(env["src"], env["dst"], payload, env["tag"],
+                      _account=False)
+
+    def send(self, buf, source: int, dest: int, tag: int = 0) -> None:
+        """Send from a LOCAL global rank ``source`` to any global rank."""
+        if self._ft is not None:
+            from ompi_tpu_torch.ft import ulfm
+
+            ulfm.check(self, peer=dest)
+        sproc, _ = self.locate(source)
+        if sproc != self.proc:
+            raise MPIRankError(
+                f"rank {source} is owned by process {sproc}, not {self.proc}")
+        dproc, _ = self.locate(dest)
+        if dproc == self.proc:
+            self.pml.send(source, dest, buf, tag)
+            return
+        # sender-side accounting (the local pml never sees this send)
+        from ompi_tpu_torch.coll.han import to_host
+        from ompi_tpu_torch.tool import monitoring as _mon
+        from ompi_tpu_torch.tool import spc as _spc
+
+        if _spc.attached():
+            _spc.inc("send")
+            _spc.inc("send_bytes", _spc.payload_nbytes(buf))
+        if _trace._enabled:
+            _trace.instant("p2p", "send_remote", comm=self.name,
+                           src=source, dst=dest, tag=tag,
+                           nbytes=_spc.payload_nbytes(buf))
+        if isinstance(self.pml, _mon.MonitoredEngine):
+            _mon.account_p2p(self.name, self.size, source, dest,
+                             _spc.payload_nbytes(buf))
+        payload = to_host(buf) if isinstance(buf, torch.Tensor) else np.asarray(buf)
+        self.dcn.send_p2p(
+            dproc, {"cid": self.cid, "src": source, "dst": dest, "tag": tag},
+            payload)
+
+    def irecv(self, dest: int, source: int | None = None, tag: int | None = None) -> Request:
+        if self._ft is not None:
+            from ompi_tpu_torch.ft import ulfm
+
+            ulfm.check(self, peer=source, any_source=source is None)
+        dproc, _ = self.locate(dest)
+        if dproc != self.proc:
+            raise MPIRankError(f"rank {dest} not owned by process {self.proc}")
+        req = self.pml.irecv(
+            dest,
+            ANY_SOURCE if source is None else source,
+            ANY_TAG if tag is None else tag,
+        )
+        if source is not None and self.locate(source)[0] != self.proc:
+            # cross-process receive: converge on the shared deadline
+            # policy + in-band failure sensitivity (a remote receive
+            # must never hang; ANY_SOURCE and local receives keep plain
+            # MPI blocking semantics)
+            req.arm_remote_guard(*self._remote_recv_guard(source, tag))
+            # hang diagnosis: tag the awaited peer's root proc so a
+            # blocked wait site can name it (waitgraph edge target)
+            req.wait_peer = self.dcn.root_proc_of(self.locate(source)[0])
+        elif source is None:
+            # opt-in bounded ANY_SOURCE wait (dcn_anysrc_timeout)
+            guard = self._anysrc_guard()
+            if guard is not None:
+                req.arm_remote_guard(*guard)
+        return req
+
+    def _remote_recv_guard(self, source: int, tag):
+        """(timeout, check, escalate) for a blocked cross-process
+        receive — the same deadline + ULFM escalation the coll and
+        rendezvous waits use."""
+        from ompi_tpu_torch.core.errors import MPIProcFailedError
+        from ompi_tpu_torch.core.var import dcn_timeout
+
+        sproc = self.locate(source)[0]
+
+        def check() -> None:
+            from ompi_tpu_torch.ft import ulfm
+
+            ulfm.check(self, peer=source)
+            if self.dcn.proc_failed(sproc):
+                raise MPIProcFailedError(
+                    f"recv: peer rank {source} failed", failed=(source,))
+
+        def escalate(timeout: float):
+            self.dcn._escalate_deadline(
+                "p2p_recv", timeout,
+                f"recv deadline (dcn_recv_timeout={timeout}s) expired "
+                f"on {self.name}: waiting for rank {source} (tag={tag})"
+                f" — peer dead, wedged, or send never issued",
+                failed_rank=source,
+                root_proc=self.dcn.root_proc_of(sproc),
+                comm=self.name, src=int(source))
+
+        return dcn_timeout("recv"), check, escalate
+
+    def _anysrc_guard(self):
+        """(timeout, check, escalate) for an opt-in bounded ANY_SOURCE
+        wait (``dcn_anysrc_timeout``; default 0 = off).  Expiry runs a
+        communicator-wide liveness check: an unacknowledged failed
+        member raises MPIProcFailedPendingError; an all-alive
+        membership re-arms the wait."""
+        from ompi_tpu_torch.core.var import dcn_timeout
+
+        t = float(dcn_timeout("anysrc"))
+        if t <= 0:
+            return None
+
+        def check() -> None:
+            if self._ft is not None:
+                from ompi_tpu_torch.ft import ulfm
+
+                ulfm.check(self, any_source=True)
+
+        def escalate(timeout: float) -> None:
+            dead = [p for p in range(self.nprocs)
+                    if p != self.proc and self.dcn.proc_failed(p)]
+            if not dead:
+                return  # every member alive: keep blocking
+            from ompi_tpu_torch.ft import ulfm
+
+            st = ulfm.peek(self)
+            acked = st.acked if st is not None else set()
+            ranks = tuple(r for p in dead
+                          for r in range(*self.proc_range(p))
+                          if r not in acked)
+            if not ranks:
+                return  # every known failure acknowledged: keep waiting
+            from ompi_tpu_torch.core.errors import MPIProcFailedPendingError
+            from ompi_tpu_torch.metrics import flight as _flight
+
+            _flight.record("anysrc_liveness", comm=self.name,
+                           timeout_s=float(timeout), failed=sorted(ranks))
+            raise MPIProcFailedPendingError(
+                f"ANY_SOURCE receive on {self.name}: liveness check "
+                f"(dcn_anysrc_timeout={timeout}s) found failed ranks "
+                f"{sorted(ranks)} (ack_failed to re-arm)", failed=ranks)
+
+        return t, check, escalate
+
+    def recv(self, dest: int, source: int | None = None,
+             tag: int | None = None, out: torch.Tensor | None = None):
+        """``out``: an optional posted tensor the payload lands in (on
+        ``out``'s device, in ``out``'s dtype — a remote bfloat16 payload,
+        which arrives as raw two-byte words, is reinterpreted here); the
+        returned payload is then ``out`` itself."""
+        req = self.irecv(dest, source, tag)
+        payload = req.wait()
+        if out is not None:
+            payload = _land(payload, out)
+        return payload, req.status
+
+    def iprobe(self, dest: int, source: int | None = None,
+               tag: int | None = None):
+        """MPI_Iprobe on the local matching engine (remote sends are
+        injected there by the receiver thread, so probing is local).
+        ``dest`` must be a locally-owned rank, like irecv."""
+        dproc, _ = self.locate(dest)
+        if dproc != self.proc:
+            raise MPIRankError(f"rank {dest} not owned by process {self.proc}")
+        if self._ft is not None:
+            from ompi_tpu_torch.ft import ulfm
+
+            ulfm.check(self, peer=source, any_source=source is None)
+        return self.pml.iprobe(
+            dest,
+            ANY_SOURCE if source is None else source,
+            ANY_TAG if tag is None else tag,
+        )
+
+    def probe(self, dest: int, source: int | None = None,
+              tag: int | None = None):
+        sleep = 0.0
+        while True:
+            st = self.iprobe(dest, source, tag)
+            if st is not None:
+                return st
+            sleep = _poll_backoff(sleep)
+
+    # -- fault tolerance (ULFM over DCN) ---------------------------------
+
+    def _on_proc_failed(self, root_proc: int) -> None:
+        """Detector fan-out: mark the dead process's global ranks failed
+        on this comm (no-op if the proc isn't a member)."""
+        from ompi_tpu_torch.ft import ulfm
+
+        lp = self.dcn.local_proc_of(root_proc)
+        if lp is None:
+            return
+        lo, hi = self.proc_range(lp)
+        ulfm.state(self).failed.update(range(lo, hi))
+
+    def _on_proc_healed(self, root_proc: int) -> None:
+        """Detector heal fan-out: a FALSE-POSITIVE failure mark was
+        retracted — clear its ranks from this comm's ULFM state.
+        Revocation is sticky by design (ULFM revoke has no undo)."""
+        from ompi_tpu_torch.ft import ulfm
+
+        st = ulfm.peek(self)
+        if st is None:
+            return
+        lp = self.dcn.local_proc_of(root_proc)
+        if lp is None:
+            return
+        lo, hi = self.proc_range(lp)
+        st.failed.difference_update(range(lo, hi))
+        st.acked.difference_update(range(lo, hi))
+
+    def revoke(self) -> None:
+        """MPIX_Comm_revoke: poison this comm everywhere — the local
+        mark plus a ``rvk`` control frame to every member process (the
+        out-of-band broadcast that beats the failure news)."""
+        from ompi_tpu_torch.ft import ulfm
+
+        ulfm.state(self).revoked = True
+        for p in range(self.nprocs):
+            if p != self.proc and not self.dcn.proc_failed(p):
+                try:
+                    self.dcn.send_ctrl(p, {"kind": "rvk", "cid": self.cid})
+                except (ConnectionError, OSError, _errors.MPIError):
+                    pass  # peer may be dying: the revoke stands locally
+
+    def is_revoked(self) -> bool:
+        from ompi_tpu_torch.ft import ulfm
+
+        return ulfm.is_revoked(self)
+
+    def get_failed(self) -> list[int]:
+        from ompi_tpu_torch.ft import ulfm
+
+        return ulfm.get_failed(self)
+
+    def ack_failed(self) -> int:
+        from ompi_tpu_torch.ft import ulfm
+
+        return ulfm.ack_failed(self)
+
+    def agree(self, flags: int) -> int:
+        """MPIX_Comm_agree over the surviving processes: bitwise-AND
+        allreduce on a survivor stream (works on revoked comms —
+        agreement is how ranks coordinate after revoke)."""
+        from ompi_tpu_torch.op import BAND
+
+        live = self._live_procs()
+        eng = self.dcn if len(live) == self.nprocs else self.dcn.sub(live)
+        k = self._shrink_count
+        self._shrink_count += 1
+        out = eng.allreduce(np.array([int(flags)], np.int64), BAND,
+                            f"{self.cid}#agree{k}", ordered=True)
+        return int(out[0])
+
+    def _live_procs(self) -> list[int]:
+        from ompi_tpu_torch.ft import ulfm
+
+        st = ulfm.peek(self)
+        dead_ranks = st.failed if st else set()
+        dead_procs = {
+            p for p in range(self.nprocs)
+            if set(range(*self.proc_range(p))) & dead_ranks
+        }
+        live = [p for p in range(self.nprocs) if p not in dead_procs]
+        if self.proc not in live:
+            raise MPICommError("calling process is marked failed")
+        return live
+
+    # -- lifecycle -------------------------------------------------------
+
+    def _agree_cids(self, n: int) -> int:
+        """Multi-process CID agreement (≈ ompi_comm_nextcid): every
+        member proposes its local next-cid, the MAX wins, and all
+        members reserve the identical block ``[max, max+n)``."""
+        proposals = self.dcn.allgather_obj(_peek_cid(), self.cid)
+        return _reserve_cid_block(max(int(p) for p in proposals), n)
+
+    def dup(self, name: str = "") -> "MultiProcComm":
+        self._check()
+        c = MultiProcComm.__new__(MultiProcComm)
+        c.__dict__.update(self.__dict__)
+        c.cid = self._agree_cids(1)
+        c.name = name or f"{self.name}.dup"
+        c._wire()
+        return c
+
+    def split(
+        self, colors: Sequence[int], keys: Sequence[int] | None = None
+    ) -> list["MultiProcComm | None"]:
+        """MPI_Comm_split across processes.
+
+        Distributed SPMD view: ``colors[l]`` / ``keys[l]`` are the
+        arguments of this process's l-th LOCAL rank.  Returns one entry
+        per local rank: the sub-communicator its color landed in (ranks
+        sharing a color on this process share the object;
+        ``COLOR_UNDEFINED`` → None).
+
+        Each sub-comm gets a globally agreed CID (block reservation over
+        the parent stream), a :class:`DcnSubEngine` over the member
+        processes, a submesh of the local mesh for its local ranks, and
+        fresh han coll selection.  Rank order within a color is (key,
+        parent rank); orderings that interleave the ranks of different
+        processes are rejected (sub-comm rank space stays
+        process-contiguous)."""
+        self._check()
+        if len(colors) != self.local_size:
+            raise MPIArgError(
+                f"colors length {len(colors)} != local size {self.local_size}")
+        keys = [0] * self.local_size if keys is None else list(keys)
+        if len(keys) != self.local_size:
+            raise MPIArgError("keys length != local size")
+
+        # one exchange: every process's (colors, keys, cid proposal)
+        infos = self.dcn.allgather_obj(
+            {
+                "colors": [int(c) for c in colors],
+                "keys": [int(k) for k in keys],
+                "cid": _peek_cid(),
+            },
+            self.cid,
+        )
+        gcolors: list[int] = []
+        gkeys: list[int] = []
+        for it in infos:
+            gcolors.extend(it["colors"])
+            gkeys.extend(it["keys"])
+
+        by_color: dict[int, list[int]] = {}
+        for r, c in enumerate(gcolors):
+            if c == COLOR_UNDEFINED:
+                continue
+            if c < 0:
+                raise MPIArgError(f"negative color {c}")
+            by_color.setdefault(c, []).append(r)
+
+        # validate EVERY color before any construction: a failure must
+        # leave no half-registered sub-comms or burned CIDs behind
+        plans = []
+        for c, members in sorted(by_color.items()):
+            members.sort(key=lambda r: (gkeys[r], r))
+            owners = [self.locate(r)[0] for r in members]
+            plans.append((c, members, owners, self._member_procs(owners, f"split color {c}")))
+
+        base = _reserve_cid_block(max(int(it["cid"]) for it in infos), len(by_color))
+
+        out: list[MultiProcComm | None] = [None] * self.local_size
+        for i, (c, members, owners, member_procs) in enumerate(plans):
+            if self.proc not in member_procs:
+                continue
+            sub = self._make_sub(c, base + i, members, owners, member_procs)
+            for r, p in zip(members, owners):
+                if p == self.proc:
+                    out[self.locate(r)[1]] = sub
+        return out
+
+    @staticmethod
+    def _member_procs(owners: Sequence[int], what: str) -> list[int]:
+        """Owning processes in first-appearance order; an order that
+        interleaves the ranks of different processes is rejected."""
+        member_procs: list[int] = []
+        for p in owners:
+            if member_procs and member_procs[-1] == p:
+                continue
+            if p in member_procs:
+                raise MPIArgError(
+                    f"{what}: rank order interleaves the ranks of different "
+                    "processes — sub-comm rank space must stay "
+                    "process-contiguous")
+            member_procs.append(p)
+        return member_procs
+
+    def create_group_members(
+        self, members: Sequence[int], tag: int = 0
+    ) -> "MultiProcComm":
+        """MPI_Comm_create_group: collective over the GROUP members
+        ONLY.  CID agreement runs over a temporary sub-view of the member
+        processes on a tag-scoped control stream whose key hashes the
+        full member list (two groups sharing a process never share an
+        agreement stream)."""
+        import hashlib
+
+        self._check()
+        members = [int(r) for r in members]
+        owners = [self.locate(r)[0] for r in members]
+        member_procs = self._member_procs(owners, "create_group")
+        if self.proc not in member_procs:
+            raise MPIArgError(
+                "MPI_Comm_create_group called by a process outside the "
+                "group (the call is collective over members only)")
+        agree = self.dcn.sub(member_procs)
+        digest = hashlib.md5(f"{tag}:{members}".encode()).hexdigest()[:16]
+        proposals = agree.allgather_obj(_peek_cid(), f"cg.{digest}")
+        cid = _reserve_cid_block(max(int(p) for p in proposals), 1)
+        return self._make_sub(int(tag), cid, members, owners, member_procs)
+
+    def _make_sub(
+        self,
+        color: int,
+        cid: int,
+        members: Sequence[int],
+        owners: Sequence[int],
+        member_procs: Sequence[int],
+    ) -> "MultiProcComm":
+        """Construct one split result (members/owners in sub-rank order;
+        ``member_procs`` = owning processes in first-appearance order,
+        this process among them)."""
+        c = MultiProcComm.__new__(MultiProcComm)
+        c.procctx = self.procctx
+        c.nprocs = len(member_procs)
+        c.proc = member_procs.index(self.proc)
+        c.dcn = self.dcn.sub(member_procs)
+        c.cid = cid
+        c.name = f"{self.name}.split({color})"
+        c._freed = False
+        c.proc_sizes = [owners.count(p) for p in member_procs]
+        c.offsets = np.cumsum([0] + c.proc_sizes).tolist()
+        c.local_size = c.proc_sizes[c.proc]
+        c.local_offset = c.offsets[c.proc]
+        c.size = len(members)
+        c.group = Group(list(members))  # parent-global ranks, sub order
+        my_local = [self.locate(r)[1] for r, p in zip(members, owners) if p == self.proc]
+        c.local_mesh = self.local_mesh.submesh(my_local)
+        c.local = Comm(
+            Group(range(c.local_offset, c.local_offset + c.local_size)),
+            c.local_mesh,
+            name=f"{c.name}.local{c.proc}",
+        )
+        c._wire()
+        return c
+
+    def free(self) -> None:
+        self.dcn.unregister_p2p(self.cid)
+        self.dcn.unregister_comm(self.cid)
+        self._freed = True
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (
+            f"<MultiProcComm {self.name} size={self.size} "
+            f"proc={self.proc}/{self.nprocs} local={self.local_size}>"
+        )
+
+
+def _land(payload, out: torch.Tensor) -> torch.Tensor:
+    """Copy a received payload into the posted tensor ``out``."""
+    from ompi_tpu_torch.coll.han import to_device
+
+    if isinstance(payload, torch.Tensor):
+        src = payload
+    else:
+        src = to_device(np.asarray(payload), out.dtype, out.device)
+    if src.numel() != out.numel():
+        raise _errors.MPITruncateError(
+            f"received {src.numel()} elements into a buffer of {out.numel()}")
+    out.copy_(src.reshape(out.shape))
+    return out

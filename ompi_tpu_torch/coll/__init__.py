@@ -1,5 +1,5 @@
 """Collective framework: importing it registers the coll components
-(``cuda``, ``tuned``, ``sync`` and ``basic``; ``monitoring`` registers
-from :mod:`ompi_tpu_torch.tool.monitoring`)."""
+(``cuda``, ``tuned``, ``sync``, ``basic`` and ``han``; ``monitoring``
+registers from :mod:`ompi_tpu_torch.tool.monitoring`)."""
 
-from . import basic, cuda, sync, tuned  # noqa: F401  (component registration)
+from . import basic, cuda, han, sync, tuned  # noqa: F401  (component registration)

@@ -147,5 +147,9 @@ class BasicCollComponent(Component):
     NAME = "basic"
     PRIORITY = 10
 
-    def query(self, comm) -> BasicCollModule:
+    def query(self, comm) -> BasicCollModule | None:
+        # host fold over LOCAL rank-major rows: wrong on comms that span
+        # processes (remote ranks invisible) — decline those (han serves)
+        if getattr(comm, "dcn", None) is not None:
+            return None
         return BasicCollModule(comm)

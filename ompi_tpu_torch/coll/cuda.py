@@ -530,5 +530,9 @@ class CudaCollComponent(Component):
             help="Segment element count for segmented/pipelined algorithms",
         )
 
-    def query(self, comm) -> CudaCollModule:
+    def query(self, comm) -> CudaCollModule | None:
+        # serve single-process communicators; multi-process comms are
+        # han's (remote ranks are not rows of this process's tensors)
+        if getattr(comm, "dcn", None) is not None:
+            return None
         return CudaCollModule(comm, self)

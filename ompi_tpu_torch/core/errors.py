@@ -161,6 +161,44 @@ class MPIRMAAttachError(MPIError):
     error_class = MPI_ERR_RMA_ATTACH
 
 
+class DeadlineExpiredError(MPIError):
+    """A blocking DCN wait ran out its registered ``dcn_*_timeout``
+    (the deadline policy in :mod:`ompi_tpu_torch.core.var`).  An
+    internal signal: transport/engine layers catch it and escalate to
+    :class:`MPIProcFailedError` + detector notification — it should
+    never surface to MPI callers."""
+
+    error_class = MPI_ERR_INTERN
+
+
+class MPIProcFailedError(MPIError):
+    """MPIX_ERR_PROC_FAILED: operation touched a failed process."""
+
+    error_class = MPIX_ERR_PROC_FAILED
+
+    def __init__(self, msg: str, failed: tuple[int, ...] = ()):
+        super().__init__(msg)
+        self.failed = tuple(failed)
+
+
+class MPIProcFailedPendingError(MPIError):
+    """MPIX_ERR_PROC_FAILED_PENDING: a potential matching sender failed
+    while an ANY_SOURCE receive was outstanding; the receive cannot be
+    satisfied until the failure is acknowledged (MPIX_Comm_ack_failed)."""
+
+    error_class = MPIX_ERR_PROC_FAILED_PENDING
+
+    def __init__(self, msg: str, failed: tuple[int, ...] = ()):
+        super().__init__(msg)
+        self.failed = tuple(failed)
+
+
+class MPIRevokedError(MPIError):
+    """MPIX_ERR_REVOKED: communicator was revoked."""
+
+    error_class = MPIX_ERR_REVOKED
+
+
 class MPIFileError(MPIError):
     error_class = MPI_ERR_FILE
 

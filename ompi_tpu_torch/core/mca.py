@@ -14,6 +14,8 @@ _BUILTIN_COMPONENT_MODULES = (
     "ompi_tpu_torch.p2p",
     "ompi_tpu_torch.osc",
     "ompi_tpu_torch.io",
+    "ompi_tpu_torch.dcn.component",
+    "ompi_tpu_torch.ft.detector",
 )
 
 

@@ -14,6 +14,7 @@ from .var import (
     VarStore,
     register_device_vars,
     register_observability_vars,
+    register_robustness_vars,
     register_schedule_vars,
 )
 
@@ -174,6 +175,7 @@ class MCAContext:
         self.store = VarStore(cmdline=cmdline, env=env, param_files=param_files)
         register_device_vars(self.store)
         register_observability_vars(self.store)
+        register_robustness_vars(self.store)
         register_schedule_vars(self.store)
         self.frameworks: dict[str, Framework] = {}
         self.refresh_components()

@@ -8,9 +8,12 @@ Same store, same precedence, same enum handling as the JAX package::
 Of the reference's centrally registered variables, the port keeps the
 ones it reads: ``dcn_device_interpret`` (the kernel-leg override read by
 ``coll/cuda_kernels.mode``), the ``trace_*``/``metrics_*`` rows of
-``OBSERVABILITY_VARS`` and ``SCHEDULE_VARS``, registered on every store
-at construction so that they show in the MPI_T cvar listing before
-init.
+``OBSERVABILITY_VARS`` with ``hang_diag_enable``, the DCN deadlines and
+the ``ft_*``/``faultsim_*`` knobs of ``ROBUSTNESS_VARS``, and
+``SCHEDULE_VARS``, registered on every store at construction so that
+they show in the MPI_T cvar listing before init.  :func:`dcn_timeout`
+and :class:`Deadline` are the one deadline policy every blocking DCN
+wait shares.
 """
 
 from __future__ import annotations
@@ -278,8 +281,8 @@ def register_device_vars(store: VarStore) -> None:
 
 
 #: (framework, component, name, default, type, help) — the reference's
-#: trace_* and metrics_* rows (the telemetry, causal and hang rows come
-#: with the modules that read them)
+#: trace_* and metrics_* rows and hang_diag_enable (the telemetry and
+#: causal rows come with the modules that read them)
 OBSERVABILITY_VARS = (
     ("trace", "", "enable", False, "bool",
      "Record cross-layer event spans into the trace ring buffer "
@@ -301,6 +304,13 @@ OBSERVABILITY_VARS = (
     ("metrics", "", "flight_records", 64, "int",
      "Flight-recorder ring capacity: how many counter snapshots are "
      "retained in memory"),
+    ("hang", "", "diag_enable", True, "bool",
+     "Hang diagnosis: every Deadline-bounded wait site registers its "
+     "blocked identity (site, plane, awaited peer) lazily — only after a "
+     "wait slice already expired — and on-demand snapshots feed the "
+     "cross-rank wait-graph solver.  Default on: registration is "
+     "cold-path only, so a healthy run does zero extra work; off drops "
+     "even the slice-expiry bookkeeping"),
 )
 
 
@@ -308,6 +318,140 @@ def register_observability_vars(store: VarStore) -> None:
     """Register the trace/metrics knobs on a store (idempotent)."""
     for fw, comp, name, default, typ, help_ in OBSERVABILITY_VARS:
         store.register(fw, comp, name, default, type=typ, help=help_)
+
+
+#: (framework, component, name, default, type, help) — the reference's
+#: DCN deadline family and fault knobs, same names, defaults and types
+#: (its dcn_plane_* rows belong to the device plane, not ported)
+ROBUSTNESS_VARS = (
+    ("dcn", "", "cts_timeout", 600.0, "float",
+     "Seconds a rendezvous sender waits for the peer's CTS grant "
+     "before escalating the peer as failed (MPIProcFailedError + "
+     "detector notification)"),
+    ("dcn", "", "ring_timeout", 600.0, "float",
+     "Seconds a shared-memory ring write blocks on backpressure "
+     "(receiver stalled) before escalating the peer as failed"),
+    ("dcn", "", "recv_timeout", 120.0, "float",
+     "Seconds a blocking DCN receive waits for the peer's frame "
+     "before escalating (peer dead or collective order mismatch); "
+     "expiry flight-records the transport counters first"),
+    ("dcn", "", "connect_timeout", 30.0, "float",
+     "Deadline for (re)dialing a peer, spanning every exponential-"
+     "backoff attempt; control frames (heartbeats) always fail fast "
+     "so in-band detection stays prompt"),
+    ("dcn", "", "anysrc_timeout", 0.0, "float",
+     "Opt-in (default 0 = unbounded, plain MPI blocking semantics): "
+     "seconds an ANY_SOURCE receive blocks before escalating to a "
+     "communicator-wide liveness check — a failed member raises "
+     "MPIProcFailedPendingError, an all-alive membership re-arms the "
+     "wait"),
+    ("ft", "", "respawn_timeout", 60.0, "float",
+     "Seconds replace() waits for a failed rank's respawned "
+     "incarnation to re-publish its endpoint (tpurun --respawn) "
+     "before giving up on restoration"),
+    ("ft", "", "remote_respawn_timeout", 120.0, "float",
+     "The rsh-leg twin of ft_respawn_timeout: the await-respawn "
+     "deadline used when the job was launched over the plm/rsh leg "
+     "(tpurun marks workers with OMPI_TPU_RSH)"),
+    ("ft", "", "group_size", 8, "int",
+     "Hierarchical failure-detection group width: ranks partition "
+     "into groups of this size (or by host id when the launcher "
+     "published OMPI_TPU_HOST_IDS); members heartbeat only their "
+     "group's leader + successor, leaders heartbeat each other.  The "
+     "same groups shard the boot modex.  <= 0 collapses to one group "
+     "(full-mesh heartbeats)"),
+    ("ft", "", "gossip_digest", True, "bool",
+     "Piggyback an anti-entropy digest of the versioned failure-"
+     "record set on leader<->leader heartbeats: a digest mismatch "
+     "triggers one flrsync record exchange.  Off: convergence relies "
+     "on the direct flr flood alone"),
+    ("faultsim", "", "enable", False, "bool",
+     "Arm the deterministic fault-injection plane (default off — "
+     "every transport hook is one boolean test when disabled)"),
+    ("faultsim", "", "seed", 0, "int",
+     "Fault-plan seed: decisions are a pure function of (seed, proc, "
+     "site, event index), so one seed replays one fault schedule"),
+    ("faultsim", "", "plan", "", "string",
+     "Fault plan, e.g. 'drop:p=0.01,delay:ms=50,connkill:at=100' — "
+     "comma-separated <kind>[:k=v[;k=v]] rules (kinds: drop delay dup "
+     "trunc connkill stall ringfail dialfail daemonkill; 'proc=N' "
+     "restricts a rule to one rank, e.g. 'delay:ms=30;site=recv;proc=1' "
+     "slows only rank 1)"),
+)
+
+
+def register_robustness_vars(store: VarStore) -> None:
+    """Register the deadline/faultsim knobs on a store (idempotent)."""
+    for fw, comp, name, default, typ, help_ in ROBUSTNESS_VARS:
+        store.register(fw, comp, name, default, type=typ, help=help_)
+
+
+def dcn_timeout(name: str) -> float:
+    """Resolve one ``dcn_<name>_timeout`` against the default MCA
+    context — the single lookup every blocking DCN wait shares.  Falls
+    back to the table default when no context exists (bare transports
+    in unit tests)."""
+    full = f"dcn_{name}_timeout"
+    try:
+        from ompi_tpu_torch.core import mca
+
+        v = mca.default_context().store.get(full)
+        if v is not None:
+            return float(v)
+    except Exception:  # noqa: BLE001 — pre-init / teardown: use default
+        pass
+    for fw, comp, vname, default, _typ, _h in ROBUSTNESS_VARS:
+        if full_var_name(fw, comp, vname) == full:
+            return float(default)
+    raise KeyError(f"unknown dcn timeout {name!r}")
+
+
+class Deadline:
+    """The one deadline policy every blocking DCN wait converges on
+    (CTS waits, ring writes, blocking receives, dial backoff).
+
+    Monotonic-clock based; ``slice()`` yields the poll quantum for
+    loops that must stay sensitive to failure detection between
+    checks; ``check()`` raises :class:`~ompi_tpu_torch.core.errors.
+    DeadlineExpiredError` — callers translate expiry into the ULFM
+    escalation (``MPIProcFailedError`` + detector notification)
+    appropriate to their layer."""
+
+    __slots__ = ("seconds", "_t0")
+
+    def __init__(self, seconds: float):
+        import time
+
+        self.seconds = float(seconds)
+        self._t0 = time.monotonic()
+
+    @classmethod
+    def for_timeout(cls, name: str) -> "Deadline":
+        return cls(dcn_timeout(name))
+
+    def elapsed(self) -> float:
+        import time
+
+        return time.monotonic() - self._t0
+
+    def remaining(self) -> float:
+        return max(0.0, self.seconds - self.elapsed())
+
+    def expired(self) -> bool:
+        return self.elapsed() > self.seconds
+
+    def slice(self, quantum: float = 0.25) -> float:
+        """Bounded wait quantum: never overshoots the deadline, never
+        returns a non-positive wait."""
+        return max(0.001, min(quantum, self.remaining()))
+
+    def check(self, what: str = "") -> None:
+        if self.expired():
+            from ompi_tpu_torch.core.errors import DeadlineExpiredError
+
+            raise DeadlineExpiredError(
+                f"deadline expired after {self.seconds}s"
+                + (f": {what}" if what else ""))
 
 
 #: (framework, component, name, default, type, help)

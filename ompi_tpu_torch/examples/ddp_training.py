@@ -8,8 +8,12 @@ matrix products on one device.
 
 :func:`make_fused_step` is the counterpart of the reference's fused
 step: per-rank gradients → ``coll.base.allreduce_ring(SUM)`` over the
-rank axis → SGD.  The update is in place on the module's parameters
-(the reference returns new arrays).
+rank axis → SGD.  :func:`train_step_host` is the MPI-API form: the
+gradients go through ``comm.allreduce`` — on a multi-process
+communicator, han's local leg on the card plus the DCN leg between
+processes, the model holding this process's ranks' replicas.  Both
+update in place on the module's parameters (the reference returns new
+arrays).
 """
 
 from __future__ import annotations
@@ -71,6 +75,22 @@ def params_from_jax(params_np: dict[str, np.ndarray], device=None) -> Replicated
     dev = resolve_device(device)
     return ReplicatedMLP({k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                           for k, v in params_np.items()})
+
+
+def train_step_host(comm, model: ReplicatedMLP, x: torch.Tensor, y: torch.Tensor,
+                    lr=0.05) -> torch.Tensor:
+    """One DDP step through the MPI API: per-rank gradients →
+    ``comm.allreduce(SUM)`` of each gradient → SGD by the mean over
+    ``comm.size`` ranks.  ``model``, ``x`` and ``y`` are rank-major over
+    the comm's LOCAL ranks (all of them on a single-process comm).
+    Returns the per-rank loss before the update."""
+    model.zero_grad(set_to_none=True)
+    loss = model.loss(x, y)
+    loss.sum().backward()  # each rank's own gradient, as in make_fused_step
+    with torch.no_grad():
+        for p in model.parameters():
+            p -= lr * comm.allreduce(p.grad, SUM) / comm.size
+    return loss.detach()
 
 
 def make_fused_step(n: int, lr=0.05):

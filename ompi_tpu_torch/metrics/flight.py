@@ -18,6 +18,9 @@ import threading
 _lock = threading.Lock()
 _records: collections.deque = collections.deque(maxlen=64)
 _output = ""
+#: this process's index in a tpurun job (0 when one process drives
+#: every rank): names the flight file and tags each snapshot
+_proc = 0
 
 
 def configure(output: str = "", max_records: int = 64) -> None:
@@ -27,6 +30,11 @@ def configure(output: str = "", max_records: int = 64) -> None:
         if max_records != _records.maxlen:
             _records = collections.deque(_records,
                                          maxlen=max(1, int(max_records)))
+
+
+def set_proc(proc: int) -> None:
+    global _proc
+    _proc = proc
 
 
 def reset() -> None:
@@ -45,7 +53,7 @@ def record(reason: str, **extra) -> dict | None:
 
     if not core._enabled:
         return None
-    snap = core.snapshot(reason=reason, proc=0)
+    snap = core.snapshot(reason=reason, proc=_proc)
     if extra:
         snap["detail"] = {k: v for k, v in extra.items()
                           if isinstance(v, (str, int, float, bool))}
@@ -56,7 +64,7 @@ def record(reason: str, **extra) -> dict | None:
         # append now (crash-robust); the recorder rides failure paths,
         # so a write error must not raise into the caller
         try:
-            path = f"{out}.flight.0.jsonl"  # one process drives every rank
+            path = f"{out}.flight.{_proc}.jsonl"
             with open(path, "a") as f:
                 f.write(json.dumps(snap) + "\n")
         except OSError:

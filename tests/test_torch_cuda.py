@@ -133,3 +133,28 @@ def test_window_epoch_and_convertor_stay_on_the_card(dev):
     y = torch.zeros_like(x)
     unpack(y, vec, 4, packed)
     assert torch.equal(pack(y, vec, 4), packed)
+
+
+def test_iallreduce_waits_for_the_callers_write(dev, tmp_path):
+    """han's i-collectives run on a worker thread whose stream is not
+    the caller's: a 2-process job issues ``iallreduce`` on a side stream
+    right after a delayed write to its input, and must get the sum of
+    the written values (the worker waits on an event of the caller's
+    stream; ``wait()`` orders the caller's stream after the result)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    res = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", "2", "--nranks", "2",
+         str(repo / "ompi_tpu_torch" / "examples" / "multiproc_smoke.py"), "--only", "stream"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(repo))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    rows = [json.loads(ln.split("MPJSON ", 1)[1]) for ln in res.stdout.splitlines()
+            if "MPJSON " in ln]
+    assert sum(r["kind"] == "stream" and r["ok"] for r in rows) == 2, rows

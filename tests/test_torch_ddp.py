@@ -91,3 +91,39 @@ def test_dryrun_on_cpu(capsys):
     dryrun(8, "cpu")
     dryrun(3, "cpu")
     assert "single-process leg OK" in capsys.readouterr().out
+
+
+def test_host_step_matches_reference_host_step(devices):
+    """``train_step_host`` through ``comm.allreduce`` on an 8-rank CPU
+    comm against the reference's ``train_step_host`` on its 8-device CPU
+    world: seed-0 weights and data, three steps, parameters within rtol
+    1e-5 (XLA and torch order the gradient matmuls differently)."""
+    import ompi_tpu.api as rapi
+    from ddp_training import init_params, replicate
+    from ddp_training import train_step_host as ref_step
+
+    import ompi_tpu_torch.api as papi
+    from ompi_tpu_torch.examples.ddp_training import params_from_jax, train_step_host
+
+    rng = np.random.RandomState(0)
+    params = init_params(rng)
+    x = rng.randn(8, 16, 8).astype(np.float32)
+    y = (x.sum(axis=-1, keepdims=True) * 0.1).astype(np.float32)
+    rworld = rapi.init()
+    papi.finalize()
+    pworld = papi.init(device="cpu", nranks=8)
+    try:
+        model = params_from_jax(replicate(params, 8), "cpu")
+        ref = dict(params)
+        losses = []
+        for _ in range(3):
+            ref = ref_step(rworld, ref, x, y)
+            losses.append(train_step_host(pworld, model, torch.from_numpy(x),
+                                          torch.from_numpy(y)).mean().item())
+            for name, p in model.named_parameters():
+                np.testing.assert_allclose(p.detach().numpy(), np.broadcast_to(
+                    ref[name], p.shape), rtol=1e-5, atol=1e-6)
+                assert torch.equal(p, p[:1].expand_as(p)), name
+        assert losses[-1] < losses[0]
+    finally:
+        papi.finalize()

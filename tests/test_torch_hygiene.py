@@ -2,7 +2,8 @@
 
 * ``ompi_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the
   JAX package — checked in a fresh interpreter (this test process has
-  JAX loaded already, by ``tests/conftest.py``) and on the source's AST;
+  JAX loaded already, by ``tests/conftest.py``) and on the source's AST
+  (the multi-process workers check their own ``sys.modules`` too);
 * the entry points default to CUDA and raise where there is none, and
   the point-to-point, window and convertor paths keep a tensor on its
   own device (checked on the meta device, which has no host copy);
@@ -46,6 +47,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.p2p, ompi_tpu_torch.p2p.part, ompi_tpu_torch.osc\n"
         "import ompi_tpu_torch.io, ompi_tpu_torch.io.checkpoint, ompi_tpu_torch.ddt.convertor\n"
         "import ompi_tpu_torch.tool.memchecker, ompi_tpu_torch.p2p.vprotocol\n"
+        "import ompi_tpu_torch.api.multiproc, ompi_tpu_torch.coll.han, ompi_tpu_torch.boot\n"
+        "import ompi_tpu_torch.boot.tpurun, ompi_tpu_torch.boot.rmaps, ompi_tpu_torch.boot.ras\n"
+        "import ompi_tpu_torch.dcn, ompi_tpu_torch.dcn.component, ompi_tpu_torch.ft\n"
+        "import ompi_tpu_torch.ft.detector, ompi_tpu_torch.faultsim, ompi_tpu_torch.__main__\n"
+        "import ompi_tpu_torch.trace.waitgraph, ompi_tpu_torch.core.threads\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
