@@ -62,9 +62,10 @@ exits non-zero:
     from the card through ``write_at_all`` and ``restore`` onto the
     card, bit-equal; one ``save_async``; one collective write/read
     through a strided file view; write/read MB/s (bound by the disk);
-11. multiproc — ``python -m ompi_tpu_torch run -np 2 --nranks 4`` of
-    ``ompi_tpu_torch/examples/multiproc_smoke.py`` on the card (8 global
-    ranks, han: the local leg on the card, one row over the DCN): an
+11. multiproc — ``python -m ompi_tpu_torch run -np 2 --nranks 4 --mca
+    btl tcp`` of ``ompi_tpu_torch/examples/multiproc_smoke.py`` on the
+    card (8 global ranks, han: the local leg on the card, one row over
+    the DCN, pinned to the Python ``btl/tcp``): an
     ``iallreduce`` stream-ordering check; every collective on tensors
     bit-equal to the numpy call; osu_allreduce f32 SUM 8 B … 256 MiB
     per rank (p50 of the slower process's host clock, busbw over 8
@@ -75,12 +76,25 @@ exits non-zero:
     (each from a barrier to the payload on the card), bit-equal; 5
     ``train_step_host`` DDP steps whose losses are ``allclose`` to phase
     6's; no JAX module in any worker.  The job's output goes to
-    ``chiprun_out/multiproc.log``.
+    ``chiprun_out/multiproc.log``;
+12. native — the same job on the default ``btl/native`` (the C engine
+    built from ``ompi_tpu_torch/csrc/dcn.cc`` with g++ at first use):
+    the osu sweep and the split of each call into its legs beside the
+    tcp phase's, the 32 MiB bf16 activation over ``pml_native``, three
+    fence epochs of accumulate/get in a 64 MiB-per-rank window on the
+    card (bit-equal to numpy), the forced ``cuda_ring`` PROD (3 + 3
+    launches per process) and one call set with the causal tracer and
+    the straggler profiler on (non-zero counts, a critical path); then
+    the 64 MiB call in a job whose processes take distinct
+    ``TDCN_HOST_ID``s (the C engine's framed TCP leg, rendezvous).
+    Every worker must run ``NativeDcnEngine`` and none may print the
+    fallback line.  Output: ``chiprun_out/native.log`` and
+    ``chiprun_out/native_tcp_leg.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
 those of the main path, the tuned phase, the ddt phase and the
-multiproc workers; the last
+multiproc and native workers; the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -1057,57 +1071,68 @@ def phase_io(smi):
 MP_PROCS, MP_RANKS = 2, 4
 
 
-def phase_multiproc(smi, ddp_losses):
-    """A tpurun job of 2 processes × 4 ranks on the card: the
-    ``ompi_tpu_torch/examples/multiproc_smoke.py`` worker's JSON lines,
-    collected and checked (see its docstring for what each measures)."""
-    import numpy as np
-
+def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float = 600):
+    """One tpurun job of P processes × K ranks of the
+    ``multiproc_smoke.py`` worker: its output goes to
+    ``chiprun_out/<log_name>.log``; returns the workers' JSON rows by
+    kind and process, the wall time and the job's stderr."""
     cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(MP_PROCS),
-           "--nranks", str(MP_RANKS), str(REPO / "ompi_tpu_torch" / "examples"
-                                          / "multiproc_smoke.py")]
+           "--nranks", str(MP_RANKS)]
+    if btl:
+        cmd += ["--mca", "btl", btl]
+    cmd += [str(REPO / "ompi_tpu_torch" / "examples" / "multiproc_smoke.py"), *worker_args]
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    log = REPO / "chiprun_out" / f"{log_name}.log"
     t0 = time.perf_counter()
     # a process group of its own: a job that outlives its limit goes with
     # every worker the launcher started
     job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                            env=env, cwd=str(REPO), start_new_session=True)
     try:
-        out, err = job.communicate(timeout=600)
+        out, err = job.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(job.pid, signal.SIGKILL)
         out, err = job.communicate()
-        (REPO / "chiprun_out" / "multiproc.log").write_text(out + err)
-        raise SystemExit("multiproc job exceeded 600 s")
+        log.write_text(out + err)
+        raise SystemExit(f"{log_name} job exceeded {timeout} s")
     wall_s = time.perf_counter() - t0
-    (REPO / "chiprun_out" / "multiproc.log").write_text(out + err)
+    log.write_text(out + err)
     if job.returncode != 0:
         print(out[-6000:] + err[-6000:], file=sys.stderr)
-        raise SystemExit(f"multiproc job failed (rc={job.returncode})")
+        raise SystemExit(f"{log_name} job failed (rc={job.returncode})")
     by: dict[str, dict[int, list]] = {}
     for line in out.splitlines():
         m = re.match(r"\[(\d+)\] MPJSON (.*)$", line)
         if m:
             rec = json.loads(m.group(2))
             by.setdefault(rec.pop("kind"), {}).setdefault(int(m.group(1)), []).append(rec)
-    procs = range(MP_PROCS)
-    missing = [k for k in ("modules", "stream", "colls", "osu", "prod", "split", "p2p",
-                           "ddp", "launches") if sorted(by.get(k, {})) != list(procs)]
+    return by, wall_s, err
+
+
+def require(by, log_name: str, kinds) -> None:
+    missing = [k for k in kinds if sorted(by.get(k, {})) != list(range(MP_PROCS))]
     if missing:
-        raise SystemExit(f"multiproc: no {missing} lines from every process")
-    n = MP_PROCS * MP_RANKS
-    sweep = []
+        raise SystemExit(f"{log_name}: no {missing} lines from every process")
+
+
+def sweep_rows(by) -> list:
+    """Per size: the slower process's host clock per call, then the
+    median and the minimum; busbw over all ranks."""
+    n, procs, sweep = MP_PROCS * MP_RANKS, range(MP_PROCS), []
     for i, r0 in enumerate(by["osu"][0]):
-        # per call, the slower process's host clock; then the median
-        t = [max(by["osu"][p][i]["times_ms"][j] for p in procs)
-             for j in range(len(r0["times_ms"]))]
-        t.sort()
+        t = sorted(max(by["osu"][p][i]["times_ms"][j] for p in procs)
+                   for j in range(len(r0["times_ms"])))
         p50 = t[len(t) // 2]
         sweep.append({"bytes": r0["bytes"], "p50_ms": p50, "min_ms": t[0],
                       "busbw_GBs": 2 * (n - 1) / n * r0["bytes"] / (p50 / 1e3) / 1e9,
                       "ok": all(by["osu"][p][i]["ok"] for p in procs)})
-    split = []  # per size: each leg's median of the slower process's times
+    return sweep
+
+
+def split_rows(by) -> list:
+    """Per size: each leg's median of the slower process's times."""
+    procs, split = range(MP_PROCS), []
     for i, r0 in enumerate(by["split"][0]):
         row = {"bytes": r0["bytes"]}
         for key in ("local_ms", "d2h_ms", "dcn_ms", "h2d_bcast_ms", "call_ms"):
@@ -1115,21 +1140,48 @@ def phase_multiproc(smi, ddp_losses):
                           for j in range(len(r0[key])))
             row[key] = vals[len(vals) // 2]
         split.append(row)
-    recv = next(by["p2p"][p][0] for p in procs if by["p2p"][p][0]["role"] == "recv")
+    return split
+
+
+def p2p_row(by) -> dict:
+    recv = next(by["p2p"][p][0] for p in range(MP_PROCS) if by["p2p"][p][0]["role"] == "recv")
     rt = sorted(recv["times_ms"])
+    return {"dtype": recv["dtype"], "bytes": recv["bytes"], "rounds": len(rt),
+            "round_p50_ms": rt[len(rt) // 2], "bitwise": recv["bitwise"]}
+
+
+def prod_row(by) -> dict:
+    prod = [by["prod"][p][0] for p in range(MP_PROCS)]
+    want = {"ring_hop": MP_RANKS - 1, "ring_hop_fold": MP_RANKS - 1}
+    return {"launches_per_call": [r["per_call"] for r in prod],
+            "launches_ok": all(r["per_call"] == want for r in prod),
+            "bitwise_vs_plain": all(r["bitwise_vs_plain"] for r in prod),
+            "bitwise_vs_numpy": all(r["bitwise_vs_numpy"] for r in prod)}
+
+
+def job_launches(by) -> dict:
+    return {k: sum(by["launches"][p][0][k] for p in range(MP_PROCS))
+            for k in ("ring_hop", "ring_hop_fold")}
+
+
+def phase_multiproc(smi, ddp_losses):
+    """A tpurun job of 2 processes × 4 ranks on the card, pinned to the
+    Python ``btl/tcp`` so that its numbers keep their meaning: the
+    ``ompi_tpu_torch/examples/multiproc_smoke.py`` worker's JSON lines,
+    collected and checked (see its docstring for what each measures)."""
+    import numpy as np
+
+    by, wall_s, _err = run_job("multiproc", [], btl="tcp")
+    require(by, "multiproc", ("modules", "stream", "colls", "osu", "prod", "split", "p2p",
+                              "ddp", "launches"))
+    procs = range(MP_PROCS)
+    sweep, split, p2p, prod = sweep_rows(by), split_rows(by), p2p_row(by), prod_row(by)
     mp_losses = [sum((by["ddp"][p][0]["losses"][s] for p in procs), []) for s in range(5)]
     ddp_close = bool(np.allclose(mp_losses, ddp_losses, rtol=1e-5, atol=1e-6))
-    launches = {k: sum(by["launches"][p][0][k] for p in procs) for k in ("ring_hop",
-                                                                          "ring_hop_fold")}
-    prod = {p: by["prod"][p][0] for p in procs}
-    row = {"phase": "multiproc", "nvidia_smi": smi, "procs": MP_PROCS, "ranks_per_proc": MP_RANKS,
-           "wall_s": wall_s, "osu_allreduce": sweep,
-           "split_ms": split,
-           "prod_64MiB": {"launches_per_call": [prod[p]["per_call"] for p in procs],
-                          "bitwise_vs_plain": all(prod[p]["bitwise_vs_plain"] for p in procs),
-                          "bitwise_vs_numpy": all(prod[p]["bitwise_vs_numpy"] for p in procs)},
-           "p2p": {"dtype": recv["dtype"], "bytes": recv["bytes"], "rounds": len(rt),
-                   "round_p50_ms": rt[len(rt) // 2], "bitwise": recv["bitwise"]},
+    launches = job_launches(by)
+    row = {"phase": "multiproc", "nvidia_smi": smi, "btl": "tcp", "procs": MP_PROCS,
+           "ranks_per_proc": MP_RANKS, "wall_s": wall_s, "osu_allreduce": sweep,
+           "split_ms": split, "prod_64MiB": prod, "p2p": p2p,
            "stream_ok": all(by["stream"][p][0]["ok"] for p in procs),
            "colls_ok": all(by["colls"][p][0]["ok"] for p in procs),
            "ddp_losses": [sum(s) / len(s) for s in mp_losses],
@@ -1137,13 +1189,89 @@ def phase_multiproc(smi, ddp_losses):
            "forbidden_modules": sorted({m for p in procs for m in by["modules"][p][0]["forbidden"]}),
            "launches": launches}
     emit(row)
-    want = {"ring_hop": MP_RANKS - 1, "ring_hop_fold": MP_RANKS - 1}
     if not (all(r["ok"] for r in sweep) and row["stream_ok"] and row["colls_ok"] and ddp_close
-            and all(prod[p]["per_call"] == want for p in procs)
-            and row["prod_64MiB"]["bitwise_vs_plain"] and row["prod_64MiB"]["bitwise_vs_numpy"]
-            and recv["bitwise"] and not row["forbidden_modules"]
+            and prod["launches_ok"] and prod["bitwise_vs_plain"] and prod["bitwise_vs_numpy"]
+            and p2p["bitwise"] and not row["forbidden_modules"]
             and min(launches.values()) > 0):
         raise SystemExit(f"multiproc checks failed: {row}")
+    return row
+
+
+#: what a worker prints when the C plane cannot be built or loaded
+FALLBACK_LINE = "native data plane unavailable"
+
+
+def phase_native(smi, tcp):
+    """The same 2 × 4 job on the default btl — the C engine of
+    ``ompi_tpu_torch/csrc/dcn.cc`` (``btl/native``): the osu sweep, the
+    split of each call into its legs, the 32 MiB bf16 activation over
+    ``pml_native``, a fence epoch in a 64 MiB-per-rank window on the card,
+    the forced ``cuda_ring`` PROD and one call set with the causal tracer
+    and the straggler profiler on; then a second job whose processes take
+    distinct ``TDCN_HOST_ID``s (the C engine's framed TCP leg) for the
+    64 MiB call.  Every worker must be on ``NativeDcnEngine`` and none may
+    print the fallback line; the tcp phase's numbers are set beside."""
+    from ompi_tpu_torch import native as native_lib
+
+    t0 = time.perf_counter()
+    native_lib.build()  # g++ at first use; the workers then load it
+    build_s = time.perf_counter() - t0
+    by, wall_s, err = run_job("native", ["--native"])
+    require(by, "native", ("modules", "osu", "prod", "split", "p2p", "win", "causal",
+                           "engine", "launches"))
+    tby, twall_s, terr = run_job("native_tcp_leg", ["--only", "tcp-leg"])
+    require(tby, "native_tcp_leg", ("modules", "split", "engine", "launches"))
+    procs = range(MP_PROCS)
+    sweep, split, p2p, prod = sweep_rows(by), split_rows(by), p2p_row(by), prod_row(by)
+    win = [by["win"][p][0] for p in procs]
+    wt = sorted(max(win[p]["times_ms"][j] for p in procs) for j in range(len(win[0]["times_ms"])))
+    causal = by["causal"][0][0]
+    engines = [by["engine"][p][0] for p in procs] + [tby["engine"][p][0] for p in procs]
+    tcp_leg = split_rows(tby)[-1]
+    tcp_leg["moved"] = [tby["engine"][p][0]["moved"] for p in procs]
+    ring_leg_moved = [by["engine"][p][0]["moved"] for p in procs]
+    tcp_split = {r["bytes"]: r for r in tcp["split_ms"]}
+    tcp_sweep = {r["bytes"]: r for r in tcp["osu_allreduce"]}
+    launches = job_launches(by)
+    row = {"phase": "native", "nvidia_smi": smi, "btl": "native", "procs": MP_PROCS,
+           "ranks_per_proc": MP_RANKS, "build_s": build_s, "wall_s": wall_s,
+           "tcp_leg_wall_s": twall_s,
+           "engines": sorted({f"{e['engine']}/{e['pml']}" for e in engines}),
+           "engines_native": all(e["native"] for e in engines),
+           "fallback_printed": FALLBACK_LINE in err + terr,
+           "osu_allreduce": sweep,
+           "vs_tcp_p50_ms": [[r["bytes"], r["p50_ms"], tcp_sweep[r["bytes"]]["p50_ms"]]
+                             for r in sweep if r["bytes"] in tcp_sweep],
+           "split_ms": split,
+           "dcn_leg_vs_tcp_ms": [[r["bytes"], r["dcn_ms"], tcp_split[r["bytes"]]["dcn_ms"]]
+                                 for r in split if r["bytes"] in tcp_split],
+           "ring_leg_moved": ring_leg_moved,
+           "tcp_leg_64MiB": tcp_leg,
+           "prod_64MiB": prod,
+           "p2p": p2p, "p2p_tcp_round_p50_ms": tcp["p2p"]["round_p50_ms"],
+           "win": {"bytes_per_rank": win[0]["bytes"], "epochs": len(wt),
+                   "epoch_p50_ms": wt[len(wt) // 2], "times_ms": wt,
+                   "bitwise": all(w["bitwise"] for w in win),
+                   "on_device": all(w["on_device"] for w in win)},
+           "causal": causal,
+           "forbidden_modules": sorted({m for b in (by, tby) for p in procs
+                                        for m in b["modules"][p][0]["forbidden"]}),
+           "launches": launches}
+    emit(row)
+    c = causal["counters"]
+    if not (all(r["ok"] for r in sweep) and row["engines_native"] and not row["fallback_printed"]
+            and prod["launches_ok"] and prod["bitwise_vs_plain"] and prod["bitwise_vs_numpy"]
+            and p2p["bitwise"] and row["win"]["bitwise"] and row["win"]["on_device"]
+            and min(c["records"], c["sends"], c["recvs"]) > 0 and causal["instances"] > 0
+            and causal["makespan_ns"] > 0 and causal["path_len"] > 0
+            and all(st["count"] > 0 for st in causal["straggler"].values())
+            and causal["straggler"]
+            # the shared-memory rings carry no rendezvous; the framed TCP
+            # leg moves the 64 MiB call's 32 MiB ring chunks by RTS/CTS
+            and all(m["rndv_msgs"] == 0 for m in ring_leg_moved)
+            and all(m["rndv_msgs"] > 0 for m in tcp_leg["moved"])
+            and not row["forbidden_modules"] and min(launches.values()) > 0):
+        raise SystemExit(f"native checks failed: {row}")
     return row
 
 
@@ -1182,13 +1310,15 @@ def main() -> int:
     api.finalize()
     torch.cuda.empty_cache()
     multiproc = phase_multiproc(smi, ddp_losses)
+    native = phase_native(smi, multiproc)
     launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
-                + multiproc["launches"][k] for k in launches}
+                + multiproc["launches"][k] + native["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
-         "ddt": ddt, "io": io, "multiproc": multiproc, "kernels": kernels}, indent=1))
+         "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
+         "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -57,6 +57,13 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     for subsystem in (trace_core, metrics, spc):
         subsystem.register_vars(ctx.store)
         subsystem.sync_from_store(ctx.store)
+    # causal tracing (trace_causal, implies the tracer) and the
+    # straggler profiler (armed with the metrics plane)
+    from ompi_tpu_torch.metrics import straggler
+    from ompi_tpu_torch.trace import causal
+
+    causal.sync_from_store(ctx.store)
+    straggler.sync_from_store(ctx.store)
     # hang diagnosis (default on) and fault injection (default off) are
     # armed before the ProcContext, so engine bring-up is under them
     from ompi_tpu_torch import faultsim

@@ -10,17 +10,21 @@ composes the local collectives on the card with inter-process DCN
 traffic; ``coll/cuda``/``coll/basic`` (and so ``coll/tuned``) decline
 them.
 
-p2p: the local matching engine holds this process's posted/unexpected
-queues (keyed by GLOBAL ranks); sends to remote ranks travel as DCN
-frames (a tensor payload crosses to the host first) and are injected
-into the destination's engine by the receiver thread — the btl_tcp →
-ob1 callback path.  A remote payload arrives as numpy; ``recv(...,
+p2p runs on one of two planes.  On the native engine with the default
+``eager`` pml, the C matcher holds this process's posted/unexpected
+queues: remote sends ride a cached per-peer channel and a blocked
+receive sleeps in C.  Otherwise (a Python transport, or an interposed
+pml: monitoring, vprotocol) the Python matching engine holds them and
+remote sends travel as DCN frames injected by the receiver thread — the
+btl_tcp → ob1 callback path.  Either way a tensor payload crosses to
+the host first and a remote payload arrives as numpy; ``recv(...,
 out=tensor)`` lands it in a posted tensor of the receiver's dtype (the
 one place a bfloat16 payload, which rides the wire as raw two-byte
 words, is reinterpreted).
 
-Not ported yet: windows across processes (``win_*``), spawn, and the
-recovery legs (``shrink``/``replace``/``replace_partial``, respawn).
+Windows across processes (``win_*``) are :class:`~ompi_tpu_torch.osc.
+dcn.MultiProcWin`.  Not ported yet: spawn and the recovery legs
+(``shrink``/``replace``/``replace_partial``, respawn).
 """
 
 from __future__ import annotations
@@ -41,11 +45,14 @@ from ompi_tpu_torch.core.errors import (
     MPIInternalError,
     MPIRankError,
 )
+from ompi_tpu_torch.ddt.datatype import torch_dtype
 from ompi_tpu_torch.mesh.mesh import CommMesh
+from ompi_tpu_torch.metrics import straggler as _straggler
 from ompi_tpu_torch.op.op import SUM, Op
 from ompi_tpu_torch.p2p.part import PersistentP2PMixin
 from ompi_tpu_torch.p2p.pml import ANY_SOURCE, ANY_TAG, MatchingEngine
 from ompi_tpu_torch.request import Request, _poll_backoff
+from ompi_tpu_torch.trace import causal as _causal
 from ompi_tpu_torch.trace import core as _trace
 
 from .comm import COLOR_UNDEFINED, Comm, _next_cid, _peek_cid, _reserve_cid_block
@@ -103,7 +110,13 @@ class MultiProcComm(PersistentP2PMixin):
     def _wire(self) -> None:
         """Per-comm runtime wiring — ONE path shared by __init__ / dup /
         _make_sub: fresh coll/pml/NBC/FT state, frame routing, and
-        failure fan-out registration."""
+        failure fan-out registration.
+
+        p2p routing picks one of two planes: on a native DCN engine
+        with the default (``eager``) pml, frames go to the C matching
+        engine and receives block in C (the fast path); interposed
+        pmls (monitoring, vprotocol) keep Python delivery through the
+        dispatcher thread."""
         self._coll = None
         self._pml = None
         self._pml_lock = threading.Lock()
@@ -111,10 +124,75 @@ class MultiProcComm(PersistentP2PMixin):
         self._nbc_lock = threading.Lock()
         self._ft = None
         self._shrink_count = 0
+        self._win_count = 0
         self._freed = False
-        self.dcn.register_p2p(self.cid, self._on_p2p_frame)
+        self._chans: dict[int, int] = {}
+        self._pml_native = False
+        if hasattr(self.dcn, "register_native_p2p"):
+            from ompi_tpu_torch.p2p.component import EagerPmlComponent
+
+            comp = mca.default_context().framework("pml").select_one()
+            self._pml_native = type(comp) is EagerPmlComponent
+        if self._pml_native:
+            self.dcn.register_native_p2p(self.cid)
+        else:
+            self.dcn.register_p2p(self.cid, self._on_p2p_frame)
         self.dcn.register_comm(self.cid, self)
         self.procctx.register_comm(self)
+
+    def _next_win(self) -> int:
+        """Per-comm window counter (SPMD — window creation is
+        collective)."""
+        k = self._win_count
+        self._win_count += 1
+        return k
+
+    # -- one-sided (windows across processes) ----------------------------
+
+    def win_create(self, bases, name: str = ""):
+        """MPI_Win_create over the DCN: one 1-D base per local rank,
+        numpy or a tensor (a tensor on the card keeps its memory there;
+        RMA payloads cross the DCN through the host)."""
+        from ompi_tpu_torch.osc.dcn import MultiProcWin
+
+        return MultiProcWin(self, bases, name)
+
+    def win_allocate(self, size: int, dtype=np.float32, name: str = ""):
+        """MPI_Win_allocate: the window owns its memory, one buffer of
+        ``size`` elements per local rank on the comm's device (numpy
+        ``dtype`` or a torch dtype)."""
+        tdt = torch_dtype(dtype)
+        bases = [torch.zeros(max(int(size), 1), dtype=tdt, device=self.device)
+                 for _ in range(self.local_size)]
+        return self.win_create(bases, name)
+
+    def win_allocate_shared(self, size: int, dtype=np.float32,
+                            name: str = ""):
+        """MPI_Win_allocate_shared: the multi-process job runs on ONE
+        host (a shared-memory domain), so allocation is win_allocate;
+        shared_query resolves local ranks' buffers directly."""
+        return self.win_allocate(size, dtype, name)
+
+    def win_create_dynamic(self, dtype=np.float32, name: str = ""):
+        """MPI_Win_create_dynamic over the DCN: starts empty; attach
+        publishes a local region as the rank's window memory."""
+        tdt = torch_dtype(dtype)
+        w = self.win_create(
+            [torch.zeros(0, dtype=tdt, device=self.device)
+             for _ in range(self.local_size)], name)
+        w._dynamic_regions = {}
+
+        def attach(rank_local, addr, array):
+            w._dynamic_regions[addr] = array
+            w._user[rank_local] = array
+            w._mem[rank_local] = w._as_base(array)
+
+        def detach(rank_local, addr):
+            w._dynamic_regions.pop(addr, None)
+
+        w.attach = attach
+        w.detach = detach
+        return w
 
     def _next_nbc(self) -> int:
         """Per-comm non-blocking-collective issue counter: identical on
@@ -171,6 +249,16 @@ class MultiProcComm(PersistentP2PMixin):
 
             ulfm.check(self, collective=True)
         fn = self.coll.lookup(slot)
+        if _causal._enabled:
+            # causal tracing: open the thread-local op context every
+            # in-op send/recv stamps its wire context from — innermost
+            # wrap, so its arrival is the closest to first traffic
+            fn = _causal.wrap_call(slot, fn, comm=self.name)
+        if _straggler._enabled:
+            # straggler profiler: wall-clock arrival/exit per call,
+            # keyed (comm, op, seq) like the trace merge key — sits
+            # INSIDE the trace wrap so both see the same interval
+            fn = _straggler.wrap_call(slot, fn, comm=self.name)
         if _trace._enabled:
             # api-layer span with the (comm, op, seq) merge key — the
             # per-(comm, op) issue counter is identical on every process
@@ -280,9 +368,33 @@ class MultiProcComm(PersistentP2PMixin):
             # main thread's first recv — double-checked lock
             with self._pml_lock:
                 if self._pml is None:
-                    comp = mca.default_context().framework("pml").select_one()
-                    self._pml = comp.make_engine(self.size, self.name)
+                    if self._pml_native:
+                        from ompi_tpu_torch.p2p.pml_native import (
+                            NativeMatchingEngine,
+                        )
+
+                        self._pml = NativeMatchingEngine(
+                            self.dcn._native_root(), self.cid, self.size)
+                    else:
+                        comp = (mca.default_context().framework("pml")
+                                .select_one())
+                        self._pml = comp.make_engine(self.size, self.name)
         return self._pml
+
+    def _chan(self, dproc: int) -> int:
+        """Cached native channel to a member process (pins peer + cid
+        in C so the per-message crossing carries only scalars).  The
+        lock closes the check-then-insert race between concurrent
+        sender threads; channels are freed in :meth:`free`."""
+        ch = self._chans.get(dproc)
+        if ch is None:
+            with self._pml_lock:
+                ch = self._chans.get(dproc)
+                if ch is None:
+                    ch = self.dcn._native_root().chan_open(
+                        self.dcn.addresses[dproc], self.cid)
+                    self._chans[dproc] = ch
+        return ch
 
     def _on_p2p_frame(self, env: dict, payload: np.ndarray) -> None:
         # relayed delivery: already accounted on the sending process
@@ -318,10 +430,17 @@ class MultiProcComm(PersistentP2PMixin):
         if isinstance(self.pml, _mon.MonitoredEngine):
             _mon.account_p2p(self.name, self.size, source, dest,
                              _spc.payload_nbytes(buf))
-        payload = to_host(buf) if isinstance(buf, torch.Tensor) else np.asarray(buf)
-        self.dcn.send_p2p(
-            dproc, {"cid": self.cid, "src": source, "dst": dest, "tag": tag},
-            payload)
+        payload = (to_host(buf) if isinstance(buf, torch.Tensor)
+                   else np.ascontiguousarray(np.asarray(buf)))
+        if self._pml_native:
+            from ompi_tpu_torch.dcn.native import FK_P2P
+
+            self.dcn._native_root().chan_send(
+                self._chan(dproc), FK_P2P, source, dest, tag, payload)
+        else:
+            self.dcn.send_p2p(
+                dproc, {"cid": self.cid, "src": source, "dst": dest, "tag": tag},
+                payload)
 
     def irecv(self, dest: int, source: int | None = None, tag: int | None = None) -> Request:
         if self._ft is not None:
@@ -341,15 +460,18 @@ class MultiProcComm(PersistentP2PMixin):
             # policy + in-band failure sensitivity (a remote receive
             # must never hang; ANY_SOURCE and local receives keep plain
             # MPI blocking semantics)
-            req.arm_remote_guard(*self._remote_recv_guard(source, tag))
-            # hang diagnosis: tag the awaited peer's root proc so a
-            # blocked wait site can name it (waitgraph edge target)
-            req.wait_peer = self.dcn.root_proc_of(self.locate(source)[0])
+            arm = getattr(req, "arm_remote_guard", None)
+            if arm is not None:
+                arm(*self._remote_recv_guard(source, tag))
+                # hang diagnosis: tag the awaited peer's root proc so a
+                # blocked wait site can name it (waitgraph edge target)
+                req.wait_peer = self.dcn.root_proc_of(self.locate(source)[0])
         elif source is None:
             # opt-in bounded ANY_SOURCE wait (dcn_anysrc_timeout)
             guard = self._anysrc_guard()
-            if guard is not None:
-                req.arm_remote_guard(*guard)
+            arm = getattr(req, "arm_remote_guard", None)
+            if guard is not None and arm is not None:
+                arm(*guard)
         return req
 
     def _remote_recv_guard(self, source: int, tag):
@@ -430,12 +552,53 @@ class MultiProcComm(PersistentP2PMixin):
         """``out``: an optional posted tensor the payload lands in (on
         ``out``'s device, in ``out``'s dtype — a remote bfloat16 payload,
         which arrives as raw two-byte words, is reinterpreted here); the
-        returned payload is then ``out`` itself."""
-        req = self.irecv(dest, source, tag)
-        payload = req.wait()
-        if out is not None:
+        returned payload is then ``out`` itself.  On the native plane a
+        CPU ``out`` is handed to the C engine as the ``recv_into``
+        buffer, so the payload is placed in it without a Python copy."""
+        if self._pml_native:
+            payload, st = self._recv_native(dest, source, tag, out)
+        else:
+            req = self.irecv(dest, source, tag)
+            payload, st = req.wait(), req.status
+        if out is not None and payload is not out:
             payload = _land(payload, out)
-        return payload, req.status
+        return payload, st
+
+    def _recv_native(self, dest: int, source: int | None, tag: int | None,
+                     out: torch.Tensor | None):
+        """One C crossing: match-or-post + sleep on the request's
+        condvar; a watched specific source also wakes on failure."""
+        if self._ft is not None:
+            from ompi_tpu_torch.ft import ulfm
+
+            ulfm.check(self, peer=source, any_source=source is None)
+        dproc, _ = self.locate(dest)
+        if dproc != self.proc:
+            raise MPIRankError(f"rank {dest} not owned by process {self.proc}")
+        fail_proc = -1
+        remote = False
+        if source is not None:
+            sproc = self.locate(source)[0]
+            remote = sproc != self.proc
+            if remote:
+                # watched regardless of FT: the C wait then wakes on a
+                # marked failure AND the recv deadline can name the
+                # proc it escalates.  Local sources are never watched
+                # or deadlined (plain MPI blocking semantics)
+                fail_proc = self.dcn.root_proc_of(sproc)
+        into = _host_view(out)
+        payload, st = self.pml.recv_blocking(
+            dest,
+            ANY_SOURCE if source is None else source,
+            ANY_TAG if tag is None else tag,
+            fail_proc,
+            remote=remote,
+            guard=(self._anysrc_guard() if source is None else None),
+            into=into,
+        )
+        if into is not None and payload is into:
+            payload = out  # placed in the posted tensor's memory
+        return payload, st
 
     def iprobe(self, dest: int, source: int | None = None,
                tag: int | None = None):
@@ -500,6 +663,9 @@ class MultiProcComm(PersistentP2PMixin):
         from ompi_tpu_torch.ft import ulfm
 
         ulfm.state(self).revoked = True
+        # local C fast-path wake first: a schedule this process parked
+        # on the comm's private stream must abort promptly
+        self.dcn._root_engine().coll_revoke(self.cid)
         for p in range(self.nprocs):
             if p != self.proc and not self.dcn.proc_failed(p):
                 try:
@@ -715,6 +881,12 @@ class MultiProcComm(PersistentP2PMixin):
     def free(self) -> None:
         self.dcn.unregister_p2p(self.cid)
         self.dcn.unregister_comm(self.cid)
+        if self._chans:
+            root = self.dcn._native_root()
+            with self._pml_lock:
+                for ch in self._chans.values():
+                    root.chan_close(ch)
+                self._chans.clear()
         self._freed = True
 
     def __repr__(self) -> str:  # pragma: no cover
@@ -722,6 +894,19 @@ class MultiProcComm(PersistentP2PMixin):
             f"<MultiProcComm {self.name} size={self.size} "
             f"proc={self.proc}/{self.nprocs} local={self.local_size}>"
         )
+
+
+def _host_view(out: torch.Tensor | None) -> np.ndarray | None:
+    """A contiguous CPU tensor's memory as the numpy ``recv_into``
+    buffer (bfloat16 as its raw words); None for a tensor on the card,
+    which is landed by one H2D copy instead."""
+    if out is None or out.device.type != "cpu" or not out.is_contiguous():
+        return None
+    if out.dtype == torch.bfloat16:
+        from ompi_tpu_torch.dcn.tcp import BF16_HOST
+
+        return out.view(torch.int16).numpy().view(BF16_HOST)
+    return out.numpy()
 
 
 def _land(payload, out: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Per-process bootstrap — rank/size/rendezvous from the environment.
 
 Port of ``ompi_tpu/boot/proc.py``: the same env keys, KVS key layout
-and modex legs, over the port's Python transports only (``btl/tcp``,
-``btl/sm``, ``btl/bml``).  The reference's native C plane, and its
-warn-and-degrade fallback from it to bml, are not ported: asking for
-``--mca btl native`` aborts at the btl open, as a mistyped include does.
+and modex legs.  The engine is the native C plane (``btl/native``, the
+default, ``ntv:`` addresses) or a Python transport (``--mca btl
+tcp|sm|bml``); when the C library cannot be built or loaded, the process
+says so on stderr and falls back to ``bml``, as the reference does, and
+a job whose processes published different planes aborts at the modex.
 
 ≈ ``ess`` (environment-specific services) + the PMIx client init +
 modex of SURVEY.md §3.2: a worker launched by ``tpurun`` reads its
@@ -139,13 +140,20 @@ class ProcContext:
         gsz = ftp["group_size"] if ftp["group_size"] > 0 else self.nprocs
         self.groups = compute_groups(self.nprocs, gsz, self.hosts)
         self.group = next(g for g in self.groups if self.proc in g)
-        if (self.nprocs == 1 or self.incarnation or local_size is None):
-            # reborn incarnations keep the eager gather (a boot-time
-            # bundle may be stale for previously-reborn peers); direct
-            # construction without a local size has no wsize beacons
-            self._modex_eager()
-        else:
-            self._modex_sharded(local_size)
+        self._mine_native = addr.startswith("ntv:")
+        try:
+            if (self.nprocs == 1 or self.incarnation or local_size is None):
+                # reborn incarnations keep the eager gather (a boot-time
+                # bundle may be stale for previously-reborn peers); direct
+                # construction without a local size has no wsize beacons
+                self._modex_eager()
+            else:
+                self._modex_sharded(local_size)
+        except BaseException:
+            # an aborted boot (a plane mismatch, a dead group leader)
+            # leaves no shared-memory names behind: no peer attached yet
+            getattr(self.engine, "destroy", self.engine.close)()
+            raise
         # failure detector (tpurun --ft / --mca ft_detector_enable 1):
         # hierarchical heartbeats + versioned gossip; detections fan
         # out to every registered communicator's ULFM state (SURVEY.md
@@ -175,6 +183,24 @@ class ProcContext:
 
     # -- modex (eager + sharded legs) ------------------------------------
 
+    def _check_plane(self, pairs) -> None:
+        """Wire-plane agreement: the published address reveals each
+        peer's plane ("ntv:" = libtpudcn framing).  A mixed job (one
+        host without a C++ compiler, a per-process fallback) must abort
+        with a clear message — native frames against a Python endpoint
+        would otherwise hang the first collective."""
+        mixed = sorted(p for p, a in pairs
+                       if a.startswith("ntv:") != self._mine_native)
+        if mixed:
+            from ompi_tpu_torch.core.errors import MPIInternalError
+
+            raise MPIInternalError(
+                f"DCN wire-plane mismatch: proc {self.proc} uses the "
+                f"{'native' if self._mine_native else 'Python'} "
+                f"transport but procs {mixed} published the other "
+                f"plane (a host without a C++ compiler?); force "
+                f"one with --mca btl tcp|sm|bml on every host")
+
     def _modex_eager(self) -> None:
         """The pre-hierarchical gather: P−1 gets per rank.  Kept for
         single-proc jobs, reborn incarnations (a boot-time bundle may
@@ -182,11 +208,14 @@ class ProcContext:
         construction without a local size."""
         addresses = [self.kvs.get(f"{self.ns}dcn.{p}")
                      for p in range(self.nprocs)]
+        self._check_plane(enumerate(addresses))
         self.engine.set_addresses(addresses)
 
     def _resolve_addr(self, p: int) -> str:
         """Lazy modex get — first send to an out-of-group peer."""
-        return self.kvs.get(f"{self.ns}dcn.{p}")
+        a = self.kvs.get(f"{self.ns}dcn.{p}")
+        self._check_plane([(p, a)])
+        return a
 
     def _modex_sharded(self, local_size: int) -> None:
         """The instant-on leg: the group leader's ONE ``get_prefix``
@@ -199,6 +228,13 @@ class ProcContext:
 
         gi = self.groups.index(self.group)
         key = f"{self.ns}modex.g{gi}"
+        primed: dict[int, str] = {}
+        #: native leader only: cross-group addresses from the scan,
+        #: cached into the table AFTER the engine install so the C
+        #: plane's eager-install count stays <= group size without
+        #: re-paying a KVS get per cross-group peer (the C-side lazy
+        #: resolver reads the cached slot instead)
+        cache_after: dict[int, str] = {}
         if self.proc == self.group[0]:
             scan = self.kvs.get_prefix(f"{self.ns}dcn.")
             base = len(f"{self.ns}dcn.")
@@ -208,12 +244,24 @@ class ProcContext:
             wbase = len(f"{self.ns}wsize.")
             wsizes = {int(k[wbase:]): int(v) for k, v in wscan.items()
                       if k[wbase:].isdigit()}
+            self._check_plane(sorted(allmap.items()))
             self.kvs.put(key, {
                 "addrs": {str(p): allmap[p] for p in self.group
                           if p in allmap},
                 "wsizes": {str(p): wsizes[p] for p in sorted(wsizes)},
             })
-            primed = allmap  # the leader paid for the scan: keep it
+            if self._mine_native:
+                # native plane: install only the group slice eagerly,
+                # so the C engine's addr_installs counter reads
+                # <= group size on EVERY rank; the scan's cross-group
+                # addresses cache into the table after the install,
+                # where the C lazy resolver finds them
+                primed = {p: allmap[p] for p in self.group
+                          if p in allmap}
+                cache_after = {p: a for p, a in allmap.items()
+                               if p not in primed}
+            else:
+                primed = allmap  # the leader paid for the scan: keep it
             self.wsizes = ([wsizes[p] for p in range(self.nprocs)]
                            if len(wsizes) == self.nprocs else None)
         else:
@@ -225,17 +273,44 @@ class ProcContext:
                       for p, w in (bundle.get("wsizes") or {}).items()}
                 self.wsizes = ([ws[p] for p in range(self.nprocs)]
                                if len(ws) == self.nprocs else None)
+                self._check_plane(sorted(primed.items()))
             except (KeyError, ValueError):
                 # group leader never published (died at boot?): degrade
                 self._modex_eager()
                 return
         primed[self.proc] = self.engine.transport.address
-        self.engine.set_addresses(
-            AddressTable(self.nprocs, self._resolve_addr, primed))
+        table = AddressTable(self.nprocs, self._resolve_addr, primed)
+        self.engine.set_addresses(table)
+        for p, a in cache_after.items():
+            # cached slots read like primed ones (no resolver call, no
+            # KVS get) but were never eagerly installed in C — the
+            # engine's lazy-resolver callback pulls them on demand
+            list.__setitem__(table, p, a)
 
     def _make_engine(self, params: dict):
-        """The Python DCN engine over the transport the btl selected
-        (tcp, sm or bml)."""
+        """Engine selection: the native C++ data plane when the btl
+        picked it AND libtpudcn builds and loads here; otherwise the
+        Python transports (also the loud fallback to bml when the
+        library cannot be built or loaded)."""
+        params = dict(params)
+        if params.get("transport") == "native":
+            params.pop("transport")
+            try:
+                from ompi_tpu_torch.dcn import native as dcn_native
+
+                if dcn_native.available():
+                    return dcn_native.NativeDcnEngine(
+                        self.proc, self.nprocs, **params)
+                dcn_native.load_library()  # raises the reason
+            except Exception as e:  # noqa: BLE001 — degrade, loudly
+                import sys
+
+                print(
+                    f"[ompi_tpu_torch] native data plane unavailable "
+                    f"({type(e).__name__}: {e}); falling back to the "
+                    f"Python bml transport", file=sys.stderr, flush=True)
+            params["transport"] = "bml"
+        params.pop("ring_bytes", None)
         return DcnCollEngine(self.proc, self.nprocs, **params)
 
     def _fan_out_failure(self, root_proc: int) -> None:
@@ -271,5 +346,8 @@ class ProcContext:
     def close(self) -> None:
         if self.detector is not None:
             self.detector.close()
-        self.engine.close()
+        # finalize is the way out: the native engine's full teardown also
+        # unlinks the shared-memory names no peer attached to (a TCP-leg
+        # peer never maps this process's doorbell)
+        getattr(self.engine, "destroy", self.engine.close)()
         self.kvs.close()

@@ -17,9 +17,9 @@ rows), ``allgather: (n,*s)→(n,n,*s)``, ``reduce_scatter_block:
 (n,n,*s)→(n,*s)``, ``alltoall: (n,n,*s)→(n,n,*s)``.
 
 ``CollTable.lookup`` is the table path's choke point: it counts the
-slot in SPC and, with tracing on, hands out the callable wrapped in a
-``coll`` span naming the winning component.  The reference's straggler
-note there comes with the port of ``metrics/straggler.py``.
+slot in SPC, notes the serving component for the straggler profiler and,
+with tracing on, hands out the callable wrapped in a ``coll`` span
+naming the winning component.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import Any, Callable
 
 from ompi_tpu_torch.core import output
 from ompi_tpu_torch.core.errors import MPIInternalError
+from ompi_tpu_torch.metrics import straggler as _straggler
 from ompi_tpu_torch.tool import spc
 from ompi_tpu_torch.trace import core as _trace
 
@@ -96,6 +97,9 @@ class CollTable:
             raise MPIInternalError(
                 f"no coll component provides {slot!r} on this communicator")
         spc.inc(slot)
+        if _straggler._enabled:
+            # dispatch-time note: which component serves the op
+            _straggler.note_provider(slot, self.providers.get(slot, "?"))
         if _trace._enabled:
             # the coll span nests inside the caller's api span
             return _trace.wrap_call("coll", slot, fn,

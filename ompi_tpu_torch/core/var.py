@@ -281,8 +281,8 @@ def register_device_vars(store: VarStore) -> None:
 
 
 #: (framework, component, name, default, type, help) — the reference's
-#: trace_* and metrics_* rows and hang_diag_enable (the telemetry and
-#: causal rows come with the modules that read them)
+#: trace_* and metrics_* rows and hang_diag_enable (the telemetry rows
+#: come with the live endpoint, which is not ported)
 OBSERVABILITY_VARS = (
     ("trace", "", "enable", False, "bool",
      "Record cross-layer event spans into the trace ring buffer "
@@ -293,6 +293,13 @@ OBSERVABILITY_VARS = (
     ("trace", "", "output", "", "string",
      "Chrome trace-event JSON path written at finalize as "
      "<output>.<proc>.json (read it with tools/trace_report.py)"),
+    ("trace", "", "causal", False, "bool",
+     "Cross-rank causal tracing: stamp a compact versioned context "
+     "(comm/op/seq + hop) onto collective frames on the DCN planes, "
+     "record per-collective causal records (schedule sends/recvs with "
+     "measured waits + stall-cause deltas) for the critical-path "
+     "solver (trace/causal.py, the finalize causal export).  Implies "
+     "trace_enable.  Default off — zero wire bytes, zero hot-path work"),
     ("metrics", "", "enable", False, "bool",
      "Record telemetry (counters, per-op size/latency histograms, "
      "flight recorder); default off — one boolean test per hook"),
@@ -452,6 +459,37 @@ class Deadline:
             raise DeadlineExpiredError(
                 f"deadline expired after {self.seconds}s"
                 + (f": {what}" if what else ""))
+
+
+#: (framework, component, name, default, type, help) — the native
+#: streaming send engine's knobs, the reference's rows unchanged;
+#: forwarded to the C engine at creation (``tdcn_set_stream``)
+TRANSPORT_VARS = (
+    ("dcn", "", "chunk_bytes", 512 << 10, "int",
+     "Streaming-engine FRAG granularity AND streaming threshold on the "
+     "shared-memory ring path: payloads above it leave the caller's "
+     "thread as a send descriptor and stream cooperatively through the "
+     "per-engine sender thread; the adaptive controller shrinks the "
+     "effective chunk (floor 64 KiB) under sustained ring backpressure "
+     "and grows it back when the stall clears"),
+    ("dcn", "", "inflight_limit", 32 << 20, "int",
+     "Per-peer cap on queued-unsent streaming bytes: an isend enqueue "
+     "over the cap blocks (bounded by dcn_ring_timeout) until the "
+     "sender thread drains below it — graceful backpressure instead of "
+     "unbounded buffered-send memory growth (0 = unlimited)"),
+    ("dcn", "", "doorbell_coalesce", True, "bool",
+     "Pay the ring-doorbell futex_wake syscall only when a consumer is "
+     "actually parked (the doorbell word is still bumped every record, "
+     "so no wakeup is ever lost); suppressed wakes are counted in "
+     "doorbells_suppressed.  Off restores the unconditional per-record "
+     "wake"),
+)
+
+
+def register_transport_vars(store: VarStore) -> None:
+    """Register the streaming-send-engine knobs on a store (idempotent)."""
+    for fw, comp, name, default, typ, help_ in TRANSPORT_VARS:
+        store.register(fw, comp, name, default, type=typ, help=help_)
 
 
 #: (framework, component, name, default, type, help)

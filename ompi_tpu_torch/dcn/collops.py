@@ -22,18 +22,21 @@ process-ordered fold and the ring above ``ring_threshold`` — so the
 DCN leg of the two packages agrees bit for bit.  The reference's
 device-resident plane (descriptor frames for large same-host payloads)
 is not ported: ``_device_plane`` is None and every byte moves over the
-selected transport.  Causal wire contexts are not stamped.
+selected transport.  With ``trace_causal`` on, coll frames carry the
+causal wire context (``tc``) exactly as the reference's do.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Sequence
 
 import numpy as np
 
 from ompi_tpu_torch.op.op import Op
+from ompi_tpu_torch.trace import causal as _causal
 from ompi_tpu_torch.trace import waitgraph as _waitgraph
 from . import tcp as tcp_mod
 from .tcp import TcpTransport
@@ -146,6 +149,12 @@ class DcnCollEngine:
         self.transport.on_peer_failed = self._transport_peer_failed
         #: the reference's device-resident zero-copy plane; not ported
         self._device_plane = None
+        # the transports' handshake clock samples, mapped to procs —
+        # the cross-rank merge's skew correction (metrics snapshots
+        # carry the merged view)
+        from ompi_tpu_torch.metrics import core as _mcore
+
+        _mcore.register_clock_provider(self, self.clock_offsets)
         # mesh doctor: transport-level waits (CTS grants, shm-ring
         # backpressure) know only the peer's composite address — this
         # resolver maps them back to root proc indices at snapshot time
@@ -299,6 +308,8 @@ class DcnCollEngine:
                       if leg is not None])
         out: dict[int, tuple[int, int]] = {}
         for leg in legs:
+            if not getattr(leg, "_running", True):
+                continue  # a closed transport measures nothing
             for addr, (off, rtt) in dict(
                     getattr(leg, "clock_offsets", None) or {}).items():
                 p = self._addr_proc(addr)
@@ -468,6 +479,12 @@ class DcnCollEngine:
         env = {"kind": "coll", "cid": cid, "seq": seq, "src": self.proc}
         if meta is not None:
             env["meta"] = meta
+        if _causal._enabled:
+            # causal wire context: root span id + hop index, riding
+            # the frame envelope (zero wire bytes when disabled)
+            tc = _causal.note_send(self.root_proc_of(dst))
+            if tc is not None:
+                env["tc"] = tc
         self.transport.send(self.addresses[dst], env, payload)
 
     def _recv(self, src: int, cid: int, seq: int,
@@ -486,6 +503,7 @@ class DcnCollEngine:
 
         if timeout is None:
             timeout = dcn_timeout("recv")
+        tw0 = time.perf_counter_ns() if _causal._enabled else 0
         key = (cid, seq, src)
         posted = None
         if into is not None:
@@ -542,10 +560,16 @@ class DcnCollEngine:
                 # the registration, or this wait errored out)
                 self.transport.discard_posted(cid, seq, src)
         env, _payload = got
-        # "tc" is a reserved envelope key (the reference's causal wire
-        # context): popped so a causal-enabled reference peer's frame
-        # never leaks a foreign field to envelope consumers
-        env.pop("tc", None)
+        # "tc" is a reserved envelope key: popped whether or not THIS
+        # rank records (a causal-enabled peer's frame must never leak
+        # a foreign field to envelope consumers — the native plane's
+        # meta pop enforces the same contract)
+        tc = env.pop("tc", None)
+        if tw0:
+            # causal edge head: the frame's wire context + this recv's
+            # measured wait
+            _causal.note_recv(self.root_proc_of(src), tc,
+                              time.perf_counter_ns() - tw0)
         self._note_peer_activity(src)
         # (cid, seq, src) keys are single-use (seqs are monotonic per
         # stream), and the producer's put necessarily preceded this get

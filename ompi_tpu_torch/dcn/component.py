@@ -7,11 +7,9 @@ component owns its MCA variables, mirroring the reference's
 ``btl_tcp_eager_limit`` / ``btl_tcp_max_send_size`` knob family and
 the pml-level eager↔rendezvous switch (SURVEY.md §2.2 pml ob1).
 
-Port of ``ompi_tpu/dcn/component.py``: ``btl/tcp``, ``btl/sm`` and
-``btl/bml``.  The reference's ``btl/native`` (the C++ data plane, its
-default where the library builds) is not registered yet, so ``--mca
-btl native`` aborts at the framework open like any unknown component,
-and the port's default is ``btl/tcp``.  The reference layers its
+Port of ``ompi_tpu/dcn/component.py``: ``btl/native`` (the C++ data
+plane, the default wherever ``libtpudcn`` builds, as in the reference),
+``btl/tcp``, ``btl/sm`` and ``btl/bml``.  The reference layers its
 device-resident plane above whichever btl is selected; the port has no
 device plane, so every payload byte moves over the selected btl.
 """
@@ -121,4 +119,31 @@ class DcnBmlComponent(DcnShmComponent):
     def _collect_params(self, store) -> dict:
         p = super()._collect_params(store)
         p["transport"] = "bml"
+        return p
+
+
+@register_component
+class DcnNativeComponent(DcnTcpComponent):
+    """``btl/native`` — the C++ host data plane (``libtpudcn.so``, built
+    from ``csrc/dcn.cc``): native framing, shared-memory rings + TCP per
+    peer (the bml role), and the C matching engine under blocked
+    receives.  Highest priority: selected by default; ``--mca btl
+    tcp|sm|bml`` still forces a Python transport."""
+
+    NAME = "native"
+    PRIORITY = 60
+
+    def register_params(self, store) -> None:
+        super().register_params(store)
+        store.register(
+            "btl", "native", "ring_bytes", 64 << 20, type="int",
+            help="Per-peer-direction shared-memory ring capacity "
+            "(bytes); payloads beyond half of this stream as chunked "
+            "records through the ring",
+        )
+
+    def _collect_params(self, store) -> dict:
+        p = super()._collect_params(store)
+        p["transport"] = "native"
+        p["ring_bytes"] = store.get("btl_native_ring_bytes")
         return p

@@ -1,8 +1,9 @@
 """The multi-process run on the card: the worker of ``chip_smoke.py``'s
 ``multiproc`` phase.
 
-    python -m ompi_tpu_torch run -np 2 --nranks 4 \\
-        ompi_tpu_torch/examples/multiproc_smoke.py [--max-bytes N] [--only stream]
+    python -m ompi_tpu_torch run -np 2 --nranks 4 [--mca btl tcp] \\
+        ompi_tpu_torch/examples/multiproc_smoke.py [--max-bytes N] \\
+        [--native] [--only stream|tcp-leg]
 
 Every process drives its K virtual ranks on the current CUDA device and
 prints JSON lines prefixed ``MPJSON`` (tpurun forwards them with the
@@ -34,12 +35,31 @@ stream check, no kernel launches there).
 * ``ddp`` — 5 ``train_step_host`` steps of the seed-0 model, this
   process's replicas being rows [K·p, K·p+K) of ``entry()``'s;
 * ``launches`` — this process's ring-hop kernel launches.
+
+With ``--native`` (``chip_smoke.py``'s ``native`` phase, on the default
+``btl/native``) the run skips ``stream``, ``colls`` and ``ddp`` and adds:
+
+* ``engine`` — the engine and pml classes (``NativeDcnEngine`` and
+  ``NativeMatchingEngine`` on the C plane) and the C engine's message
+  counters over the run (which leg moved the bytes);
+* ``win`` — a window of ``--prod-bytes`` f32 per rank on the device,
+  three fence epochs in which each rank accumulates (SUM) into r+1 and
+  gets r-1, bit-equal to the same float32 sums in numpy;
+* ``causal`` — one call set (allreduce and bcast of 4 MiB per rank)
+  with the causal tracer and the straggler profiler on: their counts,
+  and the critical path the solver finds over both processes' records.
+
+``--only tcp-leg`` gives every process its own ``TDCN_HOST_ID``, which
+puts same-host peers on the C engine's framed TCP leg (eager and RTS/CTS
+rendezvous) in place of its shared-memory rings, and runs ``engine`` and
+the ``--prod-bytes`` split only.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -277,6 +297,90 @@ def p2p(w, side: int) -> None:
         raise SystemExit("the activation did not arrive bit for bit")
 
 
+def engine_check(w, want_native: bool, stats0: dict | None) -> None:
+    """The engine and pml classes, and the C engine's message counters
+    over the run (eager/chunked/rendezvous/streamed: which leg moved the
+    bytes)."""
+    eng, pml = type(w.dcn).__name__, type(w.pml).__name__
+    native = eng == "NativeDcnEngine" and pml == "NativeMatchingEngine"
+    stats = w.dcn.stats_snapshot() if native else None
+    moved = {k: stats[k] - (stats0 or {}).get(k, 0)
+             for k in ("eager_msgs", "chunked_msgs", "rndv_msgs", "stream_msgs",
+                       "eager_bytes", "chunked_bytes", "rndv_bytes", "stream_bytes")
+             } if stats else {}
+    emit("engine", engine=eng, pml=pml, native=native, moved=moved)
+    if want_native and not native:
+        raise SystemExit(f"not on the native plane: {eng}/{pml}")
+
+
+def win_epoch(w, nbytes: int, rounds: int = 3) -> None:
+    """Fence epochs in a window on the device across the processes: each
+    rank accumulates its own data into r+1 and gets r-1; memory and gets
+    are held bit for bit against float32 sums in numpy."""
+    from ompi_tpu_torch.op import SUM
+
+    k, lo, n, dev = w.local_size, w.local_offset, w.size, w.device
+    count = nbytes // 4
+    init = rank_rows(range(lo, lo + k), count, dev)
+    win = w.win_create([init[l].clone() for l in range(k)])
+    data = rank_rows(range(n + lo, n + lo + k), count, dev)  # seeds n.. : not the inits
+    times, exact = [], True
+    mine = init.cpu().numpy()
+    left = rank_rows([(r - 1) % n for r in range(lo, lo + k)], count, dev).cpu().numpy()
+    add_mine = rank_rows([n + (r - 1) % n for r in range(lo, lo + k)], count, dev).cpu().numpy()
+    add_left = rank_rows([n + (r - 2) % n for r in range(lo, lo + k)], count, dev).cpu().numpy()
+    for _ in range(rounds):
+        sync(dev)
+        w.barrier()
+        t0 = time.perf_counter()
+        for l in range(k):
+            win.accumulate((lo + l + 1) % n, data[l], 0, SUM)
+        win.fence()
+        got = [win.get((lo + l - 1) % n, count) for l in range(k)]
+        win.fence()
+        times.append((time.perf_counter() - t0) * 1e3)
+        mine = mine + add_mine     # what rank r holds: init_r + data_{r-1} per epoch
+        left = left + add_left     # what rank r-1 holds
+        exact = exact and all(np.array_equal(got[l].view(np.uint32), left[l].view(np.uint32))
+                              for l in range(k))
+    sync(dev)
+    held = np.stack([win.memory(lo + l).cpu().numpy() for l in range(k)])
+    exact = exact and np.array_equal(held.view(np.uint32), mine.view(np.uint32))
+    win.free()
+    emit("win", bytes=nbytes, rounds=rounds, times_ms=times, bitwise=bool(exact),
+         on_device=win.memory(lo).device.type == dev.type)
+    if not exact:
+        raise SystemExit("window epoch differs from the numpy sums")
+
+
+def causal_check(w) -> None:
+    """One call set with the causal tracer and the straggler profiler on;
+    process 0 solves the critical path over both processes' records."""
+    from ompi_tpu_torch.metrics import straggler
+    from ompi_tpu_torch.op import SUM
+    from ompi_tpu_torch.trace import causal
+
+    k, lo, dev = w.local_size, w.local_offset, w.device
+    x = rank_rows(range(lo, lo + k), (4 << 20) // 4, dev)
+    causal.enable(True)
+    straggler.enable(True)
+    for _ in range(5):
+        w.allreduce(x, SUM)
+        w.bcast(x, root=0)
+    sync(dev)
+    causal.enable(False)
+    straggler.enable(False)
+    records = w.dcn.allgather_obj(causal.recent(), "smoke.causal")
+    prof = causal.profile_from_records(dict(enumerate(records)))
+    strag = {op: {"count": st["count"], "wait_ns": st["wait_ns"]}
+             for op, st in straggler.summary().items()}
+    top = prof["top"][0] if prof["top"] else {}
+    emit("causal", counters=causal.counters_snapshot(), straggler=strag,
+         instances=prof["instances"], dominant=prof["dominant"],
+         makespan_ns=top.get("makespan_ns", 0),
+         path_len=len(top.get("path") or []))
+
+
 def ddp(w) -> None:
     from ompi_tpu_torch.entry import entry
     from ompi_tpu_torch.examples.ddp_training import ReplicatedMLP, train_step_host
@@ -301,8 +405,14 @@ def main() -> int:
     ap.add_argument("--prod-bytes", type=int, default=64 << 20,
                     help="per-rank bytes of the PROD check and the split call")
     ap.add_argument("--act", type=int, default=4096, help="activation rows = columns")
-    ap.add_argument("--only", choices=["stream"], default=None)
+    ap.add_argument("--only", choices=["stream", "tcp-leg"], default=None)
+    ap.add_argument("--native", action="store_true",
+                    help="the native phase's sections (see the module docstring)")
     args = ap.parse_args()
+    if args.only == "tcp-leg":  # one host id per process: the C engine's TCP leg
+        from ompi_tpu_torch.boot.proc import ENV_PROC
+
+        os.environ["TDCN_HOST_ID"] = f"smoke-host-{os.environ[ENV_PROC]}"
     import ompi_tpu_torch.api as api
     from ompi_tpu_torch.coll import cuda_kernels as ck
 
@@ -312,16 +422,30 @@ def main() -> int:
     if bad:
         raise SystemExit(f"forbidden modules imported: {bad}")
     ck.reset_launches()
-    if w.device.type == "cuda":
-        stream_check(w)
-    if args.only is None:
-        colls_check(w)
+    stats0 = w.dcn.stats_snapshot() if hasattr(w.dcn, "stats_snapshot") else None
+    if args.only == "tcp-leg":
+        split_call(w, args.prod_bytes)
+        engine_check(w, True, stats0)
+    elif args.native:
         osu(w, args.max_bytes)
         prod_check(w, ck, args.prod_bytes)
         for nbytes in [b for b in SPLIT_SIZES if b < args.prod_bytes] + [args.prod_bytes]:
             split_call(w, nbytes)
         p2p(w, args.act)
-        ddp(w)
+        win_epoch(w, args.prod_bytes)
+        causal_check(w)
+        engine_check(w, True, stats0)
+    else:
+        if w.device.type == "cuda":
+            stream_check(w)
+        if args.only is None:
+            colls_check(w)
+            osu(w, args.max_bytes)
+            prod_check(w, ck, args.prod_bytes)
+            for nbytes in [b for b in SPLIT_SIZES if b < args.prod_bytes] + [args.prod_bytes]:
+                split_call(w, nbytes)
+            p2p(w, args.act)
+            ddp(w)
     emit("launches", **ck.LAUNCHES)
     api.finalize()
     return 0

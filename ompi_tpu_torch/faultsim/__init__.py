@@ -1,8 +1,9 @@
 """faultsim — deterministic fault injection for the DCN transports.
 
-Port of ``ompi_tpu/faultsim``; the Python transports' hook sites
-(send, recv, dial, the shm ring) are armed, the native plane's are not
-ported yet.
+Port of ``ompi_tpu/faultsim``: the Python transports' hook sites
+(send, recv, dial, the shm ring) and the native plane's (the C ring
+writer, tcp send, wire duplicate and blocking receive, armed through
+the ``native_*_args`` helpers) are all there.
 
 The reference validates its fault-tolerance story (ULFM,
 ``--with-ft=ulfm``, SURVEY.md §5) by externally killing ranks; the
@@ -52,6 +53,10 @@ from .core import (  # noqa: F401
     disable,
     enabled,
     injected,
+    native_conn_args,
+    native_dup_args,
+    native_recv_args,
+    native_ring_args,
     parse_plan,
     reset,
     sync_from_store,

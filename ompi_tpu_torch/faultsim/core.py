@@ -2,11 +2,12 @@
 injection counters (own copy of ``ompi_tpu/faultsim/core.py``).
 
 The kinds whose hook sites live in planes the port does not have yet
-(``ringfail`` in the native ring writer, ``daemonkill``/
-``agentkill`` in the serving daemon, the device-plane sites) parse and
-decide exactly as in the reference — the plan grammar and the pvar
-namespace stay whole — but nothing in the port consults them yet; the
-``native_*_args`` helpers come with the native plane.
+(``daemonkill``/``agentkill`` in the serving daemon, the device-plane
+sites) parse and decide exactly as in the reference — the plan grammar
+and the pvar namespace stay whole — but nothing in the port consults
+them.  The native plane's knobs (ring stall/fail, tcp-send connkill,
+wire duplicate, blocking-recv delay) reach the C engine through the
+``native_*_args`` helpers at engine creation.
 
 The decision function is counter-hashed, not stream-random: event
 ``k`` at site ``s`` under rule ``r`` hits iff
@@ -268,6 +269,20 @@ def disable() -> None:
     global _enabled, _plan
     _enabled = False
     _plan = None
+    # the native knobs (ring writer, tcp-send connkill, blocking-recv
+    # delay) are process-wide C state armed at engine creation — disarm
+    # them too (only if the library is already loaded; never trigger a
+    # build from a teardown path)
+    try:
+        from ompi_tpu_torch.dcn import native as _native
+
+        if _native._lib is not None:
+            _native._lib.tdcn_fault_set(0, 1, -1)
+            _native._lib.tdcn_fault_set_conn(-1)
+            _native._lib.tdcn_fault_set_dup(-1)
+            _native._lib.tdcn_fault_set_recv(0, 1)
+    except Exception:  # noqa: BLE001 — teardown must not raise
+        pass
 
 
 def reset() -> None:
@@ -328,3 +343,84 @@ def counters() -> dict[str, int]:
 def injected(kind: str | None = None) -> int:
     c = counters()
     return sum(c.values()) if kind is None else c.get(kind, 0)
+
+
+def native_ring_args() -> tuple[int, int, int]:
+    """(stall_ns, stall_every, fail_at) for ``tdcn_fault_set`` — how
+    the seeded plan reaches the C ring-write path.  The C side keeps
+    its own event counter (ring writes never reach Python), so ring
+    rules support ``ms``/``every``/``at`` but not ``p`` — and C-plane
+    injections count ONLY in the merged ``dcn_injected_faults``
+    aggregate (the engine's stats block), not the per-kind
+    ``faultsim_injected_stall/ringfail`` counters, which track the
+    Python hook sites."""
+    stall_ns, every, fail_at = 0, 1, -1
+    plan = _plan
+    if plan is None:
+        return stall_ns, every, fail_at
+    for r in plan.rules:
+        if r.proc is not None and r.proc != plan.proc:
+            continue
+        if r.kind == "stall":
+            stall_ns = int(r.ms * 1e6)
+            if r.every:
+                every = r.every
+        elif r.kind == "ringfail" and r.at is not None:
+            fail_at = r.at
+    return stall_ns, every, fail_at
+
+
+def native_conn_args() -> int:
+    """``connkill_at`` for ``tdcn_fault_set_conn`` — how the seeded
+    plan reaches the C tcp-send path (the native twin of the Python
+    transport's connkill site).  The C side keeps its own send-event
+    counter, so only ``at`` rules map; -1 = disarmed.  Like the ring
+    knobs, C-plane hits count only in the engine's merged
+    ``dcn_injected_faults``, not the per-kind Python counters."""
+    plan = _plan
+    if plan is None:
+        return -1
+    for r in plan.rules:
+        if r.proc is not None and r.proc != plan.proc:
+            continue
+        if r.kind == "connkill" and r.at is not None:
+            return r.at
+    return -1
+
+
+def native_dup_args() -> int:
+    """``dup_at`` for ``tdcn_fault_set_dup`` — the seeded plan's wire-
+    duplicate rule on the native plane: the Nth seq-carrying eager tcp
+    send is transmitted twice, so the receiver's dedup watermark must
+    absorb a true duplicate.  Only ``at`` rules map (the C side keeps
+    its own event counter); -1 = disarmed."""
+    plan = _plan
+    if plan is None:
+        return -1
+    for r in plan.rules:
+        if r.proc is not None and r.proc != plan.proc:
+            continue
+        if r.kind == "dup" and r.at is not None:
+            return r.at
+    return -1
+
+
+def native_recv_args() -> tuple[int, int]:
+    """(delay_ns, every) for ``tdcn_fault_set_recv`` — injected latency
+    at the C blocking-receive entry (``tdcn_precv``: the native pml
+    fast path AND the C-ABI shim's MPI_Recv).  Only periodic
+    (``every``) or unconditional ``delay;site=recv`` rules map — the
+    C side counts events itself, so ``p=``/``at=`` triggers cannot be
+    honored there and are skipped rather than silently widened to
+    every receive; the first matching rule wins (no mixing of one
+    rule's delay with another's period)."""
+    plan = _plan
+    if plan is None:
+        return 0, 1
+    for r in plan.rules:
+        if r.proc is not None and r.proc != plan.proc:
+            continue
+        if (r.kind == "delay" and r.site == "recv" and r.ms > 0
+                and r.at is None and not r.p):
+            return int(r.ms * 1e6), (r.every or 1)
+    return 0, 1

@@ -3,9 +3,9 @@
 Port of ``ompi_tpu/metrics``: :mod:`.core` (counter/histogram
 aggregation, ``--mca metrics_enable 1``), :mod:`.export` (Prometheus
 text + JSONL at finalize, ``--mca metrics_output``) and :mod:`.flight`
-(the flight recorder).  The straggler profiler and the live telemetry
-plane of the reference belong to the multi-process planes and are not
-ported yet.
+(the flight recorder) and :mod:`.straggler` (the collective straggler
+profiler, armed with the metrics plane).  The reference's live
+telemetry endpoint (``metrics/live.py``) is not ported yet.
 """
 
 from .core import (  # noqa: F401

@@ -7,10 +7,10 @@ metrics_enable 1``), so a disabled run pays one attribute test per hook.
 
 * **native counters** — monotone totals merged from every registered
   provider, under the reference's fixed counter schema
-  (:data:`NATIVE_COUNTERS`, the ``dcn_*`` pvars).  The port has no
-  native transport plane yet, so the only providers are Python ones:
-  the persistent-schedule cache (``sched_cache_hits``/``_misses``);
-  every other counter reads 0 until its plane is ported;
+  (:data:`NATIVE_COUNTERS`, the ``dcn_*`` pvars): the native engine's C
+  block (``TdcnStats``, read through one ctypes call), the Python
+  transports' stats and the persistent-schedule cache; the device-plane
+  and serving counters read 0 (those planes are not ported);
 * **per-op histograms** — log2 size (bytes) and latency (µs) buckets
   per operation, grow-only key order;
 * **snapshots** — one JSON-able dict of both plus the SPC counters, the
@@ -73,6 +73,10 @@ _lock = threading.Lock()
 _ops: dict[str, dict] = {}
 #: live counter providers: (weakref to the anchor, weak callable)
 _providers: list = []
+#: per-peer clock-offset providers (live engines): weakref → callable
+#: returning {root_proc: (offset_ns, rtt_ns)} — the HELLO→SEQACK
+#: handshake estimate the cross-rank merge aligns timelines with
+_clock_providers: list = []
 #: MPI_T reset baselines (reset = remember the current total)
 _native_base: dict[str, int] = {}
 
@@ -154,7 +158,11 @@ def native_counters() -> dict[str, int]:
         if ref() is None or fn is None:
             dead = True
             continue
-        for k, v in (fn() or {}).items():
+        try:
+            d = fn()
+        except Exception:  # provider torn down mid-read
+            continue
+        for k, v in (d or {}).items():
             if k not in out:
                 continue
             if k in GAUGES or k.endswith("_hwm"):
@@ -165,6 +173,47 @@ def native_counters() -> dict[str, int]:
         with _lock:
             _providers[:] = [(r, f) for r, f in _providers
                              if r() is not None and f() is not None]
+    return out
+
+
+def register_clock_provider(obj, fn: Callable[[], dict | None]) -> None:
+    """Register a clock-offset source (a live engine mapping peer
+    addresses to root procs); same weakref-anchored lifetime rules as
+    :func:`register_provider`."""
+    try:
+        wfn: Callable = weakref.WeakMethod(fn)  # type: ignore[assignment]
+    except TypeError:
+        wfn = (lambda f=fn: f)
+    with _lock:
+        _clock_providers.append((weakref.ref(obj), wfn))
+
+
+def clock_offsets() -> dict[int, tuple[int, int]]:
+    """Merged ``{root_proc: (offset_ns, rtt_ns)}`` across live engines
+    — offset is (peer_clock − my_clock), the NTP-style single-sample
+    estimate from the connection handshake; the smallest-RTT sample
+    wins when several transports measured the same peer."""
+    out: dict[int, tuple[int, int]] = {}
+    with _lock:
+        live = list(_clock_providers)
+    dead = False
+    for ref, wfn in live:
+        fn = wfn()
+        if ref() is None or fn is None:
+            dead = True
+            continue
+        try:
+            d = fn()
+        except Exception:  # provider torn down mid-read
+            continue
+        for p, (off, rtt) in (d or {}).items():
+            cur = out.get(int(p))
+            if cur is None or rtt < cur[1]:
+                out[int(p)] = (int(off), int(rtt))
+    if dead:
+        with _lock:
+            _clock_providers[:] = [(r, f) for r, f in _clock_providers
+                                   if r() is not None and f() is not None]
     return out
 
 
@@ -234,10 +283,13 @@ def reset(full: bool = True) -> None:
         _native_base.clear()
         if full:
             _providers.clear()
+            _clock_providers.clear()
             _enabled = False
-    from . import flight
+    from . import flight, straggler
 
     flight.reset()
+    if full:
+        straggler.reset()
 
 
 # -- snapshots -------------------------------------------------------------
@@ -245,11 +297,11 @@ def reset(full: bool = True) -> None:
 
 def snapshot(reason: str = "periodic", proc: int | None = None) -> dict:
     """One JSON-able view right now — the exporter, flight-recorder and
-    report-tool input.  The reference's ``faultsim``, ``straggler``,
-    ``clock`` and ``waits`` keys come with the modules that fill them."""
+    report-tool input.  ``faultsim``, ``straggler``, ``clock`` and
+    ``waits`` appear when their subsystem is on and has something."""
     from ompi_tpu_torch.tool import spc
 
-    return {
+    snap = {
         "ts_ns": time.time_ns(),
         "reason": reason,
         "proc": proc,
@@ -257,6 +309,28 @@ def snapshot(reason: str = "periodic", proc: int | None = None) -> dict:
         "ops": op_stats(),
         "spc": spc.snapshot(),
     }
+    from ompi_tpu_torch.faultsim import core as _fsim
+
+    if _fsim._enabled:
+        snap["faultsim"] = _fsim.counters()
+    from . import straggler as _straggler
+
+    if _straggler._enabled:
+        snap["straggler"] = _straggler.summary()
+    clock = clock_offsets()
+    if clock:
+        # {proc: [offset_ns, rtt_ns]} — the merge tools align
+        # cross-rank timelines against host clock skew with it
+        snap["clock"] = {str(p): [o, r] for p, (o, r) in clock.items()}
+    from ompi_tpu_torch.trace import waitgraph as _waitgraph
+
+    if _waitgraph._enabled:
+        w = _waitgraph.snapshot(stacks=False)
+        if w.get("waits"):
+            # blocked-wait sites at snapshot time: crash exports carry
+            # them for a post-mortem hang diagnosis
+            snap["waits"] = w["waits"]
+    return snap
 
 
 # -- MCA wiring ------------------------------------------------------------

@@ -91,6 +91,27 @@ def to_prometheus(snap: dict) -> str:
         _prom_hist(lines, f"{PREFIX}_op_latency_us", labels,
                    st["lat_hist"], _lat_bucket_edges_us(),
                    total=(st.get("total_ns", 0) + 999) // 1000)
+    # straggler profiler: per-op call/wait totals (the rank-local leg
+    # of the cross-rank skew attribution)
+    strag = snap.get("straggler") or {}
+    if strag:
+        lines.append(f"# HELP {PREFIX}_coll_wait_ns_total In-collective "
+                     "wall time by op (arrival wait + wire)")
+        lines.append(f"# TYPE {PREFIX}_coll_wait_ns_total counter")
+        for op, st in strag.items():
+            lines.append(f'{PREFIX}_coll_wait_ns_total{{{plabel}op="{op}"'
+                         f'}} {int(st.get("wait_ns", 0))}')
+    # causal-tracing counters (trace_causal_* pvar twins): rank-local
+    # record/edge totals — the cross-rank blame itself lives in the
+    # snapshot's "causal" records, joined offline
+    causal_c = snap.get("causal_counters") or {}
+    for k in sorted(causal_c):
+        lines.append(f"# HELP {PREFIX}_trace_causal_{k} causal "
+                     f"tracing {k} (trace/causal.py)")
+        lines.append(f"# TYPE {PREFIX}_trace_causal_{k} counter")
+        labels = f'{{{plabel.rstrip(",")}}}' if plabel else ""
+        lines.append(f"{PREFIX}_trace_causal_{k}{labels} "
+                     f"{int(causal_c[k])}")
     spc = snap.get("spc") or {}
     if spc:
         lines.append(f"# HELP {PREFIX}_spc_total SPC software "
@@ -107,6 +128,13 @@ def write(path_base: str, proc: int = 0) -> list[str]:
     """Export the final snapshot (+ flight records) for one process;
     returns the paths written."""
     snap = _core.snapshot(reason="finalize", proc=proc)
+    from ompi_tpu_torch.trace import causal as _causal
+
+    if _causal.enabled():
+        # the finalize causal export: this rank's recent causal records
+        # (the offline cross-rank join's per-rank input) + its counters
+        snap["causal"] = _causal.recent()
+        snap["causal_counters"] = _causal.counters_snapshot()
     prom_path = f"{path_base}.{proc}.prom"
     with open(prom_path, "w") as f:
         f.write(to_prometheus(snap))

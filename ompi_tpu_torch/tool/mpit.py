@@ -10,11 +10,10 @@ variable** (pvar), addressed by index as the C API does:
 * pvars: ``pvar_get_num / pvar_get_info / pvar_index / pvar_read /
   pvar_reset / pvar_reset_one / pvar_start / pvar_stop`` over the SPC
   counters, the metrics core's counter schema (``dcn_*``) and per-op
-  size histograms, and the tracer's totals and per-(layer, op) spans;
+  size histograms, the fault plane's injection counts, the tracer's
+  totals and per-(layer, op) spans, the causal tracer's counters and the
+  straggler profiler's per-op totals — in the reference's index order;
 * categories: one per framework.
-
-The reference's ``faultsim_*``, ``trace_causal_*`` and ``straggler_*``
-pvar segments come with the modules that own them.
 """
 
 from __future__ import annotations
@@ -22,8 +21,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
+from ompi_tpu_torch import faultsim
 from ompi_tpu_torch.core.errors import MPIArgError, MPIError
 from ompi_tpu_torch.metrics import core as metrics
+from ompi_tpu_torch.metrics import straggler
+from ompi_tpu_torch.trace import causal
 from ompi_tpu_torch.trace import core as trace
 
 from . import spc
@@ -131,18 +133,26 @@ class PvarInfo:
     help: str
 
 
-def _pvar_names() -> list[str]:
-    """The fixed segments first (spc, dcn, the tracer's totals), then the
-    grow-only tails (trace spans, metrics sizes) in first-seen order, so
-    an index cached in a pvar handle keeps naming the same variable."""
+def _pvar_names(refresh: bool = False) -> list[str]:
+    """The fixed segments first (spc, dcn, faultsim, the tracer's and the
+    causal tracer's totals), then the grow-only tails (trace spans,
+    metrics sizes, straggler ops) in first-seen order, so an index cached
+    in a pvar handle keeps naming the same variable.  ``refresh`` sweeps
+    the native straggler providers for new C-fast-path ops (discovery
+    entry points do; a pvar read does not)."""
     names = ["spc_" + k for k in spc.known()]
     names += ["dcn_" + k for k in metrics.NATIVE_COUNTERS]
+    names += ["faultsim_injected_" + k for k in faultsim.KINDS]
     names += ["trace_events", "trace_dropped"]
+    names += [f"trace_causal_{k}" for k in causal.PVARS]
     for layer, op in trace.span_ops():
         names.append(f"trace_span_{layer}_{op}_count")
         names.append(f"trace_span_{layer}_{op}_hist")
     for op in metrics.size_ops():
         names.append(f"metrics_size_{op}_hist")
+    for op in straggler.ops(refresh=refresh):
+        names.append(f"straggler_{op}_count")
+        names.append(f"straggler_{op}_wait_ns")
     return names
 
 
@@ -154,7 +164,7 @@ def _trace_key(name: str) -> tuple[str, str]:
 
 def pvar_get_num() -> int:
     _check()
-    return len(_pvar_names())
+    return len(_pvar_names(refresh=True))
 
 
 def pvar_get_info(index: int) -> PvarInfo:
@@ -164,10 +174,27 @@ def pvar_get_info(index: int) -> PvarInfo:
         return PvarInfo(name, PVAR_CLASS_COUNTER,
                         f"native DCN transport counter {name[4:]} "
                         "(libtpudcn telemetry block)")
+    if name.startswith("faultsim_injected_"):
+        return PvarInfo(name, PVAR_CLASS_COUNTER,
+                        f"faults of kind {name[len('faultsim_injected_'):]}"
+                        " injected by the seeded fault plane")
     if name.startswith("metrics_size_"):
         op = name[len("metrics_size_"):-len("_hist")]
         return PvarInfo(name, PVAR_CLASS_AGGREGATE,
                         f"payload size histogram (log2 byte buckets) {op}")
+    if name.startswith("straggler_"):
+        if name.endswith("_wait_ns"):
+            op, what = name[len("straggler_"):-len("_wait_ns")], "wait_ns"
+        else:
+            op, what = name[len("straggler_"):-len("_count")], "count"
+        return PvarInfo(name, PVAR_CLASS_COUNTER,
+                        f"collective straggler profiler: {what} for {op} "
+                        "(in-op wall time)")
+    if name.startswith("trace_causal_"):
+        return PvarInfo(name, PVAR_CLASS_COUNTER,
+                        f"causal tracing {name[len('trace_causal_'):]} "
+                        "(per-collective causal records / wire-context "
+                        "edges; trace/causal.py)")
     if name.startswith("trace_"):
         if name.endswith("_hist"):
             layer, op = _trace_key(name)
@@ -181,7 +208,7 @@ def pvar_get_info(index: int) -> PvarInfo:
 def pvar_index(name: str) -> int:
     _check()
     try:
-        return _pvar_names().index(name)
+        return _pvar_names(refresh=True).index(name)
     except ValueError:
         raise MPIArgError(f"no pvar named {name}") from None
 
@@ -191,8 +218,16 @@ def pvar_read(index: int):
     name = _at(_pvar_names(), index, "pvar")
     if name.startswith("dcn_"):
         return metrics.native_value(name[4:])
+    if name.startswith("faultsim_injected_"):
+        return faultsim.injected(name[len("faultsim_injected_"):])
     if name.startswith("metrics_size_"):
         return metrics.size_histogram(name[len("metrics_size_"):-len("_hist")])
+    if name.startswith("straggler_"):
+        if name.endswith("_wait_ns"):
+            return straggler.op_wait_ns(name[len("straggler_"):-len("_wait_ns")])
+        return straggler.op_count(name[len("straggler_"):-len("_count")])
+    if name.startswith("trace_causal_"):
+        return causal.counter(name[len("trace_causal_"):])
     if name == "trace_events":
         return trace.event_count()
     if name == "trace_dropped":
@@ -211,7 +246,9 @@ def pvar_reset() -> None:
     _check()
     spc.reset()
     trace.zero_stats()
+    causal.zero_counters()
     metrics.zero_stats()
+    straggler.zero_stats()
 
 
 def pvar_reset_one(index: int) -> None:
@@ -226,6 +263,12 @@ def pvar_reset_one(index: int) -> None:
             "discard the recorded timeline (use ompi_tpu_torch.trace.reset())")
     if name == "trace_dropped":
         trace.reset_dropped()
+    elif name.startswith("trace_causal_"):
+        causal.reset_counter(name[len("trace_causal_"):])
+    elif name.startswith("faultsim_injected_"):
+        raise MPIArgError(
+            f"{name} is injection evidence for the active fault plan; "
+            "it resets with the plan (faultsim.configure), not per pvar")
     elif name.startswith("trace_span_"):
         layer, op = _trace_key(name)
         trace.reset_span_stat(layer, op.rsplit("_", 1)[0])
@@ -233,6 +276,11 @@ def pvar_reset_one(index: int) -> None:
         metrics.reset_native(name[4:])
     elif name.startswith("metrics_size_"):
         metrics.reset_op(name[len("metrics_size_"):-len("_hist")])
+    elif name.startswith("straggler_"):
+        # _count/_wait_ns are two views of ONE aggregate: reset together
+        straggler.reset_op(name[len("straggler_"):-len("_wait_ns")]
+                           if name.endswith("_wait_ns")
+                           else name[len("straggler_"):-len("_count")])
     else:
         spc.reset_one(name[len("spc_"):])
 

@@ -12,12 +12,15 @@ MPI_T's ``pvar_start`` do at any time.  Every counter is an MPI_T pvar
 Reset zeroes counters in place: a key once touched stays in
 :func:`snapshot`, so cached pvar handles keep naming the same variable.
 ``*_bytes`` increments also feed the metrics core's size histograms
-when metrics are on.  The reference's read-time merge of its C shim's
-counters has no counterpart until the port has a C ABI.
+when metrics are on.  The C collective fast path's per-op counts
+(``tpumpi_coll_spc``, exported by a C-ABI shim that hosts the process)
+merge in at read time; outside such a process the symbol probe fails
+once and the merge is a no-op (the port's own C ABI is not built yet).
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 from ompi_tpu_torch.metrics import core as _metrics
@@ -84,21 +87,65 @@ def inc(name: str, n: int = 1) -> None:
         _metrics.observe_size("spc_" + name[:-len("_bytes")], n)
 
 
+# -- C fast-path merge ---------------------------------------------------
+# A shim's C collective fast path never crosses Python, so its
+# MPI_Allreduce/Bcast/... calls cannot tick inc(): they accrue in a
+# C-side per-op array and merge here at READ time (zero hot-path cost).
+
+_NATIVE_SLOTS = ("barrier", "bcast", "reduce", "allreduce", "allgather")
+_native_fn = None
+_native_probed = False
+_native_base: dict[str, int] = {}
+
+
+def _native_counts() -> dict[str, int]:
+    global _native_fn, _native_probed
+    if not _native_probed:
+        _native_probed = True
+        try:
+            lib = ctypes.CDLL(None)
+            fn = lib.tpumpi_coll_spc
+            fn.argtypes = [ctypes.c_longlong * len(_NATIVE_SLOTS)]
+            fn.restype = None
+            _native_fn = fn
+        except (OSError, AttributeError, TypeError):
+            _native_fn = None
+    if _native_fn is None:
+        return {}
+    buf = (ctypes.c_longlong * len(_NATIVE_SLOTS))()
+    _native_fn(buf)
+    return {n: int(buf[i]) for i, n in enumerate(_NATIVE_SLOTS)}
+
+
 def get(name: str) -> int:
+    nat = 0
+    if name in _NATIVE_SLOTS:
+        nc = _native_counts()
+        if nc:
+            nat = max(0, nc[name] - _native_base.get(name, 0))
     with _lock:
-        return _counters.get(name, 0)
+        return _counters.get(name, 0) + nat
 
 
 def snapshot() -> dict[str, int]:
     with _lock:
-        return dict(_counters)
+        out = dict(_counters)
+    for n, v in _native_counts().items():
+        d = max(0, v - _native_base.get(n, 0))
+        if d or n in out:
+            out[n] = out.get(n, 0) + d
+    return out
 
 
 def reset() -> None:
-    """Zero every counter in place — touched keys stay visible."""
+    """Zero every counter in place — touched keys stay visible.  The
+    monotone C-side counts are re-baselined (the C side is never
+    written)."""
     with _lock:
         for k in _counters:
             _counters[k] = 0
+    for n, v in _native_counts().items():
+        _native_base[n] = v
 
 
 def reset_one(name: str) -> None:
@@ -106,6 +153,10 @@ def reset_one(name: str) -> None:
     with _lock:
         if name in _counters:
             _counters[name] = 0
+    if name in _NATIVE_SLOTS:
+        nc = _native_counts()
+        if nc:
+            _native_base[name] = nc[name]
 
 
 def clear() -> None:

@@ -1,10 +1,12 @@
 """Hang diagnosis — blocked-state introspection + the cross-rank
 wait-for graph ("mesh doctor").
 
-Port of ``ompi_tpu/trace/waitgraph.py``.  The port has no native plane
-and no causal tracer yet: :func:`register_native` is a no-op hook, a
-wait's op ``key`` is None, and snapshots hold the Python wait sites
-only.  The solver below is the reference's, unchanged.
+Port of ``ompi_tpu/trace/waitgraph.py``.  Snapshots hold the Python
+wait sites and the C engine's blocked waits (CTS grants, ring
+backpressure, parked coll slots), mirrored in through
+:func:`register_native` (``tdcn_waitinfo``); a wait's op ``key`` is the
+causal tracer's ``comm/op/seq`` when one is in flight.  The solver
+below is the reference's, unchanged.
 
 A collective that never completes leaves no span and no counter behind.
 This module records who was stuck on whom (≈ ORTE's ``mpirun
@@ -24,9 +26,10 @@ path.  Call shape::
         _waitgraph.end(wtok)
 
 Each entry carries the wait's *identity*: canonical site name, plane
-(``tcp``/``shm``/``host``), awaited peer (root proc index when
+(``tcp``/``shm``/``native``/``host``), awaited peer (root proc index when
 resolvable, else the composite address), the coll stream key
-``(cid, seq)``, the owning thread's name, and ``since_ns``.
+``(cid, seq)``, the causal op key (``causal.current_key()``), the
+owning thread's name, and ``since_ns``.
 :func:`snapshot` adds ``sys._current_frames()`` stacks tagged by
 thread name.
 
@@ -81,6 +84,10 @@ _STACK_DEPTH = 8
 _lock = threading.Lock()
 _waits: dict[int, dict] = {}
 _next_token = 0
+#: native wait-state providers (live engines): weakref → callable
+#: returning a list of entry dicts (tdcn_waitinfo rows) — the same
+#: weakref-anchored lifetime rules as metrics.core.register_provider
+_native_providers: list = []
 _counters = {"hang_snapshots": 0, "hang_reports": 0}
 
 
@@ -111,6 +118,7 @@ def reset() -> None:
     global _enabled, _next_token
     with _lock:
         _waits.clear()
+        _native_providers.clear()
         for k in _counters:
             _counters[k] = 0
         _next_token = 0
@@ -150,6 +158,8 @@ def begin(site: str, peer: int | None = None, addr: str | None = None,
     global _next_token
     if not _enabled:
         return 0
+    from ompi_tpu_torch.trace import causal as _causal
+
     ent = {
         "site": str(site),
         "plane": str(plane),
@@ -157,7 +167,7 @@ def begin(site: str, peer: int | None = None, addr: str | None = None,
         "addr": str(addr) if addr else None,
         "cid": str(cid) if cid is not None else None,
         "seq": int(seq) if seq is not None else None,
-        "key": None,
+        "key": _causal.current_key(),
         "thread": threading.current_thread().name,
         "since_ns": time.time_ns(),
     }
@@ -185,9 +195,15 @@ def busy() -> bool:
 
 
 def register_native(obj, fn) -> None:
-    """Hook for a native wait-state source (a live native engine's
-    wait-info reader).  The port has no native plane yet, so there is
-    nothing to mirror: a no-op until it arrives."""
+    """Register a native wait-state source (a live engine's
+    ``tdcn_waitinfo`` reader).  ``obj`` anchors the lifetime exactly
+    like metrics.core.register_provider."""
+    try:
+        wfn = weakref.WeakMethod(fn)
+    except TypeError:
+        wfn = (lambda f=fn: f)
+    with _lock:
+        _native_providers.append((weakref.ref(obj), wfn))
 
 
 #: address resolvers (live engines): ``fn(addr) -> root proc | None``
@@ -224,6 +240,37 @@ def _resolve_addr(addr: str):
     return None
 
 
+def _native_waits(now_ns: int) -> list[dict]:
+    with _lock:
+        live = list(_native_providers)
+    out: list[dict] = []
+    dead = False
+    for ref, wfn in live:
+        fn = wfn()
+        if ref() is None or fn is None:
+            dead = True
+            continue
+        try:
+            rows = fn() or ()
+        except Exception:  # engine torn down mid-read
+            continue
+        for r in rows:
+            ent = dict(r)
+            ent.setdefault("plane", "native")
+            # C reports monotonic age; anchor it on this wall clock
+            age = int(ent.pop("age_ns", 0))
+            ent.setdefault("since_ns", now_ns - max(0, age))
+            ent.setdefault("thread", "c-engine")
+            ent.setdefault("key", None)
+            out.append(ent)
+    if dead:
+        with _lock:
+            _native_providers[:] = [
+                (r, f) for r, f in _native_providers
+                if r() is not None and f() is not None]
+    return out
+
+
 def _stack_summary() -> dict[str, list[str]]:
     """``sys._current_frames()`` condensed: thread name → top frames
     (``file:line:function``), innermost last."""
@@ -238,12 +285,13 @@ def _stack_summary() -> dict[str, list[str]]:
 
 def snapshot(stacks: bool = True) -> dict:
     """One rank's blocked-state snapshot, on demand: every registered
-    wait, optionally the tagged thread stacks.  Bumps
-    ``hang_snapshots``."""
+    wait (Python sites + mirrored native state), optionally the tagged
+    thread stacks.  Bumps ``hang_snapshots``."""
     now = time.time_ns()
     with _lock:
         waits = [dict(e) for e in _waits.values()]
         _counters["hang_snapshots"] += 1
+    waits += _native_waits(now)
     for w in waits:
         if w.get("peer") is None and w.get("addr"):
             w["peer"] = _resolve_addr(w["addr"])

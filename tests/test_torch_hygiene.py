@@ -52,6 +52,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.dcn, ompi_tpu_torch.dcn.component, ompi_tpu_torch.ft\n"
         "import ompi_tpu_torch.ft.detector, ompi_tpu_torch.faultsim, ompi_tpu_torch.__main__\n"
         "import ompi_tpu_torch.trace.waitgraph, ompi_tpu_torch.core.threads\n"
+        "import ompi_tpu_torch.native, ompi_tpu_torch.dcn.native, ompi_tpu_torch.p2p.pml_native\n"
+        "import ompi_tpu_torch.osc.dcn, ompi_tpu_torch.trace.causal, ompi_tpu_torch.trace.merge\n"
+        "import ompi_tpu_torch.metrics.straggler, ompi_tpu_torch.examples.multiproc_smoke\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -145,3 +148,19 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              text=True, timeout=120)
         assert res.returncode != 0
         assert '"ok"' not in res.stdout
+
+
+def test_native_plane_loads_its_own_build():
+    """The port's ``libtpudcn.so`` is its own build of
+    ``ompi_tpu_torch/csrc/dcn.cc`` under ``build/ompi_tpu_torch/`` — the
+    one library of that name a port process maps (never ``native/build``)."""
+    code = (
+        "from ompi_tpu_torch.dcn import native\n"
+        "native.load_library()\n"
+        "maps = open('/proc/self/maps').read().split()\n"
+        "print(sorted({m for m in maps if m.endswith('libtpudcn.so')}))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == repr([str(REPO / "build" / "ompi_tpu_torch" / "libtpudcn.so")])

@@ -4,7 +4,9 @@
 The same SPMD worker body (``torch_mp_common.BODY``: every collective,
 the i- and persistent variants, the v-variants, split, dup,
 create_group, probe and p2p) runs under the port's launcher and under
-the reference's, on the same numpy inputs made from seed 20261016.
+the reference's, on the same numpy inputs made from seed 20261016, both
+on their default DCN engine, the native C plane (``btl/native``; p2p
+through the C matcher).
 
 * Reproducible vars on (port: ``coll_cuda_reproducible=1``, reference:
   ``coll_xla_reproducible=1``, both ``coll_han_reproducible=1``): the
@@ -34,6 +36,8 @@ def _job(tmp_path, pkg, nprocs, nranks, mca, tag):
     res = run_job(pkg, nprocs, nranks, script, [out], mca=mca)
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
     assert res.stdout.count("OK worker") == nprocs, res.stdout
+    # both launchers default to the native C plane
+    assert res.stdout.count("ENGINE NativeDcnEngine") == nprocs, res.stdout
     return load(out, nprocs)
 
 

@@ -33,16 +33,25 @@ def test_port_job_3x1_bitwise_equal_to_reference(tmp_path):
 
 @pytest.mark.parametrize("btl", ["tpc", "native"])
 def test_unknown_btl_aborts_the_job(tmp_path, btl):
-    """A mistyped include aborts at the btl open; so does ``native``,
-    which the port does not have yet (no silent fall back to bml)."""
+    """A mistyped include aborts at the btl open (no silent fall back to
+    bml).  ``native`` is a real component now; what aborts there is a
+    job whose processes meet on different planes: process 1 forces the
+    Python ``tcp`` while process 0 runs ``native``, and the modex names
+    the mismatch instead of letting the first collective hang."""
     script = tmp_path / "w.py"
-    script.write_text("import ompi_tpu_torch.api as api\n"
+    script.write_text("import os\n"
+                      "if os.environ['OMPI_TPU_PROC'] == '1':\n"
+                      "    os.environ['OMPI_MCA_btl'] = 'tcp'\n"
+                      "import ompi_tpu_torch.api as api\n"
                       "api.init(device='cpu')\n"
                       "print('initialized', flush=True)\n")
     res = run_job("port", 2, 1, script, mca={"btl": btl}, timeout=60)
     assert res.returncode != 0
     assert "initialized" not in res.stdout
-    assert f"--mca btl {btl}: no such component" in res.stdout, res.stdout[-3000:]
+    if btl == "native":
+        assert "DCN wire-plane mismatch" in res.stdout + res.stderr, res.stdout[-3000:]
+    else:
+        assert f"--mca btl {btl}: no such component" in res.stdout, res.stdout[-3000:]
 
 
 def test_sm_job_leaves_no_tracker_noise(tmp_path):

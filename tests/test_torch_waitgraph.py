@@ -100,8 +100,17 @@ def test_resolver_names_the_peer_and_disabled_gate_registers_nothing():
     tok = pwg.begin("cts", addr="x:1", plane="tcp")
     assert pwg.snapshot(stacks=False)["waits"][0]["peer"] == 5
     pwg.end(tok)
-    pwg.register_native(eng, lambda: [{"site": "ring"}])  # a no-op hook
-    assert pwg.snapshot(stacks=False)["waits"] == []
+    # a native wait-state source: its rows join the snapshot as the
+    # reference's do (plane "native", the C engine's thread, age → since)
+    row = {"site": "ring", "peer": 1, "age_ns": 5_000_000}
+    for wg in (pwg, rwg):
+        wg.register_native(eng, lambda: [dict(row)])
+    got = [wg.snapshot(stacks=False)["waits"] for wg in (pwg, rwg)]
+    for waits in got:
+        assert len(waits) == 1 and waits[0]["since_ns"] > 0
+        waits[0].pop("since_ns")
+    assert got[0] == got[1] == [{"site": "ring", "peer": 1, "plane": "native",
+                                 "thread": "c-engine", "key": None}]
     pwg.enable(False)
     assert pwg.begin("coll_recv", peer=1) == 0 and not pwg.busy()
 

@@ -5,7 +5,9 @@ it to a file with the package's prelude (imports, ``init``), so a job
 launched by the port's ``python -m ompi_tpu_torch run`` and one launched
 by the reference's ``python -m ompi_tpu run`` call the same collectives
 on the same numpy inputs (made from a seed).  Each process saves its
-results to ``<out>/<proc>.npz`` for the test to compare bit for bit.
+results to ``<out>/<proc>.npz`` for the test to compare bit for bit, and
+prints its DCN engine's class (both packages default to the native C
+plane, ``NativeDcnEngine``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ BODY = r'''
 out_dir = sys.argv[1]
 p, ln, n, lo = w.proc, w.local_size, w.size, w.local_offset
 assert w.coll.providers["allreduce"] == "han", w.coll.providers
+print(f"ENGINE {type(w.dcn).__name__}", flush=True)
 rng = np.random.default_rng(20261016)
 X = rng.standard_normal((n, 5))
 BIG = rng.standard_normal((n, 20000))      # 160 KB rows: above the ring threshold
