@@ -6,8 +6,9 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
-1. environment — build the ring-hop kernels from ``ompi_tpu_torch/csrc``
-   with nvcc and time the build; the card, torch and CUDA versions;
+1. environment — build the ring-hop kernels and the device-window
+   library from ``ompi_tpu_torch/csrc`` with nvcc (the two builds run
+   side by side) and time them; the card, torch and CUDA versions;
 2. kernels — ``ring_hop`` and ``ring_hop_fold`` against their plain torch
    twins, bit for bit, over every supported op × dtype, n ∈ {2, 3, 8},
    chunk lengths 1, odd, misaligned and aligned, with inputs spanning
@@ -65,7 +66,8 @@ exits non-zero:
 11. multiproc — ``python -m ompi_tpu_torch run -np 2 --nranks 4 --mca
     btl tcp`` of ``ompi_tpu_torch/examples/multiproc_smoke.py`` on the
     card (8 global ranks, han: the local leg on the card, one row over
-    the DCN, pinned to the Python ``btl/tcp``): an
+    the DCN, pinned to the Python ``btl/tcp`` host plane with the device
+    plane off): an
     ``iallreduce`` stream-ordering check; every collective on tensors
     bit-equal to the numpy call; osu_allreduce f32 SUM 8 B … 256 MiB
     per rank (p50 of the slower process's host clock, busbw over 8
@@ -86,10 +88,23 @@ exits non-zero:
     launches per process) and one call set with the causal tracer and
     the straggler profiler on (non-zero counts, a critical path); then
     the 64 MiB call in a job whose processes take distinct
-    ``TDCN_HOST_ID``s (the C engine's framed TCP leg, rendezvous).
-    Every worker must run ``NativeDcnEngine`` and none may print the
-    fallback line.  Output: ``chiprun_out/native.log`` and
-    ``chiprun_out/native_tcp_leg.log``.
+    ``TDCN_HOST_ID``s (the C engine's framed TCP leg, rendezvous; the
+    device plane off).  Every worker must run ``NativeDcnEngine`` and
+    none may print the fallback line.  Output: ``chiprun_out/native.log``
+    and ``chiprun_out/native_tcp_leg.log``;
+13. device_plane — the native job above runs with the DCN device plane
+    on (the default): han hands the DCN leg its row on the card and the
+    ring's chunks move between the processes through CUDA IPC windows
+    (``csrc/device_window.cu``).  A second job with ``--mca
+    dcn_device_enable 0`` runs the sweep, the PROD and the 64 MiB split
+    on the host plane.  The row holds the 64 MiB split with the plane
+    (local, DCN, fill, call) beside the host plane's (local, D2H, DCN,
+    H2D + broadcast, call), the sweep's p50s on both, each process's
+    device-plane counters, and the bit-equality of every swept size's
+    SUM and of the 64 MiB PROD between the two jobs (SHA-256 of rank 0's
+    result).  It fails unless ``device_sends > 0`` in both processes,
+    ``device_fallbacks == 0`` and every comparison is equal.  Output:
+    ``chiprun_out/native_plane_off.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
@@ -160,15 +175,23 @@ def bits(t):
 
 def phase_env(ck):
     import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ompi_tpu_torch import native
+    from ompi_tpu_torch.dcn import device
 
     t0 = time.perf_counter()
-    lib = ck.build()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, side by side
+        hop = pool.submit(ck.build)
+        window = pool.submit(native.build_cuda, device._CUDA_SRC)
+        lib, window_lib = hop.result(), window.result()[0]
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     regs = [ln.strip() for ln in ck.build_log.splitlines() if "registers" in ln]
     emit({"phase": "env", "build_s": build_s, "library": lib.name,
+          "window_library": window_lib.name,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability()),
@@ -1071,15 +1094,19 @@ def phase_io(smi):
 MP_PROCS, MP_RANKS = 2, 4
 
 
-def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float = 600):
+def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float = 600,
+            plane: bool = True):
     """One tpurun job of P processes × K ranks of the
-    ``multiproc_smoke.py`` worker: its output goes to
-    ``chiprun_out/<log_name>.log``; returns the workers' JSON rows by
-    kind and process, the wall time and the job's stderr."""
+    ``multiproc_smoke.py`` worker (``plane=False``: with the DCN device
+    plane off): its output goes to ``chiprun_out/<log_name>.log``;
+    returns the workers' JSON rows by kind and process, the wall time
+    and the job's stderr."""
     cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(MP_PROCS),
            "--nranks", str(MP_RANKS)]
     if btl:
         cmd += ["--mca", "btl", btl]
+    if not plane:
+        cmd += ["--mca", "dcn_device_enable", "0"]
     cmd += [str(REPO / "ompi_tpu_torch" / "examples" / "multiproc_smoke.py"), *worker_args]
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
@@ -1135,7 +1162,7 @@ def split_rows(by) -> list:
     procs, split = range(MP_PROCS), []
     for i, r0 in enumerate(by["split"][0]):
         row = {"bytes": r0["bytes"]}
-        for key in ("local_ms", "d2h_ms", "dcn_ms", "h2d_bcast_ms", "call_ms"):
+        for key in [k for k in r0 if k.endswith("_ms")]:
             vals = sorted(max(by["split"][p][i][key][j] for p in procs)
                           for j in range(len(r0[key])))
             row[key] = vals[len(vals) // 2]
@@ -1171,7 +1198,7 @@ def phase_multiproc(smi, ddp_losses):
     collected and checked (see its docstring for what each measures)."""
     import numpy as np
 
-    by, wall_s, _err = run_job("multiproc", [], btl="tcp")
+    by, wall_s, _err = run_job("multiproc", [], btl="tcp", plane=False)
     require(by, "multiproc", ("modules", "stream", "colls", "osu", "prod", "split", "p2p",
                               "ddp", "launches"))
     procs = range(MP_PROCS)
@@ -1218,9 +1245,12 @@ def phase_native(smi, tcp):
     build_s = time.perf_counter() - t0
     by, wall_s, err = run_job("native", ["--native"])
     require(by, "native", ("modules", "osu", "prod", "split", "p2p", "win", "causal",
-                           "engine", "launches"))
-    tby, twall_s, terr = run_job("native_tcp_leg", ["--only", "tcp-leg"])
+                           "engine", "device", "launches"))
+    tby, twall_s, terr = run_job("native_tcp_leg", ["--only", "tcp-leg"], plane=False)
     require(tby, "native_tcp_leg", ("modules", "split", "engine", "launches"))
+    oby, owall_s, oerr = run_job("native_plane_off", ["--only", "plane-off"], plane=False)
+    require(oby, "native_plane_off", ("modules", "osu", "prod", "split", "engine", "device",
+                                      "launches"))
     procs = range(MP_PROCS)
     sweep, split, p2p, prod = sweep_rows(by), split_rows(by), p2p_row(by), prod_row(by)
     win = [by["win"][p][0] for p in procs]
@@ -1238,7 +1268,7 @@ def phase_native(smi, tcp):
            "tcp_leg_wall_s": twall_s,
            "engines": sorted({f"{e['engine']}/{e['pml']}" for e in engines}),
            "engines_native": all(e["native"] for e in engines),
-           "fallback_printed": FALLBACK_LINE in err + terr,
+           "fallback_printed": FALLBACK_LINE in err + terr + oerr,
            "osu_allreduce": sweep,
            "vs_tcp_p50_ms": [[r["bytes"], r["p50_ms"], tcp_sweep[r["bytes"]]["p50_ms"]]
                              for r in sweep if r["bytes"] in tcp_sweep],
@@ -1258,6 +1288,7 @@ def phase_native(smi, tcp):
                                         for m in b["modules"][p][0]["forbidden"]}),
            "launches": launches}
     emit(row)
+    plane = device_plane_row(smi, by, oby, owall_s)
     c = causal["counters"]
     if not (all(r["ok"] for r in sweep) and row["engines_native"] and not row["fallback_printed"]
             and prod["launches_ok"] and prod["bitwise_vs_plain"] and prod["bitwise_vs_numpy"]
@@ -1272,6 +1303,36 @@ def phase_native(smi, tcp):
             and all(m["rndv_msgs"] > 0 for m in tcp_leg["moved"])
             and not row["forbidden_modules"] and min(launches.values()) > 0):
         raise SystemExit(f"native checks failed: {row}")
+    if not plane["ok"]:
+        raise SystemExit(f"device_plane checks failed: {plane}")
+    return row
+
+
+def device_plane_row(smi, on, off, off_wall_s) -> dict:
+    """The native job (plane on) against the plane-off job: the 64 MiB
+    split of each, the sweep's p50s, each process's device-plane
+    counters, and the bit-equality of their results."""
+    procs = range(MP_PROCS)
+    on_split, off_split = split_rows(on)[-1], split_rows(off)[-1]
+    off_sweep = {r["bytes"]: r["p50_ms"] for r in sweep_rows(off)}
+    counters = [on["device"][p][0] for p in procs]
+    sums = [[on["osu"][0][i]["bytes"], on["osu"][0][i]["digest"] == off["osu"][0][i]["digest"]]
+            for i in range(len(on["osu"][0]))]
+    prod_equal = on["prod"][0][0]["digest"] == off["prod"][0][0]["digest"]
+    row = {"phase": "device_plane", "nvidia_smi": smi, "btl": "native",
+           "procs": MP_PROCS, "ranks_per_proc": MP_RANKS, "plane_off_wall_s": off_wall_s,
+           "split_64MiB_plane_on_ms": on_split, "split_64MiB_plane_off_ms": off_split,
+           "osu_p50_ms": [[r["bytes"], r["p50_ms"], off_sweep.get(r["bytes"])]
+                          for r in sweep_rows(on)],
+           "counters": [c["stats"] for c in counters],
+           "plane_off_armed": any(off["device"][p][0]["armed"] for p in procs),
+           "bitwise": {"sum_f32": sums, "prod_64MiB_cuda_ring": prod_equal}}
+    row["ok"] = (all(c["armed"] and c["stats"]["device_sends"] > 0
+                     and c["stats"]["device_fallbacks"] == 0 for c in counters)
+                 and not row["plane_off_armed"] and on_split.get("fill_ms") is not None
+                 and all(eq for _b, eq in sums) and prod_equal
+                 and len(sums) == len(off["osu"][0]))
+    emit(row)
     return row
 
 

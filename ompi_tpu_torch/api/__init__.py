@@ -90,10 +90,39 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     from ompi_tpu_torch.metrics import flight
 
     flight.set_proc(int(getattr(_world, "proc", 0)))
+    # crash-path export: a process that dies or aborts without reaching
+    # finalize still flushes its configured metrics/trace outputs
+    # (marked partial) — atexit covers aborts; the transports'
+    # escalation paths call export.crash_dump directly
+    _register_crash_flush()
     output.verbose(1, "runtime", "MPI_Init complete: world size %d on %s",
                    _world.size, wm.device)
     hooks.fire("mpi_init_bottom", world=_world)
     return _world
+
+
+_crash_flush_registered = False
+
+
+def _register_crash_flush() -> None:
+    """Register the atexit telemetry flush once per interpreter: a
+    process that exits while still initialized (``sys.exit`` mid-job,
+    an unhandled error) writes its configured metrics/trace outputs
+    with ``partial: true``.  After a clean finalize the hook does
+    nothing."""
+    global _crash_flush_registered
+    if _crash_flush_registered:
+        return
+    _crash_flush_registered = True
+    import atexit
+
+    def _flush():
+        if _world is not None:
+            from ompi_tpu_torch.metrics import export
+
+            export.crash_dump("atexit")
+
+    atexit.register(_flush)
 
 
 def initialized() -> bool:
@@ -161,5 +190,10 @@ def finalize() -> None:
     if _self_comm is not None:
         _self_comm.free()
         _self_comm = None
+    # the clean exports are written: re-arm the crash-path latch so a
+    # later init/death cycle can flush again
+    from ompi_tpu_torch.metrics import export
+
+    export.reset_crash_latch()
     mca.reset()
     hooks.fire("mpi_finalize_bottom")

@@ -11,7 +11,12 @@ the job on first failure (errmgr default).  Here:
 * ``--mca`` params propagated via ``OMPI_MCA_*`` env
   (≈ mca_base_var_build_env);
 * stdio forwarding with ``[rank]`` prefixes (≈ iof);
-* first nonzero exit → terminate the job, propagate the code.
+* first nonzero exit → terminate the job, propagate the code;
+* at the end of the job, the shared-memory names that dead workers left
+  behind (the C engine's rings and doorbells, the Python sm rings, the
+  device plane's windows: each carries its creator's pid) are unlinked —
+  a worker killed by the launcher or a signal never runs its own
+  cleanup.
 
 Usage::
 
@@ -207,6 +212,8 @@ def run_job(
     threads: list[threading.Thread] = []
     #: per-rank (cmd, env, target host) for the --respawn restart leg
     launch_specs: list[tuple[list[str], dict[str, str], str | None]] = []
+    #: every worker pid this job started (respawns included)
+    spawned: list[int] = []
 
     def spawn_rank(rank: int, cmd: list[str], env: dict,
                    target: str | None) -> subprocess.Popen:
@@ -224,6 +231,7 @@ def run_job(
         )
         t.start()
         threads.append(t)
+        spawned.append(p.pid)
         return p
     # rsh leg marker: ranks mapped onto remote hosts switch every
     # await-respawn deadline to ft_remote_respawn_timeout (a remote
@@ -305,7 +313,36 @@ def run_job(
         for p in procs:
             if p.poll() is None:
                 p.kill()
+        for p in procs:
+            p.wait()
+        _unlink_leftovers(spawned)
         server.close()
+
+
+#: shared-memory name prefixes that carry their creator's pid: the C
+#: engine's rings (``tdcn-<pid>-``) and doorbells (``tdcn-db-<pid>-``),
+#: the Python sm rings (``ompitpu-<pid>-``), the device windows
+#: (``tpudev-<pid>-``)
+_SHM_PREFIXES = ("tdcn-{}-", "tdcn-db-{}-", "ompitpu-{}-", "tpudev-{}-")
+
+
+def _unlink_leftovers(pids, shm_dir: str = "/dev/shm") -> list[str]:
+    """Unlink the shared-memory names the job's (now dead) workers left;
+    returns what was removed.  A clean finalize leaves none."""
+    try:
+        names = os.listdir(shm_dir)
+    except OSError:
+        return []
+    prefixes = tuple(fmt.format(pid) for pid in pids for fmt in _SHM_PREFIXES)
+    gone = []
+    for name in names:
+        if prefixes and name.startswith(prefixes):
+            try:
+                os.unlink(os.path.join(shm_dir, name))
+                gone.append(name)
+            except OSError:
+                pass
+    return gone
 
 
 def main(argv: list[str] | None = None) -> int:

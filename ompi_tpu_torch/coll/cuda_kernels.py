@@ -46,10 +46,6 @@ The library is compiled with ``nvcc`` at first use into
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
@@ -68,9 +64,6 @@ __all__ = [
 ]
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "ring_hop.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ompi_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper: each wrapper adds one where it launches
 #: its kernel, and nowhere else
@@ -127,31 +120,17 @@ def fold_supported(op: Op, dtype: torch.dtype) -> bool:
 # -- build and load -------------------------------------------------------
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise KernelUnavailable("nvcc not found (looked on PATH and in /usr/local/cuda/bin)")
-
-
 def build() -> Path:
     """Compile ``csrc/ring_hop.cu`` (once per source content) and return
     the shared library's path."""
     global build_log
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libring_hop-{tag}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelUnavailable(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    build_log = res.stderr
-    os.replace(tmp, out)
+    from ompi_tpu_torch import native
+
+    try:
+        out, log = native.build_cuda(_SRC)
+    except native.NativeBuildError as e:
+        raise KernelUnavailable(str(e)) from e
+    build_log = log or build_log
     return out
 
 

@@ -14,12 +14,17 @@ the local comm's device, as :class:`~ompi_tpu_torch.api.comm.Comm`
 does, and moves to the host only what the DCN must carry:
 
 * allreduce: local allreduce on the card (``comm.local.allreduce`` —
-  tuned → cuda_ring → the ring-hop kernels) → ``local[0]`` to the host
-  (one D2H that synchronizes) → DCN allreduce (the process-ordered
-  fold, or the ring above ``btl_tcp_ring_threshold``) → one H2D →
-  ``expand(...).clone()`` fills the K local rows on the card;
-* bcast: the root process sends the root row; every process fills its
-  rows from the one row it receives;
+  tuned → cuda_ring → the ring-hop kernels) → DCN allreduce (the
+  process-ordered fold, or the ring above ``btl_tcp_ring_threshold``)
+  → ``expand(...).clone()`` fills the K local rows on the card.  When
+  the DCN engine's device plane is armed (the default), the DCN leg
+  gets ``local[0]`` itself: its chunks ride CUDA IPC windows card to
+  card and fold there with the op's torch kernel, so the row never
+  crosses host memory.  Otherwise ``local[0]`` goes to the host (one
+  D2H that synchronizes) and the result comes back with one H2D;
+* bcast: the root process sends the root row (the tensor itself when
+  the plane is armed); every process fills its rows from the one row
+  it receives;
 * allgather / alltoall / gather / scatter: each process sends its
   slice (or the root its per-process blocks);
 * reduce / gather return ``None`` off the root's process (MPI: the
@@ -47,6 +52,8 @@ import torch
 
 from ompi_tpu_torch.core.errors import MPIArgError
 from ompi_tpu_torch.core.registry import Component, register_component
+from ompi_tpu_torch.dcn.device import as_tensor
+from ompi_tpu_torch.dcn.device import host_array as to_host
 from ompi_tpu_torch.dcn.tcp import BF16_HOST, BF16_WIRE
 from ompi_tpu_torch.ddt.datatype import numpy_dtype
 from ompi_tpu_torch.op.op import Op
@@ -57,15 +64,6 @@ from .module import COLL_OPS, CollModule
 
 def _host_dtype(dtype: torch.dtype) -> np.dtype:
     return BF16_HOST if dtype == torch.bfloat16 else numpy_dtype(dtype)
-
-
-def to_host(t: torch.Tensor) -> np.ndarray:
-    """A tensor's bytes as the numpy payload the DCN carries (a D2H copy
-    that synchronizes for a CUDA tensor); bfloat16 as its raw words."""
-    t = t.detach().contiguous().cpu()
-    if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(BF16_HOST)
-    return t.numpy()
 
 
 def to_device(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
@@ -183,9 +181,18 @@ class HanCollModule(CollModule):
     def _cid(self, _cid):
         return self.comm.cid if _cid is None else _cid
 
-    def _fill(self, row: np.ndarray, t: torch.Tensor) -> torch.Tensor:
-        """One DCN row → every local rank's row of a tensor like ``t``."""
-        return to_device(row, t.dtype, t.device).reshape(t.shape[1:]).expand(t.shape).clone()
+    def _fill(self, row, t: torch.Tensor) -> torch.Tensor:
+        """One DCN row (an array, or a tensor off the device plane) →
+        every local rank's row of a tensor like ``t``."""
+        return as_tensor(row, t[0]).expand(t.shape).clone()
+
+    def _rows_on_plane(self, op: Op | None = None) -> bool:
+        """Whether the DCN leg takes the row as a tensor: the root
+        engine's device plane is armed, and ``op`` (if any) has a torch
+        kernel to fold with on the row's device."""
+        if getattr(self.comm.dcn._root_engine(), "_device_plane", None) is None:
+            return False
+        return op is None or (op.torch_fn is not None and not op.is_loc)
 
     # -- single-rank local comms skip the local op entirely -------------
     # (ln == 1 makes every intra-process collective an identity)
@@ -220,8 +227,12 @@ class HanCollModule(CollModule):
         comm = self.comm
         t, host = self._stage(x)
         local = self._local_allreduce(t, op)
-        combined = comm.dcn.allreduce(to_host(local[0]), host_op(op, t.dtype),
-                                      self._cid(_cid), ordered=self._ordered())
+        if self._rows_on_plane(op):
+            row, dcn_op = local[0].contiguous(), op
+        else:
+            row, dcn_op = to_host(local[0]), host_op(op, t.dtype)
+        combined = comm.dcn.allreduce(row, dcn_op, self._cid(_cid),
+                                      ordered=self._ordered())
         return self._unstage(self._fill(combined, t), host)
 
     def reduce(self, x, op: Op, root: int = 0, _cid=None):
@@ -284,7 +295,10 @@ class HanCollModule(CollModule):
         comm = self.comm
         t, host = self._stage(x)
         root_proc, root_local = comm.locate(root)
-        if comm.proc == root_proc:
+        if self._rows_on_plane():
+            # off the root, t[0] is only the template of the row received
+            row = t[root_local if comm.proc == root_proc else 0].contiguous()
+        elif comm.proc == root_proc:
             row = to_host(t[root_local])
         else:
             row = np.zeros(t.shape[1:], _host_dtype(t.dtype))

@@ -6,10 +6,11 @@ Same store, same precedence, same enum handling as the JAX package::
     param files  >  default
 
 Of the reference's centrally registered variables, the port keeps the
-ones it reads: ``dcn_device_interpret`` (the kernel-leg override read by
+ones it reads: ``DEVICE_VARS`` (the device plane's switch and threshold,
+and ``dcn_device_interpret``, the kernel-leg override read by
 ``coll/cuda_kernels.mode``), the ``trace_*``/``metrics_*`` rows of
 ``OBSERVABILITY_VARS`` with ``hang_diag_enable``, the DCN deadlines and
-the ``ft_*``/``faultsim_*`` knobs of ``ROBUSTNESS_VARS``, and
+the ``ft_*``/``faultsim_*``/``dcn_plane_*`` knobs of ``ROBUSTNESS_VARS``, and
 ``SCHEDULE_VARS``, registered on every store at construction so that
 they show in the MPI_T cvar listing before init.  :func:`dcn_timeout`
 and :class:`Deadline` are the one deadline policy every blocking DCN
@@ -269,15 +270,33 @@ class VarStore:
         return sorted(self._vars.values(), key=lambda v: v.full_name)
 
 
+#: (framework, component, name, default, type, help) — the reference's
+#: device-plane rows (dcn/device.py), same names, defaults and types
+DEVICE_VARS = (
+    ("dcn", "device", "enable", True, "bool",
+     "Arm the device-resident zero-copy DCN plane: payloads at or "
+     "above dcn_device_min_size that are contiguous move through "
+     "per-transfer device windows (CUDA IPC memory for CUDA tensors; "
+     "a shared-memory window for host arrays and CPU tensors) while "
+     "the host plane carries only the descriptor control frames.  "
+     "Off: every byte keeps the host shm/tcp rings"),
+    ("dcn", "device", "min_size", 1 << 20, "int",
+     "Smallest payload (bytes) the plane arbitration routes onto the "
+     "device plane (below it the host ring's lower setup cost wins; at "
+     "or above it the zero-copy window wins).  Non-contiguous or "
+     "object-dtype payloads stay on the host plane at every size"),
+    ("dcn", "device", "interpret", False, "bool",
+     "Force the ring-hop kernels' plain torch bodies (the interpret "
+     "rung) even for CUDA tensors; default off: the hand-written CUDA "
+     "kernels for CUDA tensors, the row-permutation emulation for CPU "
+     "tensors"),
+)
+
+
 def register_device_vars(store: VarStore) -> None:
-    """Register the centrally owned device-plane knob this slice reads
-    (same name and default as the reference's ``dcn_device_interpret``)."""
-    store.register(
-        "dcn", "device", "interpret", False, type="bool",
-        help="Force the ring-hop kernels' plain torch bodies (the interpret "
-        "rung) even for CUDA tensors; default off: the hand-written CUDA "
-        "kernels for CUDA tensors, the row-permutation emulation for CPU "
-        "tensors")
+    """Register the device-plane knobs on a store (idempotent)."""
+    for fw, comp, name, default, typ, help_ in DEVICE_VARS:
+        store.register(fw, comp, name, default, type=typ, help=help_)
 
 
 #: (framework, component, name, default, type, help) — the reference's
@@ -328,8 +347,8 @@ def register_observability_vars(store: VarStore) -> None:
 
 
 #: (framework, component, name, default, type, help) — the reference's
-#: DCN deadline family and fault knobs, same names, defaults and types
-#: (its dcn_plane_* rows belong to the device plane, not ported)
+#: DCN deadline family, fault knobs and device-plane health knobs, same
+#: names, defaults and types
 ROBUSTNESS_VARS = (
     ("dcn", "", "cts_timeout", 600.0, "float",
      "Seconds a rendezvous sender waits for the peer's CTS grant "
@@ -383,7 +402,23 @@ ROBUSTNESS_VARS = (
      "comma-separated <kind>[:k=v[;k=v]] rules (kinds: drop delay dup "
      "trunc connkill stall ringfail dialfail daemonkill; 'proc=N' "
      "restricts a rule to one rank, e.g. 'delay:ms=30;site=recv;proc=1' "
-     "slows only rank 1)"),
+     "slows only rank 1; 'site=device'/'site=device_recv' target the "
+     "device-window stage / materialize paths for plane-failover "
+     "drills)"),
+    ("dcn", "", "plane_strikes", 3, "int",
+     "Consecutive per-(peer, plane) failures (deadline escalation, "
+     "injected device fault, failed stage) before the plane-health "
+     "table demotes that peer's traffic off the plane — device-window "
+     "sends degrade to the host ring/TCP plane while demoted.  One "
+     "success resets the strike count (the btl exclude-and-reroute "
+     "rule, made per-peer)"),
+    ("dcn", "", "plane_heal_interval", 5.0, "float",
+     "Seconds after a demotion before the arbitration layer routes "
+     "ONE eligible send back through the demoted plane as a heal "
+     "probe: a consumed probe window re-promotes the (peer, plane) "
+     "pair, a failed one re-arms the interval.  <= 0 disables heal "
+     "probes (a demotion then sticks until replace()/respawn clears "
+     "the health marks)"),
 )
 
 

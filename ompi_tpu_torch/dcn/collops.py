@@ -19,11 +19,22 @@ same requirement MPI imposes) guarantees frames pair up.
 
 Port of ``ompi_tpu/dcn/collops.py`` with the same fold orders — the
 process-ordered fold and the ring above ``ring_threshold`` — so the
-DCN leg of the two packages agrees bit for bit.  The reference's
-device-resident plane (descriptor frames for large same-host payloads)
-is not ported: ``_device_plane`` is None and every byte moves over the
-selected transport.  With ``trace_causal`` on, coll frames carry the
-causal wire context (``tc``) exactly as the reference's do.
+DCN leg of the two packages agrees bit for bit.  The device plane
+(:mod:`.device`) is armed at creation, as the reference's is: a large
+contiguous payload rides a window and the transport carries only its
+descriptor.  With ``trace_causal`` on, coll frames carry the causal wire
+context (``tc``) exactly as the reference's do.
+
+``allreduce`` and ``bcast`` also take a tensor (han hands them its
+row on the card when the plane is armed).  The schedule is the same:
+the chunk bounds of ``np.array_split``, the same fold order, with the
+op's ``torch_fn`` on the accumulator's device in place of its
+``np_fn`` — for the ops and dtypes whose torch and numpy kernels agree
+bit for bit (``tests/test_torch_op.py``), the bits are the numpy fold's.  A chunk
+that arbitration keeps on the host plane goes D2H at its send and to
+the accumulator's device at its receive; a chunk on a CUDA window stays
+on the card, and the allgather phase's posted chunk is the destination
+of the receiver's window copy.
 """
 
 from __future__ import annotations
@@ -34,9 +45,12 @@ import time
 from typing import Callable, Sequence
 
 import numpy as np
+import torch
 
 from ompi_tpu_torch.op.op import Op
 from ompi_tpu_torch.trace import causal as _causal
+
+from . import device as _device
 from ompi_tpu_torch.trace import waitgraph as _waitgraph
 from . import tcp as tcp_mod
 from .tcp import TcpTransport
@@ -147,8 +161,11 @@ class DcnCollEngine:
         # to its proc and marks it failed before the transport raises
         # MPIProcFailedError
         self.transport.on_peer_failed = self._transport_peer_failed
-        #: the reference's device-resident zero-copy plane; not ported
-        self._device_plane = None
+        # the device-resident zero-copy plane (dcn/device.py): large
+        # contiguous payloads move through device windows while this
+        # transport carries only their descriptor control frames; None
+        # when disabled/unsupported — one attribute test per send
+        self._device_plane = _device.maybe_create(proc, nprocs)
         # the transports' handshake clock samples, mapped to procs —
         # the cross-rank merge's skew correction (metrics snapshots
         # carry the merged view)
@@ -228,8 +245,13 @@ class DcnCollEngine:
 
     def note_proc_failed(self, proc: int) -> None:
         """Mark a ROOT-engine proc index dead: pending and future
-        ``_recv`` calls naming it raise instead of timing out."""
+        ``_recv`` calls naming it raise instead of timing out.  Device
+        windows staged toward the corpse are reclaimed here — the dead
+        receiver can never signal consumed."""
         self._failed_procs.add(proc)
+        dp = getattr(self, "_device_plane", None)
+        if dp is not None:
+            dp.reclaim_failed(proc)
 
     def note_proc_recovered(self, proc: int,
                             incarnation: int | None = None) -> None:
@@ -244,6 +266,9 @@ class DcnCollEngine:
         det = self._detector
         if det is not None:
             det.clear_failed(proc, incarnation=incarnation)
+        dp = getattr(self, "_device_plane", None)
+        if dp is not None:
+            dp.clear_failed(proc)
         self._bump_stat("respawns")
 
     def note_proc_healed(self, proc: int) -> None:
@@ -252,6 +277,9 @@ class DcnCollEngine:
         respawn accounting (nothing was respawned; the mark was
         wrong)."""
         self._failed_procs.discard(proc)
+        dp = getattr(self, "_device_plane", None)
+        if dp is not None:
+            dp.clear_failed(proc)
 
     def coll_revoke(self, cid) -> None:
         """Revoke fan-out into an engine-resident collective fast path
@@ -347,10 +375,15 @@ class DcnCollEngine:
         in the error; ``root_proc`` the detector-space index to mark
         (resolved via root_proc_of(failed_rank) when omitted)."""
         from ompi_tpu_torch.core.errors import MPIProcFailedError
+        from ompi_tpu_torch.metrics import export as _mexport
         from ompi_tpu_torch.metrics import flight as _flight
 
         _flight.record("deadline_expired", site=site,
                        timeout_s=float(timeout), **detail)
+        # crash-path export: a deadline escalation often precedes the
+        # process aborting — flush configured telemetry now (once-latch),
+        # marked partial; a later clean finalize overwrites it
+        _mexport.crash_dump(f"deadline_{site}")
         root = self._root_engine()
         tr = root.transport
         st = getattr(tr, "stats", None)
@@ -460,6 +493,16 @@ class DcnCollEngine:
             return
         if env.get("kind") == "p2p":
             cid = env.get("cid")
+            desc = env.pop("dev", None)
+            if desc is not None:
+                # device-plane p2p: the frame carried only the window
+                # descriptor — materialize before matching (the recv-
+                # semaphore wait runs on the delivery thread, bounded by
+                # the shared recv deadline)
+                src = env.get("src")
+                payload = _device.materialize(
+                    self._root_engine(), desc,
+                    src_root=(int(src) if src is not None else None))
             with self._p2p_lock:
                 fn = self._p2p_handlers.get(cid)
                 if fn is not None:
@@ -485,7 +528,18 @@ class DcnCollEngine:
             tc = _causal.note_send(self.root_proc_of(dst))
             if tc is not None:
                 env["tc"] = tc
-        self.transport.send(self.addresses[dst], env, payload)
+        # plane arbitration (size / layout / reachability): a large
+        # contiguous payload rides a device window and the host plane
+        # carries only its descriptor — the RTS of the DMA protocol
+        desc = _device.try_stage(self._root_engine(), payload,
+                                 self.root_proc_of(dst))
+        if desc is not None:
+            env[_device.DESC_KEY] = desc
+            self.transport.send(self.addresses[dst], env,
+                                np.zeros(0, np.uint8))
+            return
+        self.transport.send(self.addresses[dst], env,
+                            _device.host_array(payload))
 
     def _recv(self, src: int, cid: int, seq: int,
               timeout: float | None = None, into=None) -> np.ndarray:
@@ -493,12 +547,13 @@ class DcnCollEngine:
 
     def _recv_full(self, src: int, cid: int, seq: int,
                    timeout: float | None = None, into=None):
-        """``into``: optional destination ndarray — posted on the
+        """``into``: optional destination — an ndarray posted on the
         transport (recv_into-style delivery) so a matching inbound
-        payload lands straight in it; the caller detects placement by
-        identity (the returned payload IS ``into``) and skips its
-        copy.  Best-effort: a frame that raced ahead of the posting
-        simply delivers the copy-path array."""
+        payload lands straight in it, or a tensor, which only a device
+        window lands in; the caller detects placement by identity (the
+        returned payload IS ``into``) and skips its copy.  Best-effort:
+        a frame that raced ahead of the posting simply delivers the
+        copy-path array."""
         from ompi_tpu_torch.core.var import Deadline, dcn_timeout
 
         if timeout is None:
@@ -506,7 +561,7 @@ class DcnCollEngine:
         tw0 = time.perf_counter_ns() if _causal._enabled else 0
         key = (cid, seq, src)
         posted = None
-        if into is not None:
+        if isinstance(into, np.ndarray):
             post = getattr(self.transport, "post_recv_into", None)
             if post is not None:
                 post(cid, seq, src, into)
@@ -559,7 +614,18 @@ class DcnCollEngine:
                 # withdraw an unconsumed posting (frame raced ahead of
                 # the registration, or this wait errored out)
                 self.transport.discard_posted(cid, seq, src)
-        env, _payload = got
+        env, payload = got
+        desc = env.pop("dev", None)
+        if desc is not None:
+            # device-plane delivery: the frame was only the window
+            # descriptor — run the recv-semaphore wait and materialize
+            # (straight into the posted buffer when one matches)
+            rp = self.root_proc_of(src)
+            payload = _device.materialize(self._root_engine(), desc,
+                                          into=into,
+                                          src_root=(rp if rp >= 0
+                                                    else None))
+            got = (env, payload)
         # "tc" is a reserved envelope key: popped whether or not THIS
         # rank records (a causal-enabled peer's frame must never leak
         # a foreign field to envelope consumers — the native plane's
@@ -567,7 +633,7 @@ class DcnCollEngine:
         tc = env.pop("tc", None)
         if tw0:
             # causal edge head: the frame's wire context + this recv's
-            # measured wait
+            # measured wait (device materialization included)
             _causal.note_recv(self.root_proc_of(src), tc,
                               time.perf_counter_ns() - tw0)
         self._note_peer_activity(src)
@@ -604,6 +670,13 @@ class DcnCollEngine:
     def send_p2p(self, dst_proc: int, envelope: dict, payload: np.ndarray) -> None:
         envelope = dict(envelope)
         envelope["kind"] = "p2p"
+        desc = _device.try_stage(self._root_engine(), payload,
+                                 self.root_proc_of(dst_proc))
+        if desc is not None:
+            envelope[_device.DESC_KEY] = desc
+            self.transport.send(self.addresses[dst_proc], envelope,
+                                np.zeros(0, np.uint8))
+            return
         self.transport.send(self.addresses[dst_proc], envelope, payload)
 
     def local_proc_of(self, root_proc: int):
@@ -623,38 +696,55 @@ class DcnCollEngine:
         ops take the bandwidth-optimal ring reduce-scatter + ring
         allgather schedule (2·N·(P−1)/P wire bytes per process instead
         of the root's O(P·N) ingress — ≈ coll_base_allreduce_intra_ring,
-        SURVEY.md §2.2, now on the DCN level per VERDICT r1 weak #4)."""
+        SURVEY.md §2.2, now on the DCN level per VERDICT r1 weak #4).
+
+        A tensor ``x`` folds with ``op.torch_fn`` on its own device and
+        comes back as a tensor there (see the module docstring) — except
+        a CUDA tensor whose messages are all below the device plane's
+        threshold: they would each cross host memory anyway, so it moves
+        to the host once and folds there, and comes back on the CPU."""
+        tensor = isinstance(x, torch.Tensor)
         if self.nprocs == 1:
-            return np.asarray(x)
-        x = np.asarray(x)
-        if (
-            not ordered
-            and getattr(op, "commutative", False)
-            and x.nbytes >= self.ring_threshold
-        ):
+            return x if tensor else np.asarray(x)
+        x = x if tensor else np.asarray(x)
+        nbytes = x.numel() * x.element_size() if tensor else x.nbytes
+        ring = (not ordered and getattr(op, "commutative", False)
+                and nbytes >= self.ring_threshold)
+        if tensor and x.is_cuda:
+            dp = self._root_engine()._device_plane
+            if dp is None or (nbytes // self.nprocs if ring else nbytes) < dp.min_size:
+                x = x.cpu()
+        if ring:
             return self._allreduce_ring(x, op, cid)
         seq_gather = self._next_seq(cid)
         seq_bcast = self._next_seq(cid)
         if self.proc == 0:
             acc = x
             for p in range(1, self.nprocs):
-                acc = op.np_fn(acc, self._recv(p, cid, seq_gather))
+                got = self._recv(p, cid, seq_gather)
+                acc = (op.torch_fn(acc, _device.as_tensor(got, x)) if tensor
+                       else op.np_fn(acc, got))
             for p in range(1, self.nprocs):
                 self._send(p, cid, seq_bcast, acc)
-            return np.asarray(acc)
+            return acc if tensor else np.asarray(acc)
         self._send(0, cid, seq_gather, x)
-        return self._recv(0, cid, seq_bcast)
+        got = self._recv(0, cid, seq_bcast)
+        return _device.as_tensor(got, x) if tensor else got
 
     def _allreduce_ring(self, x: np.ndarray, op: Op, cid: int) -> np.ndarray:
         """Ring allreduce: P−1 reduce-scatter steps + P−1 allgather
         steps over the process ring, each moving one ~N/P chunk to the
         right neighbor.  Commutative ops only (the per-chunk fold order
-        walks the ring, not rank order)."""
+        walks the ring, not rank order).  A tensor accumulates on its
+        own device, folding with ``op.torch_fn``."""
         P, me = self.nprocs, self.proc
-        flat = np.ascontiguousarray(x).reshape(-1)
-        acc = flat.copy()
+        tensor = isinstance(x, torch.Tensor)
+        if tensor:
+            acc = x.detach().reshape(-1).clone()
+        else:
+            acc = np.ascontiguousarray(x).reshape(-1).copy()
         # chunk boundaries (np.array_split semantics: sizes differ by ≤1)
-        base, extra = divmod(flat.size, P)
+        base, extra = divmod(acc.shape[0], P)
         bounds = [0]
         for i in range(P):
             bounds.append(bounds[-1] + base + (1 if i < extra else 0))
@@ -670,22 +760,32 @@ class DcnCollEngine:
             recv_i = (me - s - 1) % P
             self._send(right, cid, seqs[s], acc[chunk(send_i)])
             got = self._recv(left, cid, seqs[s])
-            np.copyto(acc[chunk(recv_i)], op.np_fn(got, acc[chunk(recv_i)]))
+            dst = acc[chunk(recv_i)]
+            if tensor:
+                dst.copy_(op.torch_fn(_device.as_tensor(got, dst), dst))
+            else:
+                np.copyto(dst, op.np_fn(got, dst))
         for s in range(P - 1):
             seq = seqs[P - 1 + s]
             send_i = (me + 1 - s) % P
             recv_i = (me - s) % P
             self._send(right, cid, seq, acc[chunk(send_i)])
             # allgather phase: post the destination chunk itself —
-            # recv_into-style delivery lands the neighbor's bytes
-            # straight in `acc` (identity confirms; else copy)
+            # recv_into-style delivery (or a device window's copy) lands
+            # the neighbor's bytes straight in `acc` (identity confirms;
+            # else copy)
             dst = acc[chunk(recv_i)]
             got = self._recv(left, cid, seq, into=dst)
             if got is not dst:
-                np.copyto(dst, got)
+                if tensor:
+                    dst.copy_(_device.as_tensor(got, dst))
+                else:
+                    np.copyto(dst, got)
         return acc.reshape(x.shape)
 
     def bcast(self, x: np.ndarray, root: int, cid: int) -> np.ndarray:
+        """Root sends ``x`` to every process.  A tensor ``x`` (its value
+        significant on the root only) comes back as a tensor like it."""
         if self.nprocs == 1:
             return x
         seq = self._next_seq(cid)
@@ -694,7 +794,8 @@ class DcnCollEngine:
                 if p != root:
                     self._send(p, cid, seq, x)
             return x
-        return self._recv(root, cid, seq)
+        got = self._recv(root, cid, seq)
+        return _device.as_tensor(got, x) if isinstance(x, torch.Tensor) else got
 
     def allgather(self, x: np.ndarray, cid: int) -> list[np.ndarray]:
         """Returns [proc 0's x, proc 1's x, …] on every process."""
@@ -813,6 +914,10 @@ class DcnCollEngine:
         return DcnJoinEngine(self, addresses, proc)
 
     def close(self) -> None:
+        if getattr(self, "_device_plane", None) is not None:
+            # drain-then-close: the plane gives in-flight staged windows
+            # a bounded 2 s to be consumed before sweeping
+            self._device_plane.close()
         self.transport.close()
 
 

@@ -5,11 +5,13 @@ Port of ``ompi_tpu/dcn/native.py`` over the port's own copy of the C
 engine (``ompi_tpu_torch/csrc/dcn.cc``, built by
 :mod:`ompi_tpu_torch.native`).  The wire, the ``TdcnMsg`` record and the
 ``tdcn_*`` surface are the reference's, so a port process and a
-reference process meet on one wire.  The reference's device-plane
-arbitration (large payloads staged into device windows, descriptor-only
-frames) has no counterpart: every payload byte rides the C host plane.
-Payloads are numpy arrays; a CUDA tensor never reaches ctypes (han hands
-the engine the host copy of its row).
+reference process meet on one wire.  The device plane
+(:mod:`.device`) is armed at creation, as the reference's is: a large
+contiguous coll-stream payload rides a device window and the C host
+plane carries only its descriptor in the meta JSON.  A tensor payload
+(han's row when the plane is armed) rides a window when arbitration
+takes it, and otherwise goes to the host as the numpy array ctypes
+sends; the schedule is collops', so both planes fold tensors alike.
 
 ≈ SURVEY.md §2's native-path rule ("shared-memory & TCP transports,
 progress engine, request engine … in C++"): ``csrc/dcn.cc``
@@ -407,9 +409,13 @@ class _NativeOpsMixin:
         if rc != -1:  # addressing/shape misuse, not a transport fault
             raise MPIInternalError(
                 f"native dcn {what} to proc {dst} failed (rc={rc})")
+        from ompi_tpu_torch.metrics import export as _mexport
         from ompi_tpu_torch.metrics import flight as _flight
 
         _flight.record("peer_escalation", proc=int(dst), what=what)
+        # crash-path export (once-latch): the native plane's escalation
+        # leaves telemetry files behind like the Python plane's
+        _mexport.crash_dump("peer_escalation")
         rp = self.root_proc_of(dst)
         if rp is not None and rp >= 0:
             det = root._detector
@@ -428,9 +434,31 @@ class _NativeOpsMixin:
         root = self._native_root()
         if _fsim._enabled and self._fsim_drop():
             return  # lost record: the receiver's deadline escalates
-        arr = np.ascontiguousarray(payload)
+        # plane arbitration (dcn/device.py): a large contiguous payload
+        # rides a device window; the C host plane carries only its
+        # descriptor (in the meta JSON) — same protocol as the Python
+        # engine, so mixed-size schedules interleave planes freely
+        from . import device as _device
+
+        msg_nbytes = (payload.nbytes if isinstance(payload, np.ndarray)
+                      else None)
+        desc = (_device.try_stage(root, payload, self.root_proc_of(dst))
+                if meta is None or isinstance(meta, dict) else None)
+        if desc is not None:
+            meta = dict(meta) if meta else {}
+            meta[_device.DESC_KEY] = desc
+            msg_nbytes, payload = int(desc["n"]), np.zeros(0, np.uint8)
+        arr = np.ascontiguousarray(_device.host_array(payload))
         if _metrics._enabled:
-            _metrics.observe_size("dcn_coll_send", arr.nbytes)
+            # sample the MESSAGE size, not the wire record's: a
+            # device-routed payload ships an empty descriptor frame but
+            # the op still moved msg_nbytes
+            _metrics.observe_size(
+                "dcn_coll_send",
+                msg_nbytes if msg_nbytes is not None else arr.nbytes)
+            from ompi_tpu_torch.metrics import flight as _flight
+
+            _flight.check_watermarks()
         if _causal._enabled and (meta is None or isinstance(meta, dict)):
             # causal wire context on the native plane: rides the
             # frame's meta-JSON region — WireHdr stays frozen,
@@ -450,8 +478,9 @@ class _NativeOpsMixin:
     def _recv_full(self, src: int, cid, seq: int,
                    timeout: float | None = None, into=None):
         # `into` (the Python transports' recv_into posting): the C
-        # coll-slot delivery owns its payload, so callers fall back to
-        # their copy on non-identity
+        # coll-slot delivery owns its payload (callers fall back to
+        # their copy on non-identity), but a DEVICE-plane descriptor
+        # frame materializes straight into it below
         from ompi_tpu_torch.core.var import Deadline, dcn_timeout
 
         if timeout is None:
@@ -504,9 +533,19 @@ class _NativeOpsMixin:
         env = {"cid": cid, "seq": seq, "src": src}
         meta = _meta_of(lib, msg)
         payload = _wrap_payload(lib, msg)
+        if isinstance(meta, dict) and "dev" in meta:
+            # device-plane delivery: the C frame carried only the window
+            # descriptor — recv-semaphore wait + materialize (straight
+            # into the posted buffer when one matches)
+            from . import device as _device
+
+            desc = meta.pop("dev")
+            payload = _device.materialize(
+                root, desc, into=into,
+                src_root=(fail_idx if fail_idx >= 0 else None))
         tc = None
         if isinstance(meta, dict):
-            # "tc" is a reserved meta key: popped here
+            # "tc" is a reserved meta key like "dev": popped here
             # whether or not THIS rank records, so a consumer's meta
             # never grows a foreign field
             tc = meta.pop("tc", None)
@@ -641,7 +680,12 @@ class NativeDcnEngine(_NativeOpsMixin, DcnCollEngine):
         self._lib.tdcn_set_stream(self._h, chunk, inflight,
                                   1 if coalesce else 0)
         #: the reference's device-resident plane; not ported
-        self._device_plane = None
+        # the device-resident zero-copy plane (dcn/device.py): coll-
+        # stream payloads arbitrate onto device windows exactly like the
+        # Python engine's; the C p2p channel path keeps the host plane
+        from . import device as _device
+
+        self._device_plane = _device.maybe_create(proc, nprocs)
         from ompi_tpu_torch import metrics as _metrics
 
         _metrics.register_provider(self, self.stats_snapshot)
@@ -813,6 +857,9 @@ class NativeDcnEngine(_NativeOpsMixin, DcnCollEngine):
                     self._lib.tdcn_chan_kill(self._h, chan)
         if _metrics._enabled:
             _metrics.observe_size("dcn_p2p_send", arr.nbytes)
+            from ompi_tpu_torch.metrics import flight as _flight
+
+            _flight.check_watermarks()
         if arr.ndim == 1:
             rc = self._lib.tdcn_chan_send1(
                 self._h, chan, kind, src, dst, tag, _dt_bytes(arr.dtype),
@@ -1024,6 +1071,8 @@ class NativeDcnEngine(_NativeOpsMixin, DcnCollEngine):
         if not self._running:
             return
         self._running = False
+        if self._device_plane is not None:
+            self._device_plane.close()
         self._lib.tdcn_close(self._h)
         if self._dispatcher.is_alive():
             self._dispatcher.join(timeout=2.0)

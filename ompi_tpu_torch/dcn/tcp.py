@@ -770,9 +770,14 @@ class TcpTransport:
         notify the owning engine (which marks the peer failed on the
         detector / engine failure set), and raise MPIProcFailedError —
         never a bare RuntimeError, never a silent hang."""
+        from ompi_tpu_torch.metrics import export as _mexport
         from ompi_tpu_torch.metrics import flight as _flight
 
         _flight.record("peer_escalation", peer=address, cause=reason)
+        # crash-path export: the escalation usually precedes job death
+        # — flush configured telemetry now, marked partial (once-latch;
+        # a surviving process's clean finalize overwrites it)
+        _mexport.crash_dump("peer_escalation")
         proc = None
         cb = self.on_peer_failed
         if cb is not None:

@@ -3,7 +3,7 @@
 
     python -m ompi_tpu_torch run -np 2 --nranks 4 [--mca btl tcp] \\
         ompi_tpu_torch/examples/multiproc_smoke.py [--max-bytes N] \\
-        [--native] [--only stream|tcp-leg]
+        [--native] [--only stream|tcp-leg|plane-off]
 
 Every process drives its K virtual ranks on the current CUDA device and
 prints JSON lines prefixed ``MPJSON`` (tpurun forwards them with the
@@ -20,14 +20,18 @@ stream check, no kernel launches there).
 * ``osu`` — f32 SUM allreduce, 8 B … ``--max-bytes`` per rank in ×4
   steps plus the top size, tuned's default local leg: the host clock of
   each call (``comm.allreduce`` + ``synchronize``), correctness against
-  float64 sums up to 16 MiB per rank;
+  float64 sums up to 16 MiB per rank, and the SHA-256 of rank 0's
+  result bytes (the plane-on and plane-off jobs compare them);
 * ``prod`` — 64 MiB per rank PROD with ``cuda_ring`` forced (enum 7):
   the ring-hop launches of the call, bit-equality to the plain ring
   (enum 2) and to a numpy model of the same bracket (each ring chunk c
-  folds the local ranks c, c+1, … cyclically, then the two processes);
+  folds the local ranks c, c+1, … cyclically, then the two processes),
+  and its digest;
 * ``split`` — SUM calls of 8 B, 64 KiB, 4 MiB and 64 MiB per rank
-  replayed leg by leg with han's own steps: local leg, D2H of one row,
-  DCN leg, H2D and broadcast (then the whole call, for comparison);
+  replayed leg by leg with han's own steps: with the DCN engine's device
+  plane off, local leg, D2H of one row, DCN leg, H2D and broadcast; with
+  it armed, local leg, DCN leg on the card's row, fill (then the whole
+  call, for comparison);
 * ``p2p`` — a 4096×4096 bf16 activation (32 MiB) sent from global rank
   K-1 to rank K (the pipeline-stage hand-off across the process
   boundary) for 20 rounds, each timed on the receiver from a barrier to
@@ -47,7 +51,14 @@ With ``--native`` (``chip_smoke.py``'s ``native`` phase, on the default
   gets r-1, bit-equal to the same float32 sums in numpy;
 * ``causal`` — one call set (allreduce and bcast of 4 MiB per rank)
   with the causal tracer and the straggler profiler on: their counts,
-  and the critical path the solver finds over both processes' records.
+  and the critical path the solver finds over both processes' records;
+* ``device`` — whether the DCN engine's device plane is armed, and its
+  counters over the run (``device_sends``, ``device_recvs``,
+  ``device_bytes_placed``, ``device_dma_waits``, ``device_fallbacks``).
+
+``--only plane-off`` (run with ``--mca dcn_device_enable 0``) is the
+native run's comparison job: ``osu``, ``prod``, the ``--prod-bytes``
+split, ``engine`` and ``device``.
 
 ``--only tcp-leg`` gives every process its own ``TDCN_HOST_ID``, which
 puts same-host peers on the C engine's framed TCP leg (eager and RTS/CTS
@@ -58,6 +69,7 @@ the ``--prod-bytes`` split only.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -79,6 +91,15 @@ def emit(kind: str, **obj) -> None:
 
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def device_plane(w):
+    """The DCN engine's device plane (None when it is off)."""
+    return getattr(w.dcn._root_engine(), "_device_plane", None)
 
 
 def sync(dev: torch.device) -> None:
@@ -173,6 +194,7 @@ def osu(w, max_bytes: int) -> None:
         if nbytes <= 16 << 20:
             want = rank_rows(range(n), count, dev).double().sum(0)
             ok = ok and bool(torch.allclose(out[0].double(), want, rtol=1e-5, atol=1e-5))
+        sha = digest(out[0])
         del out
         iters = 10 if nbytes <= 1 << 20 else 5 if nbytes <= 64 << 20 else 3
         times = []
@@ -181,7 +203,7 @@ def osu(w, max_bytes: int) -> None:
             w.allreduce(x, SUM)
             sync(dev)
             times.append((time.perf_counter() - t0) * 1e3)
-        emit("osu", bytes=nbytes, times_ms=times, ok=ok)
+        emit("osu", bytes=nbytes, times_ms=times, ok=ok, digest=sha)
         if not ok:
             raise SystemExit(f"allreduce wrong at {nbytes} B per rank")
         del x
@@ -228,42 +250,60 @@ def prod_check(w, ck, prod_bytes: int) -> None:
     vs_numpy = bool(np.array_equal(got[0].cpu().numpy().view(np.uint32),
                                    model.view(np.uint32)))
     emit("prod", bytes=prod_bytes, per_call=per_call, bitwise_vs_plain=vs_plain,
-         bitwise_vs_numpy=vs_numpy)
+         bitwise_vs_numpy=vs_numpy, digest=digest(got[0]))
     want = k - 1 if dev.type == "cuda" else 0  # the CPU runs the plain twins
     if per_call != {"ring_hop": want, "ring_hop_fold": want} or not (vs_plain and vs_numpy):
         raise SystemExit(f"64 MiB PROD check failed: {per_call} {vs_plain} {vs_numpy}")
 
 
 def split_call(w, nbytes: int) -> None:
-    """han's allreduce, replayed leg by leg with its own steps."""
+    """han's allreduce, replayed leg by leg with its own steps: with the
+    device plane armed the DCN leg takes the card's row (no D2H, no H2D)."""
     from ompi_tpu_torch.coll.han import host_op, to_device, to_host
+    from ompi_tpu_torch.dcn.device import as_tensor
     from ompi_tpu_torch.op import SUM
 
     k, lo, dev = w.local_size, w.local_offset, w.device
     x = rank_rows(range(lo, lo + k), nbytes // 4, dev)
-    parts = {"local_ms": [], "d2h_ms": [], "dcn_ms": [], "h2d_bcast_ms": [], "call_ms": []}
+    plane = device_plane(w) is not None
+    keys = (("local_ms", "dcn_ms", "fill_ms", "call_ms") if plane else
+            ("local_ms", "d2h_ms", "dcn_ms", "h2d_bcast_ms", "call_ms"))
+    parts = {key: [] for key in keys}
     for i in range(6):
         sync(dev)
-        t0 = time.perf_counter()
+        stamps = [time.perf_counter()]
         local = w.local.allreduce(x, SUM)
         sync(dev)
-        t1 = time.perf_counter()
-        row = to_host(local[0])
-        t2 = time.perf_counter()
-        red = w.dcn.allreduce(row, host_op(SUM, x.dtype), w.cid)  # han's own stream
-        t3 = time.perf_counter()
-        out = to_device(red, x.dtype, x.device).expand(x.shape).clone()
+        stamps.append(time.perf_counter())
+        if plane:
+            red = w.dcn.allreduce(local[0].contiguous(), SUM, w.cid)  # han's own stream
+            sync(dev)
+            stamps.append(time.perf_counter())
+            out = as_tensor(red, x[0]).expand(x.shape).clone()
+        else:
+            row = to_host(local[0])
+            stamps.append(time.perf_counter())
+            red = w.dcn.allreduce(row, host_op(SUM, x.dtype), w.cid)
+            stamps.append(time.perf_counter())
+            out = to_device(red, x.dtype, x.device).expand(x.shape).clone()
         sync(dev)
-        t4 = time.perf_counter()
+        stamps.append(time.perf_counter())
         w.allreduce(x, SUM)
         sync(dev)
-        t5 = time.perf_counter()
+        stamps.append(time.perf_counter())
         if i:  # the first round is a warm-up
-            for key, a, b in (("local_ms", t0, t1), ("d2h_ms", t1, t2), ("dcn_ms", t2, t3),
-                              ("h2d_bcast_ms", t3, t4), ("call_ms", t4, t5)):
+            for key, a, b in zip(keys, stamps, stamps[1:]):
                 parts[key].append((b - a) * 1e3)
         del local, out
-    emit("split", bytes=nbytes, **parts)
+    emit("split", bytes=nbytes, plane=plane, **parts)
+
+
+def device_stats(w) -> None:
+    dp = device_plane(w)
+    keys = ("device_sends", "device_recvs", "device_bytes_placed", "device_dma_waits",
+            "device_fallbacks")
+    emit("device", armed=dp is not None,
+         stats={k: dp.stats[k] for k in keys} if dp is not None else None)
 
 
 def p2p(w, side: int) -> None:
@@ -405,7 +445,7 @@ def main() -> int:
     ap.add_argument("--prod-bytes", type=int, default=64 << 20,
                     help="per-rank bytes of the PROD check and the split call")
     ap.add_argument("--act", type=int, default=4096, help="activation rows = columns")
-    ap.add_argument("--only", choices=["stream", "tcp-leg"], default=None)
+    ap.add_argument("--only", choices=["stream", "tcp-leg", "plane-off"], default=None)
     ap.add_argument("--native", action="store_true",
                     help="the native phase's sections (see the module docstring)")
     args = ap.parse_args()
@@ -426,6 +466,12 @@ def main() -> int:
     if args.only == "tcp-leg":
         split_call(w, args.prod_bytes)
         engine_check(w, True, stats0)
+    elif args.only == "plane-off":
+        osu(w, args.max_bytes)
+        prod_check(w, ck, args.prod_bytes)
+        split_call(w, args.prod_bytes)
+        engine_check(w, True, stats0)
+        device_stats(w)
     elif args.native:
         osu(w, args.max_bytes)
         prod_check(w, ck, args.prod_bytes)
@@ -435,6 +481,7 @@ def main() -> int:
         win_epoch(w, args.prod_bytes)
         causal_check(w)
         engine_check(w, True, stats0)
+        device_stats(w)
     else:
         if w.device.type == "cuda":
             stream_check(w)

@@ -9,6 +9,10 @@ base path:
 * ``<path>.<proc>.prom``  — Prometheus text exposition format;
 * ``<path>.<proc>.jsonl`` — every flight record in order, then the
   final snapshot.
+
+:func:`crash_dump` writes the same files early, marked ``partial``,
+from the escalation paths (a deadline, a dead peer) and at exit of a
+process that never reached finalize.
 """
 
 from __future__ import annotations
@@ -124,10 +128,16 @@ def to_prometheus(snap: dict) -> str:
     return "\n".join(lines)
 
 
-def write(path_base: str, proc: int = 0) -> list[str]:
+def write(path_base: str, proc: int = 0,
+          partial: bool = False) -> list[str]:
     """Export the final snapshot (+ flight records) for one process;
-    returns the paths written."""
-    snap = _core.snapshot(reason="finalize", proc=proc)
+    returns the paths written.  ``partial=True`` marks a crash-path
+    dump: the snapshot carries ``"partial": true``, so the report tools
+    know its counters stop mid-run."""
+    snap = _core.snapshot(reason="crash" if partial else "finalize",
+                          proc=proc)
+    if partial:
+        snap["partial"] = True
     from ompi_tpu_torch.trace import causal as _causal
 
     if _causal.enabled():
@@ -144,3 +154,50 @@ def write(path_base: str, proc: int = 0) -> list[str]:
             f.write(json.dumps(rec) + "\n")
         f.write(json.dumps(snap) + "\n")
     return [prom_path, jsonl_path]
+
+
+#: crash-path once-latch: a dying process flushes at most once (the
+#: escalation sites and the atexit hook may all fire on one death)
+_crashed = False
+
+
+def crash_dump(reason: str = "crash") -> list[str]:
+    """Crash-path export: flush the configured telemetry now, marked
+    ``partial: true`` — called from the escalation paths and the api
+    layer's atexit hook, so a dying or aborting process still leaves
+    its metrics and trace files (a clean finalize later overwrites
+    them).  Never raises; a no-op when nothing is configured (the latch
+    stays armed then) and on every call after the first."""
+    global _crashed
+    if _crashed:
+        return []
+    paths: list[str] = []
+    try:
+        import os
+
+        from ompi_tpu_torch.core import mca
+        from ompi_tpu_torch.trace import chrome as _tchrome
+        from ompi_tpu_torch.trace import core as _tcore
+
+        store = mca.default_context().store
+        proc = int(os.environ.get("OMPI_TPU_PROC", "0"))
+        mout = store.get("metrics_output", "") if _core._enabled else ""
+        tout = store.get("trace_output", "") if _tcore.enabled() else ""
+        if not mout and not tout:
+            return []
+        _crashed = True
+        if mout:
+            _flight.record("crash_export", cause=reason)
+            paths += write(str(mout), proc=proc, partial=True)
+        if tout:
+            paths.append(_tchrome.dump(f"{tout}.{proc}.json", pid=proc,
+                                       partial=True))
+    except Exception:  # noqa: BLE001 — the dump rides failure paths
+        pass
+    return paths
+
+
+def reset_crash_latch() -> None:
+    """Re-arm the crash-path latch (finalize, and tests)."""
+    global _crashed
+    _crashed = False

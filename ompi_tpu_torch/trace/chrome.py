@@ -75,8 +75,11 @@ def to_chrome(
     return {"traceEvents": out, "displayTimeUnit": "ms"}
 
 
-def dump(path: str, pid: int = 0, process_name: str | None = None) -> str:
-    """Write this process's ring buffer as Chrome trace JSON."""
+def dump(path: str, pid: int = 0, process_name: str | None = None,
+         partial: bool = False) -> str:
+    """Write this process's ring buffer as Chrome trace JSON.
+    ``partial=True`` marks a crash-path dump (the process died before
+    finalize) in ``otherData`` for the merge and report tools."""
     from . import core
 
     doc = to_chrome(core.events(), core.epoch(), pid=pid,
@@ -86,6 +89,8 @@ def dump(path: str, pid: int = 0, process_name: str | None = None) -> str:
         "dropped_events": core.dropped(),
         "recorded_events": core.event_count(),
     }
+    if partial:
+        doc["otherData"]["partial"] = True
     with open(path, "w") as f:
         json.dump(doc, f)
     return path

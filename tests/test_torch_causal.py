@@ -52,17 +52,11 @@ MS = 1_000_000
 
 @pytest.fixture(autouse=True)
 def _fresh():
-    from ompi_tpu.core import mca as rmca
-
-    store = rmca.default_context().store
-    old = store.get("dcn_device_enable")
-    store.set("dcn_device_enable", False)
     for m in (rcausal, pcausal, rstrag, pstrag, rwg, pwg):
         m.reset()
     yield
     for m in (rcausal, pcausal, rstrag, pstrag, rwg, pwg):
         m.reset()
-    store.set("dcn_device_enable", old)
 
 
 def _python_pair(pkg):

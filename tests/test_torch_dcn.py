@@ -8,8 +8,8 @@
   the rendezvous path above the eager limit — and agree bit for bit
   (both fold on the host with the same numpy kernels in the same order);
 * a mixed job: a reference engine as proc 0 and a port engine as
-  proc 1, then swapped, over ``tcp`` and ``sm`` (the reference runs with
-  ``dcn_device_enable=0``: the port has no device plane);
+  proc 1, then swapped, over ``tcp`` and ``sm``, both on their default
+  device plane (these payloads stay below its threshold);
 * the wire itself: frames a reference transport and a port transport
   send to a recording peer are byte-identical (header, envelope, meta,
   payload) once the sender's own address is masked;
@@ -39,21 +39,6 @@ from ompi_tpu_torch.dcn import tcp as ptcp
 from ompi_tpu_torch.op import op as pop
 
 PKG = {"ref": (rcollops, rop), "port": (pcollops, pop)}
-
-
-@pytest.fixture(autouse=True)
-def _reference_without_device_plane():
-    """The reference engines here run host planes only (the port has no
-    device plane).  The var is set on the reference's live default
-    context and restored after: replacing the context would strand a
-    reference world that an earlier test file built on it."""
-    from ompi_tpu.core import mca as rmca
-
-    store = rmca.default_context().store
-    old = store.get("dcn_device_enable")
-    store.set("dcn_device_enable", False)
-    yield
-    store.set("dcn_device_enable", old)
 
 
 # -- KVS -----------------------------------------------------------------

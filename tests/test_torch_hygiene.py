@@ -3,7 +3,10 @@
 * ``ompi_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the
   JAX package — checked in a fresh interpreter (this test process has
   JAX loaded already, by ``tests/conftest.py``) and on the source's AST
-  (the multi-process workers check their own ``sys.modules`` too);
+  (the multi-process workers check their own ``sys.modules`` too); the
+  C++/CUDA sources under ``csrc/`` include only system, C++ and CUDA
+  headers (nothing of ``native/``, no Python or PyTorch headers) and
+  name no module of the JAX package;
 * the entry points default to CUDA and raise where there is none, and
   the point-to-point, window and convertor paths keep a tensor on its
   own device (checked on the meta device, which has no host copy);
@@ -21,6 +24,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "ompi_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+CSRC_FILES = sorted(p for p in (REPO / "ompi_tpu_torch" / "csrc").iterdir()
+                    if p.suffix in (".cc", ".cu", ".cuh", ".h"))
 FORBIDDEN = ("jax", "jaxlib", "ompi_tpu")
 
 
@@ -39,6 +44,23 @@ def test_source_imports_no_jax(path):
     assert not _imported_roots(path) & set(FORBIDDEN)
 
 
+@pytest.mark.parametrize("path", CSRC_FILES, ids=[p.name for p in CSRC_FILES])
+def test_csrc_includes_no_python_and_names_no_jax_package(path):
+    import re
+
+    text = path.read_text()
+    includes = re.findall(r"^\s*#\s*include\s*([<\"][^>\"]+[>\"])", text, re.M)
+    assert includes and all(inc.startswith("<") for inc in includes), includes
+    assert not [inc for inc in includes
+                if re.match(r"<(Python|torch|ATen|c10|pybind11)", inc)], includes
+    # a module name (``ompi_tpu.capi``, ``"jax"``), not a path in a comment
+    assert not re.search(r"\b(ompi_tpu|jax)\.\w|\"(ompi_tpu|jax)\b", text)
+
+
+def test_csrc_covers_the_device_window_library():
+    assert {p.name for p in CSRC_FILES} >= {"dcn.cc", "ring_hop.cu", "device_window.cu"}
+
+
 def test_import_leaves_jax_out_of_sys_modules():
     code = (
         "import sys\n"
@@ -53,6 +75,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.ft.detector, ompi_tpu_torch.faultsim, ompi_tpu_torch.__main__\n"
         "import ompi_tpu_torch.trace.waitgraph, ompi_tpu_torch.core.threads\n"
         "import ompi_tpu_torch.native, ompi_tpu_torch.dcn.native, ompi_tpu_torch.p2p.pml_native\n"
+        "import ompi_tpu_torch.dcn.device, ompi_tpu_torch.metrics.export\n"
         "import ompi_tpu_torch.osc.dcn, ompi_tpu_torch.trace.causal, ompi_tpu_torch.trace.merge\n"
         "import ompi_tpu_torch.metrics.straggler, ompi_tpu_torch.examples.multiproc_smoke\n"
         "from ompi_tpu_torch.core import mca\n"

@@ -152,6 +152,20 @@ def test_a_failing_worker_kills_the_job(tmp_path):
     assert "survivor finished" not in res.stdout
 
 
+def test_launcher_unlinks_what_dead_workers_left(tmp_path):
+    """The names a killed worker's engine, sm rings and device windows
+    leave are unlinked at the end of the job; other processes' are not."""
+    from ompi_tpu_torch.boot.tpurun import _unlink_leftovers
+
+    mine = ["tdcn-41-0-7f00", "tdcn-db-41-0", "ompitpu-41-0-ab", "tpudev-41-3-1f",
+            "tdcn-db-42-1"]
+    others = ["tdcn-411-0-7f00", "tdcn-db-7-0", "tpudev-4-1-1", "unrelated"]
+    for name in mine + others:
+        (tmp_path / name).write_bytes(b"x")
+    assert sorted(_unlink_leftovers([41, 42], str(tmp_path))) == sorted(mine)
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(others)
+
+
 def test_chip_smoke_worker_rehearses_on_the_cpu():
     """The card's multiproc worker, at toy sizes on the CPU: every
     section reports, the results check out, and no JAX module loads."""

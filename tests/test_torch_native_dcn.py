@@ -16,8 +16,10 @@ names; ``ctypes`` loads both ``RTLD_LOCAL``, which keeps them apart.
 
 A mixed pair — one reference engine and one port engine — meets on one
 wire over the shared-memory rings and over the TCP leg, in both orders,
-and gives the all-reference pair's bits.  The reference runs with
-``dcn_device_enable=0`` (the port has no device plane).
+and gives the all-reference pair's bits.  Both packages keep their
+default device plane on, except in the two cases that measure the host
+plane's own handling of large payloads (ring chunking and the TCP leg's
+rendezvous), where ``host_plane_only`` turns it off in both.
 
 Launched jobs check the selection: native is the port's default with the
 C matcher as the pml, ``--mca btl tcp`` still selects the Python engine,
@@ -47,17 +49,21 @@ X = RNG.standard_normal((2, 999))
 BIG = RNG.standard_normal((2, 40000))  # 320 KB rows: the ring schedule
 
 
-@pytest.fixture(autouse=True)
-def _reference_without_device_plane():
-    """The reference's engines run the host plane only (the port has no
-    device plane); the var is set on its live context and restored."""
+@pytest.fixture
+def host_plane_only():
+    """Both packages' device planes off, for a case that measures how the
+    host plane itself carries a payload above the plane's threshold.  The
+    var is set on each live default context and restored."""
     from ompi_tpu.core import mca as rmca
+    from ompi_tpu_torch.core import mca as pmca
 
-    store = rmca.default_context().store
-    old = store.get("dcn_device_enable")
-    store.set("dcn_device_enable", False)
+    stores = [m.default_context().store for m in (rmca, pmca)]
+    old = [s.get("dcn_device_enable") for s in stores]
+    for s in stores:
+        s.set("dcn_device_enable", False)
     yield
-    store.set("dcn_device_enable", old)
+    for s, v in zip(stores, old):
+        s.set("dcn_device_enable", v)
 
 
 @contextlib.contextmanager
@@ -275,7 +281,7 @@ def test_recv_blocking_fast_path_and_recv_into():
     assert out[1] == (1, 9, 5, 20) and out[2]
 
 
-def test_large_payload_ring_chunking():
+def test_large_payload_ring_chunking(host_plane_only):
     """40 MiB through the 64 MiB shared-memory ring: beyond half the ring
     it streams as chunked records; the bytes survive exactly."""
     big = RNG.integers(0, 255, size=40 << 20, dtype=np.uint8)
@@ -337,7 +343,7 @@ def test_transport_and_sub_engine_views():
     assert _both(scenario)[3:4] == ["NativeSubEngine"]
 
 
-def test_tcp_leg_eager_and_rendezvous():
+def test_tcp_leg_eager_and_rendezvous(host_plane_only):
     """Distinct ``TDCN_HOST_ID``s put same-host peers on the framed TCP
     leg: eager frames below the 64 KiB limit here, RTS/CTS/FRAG
     rendezvous above it, and p2p matching over sockets."""
