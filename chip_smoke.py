@@ -104,12 +104,37 @@ exits non-zero:
     SUM and of the 64 MiB PROD between the two jobs (SHA-256 of rank 0's
     result).  It fails unless ``device_sends > 0`` in both processes,
     ``device_fallbacks == 0`` and every comparison is equal.  Output:
-    ``chiprun_out/native_plane_off.log``.
+    ``chiprun_out/native_plane_off.log``;
+14. recovery (run after phase 6, before phase 11) — worker
+    ``ompi_tpu_torch/examples/ft_smoke.py`` on the default ``btl/native``
+    with the device plane on, 4 ranks per process:
+    (a) the 8-rank world, ``cuda_ring`` forced, loses rank 3 and then
+    the shrunk comm's rank 5: ``revoke`` + ``shrink`` to 7 and to 6
+    ranks, f32 SUM at 4 KiB, 1 MiB and 64 MiB per rank and a 1 MiB bf16
+    PROD on each, bit-equal to the plain ring with exactly (n-1) + (n-1)
+    launches; ``agree`` drops the failed rank's word;
+    (e) ring attention over 8 ranks (block 1024, 16 heads of 128, f32)
+    within rtol 2e-4 / atol 2e-5 of dense float64 attention with 14
+    ``ring_hop`` launches, and its p50 at block 4096;
+    (b) ``-np 2 --ft --respawn``: five 64 MiB SUM calls, process 1
+    SIGKILLed inside the sixth, ``revoke`` + ``replace()`` (the reborn
+    incarnation ``replace()``s after ``init``), five calls again:
+    bit-equal to the first five at size 8, ring launches after recovery,
+    ``respawns`` ≥ 1, ``device_fallbacks`` 0, ``heal_ms`` of both
+    processes and no ``/dev/shm`` name of either incarnation left;
+    (c) ``-np 3 --ft``: process 2 dies, the survivors ``shrink()`` and
+    run 1 MiB and 64 MiB calls, bit-equal to a fresh 2 × 4 job;
+    (d) a 2 × 4 job spawns 2 children; the merged 4-process comm's 1 MiB
+    SUM on ``cuda_ring`` is bit-equal to the plain ring's;
+    and a probe of a CUDA IPC mapping whose exporter was killed (read
+    through it, then a fresh open).  It prints the time to heal and the
+    64 MiB p50 before and after recovery beside the card's name and
+    power limit.  Output: ``chiprun_out/recovery_*.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
-those of the main path, the tuned phase, the ddt phase and the
-multiproc and native workers; the last
+those of the main path, the tuned phase, the ddt phase, the
+multiproc and native workers and the recovery phase; the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -1335,6 +1360,336 @@ def device_plane_row(smi, on, off, off_wall_s) -> dict:
     emit(row)
     return row
 
+# -- phase 14 ---------------------------------------------------------------
+
+#: per-rank bytes of the single-process shrink phase's f32 SUM calls
+SHRINK_SIZES = (4 << 10, 1 << 20, 64 << 20)
+#: ring attention on the card: 8 ranks of ATTN_BLOCK tokens, 16 heads of 128
+ATTN_HEADS, ATTN_DH, ATTN_BLOCK, ATTN_TIMED_BLOCK = 16, 128, 1024, 4096
+
+
+def recovery_single(ck) -> dict:
+    """(a) ``revoke`` + ``shrink`` of the 8-rank world to 7 ranks (rank 3
+    failed) and of that to 6 (its rank 5 failed), ``cuda_ring`` forced:
+    f32 SUM at 4 KiB, 1 MiB and 64 MiB per rank and one bf16 PROD at
+    1 MiB on each, each bit-equal to the plain ring (enum 2) on the same
+    comm with exactly (n-1) + (n-1) launches; ``agree`` drops the failed
+    ranks' words."""
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.core import mca
+    from ompi_tpu_torch.ft import ulfm
+    from ompi_tpu_torch.op import PROD, SUM
+
+    store = mca.default_context().store
+    store.set("coll_cuda_allreduce_algorithm", 7)
+    comm = api.init(device="cuda", nranks=N).dup(name="recovery")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    rows, ok = [], True
+    ck.reset_launches()
+    for dead in (3, 5):
+        ulfm.inject_failure(comm, dead)
+        comm.revoke()
+        words = {r: 0b1011 for r in range(comm.size)}
+        words[dead] = 0
+        agreed = comm.agree(0b1111, words)
+        comm = comm.shrink()
+        n = comm.size
+        cases = [(b, torch.float32, SUM) for b in SHRINK_SIZES] + [(1 << 20, torch.bfloat16, PROD)]
+        for nbytes, dtype, op in cases:
+            count = nbytes // torch.tensor([], dtype=dtype).element_size()
+            x = torch.randn((n, count), generator=gen, device="cuda")
+            x = (1 + 0.01 * x).to(dtype) if op is PROD else x.to(dtype)
+            before = dict(ck.LAUNCHES)
+            got = comm.allreduce(x, op)
+            torch.cuda.synchronize()
+            per_call = launched(ck, before)
+            store.set("coll_cuda_allreduce_algorithm", 2)
+            plain = comm.allreduce(x, op)
+            store.set("coll_cuda_allreduce_algorithm", 7)
+            equal = bool(torch.equal(bits(got), bits(plain)))
+            want = {"ring_hop": n - 1, "ring_hop_fold": n - 1}
+            rows.append({"ranks": n, "bytes": nbytes, "dtype": str(dtype)[6:], "op": op.name,
+                         "launches": per_call, "bitwise_vs_plain": equal})
+            ok = ok and equal and per_call == want
+            del x, got, plain
+        rows.append({"ranks": n, "agree": agreed, "group": list(comm.group.ranks)})
+        ok = ok and agreed == 0b1011
+    store.set("coll_cuda_allreduce_algorithm", 0)
+    torch.cuda.empty_cache()
+    launches = dict(ck.LAUNCHES)
+    ok = ok and [r["group"] for r in rows if "group" in r] == [
+        [0, 1, 2, 4, 5, 6, 7], [0, 1, 2, 4, 5, 7]] and min(launches.values()) > 0
+    return {"calls": rows, "launches": launches, "ok": ok}
+
+
+def ft_job(log_name: str, nprocs: int, flags, worker_args, timeout: float = 600):
+    """One tpurun job of ``ompi_tpu_torch/examples/ft_smoke.py`` on the
+    card (2 or 3 processes × 4 ranks, default ``btl/native``, device plane
+    on): its FTJSON rows by kind, the launcher's stdout and the wall time.
+    The output goes to ``chiprun_out/<log_name>.log``."""
+    cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(nprocs),
+           "--nranks", str(MP_RANKS), *flags,
+           str(REPO / "ompi_tpu_torch" / "examples" / "ft_smoke.py"), *worker_args]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    log = REPO / "chiprun_out" / f"{log_name}.log"
+    t0 = time.perf_counter()
+    job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           env=env, cwd=str(REPO), start_new_session=True)
+    try:
+        out, err = job.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(job.pid, signal.SIGKILL)
+        out, err = job.communicate()
+        log.write_text(out + err)
+        raise SystemExit(f"{log_name} job exceeded {timeout} s")
+    wall_s = time.perf_counter() - t0
+    log.write_text(out + err)
+    if job.returncode != 0:
+        print(out[-6000:] + err[-6000:], file=sys.stderr)
+        raise SystemExit(f"{log_name} job failed (rc={job.returncode})")
+    by: dict[str, list] = {}
+    for line in out.splitlines():
+        m = re.match(r"\[\d+\] FTJSON (.*)$", line)
+        if m:
+            rec = json.loads(m.group(1))
+            by.setdefault(rec.pop("kind"), []).append(rec)
+    return by, out, wall_s
+
+
+def shm_leftovers(pids) -> list:
+    """The ``/dev/shm`` names still carrying one of ``pids``."""
+    from ompi_tpu_torch.boot.tpurun import _SHM_PREFIXES
+
+    names = os.listdir("/dev/shm") if os.path.isdir("/dev/shm") else []
+    prefixes = tuple(fmt.format(pid) for pid in pids for fmt in _SHM_PREFIXES)
+    return sorted(n for n in names if n.startswith(prefixes))
+
+
+def p50(times) -> float:
+    t = sorted(times)
+    return t[len(t) // 2]
+
+
+def recovery_respawn(smi) -> dict:
+    """(b) ``-np 2 --nranks 4 --ft --respawn``: five 64 MiB f32 SUM calls,
+    process 1 SIGKILLs itself inside the sixth, revoke + ``replace()`` on
+    the survivor, ``replace()`` on the reborn incarnation, the five calls
+    again: bit-equal to the pre-failure results at size 8, ring launches
+    after recovery, no device fallbacks, no shm names left."""
+    by, out, wall_s = ft_job("recovery_respawn", 2, ["--ft", "--respawn",
+                                                     "--mca", "metrics_enable", "1"],
+                             ["--mode", "respawn"])
+    pre = {r["proc"]: r for r in by.get("pre", [])}
+    post = {r["proc"]: r for r in by.get("post", [])}
+    rec = {r["proc"]: r for r in by.get("recovered", [])}
+    if sorted(pre) != [0, 1] or sorted(post) != [0, 1] or sorted(rec) != [0, 1]:
+        raise SystemExit(f"recovery_respawn: missing rows: {sorted(by)}")
+    want = pre[0]["digests"][0]
+    bitwise = all(d == want for p in (0, 1) for d in pre[p]["digests"] + post[p]["digests"])
+    pids = [pre[p]["pid"] for p in (0, 1)] + [rec[p]["pid"] for p in (0, 1)]
+    left = shm_leftovers(pids)
+    row = {"nvidia_smi": smi, "wall_s": wall_s, "bytes_per_rank": 64 << 20,
+           "respawned": "respawning (incarnation 1)" in out,
+           "caught": by.get("caught", []),
+           "heal_ms": [rec[p]["heal_ms"] for p in (0, 1)],
+           "pre_p50_ms": [p50(pre[p]["times_ms"]) for p in (0, 1)],
+           "post_p50_ms": [p50(post[p]["times_ms"]) for p in (0, 1)],
+           "post_launches": [post[p]["launches"] for p in (0, 1)],
+           "incarnations": [rec[p]["incarnation"] for p in (0, 1)],
+           "sizes": [rec[p]["size"] for p in (0, 1)],
+           "respawns": sum(rec[p]["respawns"] for p in (0, 1)),
+           "device": [rec[p]["device"] for p in (0, 1)],
+           "bitwise_vs_pre_failure": bitwise, "shm_leftovers": left}
+    row["ok"] = (row["respawned"] and bitwise and row["sizes"] == [8, 8]
+                 and row["incarnations"] == [0, 1] and row["respawns"] >= 1
+                 and all(min(lc.values()) > 0 for lc in row["post_launches"])
+                 and all(d is not None and d["device_sends"] > 0 and d["device_fallbacks"] == 0
+                         for d in row["device"])
+                 and all(h is not None for h in row["heal_ms"]) and not left)
+    return row
+
+
+def recovery_shrink() -> dict:
+    """(c) ``-np 3 --nranks 4 --ft``: process 2 dies, the two survivors
+    ``shrink()`` to 8 ranks and run 1 MiB and 64 MiB SUM calls, bit-equal
+    to a fresh 2 × 4 job on the same inputs."""
+    by, _out, wall_s = ft_job("recovery_shrink", 3, ["--ft"], ["--mode", "shrink"])
+    fby, _fout, fwall_s = ft_job("recovery_fresh", 2, [], ["--mode", "fresh"])
+    shrunk = {r["proc"]: r for r in by.get("calls", [])}
+    fresh = {r["proc"]: r for r in fby.get("calls", [])}
+    if sorted(shrunk) != [0, 1] or sorted(fresh) != [0, 1]:
+        raise SystemExit(f"recovery_shrink: missing rows: {sorted(by)} {sorted(fby)}")
+    equal = all(shrunk[p]["calls"] == fresh[p]["calls"] for p in (0, 1))
+    row = {"wall_s": wall_s, "fresh_wall_s": fwall_s,
+           "sizes": [shrunk[p]["size"] for p in (0, 1)],
+           "failed": [r["failed"] for r in by.get("shrunk", [])],
+           "device": [r["device"] for r in by.get("shrunk", [])],
+           "bytes": [c["bytes"] for c in shrunk[0]["calls"]], "bitwise_vs_fresh": equal}
+    row["ok"] = equal and row["sizes"] == [8, 8] and row["bytes"] == [1 << 20, 64 << 20]
+    return row
+
+
+def recovery_spawn() -> dict:
+    """(d) a 2 × 4 job spawns 2 children on the card; the merged
+    4-process comm's 1 MiB SUM (local leg ``cuda_ring``) is bit-equal to
+    the plain ring's, in every process."""
+    by, _out, wall_s = ft_job("recovery_spawn", 2, [], ["--mode", "spawn"])
+    merged = by.get("merged", [])
+    row = {"wall_s": wall_s, "processes": len(merged),
+           "nprocs": sorted({r["nprocs"] for r in merged}),
+           "launches": [r["launches"] for r in merged],
+           "bitwise_vs_plain": all(r["ring"] == r["plain"] for r in merged),
+           "same_everywhere": len({r["ring"] for r in merged}) == 1}
+    row["ok"] = (row["processes"] == 4 and row["nprocs"] == [4] and row["bitwise_vs_plain"]
+                 and row["same_everywhere"]
+                 and all(min(lc.values()) > 0 for lc in row["launches"]))
+    return row
+
+
+def dense_attention_f64(q, k, v):
+    """Dense attention in float64 on the card, one head at a time (the
+    oracle of ``ompi_tpu_torch/examples/ring_attention.py``'s
+    ``reference_attention``)."""
+    import torch
+
+    n, b, h, d = q.shape
+    out = torch.empty((n * b, h, d), dtype=torch.float64, device=q.device)
+    qf, kf, vf = (t.reshape(n * b, h, d).double() for t in (q, k, v))
+    for j in range(h):
+        s = qf[:, j] @ kf[:, j].T / d ** 0.5
+        out[:, j] = torch.softmax(s, dim=-1) @ vf[:, j]
+    return out.reshape(n, b, h, d)
+
+
+def recovery_ring_attention(ck) -> dict:
+    """(e) ring attention over an 8-rank comm on the card: within the
+    reference test's tolerance of dense float64 attention at block 1024,
+    and timed at block 4096 with its ring-hop launches per call."""
+    import numpy as np
+    import torch
+
+    from ompi_tpu_torch.api import Comm, Group
+    from ompi_tpu_torch.examples.ring_attention import ring_attention
+    from ompi_tpu_torch.mesh import CommMesh
+
+    comm = Comm(Group(range(N)), CommMesh("cuda", N), name="ring_attention")
+    rng = np.random.default_rng(43)
+    q, k, v = (torch.from_numpy(rng.standard_normal((N, ATTN_BLOCK, ATTN_HEADS, ATTN_DH))
+                                .astype(np.float32)).to("cuda") for _ in range(3))
+    ck.reset_launches()
+    out = ring_attention(comm, q, k, v)
+    torch.cuda.synchronize()
+    per_call = dict(ck.LAUNCHES)
+    ref = dense_attention_f64(q, k, v)
+    err = (out.double() - ref).abs()
+    close = bool((err <= 2e-5 + 2e-4 * ref.abs()).all())
+    max_err = err.max().item()
+    del q, k, v, out, ref, err
+    q, k, v = (torch.randn((N, ATTN_TIMED_BLOCK, ATTN_HEADS, ATTN_DH), device="cuda")
+               for _ in range(3))
+    ck.reset_launches()
+    ms = event_ms(lambda: ring_attention(comm, q, k, v), 3, warmup=1)
+    timed_calls = 4  # warmup + 3
+    per_timed = {name: c / timed_calls for name, c in ck.LAUNCHES.items()}
+    del q, k, v
+    torch.cuda.empty_cache()
+    row = {"ranks": N, "heads": ATTN_HEADS, "dh": ATTN_DH, "block": ATTN_BLOCK,
+           "allclose_f64": close, "max_abs_err": max_err, "launches_per_call": per_call,
+           "timed_block": ATTN_TIMED_BLOCK, "p50_ms": ms, "timed_launches_per_call": per_timed}
+    row["ok"] = (close and per_call == {"ring_hop": 2 * (N - 1), "ring_hop_fold": 0}
+                 and per_timed["ring_hop"] == 2 * (N - 1))
+    return row
+
+
+def ipc_dead_exporter() -> dict:
+    """What CUDA does with a mapping whose exporter died: an
+    exporter process places a known pattern in two CUDA windows; an
+    importer maps the first while the exporter lives, then — after the
+    exporter is SIGKILLed and reaped — copies through that mapping
+    again, closes it, and tries to open the second handle.  An importer
+    that dies on the way is a finding too: its exit code is kept."""
+    worker = str(REPO / "ompi_tpu_torch" / "examples" / "ft_smoke.py")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    args = ["--bytes", str(64 << 20)]
+    exp = subprocess.Popen([sys.executable, worker, "--mode", "ipc-export", *args],
+                           stdout=subprocess.PIPE, text=True, env=env, cwd=str(REPO))
+    imp = subprocess.Popen([sys.executable, worker, "--mode", "ipc-import", *args],
+                           stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True, env=env, cwd=str(REPO))
+    res: dict = {}
+    try:
+        handles = exp.stdout.readline()
+        if not handles:
+            raise SystemExit("ipc probe: the exporter printed no handles")
+        imp.stdin.write(handles)
+        imp.stdin.flush()
+        line = imp.stdout.readline()
+        res["opened_while_alive"] = json.loads(line)["opened"] if line else None
+        exp.kill()
+        exp.wait(timeout=60)
+        time.sleep(1.0)  # let CUDA tear the exporter's context down
+        imp.stdin.write("dead\n")
+        imp.stdin.flush()
+        line = imp.stdout.readline()
+        if line:
+            res.update(json.loads(line))
+        imp.wait(timeout=60)
+        res["importer_rc"] = imp.returncode
+        if imp.returncode:
+            res["importer_stderr"] = imp.stderr.read()[-2000:]
+    finally:
+        for proc in (exp, imp):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for name in os.listdir("/dev/shm"):  # the killed exporter's headers
+            if name.startswith(f"tpudev-probe-{exp.pid}-"):
+                os.unlink(os.path.join("/dev/shm", name))
+    return res
+
+
+def phase_recovery(smi, ck) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    single = recovery_single(ck)
+    emit({"phase": "recovery_shrink_single", "nvidia_smi": smi, **single})
+    attn = recovery_ring_attention(ck)
+    emit({"phase": "recovery_ring_attention", "nvidia_smi": smi, **attn})
+    import ompi_tpu_torch.api as api
+
+    api.finalize()
+    torch.cuda.empty_cache()
+    respawn = recovery_respawn(smi)
+    emit({"phase": "recovery_respawn", **respawn})
+    shrink = recovery_shrink()
+    emit({"phase": "recovery_shrink_procs", "nvidia_smi": smi, **shrink})
+    spawn = recovery_spawn()
+    emit({"phase": "recovery_spawn", "nvidia_smi": smi, **spawn})
+    probe = ipc_dead_exporter()
+    emit({"phase": "recovery_ipc_dead_exporter", "nvidia_smi": smi, **probe})
+    print(f"recovery: heal_ms {respawn['heal_ms']} (survivor, reborn); 64 MiB p50 "
+          f"{respawn['pre_p50_ms']} ms before the failure, {respawn['post_p50_ms']} ms "
+          f"after ({smi})", flush=True)
+    job_launches = [lc for lc in respawn["post_launches"] + spawn["launches"]]
+    launches = {name: single["launches"][name] + attn["launches_per_call"][name]
+                + sum(lc[name] for lc in job_launches) for name in single["launches"]}
+    row = {"phase": "recovery", "nvidia_smi": smi, "wall_s": time.perf_counter() - t0,
+           "shrink_single_ok": single["ok"], "ring_attention_ok": attn["ok"],
+           "respawn_ok": respawn["ok"], "shrink_procs_ok": shrink["ok"],
+           "spawn_ok": spawn["ok"], "launches": launches}
+    emit(row)
+    failed = [k for k in ("shrink_single_ok", "ring_attention_ok", "respawn_ok",
+                          "shrink_procs_ok", "spawn_ok") if not row[k]]
+    if failed:
+        raise SystemExit(f"recovery checks failed: {failed}")
+    return row
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1366,20 +1721,18 @@ def main() -> int:
     ddt = phase_ddt(ck, smi)
     io = phase_io(smi)
     ddp_losses = phase_ddp()
-    import ompi_tpu_torch.api as api
-
-    api.finalize()
-    torch.cuda.empty_cache()
+    recovery = phase_recovery(smi, ck)  # finalizes the single-process world
     multiproc = phase_multiproc(smi, ddp_losses)
     native = phase_native(smi, multiproc)
     launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
-                + multiproc["launches"][k] + native["launches"][k] for k in launches}
+                + multiproc["launches"][k] + native["launches"][k]
+                + recovery["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
          "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
-         "kernels": kernels}, indent=1))
+         "recovery": recovery, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

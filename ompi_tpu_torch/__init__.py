@@ -9,3 +9,5 @@ in PyTorch, with the ring hop as hand-written CUDA kernels for Hopper
 Entry points: :mod:`ompi_tpu_torch.api` (``init``/``Comm``) and
 :mod:`ompi_tpu_torch.entry` (the fused DDP step and the dry run).
 """
+
+__version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """CLI: ``python -m ompi_tpu_torch <command>``.
 
 Commands:
+  info    — frameworks/components/vars dump (≈ ompi_info); ``--parsable``
   run     — job launcher (≈ mpirun); see ``run --help``
 """
 
@@ -14,11 +15,15 @@ def main() -> int:
         print(__doc__)
         return 0
     cmd, rest = sys.argv[1], sys.argv[2:]
+    if cmd == "info":
+        from ompi_tpu_torch.core.info import main as info_main
+
+        return info_main(rest)
     if cmd in ("run", "tpurun"):
         from ompi_tpu_torch.boot.tpurun import main as run_main
 
         return run_main(rest)
-    print(f"unknown command {cmd!r}; try 'run'", file=sys.stderr)
+    print(f"unknown command {cmd!r}; try 'info' or 'run'", file=sys.stderr)
     return 2
 
 

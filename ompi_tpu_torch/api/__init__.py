@@ -16,6 +16,11 @@ modex and the DCN engine) and returns a
 process; COMM_SELF is the process's first rank.  The per-process
 exports then name the process (``<out>.<proc>.*``, ``pid=proc``), and
 ``finalize()`` fences every process before closing the ProcContext.
+
+Also exported: ``Info``/``INFO_NULL``/``info_env`` (MPI_Info),
+``create_intercomm``/``Intercomm`` (single-controller intercomms), and
+``spawn``/``get_parent`` (dynamic process management under tpurun;
+``finalize()`` waits the spawned children out).
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ from ompi_tpu_torch.core.errors import MPICommError
 
 from .comm import COLOR_UNDEFINED, Comm  # noqa: F401
 from .group import UNDEFINED, Group  # noqa: F401
+from .info import INFO_NULL, Info, info_env  # noqa: F401
+from .intercomm import Intercomm, create_intercomm  # noqa: F401
+from .spawn import get_parent, spawn  # noqa: F401
 
 _world: Comm | None = None
 _self_comm: Comm | None = None
@@ -175,6 +183,12 @@ def finalize() -> None:
     the MCA context."""
     global _world, _self_comm
     hooks.fire("mpi_finalize_top", world=_world)
+    # spawned children: wait them out and drain their output while the
+    # interpreter is fully alive (the exit hook alone races thread
+    # teardown)
+    from .spawn import _reap
+
+    _reap()
     if _world is not None:
         try:
             _export_at_finalize(mca.default_context().store,

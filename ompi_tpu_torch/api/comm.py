@@ -32,8 +32,12 @@ and partitioned channels (:class:`~ompi_tpu_torch.p2p.part.PersistentP2PMixin`),
 the ``win_*`` window constructors (osc), ``file_open`` (io), the
 datatype-typed ``allreduce_ddt``/``bcast_ddt`` (convertor pack → the
 collective on the leaf dtype → unpack, on the buffers' own device),
-errhandlers and attribute caching.  Intercommunicators, topologies and
-ULFM are not in the port yet.
+errhandlers and attribute caching, and the ULFM surface (``revoke``,
+``shrink``, ``agree``, ``get_failed``, ``ack_failed``, ``is_revoked``):
+every collective entry and every point-to-point call checks the comm's
+fault-tolerance state first, one attribute test while no failure was
+ever injected.  Intercommunicators and topologies build on ``Comm`` in
+:mod:`~ompi_tpu_torch.api.intercomm` and :mod:`~ompi_tpu_torch.api.topo`.
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from ompi_tpu_torch.ddt.convertor import pack as ddt_pack
 from ompi_tpu_torch.ddt.convertor import packed_to_typed, typed_to_packed
 from ompi_tpu_torch.ddt.convertor import unpack as ddt_unpack
 from ompi_tpu_torch.ddt.datatype import Datatype, from_torch_dtype, to_numpy, torch_dtype
+from ompi_tpu_torch.ft import ulfm
 from ompi_tpu_torch.mesh.mesh import CommMesh
 from ompi_tpu_torch.op.op import SUM, Op
 from ompi_tpu_torch.p2p.part import PersistentP2PMixin
@@ -127,6 +132,8 @@ class Comm(PersistentP2PMixin):
         self._attrs: dict[int, Any] = {}
         self._errhandler = _errors.ERRORS_RETURN
         self._freed = False
+        #: ULFM state, created by the first failure or revoke
+        self._ft = None
         #: dispatch cache: key → (mca context, store version, callable)
         self._fast: dict[tuple, tuple] = {}
 
@@ -242,6 +249,42 @@ class Comm(PersistentP2PMixin):
         one device, so the whole comm is one shared domain."""
         return self.dup(name=f"{self.name}.shared")
 
+    # -- ULFM (MPIX_Comm_*) --------------------------------------------------
+
+    def _shrink_to(self, live: Sequence[int], name: str = "") -> "Comm":
+        """ULFM shrink substrate: a fresh communicator over the live rank
+        subset, renumbered contiguously, its mesh the live ranks' rows.
+        Unlike create_group this works on revoked comms — shrink is the
+        recovery path — so no FT guard here."""
+        self._check()
+        sub = self.mesh.submesh(list(live))
+        world_ranks = [self.group.ranks[r] for r in live]
+        return Comm(Group(world_ranks), sub, name or f"{self.name}.shrunk")
+
+    def revoke(self) -> None:
+        """MPIX_Comm_revoke."""
+        ulfm.revoke(self)
+
+    def shrink(self, name: str = "") -> "Comm":
+        """MPIX_Comm_shrink."""
+        return ulfm.shrink(self, name)
+
+    def agree(self, flags: int, contributions=None) -> int:
+        """MPIX_Comm_agree."""
+        return ulfm.agree(self, flags, contributions)
+
+    def get_failed(self) -> list[int]:
+        """MPIX_Comm_get_failed."""
+        return ulfm.get_failed(self)
+
+    def ack_failed(self) -> int:
+        """MPIX_Comm_ack_failed."""
+        return ulfm.ack_failed(self)
+
+    def is_revoked(self) -> bool:
+        """MPIX_Comm_is_revoked."""
+        return ulfm.is_revoked(self)
+
     # -- one-sided windows (osc) and MPI-IO ----------------------------------
 
     def _osc(self):
@@ -348,6 +391,8 @@ class Comm(PersistentP2PMixin):
 
     def _prepare(self, base: str, x, depth: int, op: Op | None, root: int | None):
         self._check()
+        if self._ft is not None:
+            ulfm.check(self, collective=True)
         if op is not None:
             self._check_op(op, x)
         if root is not None:
@@ -412,7 +457,10 @@ class Comm(PersistentP2PMixin):
     def _lookup(self, slot: str):
         """Table-path entry: the slot's callable, in an ``api`` span when
         tracing (the table's own lookup counts SPC and adds the coll
-        span)."""
+        span).  With :meth:`_prepare`, the ULFM collective guard's only
+        site."""
+        if self._ft is not None:
+            ulfm.check(self, collective=True)
         fn = self.coll.lookup(slot)
         if _trace._enabled:
             return _trace.wrap_call("api", slot, fn, comm=self.name)
@@ -569,6 +617,8 @@ class Comm(PersistentP2PMixin):
     def send(self, buf, source: int, dest: int, tag: int = 0) -> None:
         """MPI_Send from rank ``source`` to ``dest``.  Eager-buffered:
         returns at once, the sender's buffer reusable."""
+        if self._ft is not None:
+            ulfm.check(self, peer=dest)
         self.pml.send(source, dest, buf, tag)
 
     def isend(self, buf, source: int, dest: int, tag: int = 0) -> Request:
@@ -576,6 +626,8 @@ class Comm(PersistentP2PMixin):
         return CompletedRequest()  # an eager send completes locally
 
     def irecv(self, dest: int, source: int | None = None, tag: int | None = None) -> Request:
+        if self._ft is not None:
+            ulfm.check(self, peer=source, any_source=source is None)
         return self.pml.irecv(dest, ANY_SOURCE if source is None else source,
                               ANY_TAG if tag is None else tag)
 
@@ -602,6 +654,10 @@ class Comm(PersistentP2PMixin):
             sleep = _poll_backoff(sleep)
 
     def iprobe(self, dest: int, source: int | None = None, tag: int | None = None):
+        if self._ft is not None:
+            # guarded here (not only in irecv) so a blocking probe raises
+            # instead of spinning forever on a revoked comm or a dead peer
+            ulfm.check(self, peer=source, any_source=source is None)
         return self.pml.iprobe(dest, ANY_SOURCE if source is None else source,
                                ANY_TAG if tag is None else tag)
 

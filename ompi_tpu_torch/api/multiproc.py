@@ -23,13 +23,18 @@ one place a bfloat16 payload, which rides the wire as raw two-byte
 words, is reinterpreted).
 
 Windows across processes (``win_*``) are :class:`~ompi_tpu_torch.osc.
-dcn.MultiProcWin`.  Not ported yet: spawn and the recovery legs
-(``shrink``/``replace``/``replace_partial``, respawn).
+dcn.MultiProcWin`.  ULFM over the DCN: ``revoke``/``agree``, and the two
+recovery legs — ``shrink`` (the survivors agree the failed set and a new
+CID) and ``replace``/``replace_partial`` (under ``tpurun --ft --respawn``
+the reborn incarnation is installed and the communicator rebuilt at full
+size).  ``_next_spawn`` names the KVS namespace of each
+:func:`~ompi_tpu_torch.api.spawn.spawn`.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Sequence
 
 import numpy as np
@@ -74,6 +79,12 @@ class MultiProcComm(PersistentP2PMixin):
         self.cid = _next_cid()
         self.name = name
         self._freed = False
+        #: False only on the world built by init(): derived comms
+        #: (split/shrink/replace results) repair via the PARTIAL replace
+        #: leg even when they span every proc — their rank space is not
+        #: the world's, so the world-level rejoin would rebuild the
+        #: wrong communicator
+        self._derived = False
 
         # modex: exchange local sizes → global rank layout.  Every first
         # boot publishes its size to the KVS so a respawned incarnation
@@ -124,6 +135,7 @@ class MultiProcComm(PersistentP2PMixin):
         self._nbc_lock = threading.Lock()
         self._ft = None
         self._shrink_count = 0
+        self._spawn_count = 0
         self._win_count = 0
         self._freed = False
         self._chans: dict[int, int] = {}
@@ -193,6 +205,13 @@ class MultiProcComm(PersistentP2PMixin):
         w.attach = attach
         w.detach = detach
         return w
+
+    def _next_spawn(self) -> int:
+        """Per-comm spawn counter (SPMD-agreed, names the child world's
+        KVS namespace)."""
+        k = self._spawn_count
+        self._spawn_count += 1
+        return k
 
     def _next_nbc(self) -> int:
         """Per-comm non-blocking-collective issue counter: identical on
@@ -629,6 +648,13 @@ class MultiProcComm(PersistentP2PMixin):
 
     # -- fault tolerance (ULFM over DCN) ---------------------------------
 
+    @property
+    def respawned(self) -> bool:
+        """True on a reborn incarnation that has not rejoined yet — the
+        SPMD cue for worker code to call :meth:`replace` right after
+        init instead of entering the normal loop."""
+        return bool(self.procctx.incarnation) and not self.procctx.rejoined
+
     def _on_proc_failed(self, root_proc: int) -> None:
         """Detector fan-out: mark the dead process's global ranks failed
         on this comm (no-op if the proc isn't a member)."""
@@ -696,8 +722,7 @@ class MultiProcComm(PersistentP2PMixin):
 
         live = self._live_procs()
         eng = self.dcn if len(live) == self.nprocs else self.dcn.sub(live)
-        k = self._shrink_count
-        self._shrink_count += 1
+        k = self._next_shrink()
         out = eng.allreduce(np.array([int(flags)], np.int64), BAND,
                             f"{self.cid}#agree{k}", ordered=True)
         return int(out[0])
@@ -715,6 +740,408 @@ class MultiProcComm(PersistentP2PMixin):
         if self.proc not in live:
             raise MPICommError("calling process is marked failed")
         return live
+
+    def _next_shrink(self) -> int:
+        k = self._shrink_count
+        self._shrink_count += 1
+        return k
+
+    def shrink(self, name: str = "") -> "MultiProcComm":
+        """MPIX_Comm_shrink: rebuild membership over the surviving
+        processes.  Survivors exchange their failed-set view and CID
+        proposals on a derived stream; the union decides membership and
+        the MAX decides the new CID (works on revoked comms — shrink IS
+        the recovery path).
+
+        Convergence requirement (ftagree's job in the reference): every
+        survivor must already know the same failed set — heartbeat
+        gossip converges within one period, so call shrink after
+        ``get_failed`` reflects the failure on every survivor."""
+        live = self._live_procs()
+        eng = self.dcn.sub(live) if len(live) < self.nprocs else self.dcn
+        k = self._next_shrink()
+        infos = eng.allgather_obj(
+            {"cid": _peek_cid(),
+             "dead": sorted(set(range(self.nprocs)) - set(live))},
+            f"{self.cid}#shrink{k}")
+        all_dead: set[int] = set()
+        for it in infos:
+            all_dead.update(it["dead"])
+        if all_dead & set(live):
+            raise MPICommError(
+                "shrink: survivors disagree on the failed set "
+                f"(late detections {sorted(all_dead & set(live))}); "
+                "wait for detection to converge and retry")
+        cid = _reserve_cid_block(max(int(it["cid"]) for it in infos), 1)
+        members = [r for p in live for r in range(*self.proc_range(p))]
+        owners = [p for p in live for _ in range(self.proc_sizes[p])]
+        sub = self._make_sub("shrunk", cid, members, owners, live)
+        sub.name = name or f"{self.name}.shrunk"
+        return sub
+
+    # -- elastic recovery: replace (the PRRTE restart leg) ---------------
+
+    def replace(self, name: str = "") -> "MultiProcComm":
+        """Rebuild the communicator at FULL size after rank death —
+        shrink's two-legged sibling (≈ PRRTE restarting the failed proc
+        instead of the job contracting around it).
+
+        Under ``tpurun --ft --respawn`` the launcher relaunches a dead
+        rank with a bumped incarnation; the reborn process replays the
+        boot rendezvous, re-publishing its endpoint under
+        ``dcn.<proc>.i<k>``.  Survivors call ``replace()`` after
+        detection converges (typically revoke → replace): each failed
+        proc is awaited on the KVS, its new address installed on the
+        root engine, its failure marks cleared (detector, engine, native
+        C plane, device plane), and one CID-agreement round runs over
+        the restored membership on a fresh ``replace.<proc>.i<k>``
+        stream — a string-cid stream both the mid-job survivors and the
+        fresh-booted reborn proc enter at seq 0.  The reborn process
+        itself calls ``replace()`` right after ``init()`` and joins the
+        same round.
+
+        Returns the new full-membership communicator; the old one stays
+        revoked.  A communicator that does NOT span the job (a split/sub
+        comm, or any derived comm) repairs through the PARTIAL leg
+        (:meth:`_replace_partial`): only the member procs participate,
+        on comm-scoped beacon/agreement streams."""
+        ctx = self.procctx
+        timeout = self._respawn_timeout()
+        world_shaped = (
+            not self._derived
+            and self.nprocs == self.dcn._root_engine().nprocs
+            and all(self.dcn.root_proc_of(p) == p for p in range(self.nprocs)))
+        if not world_shaped:
+            return self._replace_partial(name, timeout)
+        t0 = _trace.now() if _trace._enabled else 0
+        tw0 = time.monotonic()
+        if not ctx.rejoined:
+            cid = self._replace_rejoin(timeout)
+        else:
+            live = self._live_procs()
+            dead = sorted(set(range(self.nprocs)) - set(live))
+            if not dead:
+                # without a restoration round there is no agreement
+                # exchange, and per-process CID reservation would diverge
+                raise MPICommError("replace: no failed ranks on this communicator")
+            proposals = self._replace_recover(sorted(live), dead, timeout)
+            cid = _reserve_cid_block(max(int(c) for c in proposals), 1)
+        sub = self._replace_build(cid, name)
+        if _trace._enabled:
+            _trace.complete("ft", "replace", t0, comm=self.name, cid=int(cid))
+        # the restoration's end-to-end heal latency, flight-recorded on
+        # every participant (no-op unless metrics are enabled)
+        from ompi_tpu_torch.metrics import flight as _flight
+
+        _flight.record(
+            "replace", comm=self.name, cid=int(cid),
+            incarnation=int(ctx.incarnation),
+            heal_ms=round((time.monotonic() - tw0) * 1e3, 3))
+        return sub
+
+    def _respawn_timeout(self) -> float:
+        from ompi_tpu_torch.boot.proc import respawn_timeout
+
+        return respawn_timeout(mca.default_context().store)
+
+    # -- partial replace (split/sub comms) -------------------------------
+
+    def _replace_partial(self, name: str, timeout: float) -> "MultiProcComm":
+        """``replace()`` on a communicator that does not span the job:
+        repair ONLY the member ranks.  Survivor members restore each dead
+        member proc at the root level (await its respawned incarnation,
+        install the endpoint, clear the marks) unless a world-level
+        replace already did; the minimum survivor publishes a
+        comm-scoped beacon (``replace.sub.<proc>.i<k>.c<cid>``) carrying
+        the repaired comm's coordinate recipe, and a CID round runs per
+        restored proc on the comm-scoped stream
+        (``replace.c<cid>.<proc>.i<k>``) that the reborn process joins via
+        :meth:`replace_partial` on its fresh world.  Non-member procs
+        never participate.  Nested splits repair here too: the recipe
+        carries comm-relative (proc, local-index) pairs, and the beacon
+        key is scoped (proc, incarnation, cid), so one death can heal
+        several sub-comms (consumed in ascending-cid order)."""
+        ctx = self.procctx
+        if not ctx.rejoined:
+            raise MPICommError(
+                "partial replace is the survivors' call; a reborn "
+                "incarnation rejoins via world.replace_partial()")
+        tw0 = time.monotonic()
+        t0 = _trace.now() if _trace._enabled else 0
+        live = self._live_procs()
+        dead = sorted(set(range(self.nprocs)) - set(live))
+        if not dead:
+            raise MPICommError("replace: no failed ranks on this communicator")
+        recipe = self._partial_recipe(name)
+        live_roots = [self.dcn.root_proc_of(p) for p in live]
+        dead_roots = [self.dcn.root_proc_of(p) for p in dead]
+        proposals = self._partial_rounds(live_roots, dead_roots, timeout, recipe)
+        cid = _reserve_cid_block(max(int(c) for c in proposals), 1)
+        sub = self._make_sub(
+            "replaced", cid, list(range(self.size)),
+            [p for p in range(self.nprocs) for _ in range(self.proc_sizes[p])],
+            list(range(self.nprocs)))
+        sub.name = recipe["name"]
+        # metadata in WORLD coordinates, matching the reborn side's
+        # recipe-built comm: a second partial repair of this result must
+        # publish world ranks, not the [0..size) of _make_sub over the
+        # old sub
+        sub.group = Group(list(self.group.ranks))
+        if _trace._enabled:
+            _trace.complete("ft", "replace", t0, comm=self.name, cid=int(cid))
+        from ompi_tpu_torch.metrics import flight as _flight
+
+        _flight.record(
+            "replace", comm=self.name, cid=int(cid), partial=True,
+            heal_ms=round((time.monotonic() - tw0) * 1e3, 3))
+        return sub
+
+    def _partial_recipe(self, name: str = "") -> dict:
+        """The repaired communicator's structure in COMM-RELATIVE
+        coordinates — everything a reborn proc (holding only its fresh
+        world) needs to build the identical comm: one (root proc, local
+        index) pair per member rank in comm order, the owning procs (root
+        ids, comm order), the old comm's cid (the queued-beacon
+        discriminator), the comm-scoped stream prefix, and the name."""
+        return {
+            "coords": [[int(a), int(b)] for a, b in
+                       (self._coord_of(r) for r in range(self.size))],
+            "procs": [int(self.dcn.root_proc_of(p)) for p in range(self.nprocs)],
+            "cid": int(self.cid),
+            "skey": f"replace.c{int(self.cid)}",
+            "name": name or f"{self.name}.replaced",
+        }
+
+    def _coord_of(self, r: int) -> tuple[int, int]:
+        """Member rank ``r`` as a (root proc, proc-local index) pair — the
+        nesting-independent address ``_make_sub`` threads down the split
+        chain (``_world_coords``); computed directly on the world, where
+        comm-local IS world-local."""
+        wc = getattr(self, "_world_coords", None)
+        if wc is not None:
+            return wc[r]
+        p, li = self.locate(r)
+        return (int(self.dcn.root_proc_of(p)), int(li))
+
+    def _partial_rounds(self, members: list[int], dead: list[int],
+                        timeout: float, recipe: dict) -> list[int]:
+        """Comm-scoped twin of :meth:`_replace_recover`: one rendezvous
+        round per dead member proc (ROOT ids throughout), CID agreement
+        over the membership restored so far; the minimum survivor
+        publishes the beacon each reborn proc reads.  Shared by the
+        survivor leg (on the sub-comm) and the reborn leg (on the world,
+        for procs still dead after its own round)."""
+        ctx = self.procctx
+        root = self.dcn._root_engine()
+        members = sorted(members)
+        dead = list(dead)
+        proposals = [_peek_cid()]
+        while dead:
+            r = dead.pop(0)
+            if root.proc_failed(r) or r not in ctx.incarnations:
+                inc, addr = ctx.await_respawn(r, timeout)
+                self._integrate_respawn(r, inc, addr)
+            else:
+                # a world-level replace already restored this proc at
+                # the root — only the comm-scoped agreement remains
+                inc = ctx.incarnations[r]
+            members = sorted(members + [r])
+            stream = f"{recipe['skey']}.{r}.i{inc}"
+            if root.proc == min(m for m in members if m != r):
+                # beacon keyed (proc, incarnation, CID): each sub-comm the
+                # dead proc belonged to queues its OWN recipe
+                ctx.kvs.put(
+                    f"{ctx.ns}replace.sub.{r}.i{inc}.c{int(recipe['cid'])}",
+                    dict(recipe, stream=stream, round=members, dead=list(dead),
+                         incs={str(k): v for k, v in ctx.incarnations.items()}))
+            proposals = [int(c) for c in
+                         root.sub(members).allgather_obj_hub(int(_peek_cid()), stream)]
+        return proposals
+
+    def replace_partial(self, name: str = "",
+                        cid: int | None = None) -> "MultiProcComm":
+        """The reborn-incarnation half of a PARTIAL replace: called on the
+        fresh world right after ``init()`` (``world.respawned`` is the
+        SPMD cue) when the communicator being repaired did not span the
+        job.  Consumes the lowest-cid pending recipe of this
+        incarnation's (proc, incarnation, cid)-keyed beacon queue (or
+        exactly ``cid``), joins its CID round (helping restore any procs
+        still dead after it), rebuilds the member communicator from the
+        coordinate recipe, and retires non-member procs from the failure
+        detector — this process has no live relationship with them, so
+        their heartbeat silence toward it must not read as death.  Call
+        it once per poisoned sub-comm, in the ascending-cid order the
+        survivors repair them."""
+        ctx = self.procctx
+        if not ctx.incarnation:
+            raise MPICommError(
+                "replace_partial: not a reborn incarnation (survivors "
+                "repair a partial communicator with replace() on it)")
+        timeout = self._respawn_timeout()
+        inc = ctx.incarnation
+        info, beacon_key = self._next_partial_recipe(cid, timeout)
+        ctx.adopt_incarnation_floors(info.get("incs"))
+        ctx.incarnations[self.proc] = inc
+        members_round = sorted(int(m) for m in info["round"])
+        proposals = [int(c) for c in
+                     self.dcn.sub(members_round).allgather_obj_hub(
+                         int(_peek_cid()), str(info["stream"]))]
+        recipe = {k: info[k] for k in ("coords", "procs", "skey", "name", "cid")}
+        dead = [int(d) for d in info.get("dead", ())]
+        if dead:
+            proposals = self._partial_rounds(members_round, dead, timeout, recipe)
+        new_cid = _reserve_cid_block(max(int(c) for c in proposals), 1)
+        members = [self.proc_range(int(rp))[0] + int(li)
+                   for rp, li in recipe["coords"]]
+        member_procs = [int(p) for p in recipe["procs"]]
+        owners = [self.locate(r)[0] for r in members]
+        sub = self._make_sub("replaced", new_cid, members, owners, member_procs)
+        sub.name = str(recipe["name"])
+        # consume the beacon only now: a heal that failed mid-round must
+        # leave the recipe discoverable for a retry
+        ctx.healed_partials.add(beacon_key)
+        first_rejoin = not ctx.rejoined
+        ctx.rejoined = True
+        det = ctx.detector
+        if det is not None and first_rejoin:
+            # only when this call IS the rejoin: a world-level rejoin that
+            # already ran restored live relationships with every proc
+            for p in range(self.nprocs):
+                if p != self.proc and p not in member_procs:
+                    det.retire_peer(p)
+        from ompi_tpu_torch.metrics import flight as _flight
+
+        _flight.record("replace", comm=sub.name, cid=int(new_cid),
+                       partial=True, incarnation=int(inc))
+        return sub
+
+    def _next_partial_recipe(self, cid: int | None,
+                             timeout: float) -> tuple[dict, str]:
+        """Poll this incarnation's beacon queue for the next UNCONSUMED
+        repair recipe: lowest cid first, or exactly ``cid``.  Returns
+        (recipe, beacon key); the caller marks the key consumed once the
+        heal succeeds."""
+        ctx = self.procctx
+        prefix = f"{ctx.ns}replace.sub.{self.proc}.i{ctx.incarnation}.c"
+        seen = ctx.healed_partials
+        deadline = time.monotonic() + float(timeout)
+        while True:
+            try:
+                scan = ctx.kvs.get_prefix(prefix)
+            except (ConnectionError, OSError):
+                scan = {}
+            pending = sorted(
+                (int(k[len(prefix):]), k) for k in scan
+                if k not in seen and k[len(prefix):].isdigit())
+            if cid is not None:
+                pending = [(c, k) for c, k in pending if c == int(cid)]
+            if pending:
+                _c, key = pending[0]
+                return scan[key], key
+            if time.monotonic() > deadline:
+                from ompi_tpu_torch.core.errors import MPIProcFailedError
+
+                raise MPIProcFailedError(
+                    f"replace_partial: no pending repair recipe for "
+                    f"proc {self.proc} incarnation {ctx.incarnation}"
+                    + (f" cid {cid}" if cid is not None else "")
+                    + f" within {timeout}s")
+            time.sleep(0.05)
+
+    def _replace_recover(self, members: list[int], dead: list[int],
+                         timeout: float) -> list[int]:
+        """Process the dead procs one rendezvous round at a time; each
+        round's CID-agreement allgather spans the membership restored SO
+        FAR (earlier-reborn procs join later rounds — they learn the
+        remaining dead set from the round metadata the minimum survivor
+        published).  Returns the final round's proposals."""
+        ctx = self.procctx
+        proposals = [_peek_cid()]
+        dead = list(dead)
+        while dead:
+            p = dead.pop(0)
+            inc, addr = ctx.await_respawn(p, timeout)
+            members = sorted(members + [p])
+            self._integrate_respawn(p, inc, addr)
+            if self.proc == min(m for m in members if m != p):
+                # rendezvous beacon for the reborn proc: who is in its
+                # round, which procs it must help restore after, and the
+                # survivors' incarnation floors (a reborn proc boots with
+                # an EMPTY incarnation map, and would otherwise accept a
+                # stale inc.<q> of an EARLIER recovery of q)
+                ctx.kvs.put(f"{ctx.ns}replace.{p}.i{inc}",
+                            {"members": members, "dead": list(dead),
+                             "incs": {str(k): v for k, v in ctx.incarnations.items()}})
+            proposals = self._replace_round(members, p, inc)
+        return proposals
+
+    def _replace_round(self, members: list[int], p: int, inc: int) -> list[int]:
+        """One CID-agreement allgather over ``members`` on the (proc,
+        incarnation)-scoped stream — fresh for every participant,
+        mid-job or fresh-booted.  Hub pattern: 2(P−1) frames through the
+        minimum member instead of a full-mesh dial storm on a degraded
+        mesh."""
+        eng = self.dcn if len(members) == self.nprocs else self.dcn.sub(members)
+        infos = eng.allgather_obj_hub(int(_peek_cid()), f"replace.{p}.i{inc}")
+        return [int(c) for c in infos]
+
+    def _integrate_respawn(self, p: int, inc: int, addr: str) -> None:
+        """Install a reborn incarnation on the root engine: refresh its
+        address, clear its failure marks everywhere (gossiping detector,
+        engine failure set, native C plane, device plane), and account
+        the restoration (``respawns`` counter, flight record, trace
+        instant)."""
+        root = self.dcn._root_engine()
+        root.update_address(p, addr)
+        # the incarnation seeds the detector's versioned-gossip floor:
+        # late flr records about the corpse (inc < this) are stale
+        root.note_proc_recovered(p, incarnation=int(inc))
+        from ompi_tpu_torch.metrics import flight as _flight
+
+        # the delivered-seq watermark for the CORPSE's identity (the
+        # reborn endpoint starts a fresh one) — recovery observability
+        wm = 0
+        wm_fn = getattr(root.transport, "_rx_watermark", None)
+        if wm_fn is not None:
+            try:
+                wm = int(wm_fn(addr))
+            except Exception:  # noqa: BLE001 — diagnostic only
+                wm = 0
+        _flight.record("respawn", proc=int(p), incarnation=int(inc),
+                       seq_watermark=wm)
+        if _trace._enabled:
+            _trace.instant("ft", "respawn", proc=int(p), incarnation=int(inc))
+
+    def _replace_rejoin(self, timeout: float) -> int:
+        """The reborn process's half of replace(): wait for the
+        survivors' rendezvous beacon, join this incarnation's
+        CID-agreement round, then help restore any procs still dead."""
+        ctx = self.procctx
+        inc = ctx.incarnation
+        info = ctx.kvs.get(f"{ctx.ns}replace.{self.proc}.i{inc}", timeout=timeout)
+        members = [int(m) for m in info["members"]]
+        dead = [int(d) for d in info["dead"]]
+        # adopt the survivors' incarnation floors before helping restore
+        # any remaining dead procs — detector floors included, so a
+        # FELLOW reborn peer's heartbeats are liveness, not a rebirth
+        ctx.adopt_incarnation_floors(info.get("incs"))
+        ctx.incarnations[self.proc] = inc
+        proposals = self._replace_round(members, self.proc, inc)
+        if dead:
+            proposals = self._replace_recover(members, dead, timeout)
+        ctx.rejoined = True
+        return _reserve_cid_block(max(int(c) for c in proposals), 1)
+
+    def _replace_build(self, cid: int, name: str) -> "MultiProcComm":
+        members = list(range(self.size))
+        owners = [p for p in range(self.nprocs) for _ in range(self.proc_sizes[p])]
+        sub = self._make_sub("replaced", cid, members, owners, list(range(self.nprocs)))
+        sub.name = name or f"{self.name}.replaced"
+        # only reachable from the world leg: the healed comm spans the
+        # job in rank order, so a LATER death must repair it through the
+        # world leg again
+        sub._derived = False
+        return sub
 
     # -- lifecycle -------------------------------------------------------
 
@@ -862,12 +1289,18 @@ class MultiProcComm(PersistentP2PMixin):
         c.cid = cid
         c.name = f"{self.name}.split({color})"
         c._freed = False
+        c._derived = True
         c.proc_sizes = [owners.count(p) for p in member_procs]
         c.offsets = np.cumsum([0] + c.proc_sizes).tolist()
         c.local_size = c.proc_sizes[c.proc]
         c.local_offset = c.offsets[c.proc]
         c.size = len(members)
         c.group = Group(list(members))  # parent-global ranks, sub order
+        #: members as (root proc, proc-local index) pairs — the
+        #: nesting-independent addressing a partial-replace recipe
+        #: publishes (a nested split's group ranks are only PARENT-
+        #: relative; these chain through every level to the world)
+        c._world_coords = [self._coord_of(m) for m in members]
         my_local = [self.locate(r)[1] for r, p in zip(members, owners) if p == self.proc]
         c.local_mesh = self.local_mesh.submesh(my_local)
         c.local = Comm(

@@ -75,11 +75,15 @@ class ProcContext:
         self.proc = int(os.environ[ENV_PROC])
         self.nprocs = int(os.environ[ENV_NPROCS])
         self.ns = os.environ.get(ENV_NS, "")
-        #: elastic recovery state: this process's rebirth count and
-        #: whether a reborn process has rejoined the job yet (the
-        #: rejoin itself — replace() — is not ported yet)
+        #: elastic recovery state: this process's rebirth count, the
+        #: highest incarnation we know per peer (replace() polls past
+        #: it), and whether a reborn process has rejoined the job yet
         self.incarnation = int(os.environ.get(ENV_INCARNATION, "0"))
+        self.incarnations: dict[int, int] = {}
         self.rejoined = self.incarnation == 0
+        #: partial-replace beacon keys this reborn incarnation already
+        #: consumed — replace_partial walks the (proc, inc, cid) queue
+        self.healed_partials: set[str] = set()
         self.kvs = KVSClient(os.environ[ENV_KVS])
         # modex: publish DCN endpoint, fence, gather peers. Transport
         # tunables come from the btl/tcp component's MCA vars (so
@@ -339,6 +343,73 @@ class ProcContext:
         if self.detector is not None:
             for p in self.detector.failed():
                 comm._on_proc_failed(p)
+
+    def adopt_incarnation_floors(self, incs) -> None:
+        """Fold a recovery beacon's incarnation floors in: the
+        ``incarnations`` map (await_respawn polls past them) AND the
+        detector's rebirth floor — a reborn process boots with both
+        empty, and without the detector half a fellow reborn peer's
+        current-incarnation heartbeats would read as a rebirth detection
+        and falsely re-mark it (the multi-victim case a whole-host kill
+        produces).  A proc the beacon names restored that THIS process
+        currently marks failed was marked against the corpse (the reborn
+        fellows boot in parallel, and an early send can hit a corpse
+        address and strike before the floors arrive) — clear the mark
+        everywhere, or it replays into every comm registered afterwards."""
+        for k, v in (incs or {}).items():
+            k, v = int(k), int(v)
+            self.incarnations[k] = max(v, self.incarnations.get(k, 0))
+            if k == self.proc:
+                continue
+            if v > 0:
+                # the boot's eager gather raced the fellow reborn's
+                # re-publish: refresh from the incarnation-suffixed key
+                # (authoritative for the reborn lineage) so sends stop
+                # dialing the corpse endpoint
+                try:
+                    addr = self.kvs.get(f"{self.ns}dcn.{k}.i{v}", wait=False)
+                    if addr:
+                        self.engine.update_address(k, addr)
+                except (KeyError, ConnectionError, OSError):
+                    pass
+            if self.detector is None:
+                continue
+            if k in self.detector.failed() or self.engine.proc_failed(k):
+                self.engine.note_proc_recovered(k, incarnation=v)
+            else:
+                self.detector.note_incarnation(k, v)
+
+    def await_respawn(self, root_proc: int, timeout: float) -> tuple[int, str]:
+        """Block until a NEW incarnation of ``root_proc`` (> the last one
+        we integrated) has re-published its endpoint; returns
+        (incarnation, address).  The restart leg's rendezvous: ``tpurun
+        --respawn`` relaunches the rank, whose boot publishes
+        ``inc.<proc>`` and ``dcn.<proc>.i<k>`` (see __init__)."""
+        import time
+
+        last = self.incarnations.get(root_proc, 0)
+        deadline = time.monotonic() + float(timeout)
+        while True:
+            try:
+                inc = int(self.kvs.get(f"{self.ns}inc.{root_proc}", wait=False))
+            except KeyError:
+                inc = 0
+            if inc > last:
+                break
+            if time.monotonic() > deadline:
+                from ompi_tpu_torch.core.errors import MPIProcFailedError
+
+                raise MPIProcFailedError(
+                    f"replace: no respawned incarnation of proc "
+                    f"{root_proc} within ft_respawn_timeout={timeout}s "
+                    f"(launched without tpurun --respawn, or the rank "
+                    f"exhausted --max-respawns?)")
+            time.sleep(0.05)
+        address = self.kvs.get(
+            f"{self.ns}dcn.{root_proc}.i{inc}",
+            timeout=max(1.0, deadline - time.monotonic()))
+        self.incarnations[root_proc] = inc
+        return inc, address
 
     def fence(self, name: str) -> None:
         self.kvs.fence(f"{self.ns}{name}", self.proc, self.nprocs)

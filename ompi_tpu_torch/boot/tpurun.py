@@ -326,14 +326,28 @@ def run_job(
 _SHM_PREFIXES = ("tdcn-{}-", "tdcn-db-{}-", "ompitpu-{}-", "tpudev-{}-")
 
 
+def _pid_in_use(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        pass
+    return True
+
+
 def _unlink_leftovers(pids, shm_dir: str = "/dev/shm") -> list[str]:
     """Unlink the shared-memory names the job's (now dead) workers left;
-    returns what was removed.  A clean finalize leaves none."""
+    returns what was removed.  A clean finalize leaves none.  Every worker
+    is dead and reaped by now, so a pid that is in use again belongs to
+    another process (a long job outlives a respawned corpse's pid): its
+    names are left alone."""
     try:
         names = os.listdir(shm_dir)
     except OSError:
         return []
-    prefixes = tuple(fmt.format(pid) for pid in pids for fmt in _SHM_PREFIXES)
+    prefixes = tuple(fmt.format(pid) for pid in pids if not _pid_in_use(pid)
+                     for fmt in _SHM_PREFIXES)
     gone = []
     for name in names:
         if prefixes and name.startswith(prefixes):

@@ -535,6 +535,19 @@ struct ShmCtrl {
 
 static const uint64_t PAD_BIT = 1ull << 63;
 
+// Create a shared-memory name exclusively.  Every name this engine
+// creates embeds its pid, so an existing one was left by a dead process
+// that had the same pid (a SIGKILLed worker whose launcher never
+// unlinked it; pids recycle): unlink it and create afresh.
+static int shm_create_fresh(const char *nm) {
+  int fd = shm_open(nm, O_CREAT | O_EXCL | O_RDWR, 0600);
+  if (fd < 0 && errno == EEXIST) {
+    shm_unlink(nm);
+    fd = shm_open(nm, O_CREAT | O_EXCL | O_RDWR, 0600);
+  }
+  return fd;
+}
+
 struct ShmRing {
   ShmCtrl *ctrl = nullptr;
   uint8_t *data = nullptr;
@@ -544,7 +557,7 @@ struct ShmRing {
 
   bool create(const std::string &nm, uint64_t sz) {
     name = nm;
-    fd = shm_open(nm.c_str(), O_CREAT | O_EXCL | O_RDWR, 0600);
+    fd = shm_create_fresh(nm.c_str());
     if (fd < 0) return false;
     if (ftruncate(fd, (off_t)(sizeof(ShmCtrl) + sz)) != 0) return false;
     void *m = mmap(nullptr, sizeof(ShmCtrl) + sz, PROT_READ | PROT_WRITE,
@@ -662,7 +675,8 @@ struct ShmRing {
   uint8_t *reserve(uint64_t need, uint64_t *rec_start,
                    std::atomic<bool> *closing, TdcnStats *stats = nullptr,
                    uint64_t timeout_ns = 0, void *hang_eng = nullptr,
-                   const char *hang_addr = nullptr) {
+                   const char *hang_addr = nullptr,
+                   const std::atomic<bool> *consumer_failed = nullptr) {
     uint64_t spin = 0;
     uint64_t stall_t0 = 0;
     uint64_t give_up = 0;
@@ -700,6 +714,14 @@ struct ShmRing {
         }
         hang_wait_end(hang_tok);
         return nullptr;  // receiver wedged/dead: surface a send error
+      }
+      if (consumer_failed &&
+          consumer_failed->load(std::memory_order_relaxed)) {
+        // the consumer's proc is marked failed: a dead consumer never
+        // frees space, so surface the send error now instead of at
+        // the ring deadline (the caller escalates it ULFM-style)
+        hang_wait_end(hang_tok);
+        return nullptr;
       }
       if (++spin < 64) {
 #if defined(__x86_64__)
@@ -747,7 +769,7 @@ struct Doorbell {
 
   bool create(const std::string &nm) {
     name = nm;
-    fd = shm_open(nm.c_str(), O_CREAT | O_EXCL | O_RDWR, 0600);
+    fd = shm_create_fresh(nm.c_str());
     if (fd < 0) return false;
     if (ftruncate(fd, 4096) != 0) return false;
     void *m = mmap(nullptr, 4096, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
@@ -923,6 +945,10 @@ struct Peer {
                          // or incarnations sharing a proc index can
                          // never collide on one watermark
   bool same_host = false;
+  // this address's proc is marked failed (tdcn_note_failed; cleared by
+  // tdcn_clear_failed): ring writes and stream turns toward it give up
+  // instead of waiting out the ring deadline on a consumer that is gone
+  std::atomic<bool> marked_failed{false};
   ShmRing tx_ring;  // our ring toward this peer (created lazily)
   bool ring_announced = false;
   // lock-free "ring exists" hint for the isend fast path: set (under
@@ -2343,7 +2369,7 @@ static bool send_record_ring(Engine *eng, Peer *p, const WireHdr &h,
   uint64_t rec_start;
   uint8_t *w = p->tx_ring.reserve(need, &rec_start, &eng->closing,
                                   &eng->stats, timeout_ns, eng,
-                                  p->address.c_str());
+                                  p->address.c_str(), &p->marked_failed);
   if (!w) return false;
   ring_put_record(eng, p, w, rec_start, need, h, e, payload);
   return true;
@@ -2689,6 +2715,8 @@ static void sender_loop(Engine *eng) {
         if (tmo && prog && now_ns() - prog > tmo) {
           eng->stats.add(TS_DEADLINE_EXPIRED, 1);
           stream_fail_peer(eng, p, -1);
+        } else if (p->marked_failed.load(std::memory_order_relaxed)) {
+          stream_fail_peer(eng, p, -1);  // its consumer is gone
         }
       }
     }
@@ -3880,7 +3908,13 @@ void *tdcn_create(int proc, int nprocs, const char *host_id,
   char db[96];
   snprintf(db, sizeof(db), "/tdcn-db-%d-%d", getpid(), proc);
   eng->db_name = db;
-  eng->my_db.create(db);
+  if (!eng->my_db.create(db)) {
+    // no doorbell, no engine: the ring poller would dereference it
+    close(eng->tcp_listen_fd);
+    close(eng->uds_listen_fd);
+    delete eng;
+    return nullptr;
+  }
 
   eng->address = compose_address(eng);
   eng->threads.emplace_back(accept_loop, eng, eng->tcp_listen_fd);
@@ -4619,11 +4653,29 @@ uint64_t tdcn_rx_watermark(void *h, int proc) {
 // what keeps that resend exactly-once.  Stale lineages are pruned
 // when the proc's ADDRESS changes (tdcn_set_addresses), the one
 // signal that a new incarnation really replaced it.
+// The peer object of `proc`'s current address, or nullptr (no address
+// installed yet, or never dialed).  Takes addr_mu, then peers_mu.
+static Peer *engine_peer_of(Engine *eng, int proc) {
+  std::string addr;
+  {
+    std::lock_guard<std::mutex> ag(eng->addr_mu);
+    if (proc < 0 || (size_t)proc >= eng->peer_addresses.size()) return nullptr;
+    addr = eng->peer_addresses[proc];
+  }
+  std::lock_guard<std::mutex> g(eng->peers_mu);
+  auto it = eng->peers.find(addr);
+  return it == eng->peers.end() ? nullptr : it->second;
+}
+
 void tdcn_clear_failed(void *h, int proc) {
   Engine *eng = (Engine *)h;
-  std::lock_guard<std::mutex> g(eng->mu);
-  if (proc >= 0 && (size_t)proc < eng->failed.size())
-    eng->failed[proc] = false;
+  {
+    std::lock_guard<std::mutex> g(eng->mu);
+    if (proc >= 0 && (size_t)proc < eng->failed.size())
+      eng->failed[proc] = false;
+  }
+  if (Peer *p = engine_peer_of(eng, proc))
+    p->marked_failed.store(false, std::memory_order_relaxed);
 }
 
 void tdcn_note_failed(void *h, int proc) {
@@ -4637,6 +4689,12 @@ void tdcn_note_failed(void *h, int proc) {
     for (auto &kv : eng->coll) kv.second->cv.notify_all();
     for (auto &kv : eng->reqs) kv.second->cv.notify_all();
     wake_waiters(eng);
+  }
+  // a sender blocked on the proc's full ring polls this flag at its
+  // 2 ms backstop; its queued streams fail on the sender thread's turn
+  if (Peer *p = engine_peer_of(eng, proc)) {
+    p->marked_failed.store(true, std::memory_order_relaxed);
+    stream_kick(eng);
   }
   // dedup watermarks survive the mark on purpose: a false-positive
   // detection (peer actually alive) followed by clear_failed must not

@@ -37,7 +37,12 @@ CONSUMED``), then the placed length.
   The sender's copy completes before ``SEM_DATA``; the receiver copies
   into its posted tensor, synchronizes and unmaps before
   ``SEM_CONSUMED``, because the sender's reap frees the window.  Only
-  a CUDA-tensor payload is ever staged this way.
+  a CUDA-tensor payload is ever staged this way.  A receiver holds a
+  mapping only for the length of one copy, and never delivers bytes
+  copied through a mapping whose exporter died: the descriptor names
+  the exporting process (``"pid"``), which must be alive before the
+  handle is opened and still alive after the copy, or the read fails
+  as :class:`ExporterGone` (a peer failure, escalated like a deadline).
 
 There is no quiet way off the card: given a CUDA tensor, a window
 library that fails to build or load, or a CUDA error, raises
@@ -102,8 +107,9 @@ STATS_KEYS = (
 #: descriptor key the control frame carries (collops attaches it to the
 #: coll envelope; the native plane rides the meta JSON under the same key)
 DESC_KEY = "dev"
-#: descriptor keys of a CUDA window: its kind, and its IPC handle (hex)
-KIND_KEY, IPC_KEY = "k", "ipc"
+#: descriptor keys of a CUDA window: its kind, its IPC handle (hex) and
+#: the exporting process
+KIND_KEY, IPC_KEY, PID_KEY = "k", "ipc", "pid"
 KIND_CUDA = "cuda"
 
 _CUDA_SRC = Path(__file__).resolve().parents[1] / "csrc" / "device_window.cu"
@@ -114,6 +120,22 @@ _cuda_lock = threading.Lock()
 class DeviceWindowError(MPIInternalError):
     """The CUDA window library could not be built or loaded, or a CUDA
     call on a window failed.  Never turned into a host-plane send."""
+
+
+class ExporterGone(DeviceWindowError):
+    """The process that exported a CUDA window died before the receiver
+    finished reading it: the bytes are not delivered."""
+
+
+def exporter_alive(pid: int) -> bool:
+    """Whether process ``pid`` still runs on this host (a zombie — killed,
+    not yet reaped by its launcher — counts as dead)."""
+    try:
+        with open(f"/proc/{int(pid)}/stat", "rb") as f:
+            state = f.read().rsplit(b")", 1)[1].split()[0]
+    except (OSError, IndexError):
+        return False
+    return state not in (b"Z", b"X")
 
 
 def _untrack_shm(name: str) -> None:
@@ -364,7 +386,11 @@ class CudaWindow:
 def _cuda_read(desc: dict, into, shape, dtype: torch.dtype, nbytes: int):
     """The receiver's half of a CUDA window: map the sender's window, copy
     it into the posted tensor (or a new one on the current card), wait,
-    and unmap — all before the caller signals consumed."""
+    and unmap — all before the caller signals consumed.  The exporter
+    must be alive before the mapping opens and after the copy ends."""
+    pid = desc.get(PID_KEY)
+    if pid is not None and not exporter_alive(pid):
+        raise ExporterGone(f"device window {desc['w']}: exporter {pid} is gone")
     lib = _cuda_lib()
     if (isinstance(into, torch.Tensor) and into.is_cuda and into.is_contiguous()
             and into.dtype == dtype and tuple(into.shape) == shape):
@@ -382,6 +408,8 @@ def _cuda_read(desc: dict, into, shape, dtype: torch.dtype, nbytes: int):
                     "copy out")
     finally:
         _cuda_check(lib, lib.ompi_dw_ipc_close(dev, ptr), "cudaIpcCloseMemHandle")
+    if pid is not None and not exporter_alive(pid):
+        raise ExporterGone(f"device window {desc['w']}: exporter {pid} died during the copy")
     return out
 
 
@@ -790,7 +818,7 @@ class DevicePlane:
         if cuda:
             desc = {"w": name, "n": nbytes, "dt": _tensor_wire_dtype(arr.dtype),
                     "sh": list(arr.shape),
-                    KIND_KEY: KIND_CUDA, IPC_KEY: win.handle.hex()}
+                    KIND_KEY: KIND_CUDA, IPC_KEY: win.handle.hex(), PID_KEY: os.getpid()}
         else:
             desc = {"w": name, "n": nbytes, "dt": wire_dtype(arr.dtype),
                     "sh": list(arr.shape)}
@@ -908,10 +936,10 @@ def materialize(root_engine, desc: dict, into=None,
     materialize through the engine's plane when one is armed (counters
     tick), else the plane-less twin.
 
-    Failure semantics (the ULFM half): an expired semaphore wait or a
-    truncated DMA with ``src_root`` known strikes the plane-health table
-    for the sender, reclaims every window we have staged toward it, and
-    converges on the engine's ``_escalate_deadline`` (flight record,
+    Failure semantics (the ULFM half): an expired semaphore wait, a
+    truncated DMA or a CUDA window whose exporter died, with ``src_root``
+    known, strikes the plane-health table for the sender, reclaims every
+    window we have staged toward it, and converges on the engine's ``_escalate_deadline`` (flight record,
     counters, detector mark, ``MPIProcFailedError``)."""
     from ompi_tpu_torch.core.errors import (DeadlineExpiredError,
                                             MPITruncateError)
@@ -921,8 +949,9 @@ def materialize(root_engine, desc: dict, into=None,
         return (dp.receive(desc, into=into, src_root=src_root)
                 if dp is not None
                 else receive(desc, into=into, src_root=src_root))
-    except (DeadlineExpiredError, MPITruncateError) as e:
+    except (DeadlineExpiredError, MPITruncateError, ExporterGone) as e:
         cause = ("trunc" if isinstance(e, MPITruncateError)
+                 else "exporter_gone" if isinstance(e, ExporterGone)
                  else "deadline")
         if dp is not None and src_root is not None:
             dp.health.strike(int(src_root), cause)

@@ -787,6 +787,17 @@ class NativeDcnEngine(_NativeOpsMixin, DcnCollEngine):
         self._lib.tdcn_set_addresses(
             self._h, "\n".join(self.addresses).encode())
 
+    def update_address(self, proc: int, address: str) -> None:
+        """One-peer refresh (replace() installing a reborn endpoint):
+        ``tdcn_set_address_one`` updates exactly that slot — the C
+        engine prunes the corpse lineage's rx state and invalidates any
+        C-coll views that resolved the dead address — without collapsing
+        a sharded table's unresolved holes the way a full-table re-push
+        would."""
+        super().update_address(proc, address)  # the Python-side slot
+        self._lib.tdcn_set_address_one(
+            self._h, int(proc), str(address).encode(), 0)
+
     def _arm_resolver(self) -> None:
         """C-side lazy-modex callback: writes the table-resolved
         address into the engine-provided buffer (NUL-terminated).  The

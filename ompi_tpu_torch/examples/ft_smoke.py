@@ -1,0 +1,298 @@
+"""The recovery legs on the card: the worker of ``chip_smoke.py``'s
+``recovery`` phase.
+
+    python -m ompi_tpu_torch run -np 2 --nranks 4 --ft --respawn \\
+        --mca metrics_enable 1 ompi_tpu_torch/examples/ft_smoke.py --mode respawn
+    python -m ompi_tpu_torch run -np 3 --nranks 4 --ft \\
+        ompi_tpu_torch/examples/ft_smoke.py --mode shrink
+    python -m ompi_tpu_torch run -np 2 --nranks 4 \\
+        ompi_tpu_torch/examples/ft_smoke.py --mode fresh
+    python -m ompi_tpu_torch run -np 2 --nranks 4 \\
+        ompi_tpu_torch/examples/ft_smoke.py --mode spawn
+
+Every process drives its K virtual ranks on the current CUDA device (or
+the CPU with ``--device cpu`` and a small ``--bytes``, the rehearsal) on
+the default ``btl/native`` with the DCN device plane on, the local leg on
+forced ``cuda_ring`` (``coll_cuda_allreduce_algorithm`` 7), and prints
+JSON lines prefixed ``FTJSON``.  Rank r's f32 row is drawn from its own
+seed, so every process can make any rank's data and every result is the
+same float32 sum on every rank: a SHA-256 of the result names its bits.
+
+* ``respawn`` — ``--calls`` (5) SUM allreduces of ``--bytes`` per rank
+  (``pre``: digests and host-clock times); process 1 then SIGKILLs
+  itself inside the next call (a timer fires 2 ms into it; both
+  processes keep calling until the failure surfaces), on its first
+  incarnation.  The survivor catches the failure, revokes and calls
+  ``replace()``; the reborn incarnation calls ``replace()`` right after
+  ``init``.  Both repeat the calls on the restored 8-rank comm
+  (``post``: digests, times and the ring-hop launches of those calls)
+  and report ``recovered``: the incarnation,
+  the restored size, the ``respawns`` counter, the device plane's
+  counters and ``heal_ms`` from the ``replace`` flight record;
+* ``shrink`` — (run under ``--ft`` with 3 processes, no respawn)
+  process 2 SIGKILLs itself after a barrier; the survivors wait until
+  they see it failed, revoke, ``shrink()`` to 2 processes × K ranks and
+  run SUM allreduces of 1 MiB and ``--bytes`` per rank (``calls``);
+* ``fresh`` — the same calls on a fresh 2-process job: the bits the
+  shrunk comm must reproduce;
+* ``spawn`` — ``api.spawn`` of 2 children (this script with ``--mode
+  child``); parents and children merge into a 4-process comm and run a
+  1 MiB SUM allreduce with the local leg on ``cuda_ring`` and on the
+  plain ring (enum 2): ``merged`` reports both digests (every process,
+  parents and children alike).
+
+``--mode ipc-export`` and ``--mode ipc-import`` (no launcher) are the two
+halves of the probe of what CUDA does with a mapping whose
+exporter died; ``chip_smoke.py`` drives them over pipes.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import signal
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+SEED = 29
+
+
+def emit(kind: str, **obj) -> None:
+    print("FTJSON " + json.dumps({"kind": kind, **obj}), flush=True)
+
+
+def digest(t) -> str:
+    a = t.detach().contiguous().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rank_rows(ranks, count: int, dev: torch.device, salt: int = 0) -> torch.Tensor:
+    rows = []
+    for r in ranks:
+        g = torch.Generator(device=dev).manual_seed(SEED * 100003 + salt * 1009 + r)
+        rows.append(torch.randn(count, generator=g, device=dev))
+    return torch.stack(rows)
+
+
+def counters(w) -> dict:
+    snap = getattr(w.dcn._root_engine(), "stats_snapshot", dict)() or {}
+    dp = getattr(w.dcn._root_engine(), "_device_plane", None)
+    dev = {k: int(dp.stats[k]) for k in ("device_sends", "device_recvs", "device_fallbacks",
+                                         "device_window_reclaimed")} if dp else None
+    return {"respawns": int(snap.get("respawns", 0)), "device": dev}
+
+
+def timed_calls(comm, x, calls: int) -> tuple[list, list]:
+    from ompi_tpu_torch.op import SUM
+
+    digests, times = [], []
+    for _ in range(calls):
+        sync(x.device)
+        t0 = time.perf_counter()
+        out = comm.allreduce(x, SUM)
+        sync(x.device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        digests.append(digest(out))
+        del out
+    return digests, times
+
+
+def run_respawn(w, ck, nbytes: int, calls: int) -> None:
+    from ompi_tpu_torch.core.errors import MPIProcFailedError, MPIRevokedError
+    from ompi_tpu_torch.metrics import flight
+    from ompi_tpu_torch.op import SUM
+
+    p, inc, k, dev = w.proc, w.procctx.incarnation, w.local_size, w.device
+    x = rank_rows(range(w.local_offset, w.local_offset + k), nbytes // 4, dev)
+    comm = w
+    if w.respawned:
+        comm = w.replace()
+    else:
+        digests, times = timed_calls(w, x, calls)
+        emit("pre", proc=p, pid=os.getpid(), digests=digests, times_ms=times)
+        extra = 0
+        try:
+            if p == 1 and inc == 0:
+                # the SIGKILL lands inside the sixth call (or, should that
+                # call beat the timer, inside a later one)
+                threading.Timer(0.002, os.kill, (os.getpid(), signal.SIGKILL)).start()
+            while extra < 1000:
+                w.allreduce(x, SUM)
+                sync(dev)
+                extra += 1
+            raise SystemExit("no failure seen in 1000 calls after the kill")
+        except (MPIProcFailedError, MPIRevokedError) as e:
+            emit("caught", proc=p, error=type(e).__name__, completed_after_pre=extra)
+            w.revoke()
+            comm = w.replace()
+    heal = [r["detail"]["heal_ms"] for r in flight.records()
+            if r.get("reason") == "replace" and "heal_ms" in r.get("detail", {})]
+    ck.reset_launches()
+    digests, times = timed_calls(comm, x, calls)
+    emit("post", proc=p, digests=digests, times_ms=times, launches=dict(ck.LAUNCHES))
+    emit("recovered", proc=p, pid=os.getpid(), incarnation=inc, size=comm.size, name=comm.name,
+         heal_ms=heal[-1] if heal else None, **counters(w))
+
+
+def shrink_calls(comm, nbytes: int) -> None:
+    """SUM of 1 MiB and ``nbytes`` per rank on ``comm``, inputs seeded by
+    the comm's global ranks."""
+    dev = comm.device
+    rows = []
+    for b in sorted({1 << 20, nbytes}):
+        x = rank_rows(range(comm.local_offset, comm.local_offset + comm.local_size),
+                      b // 4, dev, salt=1)
+        rows.append({"bytes": b, "digest": timed_calls(comm, x, 1)[0][0]})
+    emit("calls", proc=comm.proc, size=comm.size, nprocs=comm.nprocs, name=comm.name,
+         calls=rows)
+
+
+def run_shrink(w, nbytes: int) -> None:
+    p = w.proc
+    w.barrier()
+    if p == 2:
+        sys.stdout.flush()
+        os.kill(os.getpid(), signal.SIGKILL)
+    dead = set(range(*w.proc_range(2)))
+    deadline = time.monotonic() + 60
+    while not dead <= set(w.get_failed()):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"process 2's failure not seen: {w.get_failed()}")
+        time.sleep(0.05)
+    w.revoke()
+    small = w.shrink()
+    shrink_calls(small, nbytes)
+    emit("shrunk", proc=p, pid=os.getpid(), failed=w.get_failed(), size=small.size,
+         **counters(w))
+    # a survivor of a killed peer leaves without the finalize fence
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def merged_allreduce(m, ck) -> None:
+    from ompi_tpu_torch.core import mca
+
+    store = mca.default_context().store
+    x = rank_rows(range(m.local_offset, m.local_offset + m.local_size), (1 << 20) // 4,
+                  m.device, salt=2)
+    ck.reset_launches()
+    ring = timed_calls(m, x, 1)[0][0]
+    launches = dict(ck.LAUNCHES)
+    store.set("coll_cuda_allreduce_algorithm", 2)
+    plain = timed_calls(m, x, 1)[0][0]
+    store.set("coll_cuda_allreduce_algorithm", 7)
+    emit("merged", proc=m.proc, nprocs=m.nprocs, size=m.size, ring=ring, plain=plain,
+         launches=launches)
+
+
+def run_spawn(api, ck, args) -> None:
+    if args.mode == "spawn":
+        ic = api.spawn([os.path.abspath(__file__), "--mode", "child", "--device",
+                        args.device], maxprocs=2)
+        m = ic.merge()
+    else:
+        m = api.get_parent().merge()
+    merged_allreduce(m, ck)
+
+
+def ipc_export(nbytes: int) -> int:
+    """Two CUDA windows with a known pattern; their handles on stdout;
+    then wait to be killed."""
+    from ompi_tpu_torch.dcn import device
+
+    pattern = torch.arange(nbytes // 4, dtype=torch.float32, device="cuda")
+    wins = [device.CudaWindow(f"tpudev-probe-{os.getpid()}-{i}", nbytes, 0) for i in range(2)]
+    for win in wins:
+        win.place(pattern)
+    print(json.dumps({"pid": os.getpid(), "handles": [w.handle.hex() for w in wins]}),
+          flush=True)
+    time.sleep(3600)
+    return 0
+
+
+def ipc_import(nbytes: int) -> int:
+    """Map window 0 while its exporter lives; after ``dead`` on stdin,
+    copy through that mapping again, close it, and try to open window 1."""
+    import ctypes
+
+    from ompi_tpu_torch.dcn import device
+
+    lib = device._cuda_lib()
+    handles = json.loads(sys.stdin.readline())["handles"]
+    pattern = torch.arange(nbytes // 4, dtype=torch.float32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def copy(ptr) -> dict:
+        out = torch.full_like(pattern, -1.0)
+        rc = lib.ompi_dw_copy(ctypes.c_void_p(out.data_ptr()), ptr, nbytes, stream)
+        return {"rc": int(rc), "error": lib.ompi_dw_error_string(rc).decode() if rc else "",
+                "equal": bool(torch.equal(out, pattern)) if rc == 0 else None,
+                "zeros": bool((out == 0).all()) if rc == 0 else None}
+
+    ptr = ctypes.c_void_p()
+    rc = lib.ompi_dw_ipc_open(0, bytes.fromhex(handles[0]), ctypes.byref(ptr))
+    res = {"open_live": int(rc), "copy_live": copy(ptr) if rc == 0 else None}
+    print(json.dumps({"opened": rc == 0}), flush=True)
+    sys.stdin.readline()  # the exporter is dead now
+    res["copy_after_death"] = copy(ptr) if rc == 0 else None
+    res["close_after_death"] = int(lib.ompi_dw_ipc_close(0, ptr)) if rc == 0 else None
+    ptr2 = ctypes.c_void_p()
+    rc2 = lib.ompi_dw_ipc_open(0, bytes.fromhex(handles[1]), ctypes.byref(ptr2))
+    res["open_after_death"] = int(rc2)
+    res["open_after_death_error"] = lib.ompi_dw_error_string(rc2).decode() if rc2 else ""
+    if rc2 == 0:
+        res["copy_opened_after_death"] = copy(ptr2)
+        lib.ompi_dw_ipc_close(0, ptr2)
+    # the importer's own context still works
+    res["context_ok"] = bool((torch.ones(4, device="cuda") * 2).sum().item() == 8.0)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--mode", required=True,
+                    choices=["respawn", "shrink", "fresh", "spawn", "child",
+                             "ipc-export", "ipc-import"])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--bytes", type=int, default=64 << 20, help="per-rank bytes of a call")
+    ap.add_argument("--calls", type=int, default=5, help="calls before and after the failure")
+    args = ap.parse_args()
+    if args.mode == "ipc-export":
+        return ipc_export(args.bytes)
+    if args.mode == "ipc-import":
+        return ipc_import(args.bytes)
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.coll import cuda_kernels as ck
+    from ompi_tpu_torch.core import mca
+
+    w = api.init(device=args.device)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ompi_tpu"))
+    if bad:
+        raise SystemExit(f"forbidden modules imported: {bad}")
+    mca.default_context().store.set("coll_cuda_allreduce_algorithm", 7)
+    if args.mode == "respawn":
+        run_respawn(w, ck, args.bytes, args.calls)
+    elif args.mode == "shrink":
+        run_shrink(w, args.bytes)
+    elif args.mode == "fresh":
+        shrink_calls(w, args.bytes)
+    else:
+        run_spawn(api, ck, args)
+    api.finalize()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -528,7 +528,11 @@ class HeartbeatDetector:
             targets = self._gossip_targets_locked(proc) if relay else []
             if src is not None:
                 targets = [t for t in targets if t != src]
-        self.engine.note_proc_failed(proc)
+        # the communicators' ULFM marks first, then the engine's: marking
+        # the engine wakes every receive blocked on the proc, and a woken
+        # survivor that goes straight to replace()/shrink() must find the
+        # failure in its comm's state (the reverse order lets it read an
+        # empty failed set and refuse to recover)
         for cb in cbs:
             try:
                 cb(proc)
@@ -536,6 +540,7 @@ class HeartbeatDetector:
                 import traceback  # kill the detector thread
 
                 traceback.print_exc()
+        self.engine.note_proc_failed(proc)
         if targets:
             rec = {"kind": "flr", "proc": int(proc), "inc": int(inc),
                    "epoch": int(epoch), "src": self.engine.proc}

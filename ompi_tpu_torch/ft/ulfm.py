@@ -1,9 +1,8 @@
 """ULFM — user-level failure mitigation (revoke / shrink / agree).
 
 Port of ``ompi_tpu/ft/ulfm.py``: the state, the per-operation guard,
-revoke, get_failed/ack_failed and agree.  ``shrink``/``replace`` are
-the entry points of the recovery legs, which are not ported yet: they
-raise :class:`MPIProcFailedError`.
+revoke, get_failed/ack_failed, agree, and the entry points of the two
+recovery legs, ``shrink`` and ``replace``.
 
 The reference's re-design of Open MPI's fault-tolerance story
 (SURVEY.md §5 "Failure detection / elastic recovery": v5's ULFM ext
@@ -20,12 +19,14 @@ Semantics preserved:
   out-of-band broadcast beats the failure news to everyone"): all
   subsequent operations raise :class:`MPIRevokedError` EXCEPT the
   recovery trio shrink / agree / failure introspection;
-* ``shrink()`` builds a fresh communicator over the live ranks (the
-  group renumbers contiguously) — not ported yet;
+* ``shrink()`` builds a fresh communicator over the live ranks: the
+  group renumbers contiguously and the new comm's mesh is the live
+  ranks' rows (on a multi-process comm, the survivor processes agree
+  the failed set and a new CID first);
 * ``replace()`` is the second recovery leg (≈ PRRTE restarting the
   failed proc): under ``tpurun --ft --respawn`` the launcher respawns
   the dead rank and replace() rebuilds the communicator at FULL
-  size — not ported yet;
+  size — multi-process comms only (see :mod:`ompi_tpu_torch.api.multiproc`);
 * ``agree(flags)`` is the ftagree fault-tolerant agreement: bitwise
   AND over live ranks' contributions, deciding consistently even with
   failed participants (the reference's early-returning consensus);
@@ -165,27 +166,38 @@ def ack_failed(comm) -> int:
     return len(st.acked)
 
 
-def _not_ported(what: str, comm):
-    st = peek(comm)
-    raise MPIProcFailedError(
-        f"{what}() on {comm.name}: the recovery legs (shrink/replace/"
-        f"respawn) are not ported yet; revoke, get_failed, ack_failed and "
-        f"agree are", failed=tuple(sorted(st.failed)) if st else ())
-
-
 def shrink(comm, name: str = ""):
-    """MPIX_Comm_shrink: a new communicator over the live ranks — the
-    entry point of the recovery legs, which the port does not have yet:
-    raises :class:`MPIProcFailedError`, as the reference does for a
-    recovery call the communicator cannot serve."""
-    _not_ported("shrink", comm)
+    """MPIX_Comm_shrink: new communicator over the live ranks.
+
+    Works on revoked comms (that is its purpose).  The surviving ranks
+    renumber contiguously; the new comm's mesh is their rows."""
+    st = peek(comm)
+    dead = st.failed if st else set()
+    live = [r for r in range(comm.size) if r not in dead]
+    if not live:
+        raise MPIProcFailedError("cannot shrink: every rank has failed",
+                                 failed=tuple(sorted(dead)))
+    return comm._shrink_to(live, name or f"{comm.name}.shrunk")
 
 
 def replace(comm, name: str = ""):
-    """Shrink's second leg (rebuild at full size after ``tpurun --ft
-    --respawn`` relaunched the dead ranks) — not ported yet: raises
-    :class:`MPIProcFailedError`, as :func:`shrink` does."""
-    _not_ported("replace", comm)
+    """Shrink's second leg — the PRRTE restart-the-failed-proc path:
+    rebuild the communicator at FULL size after ``tpurun --ft --respawn``
+    relaunched the dead rank(s).  Survivors install each reborn
+    incarnation's re-published endpoint, clear its failure marks, and
+    run a CID-agreement round the fresh-booted process joins; the
+    result spans the complete original membership.  On a split/sub
+    communicator this repairs ONLY the member ranks, on comm-scoped
+    beacon streams — non-members are undisturbed, and the reborn
+    process joins via ``world.replace_partial()``.  Single-controller
+    comms have no launcher to respawn ranks — multi-process only."""
+    fn = getattr(comm, "replace", None)
+    if fn is None:
+        raise MPIProcFailedError(
+            "replace() needs a multi-process communicator under "
+            "tpurun --ft --respawn (single-controller comms have no "
+            "launcher to restart a rank); use shrink()")
+    return fn(name)
 
 
 def agree(comm, flags: int, contributions: dict[int, int] | None = None) -> int:

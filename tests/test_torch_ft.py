@@ -5,8 +5,6 @@
 * the ULFM state machine (``check``, ``revoke``, ``get_failed``,
   ``ack_failed``, single-controller ``agree``) raises and answers as the
   reference's on a stand-in communicator;
-* ``shrink``/``replace`` (the recovery legs, not ported) raise
-  ``MPIProcFailedError``;
 * across 2 processes under ``tpurun --ft`` (heartbeat detector on):
   ``agree`` ANDs the processes' flags, ``revoke`` on one process poisons
   the communicator on the other, and ``agree`` still works after it.
@@ -16,7 +14,6 @@ import pytest
 
 from ompi_tpu.ft import detector as rdet
 from ompi_tpu.ft import ulfm as rulfm
-from ompi_tpu_torch.core import errors as perr
 from ompi_tpu_torch.ft import detector as pdet
 from ompi_tpu_torch.ft import ulfm as pulfm
 from torch_mp_common import run_job
@@ -72,15 +69,6 @@ def test_ulfm_state_machine_matches_reference():
     assert got_p == got_r
 
 
-def test_recovery_legs_raise_until_ported():
-    c = _Comm()
-    pulfm.inject_failure(c, 1)
-    for fn in (pulfm.shrink, pulfm.replace):
-        with pytest.raises(perr.MPIProcFailedError) as ei:
-            fn(c)
-        assert ei.value.failed == (1,)
-
-
 def test_agree_and_revoke_across_two_procs(tmp_path):
     script = tmp_path / "ft.py"
     script.write_text(
@@ -114,3 +102,31 @@ def test_agree_and_revoke_across_two_procs(tmp_path):
     res = run_job("port", 2, 1, script, timeout=90, flags=["--ft"])
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.count("OK ft") == 2, res.stdout
+
+
+def test_failure_reaches_the_comms_before_it_wakes_the_engine():
+    """A mark fans out to the communicators' ULFM state before the engine
+    wakes the receives blocked on the proc: a survivor woken by the mark
+    finds the failure there when it calls ``replace()``/``shrink()``."""
+    order = []
+
+    class Engine:
+        proc, nprocs = 0, 3
+
+        def note_proc_failed(self, p):
+            order.append(("engine", p))
+
+        def send_ctrl(self, p, env):
+            pass
+
+        def attach_detector(self, det):
+            pass
+
+    det = pdet.HeartbeatDetector(Engine(), period=60.0, timeout=120.0)
+    try:
+        det.on_failure(lambda p: order.append(("comms", p)))
+        assert det.mark_failed(2, gossip=False)
+        assert not det.mark_failed(2, gossip=False)
+    finally:
+        det.close()
+    assert order == [("comms", 2), ("engine", 2)]

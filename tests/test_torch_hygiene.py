@@ -78,6 +78,9 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.dcn.device, ompi_tpu_torch.metrics.export\n"
         "import ompi_tpu_torch.osc.dcn, ompi_tpu_torch.trace.causal, ompi_tpu_torch.trace.merge\n"
         "import ompi_tpu_torch.metrics.straggler, ompi_tpu_torch.examples.multiproc_smoke\n"
+        "import ompi_tpu_torch.api.intercomm, ompi_tpu_torch.api.spawn, ompi_tpu_torch.api.topo\n"
+        "import ompi_tpu_torch.api.info, ompi_tpu_torch.core.info\n"
+        "import ompi_tpu_torch.examples.ring_attention, ompi_tpu_torch.examples.ft_smoke\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"

@@ -154,15 +154,27 @@ def test_a_failing_worker_kills_the_job(tmp_path):
 
 def test_launcher_unlinks_what_dead_workers_left(tmp_path):
     """The names a killed worker's engine, sm rings and device windows
-    leave are unlinked at the end of the job; other processes' are not."""
+    leave are unlinked at the end of the job; other processes' are not,
+    nor those of a live process that took a dead worker's pid."""
+    import os
+    import subprocess
+    import sys
+
     from ompi_tpu_torch.boot.tpurun import _unlink_leftovers
 
-    mine = ["tdcn-41-0-7f00", "tdcn-db-41-0", "ompitpu-41-0-ab", "tpudev-41-3-1f",
-            "tdcn-db-42-1"]
-    others = ["tdcn-411-0-7f00", "tdcn-db-7-0", "tpudev-4-1-1", "unrelated"]
+    dead = []
+    for _ in range(2):
+        child = subprocess.Popen([sys.executable, "-c", "pass"])
+        child.wait()
+        dead.append(child.pid)
+    a, b, live = dead[0], dead[1], os.getpid()
+    mine = [f"tdcn-{a}-0-7f00", f"tdcn-db-{a}-0", f"ompitpu-{a}-0-ab", f"tpudev-{a}-3-1f",
+            f"tdcn-db-{b}-1"]
+    others = [f"tdcn-{a}1-0-7f00", "tdcn-db-7x-0", "unrelated", f"tdcn-{live}-0-1",
+              f"tpudev-{live}-2-3"]
     for name in mine + others:
         (tmp_path / name).write_bytes(b"x")
-    assert sorted(_unlink_leftovers([41, 42], str(tmp_path))) == sorted(mine)
+    assert sorted(_unlink_leftovers([a, b, live], str(tmp_path))) == sorted(mine)
     assert sorted(p.name for p in tmp_path.iterdir()) == sorted(others)
 
 
