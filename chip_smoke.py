@@ -130,11 +130,39 @@ exits non-zero:
     through it, then a fresh open).  It prints the time to heal and the
     64 MiB p50 before and after recovery beside the card's name and
     power limit.  Output: ``chiprun_out/recovery_*.log``.
+15. serve (last) — ``python -m ompi_tpu_torch tpud -np 2 --nranks 4``
+    on the card (default ``btl/native``, device plane on; worker
+    ``ompi_tpu_torch/serve/worker.py``, job
+    ``ompi_tpu_torch/examples/serve_job.py``): ``boot`` — both resident
+    workers up, the daemon's ``torch.cuda.is_initialized()`` false (its
+    ``/json`` line) and its pid not among ``nvidia-smi``'s compute apps;
+    ``warm_cold`` — submit→``FIRSTCOLL`` of
+    ``ompi_tpu_torch/examples/serve_firstcoll.py``, five fresh ``run -np
+    2 --nranks 4`` jobs and five submissions to the daemon (median and
+    range); ``jobs`` — two submissions of the f32 SUM sweep at 8 B,
+    2 MiB, 64 MiB and 256 MiB per rank with ``cuda_ring`` forced: each
+    size bit-equal to the plain ring, the same SHA-256 in both jobs, job
+    2 with zero new dials, 3 + 3 launches per call from 2 MiB, the p50
+    of five calls, ``torch.cuda.memory_allocated`` after each job not
+    growing, every device-plane window released; ``scrape`` —
+    ``/metrics``, ``/json`` and ``/waitgraph`` read while job 1 runs:
+    job-labelled series, the device plane's counters, no hang;
+    ``tenants`` — two 1-process jobs of two tenants overlap, each
+    bit-equal to its plain ring; ``repair`` — process 1's worker
+    SIGKILLed between jobs, the daemon's respawn, ``heal_ms`` of both
+    processes, the next job's 64 MiB results equal job 1's,
+    ``device_fallbacks`` 0; ``shutdown`` — drain, shutdown, no worker
+    alive and no ``/dev/shm`` name left; ``telemetry`` — a plain ``run
+    --mca telemetry_enable 1`` job of 20 × 64 MiB calls scraped
+    (``/metrics``, ``/critical``) while it runs, its p50 beside the
+    same job with telemetry off.  Output:
+    ``chiprun_out/serve_tpud.log``, ``chiprun_out/serve_telemetry_*.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
 those of the main path, the tuned phase, the ddt phase, the
-multiproc and native workers and the recovery phase; the last
+multiproc and native workers, the recovery phase and the serve
+phase's jobs (each job prints its own); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -1119,6 +1147,13 @@ def phase_io(smi):
 MP_PROCS, MP_RANKS = 2, 4
 
 
+def pkg_env() -> dict:
+    """This process's environment with the checkout on ``PYTHONPATH``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
 def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float = 600,
             plane: bool = True):
     """One tpurun job of P processes × K ranks of the
@@ -1133,8 +1168,7 @@ def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float =
     if not plane:
         cmd += ["--mca", "dcn_device_enable", "0"]
     cmd += [str(REPO / "ompi_tpu_torch" / "examples" / "multiproc_smoke.py"), *worker_args]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env = pkg_env()
     log = REPO / "chiprun_out" / f"{log_name}.log"
     t0 = time.perf_counter()
     # a process group of its own: a job that outlives its limit goes with
@@ -1433,8 +1467,7 @@ def ft_job(log_name: str, nprocs: int, flags, worker_args, timeout: float = 600)
     cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(nprocs),
            "--nranks", str(MP_RANKS), *flags,
            str(REPO / "ompi_tpu_torch" / "examples" / "ft_smoke.py"), *worker_args]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env = pkg_env()
     log = REPO / "chiprun_out" / f"{log_name}.log"
     t0 = time.perf_counter()
     job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -1613,8 +1646,7 @@ def ipc_dead_exporter() -> dict:
     again, closes it, and tries to open the second handle.  An importer
     that dies on the way is a finding too: its exit code is kept."""
     worker = str(REPO / "ompi_tpu_torch" / "examples" / "ft_smoke.py")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env = pkg_env()
     args = ["--bytes", str(64 << 20)]
     exp = subprocess.Popen([sys.executable, worker, "--mode", "ipc-export", *args],
                            stdout=subprocess.PIPE, text=True, env=env, cwd=str(REPO))
@@ -1691,6 +1723,442 @@ def phase_recovery(smi, ck) -> dict:
     return row
 
 
+# -- phase 15 ---------------------------------------------------------------
+
+#: per-rank sizes of the tpud jobs' sweep (``BASELINE.json``'s osu_allreduce
+#: at 8 global ranks, cut to 256 MiB per rank as in the multiproc cell)
+SERVE_SIZES = [8, 2 << 20, 64 << 20, 256 << 20]
+SERVE_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_job.py"
+FIRSTCOLL_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_firstcoll.py"
+#: cold and warm launch→first-collective samples per leg
+FIRSTCOLL_RUNS = 5
+
+
+def sjson_rows(lines, job_id: str | None = None) -> list:
+    """The ``SJSON`` rows of ``serve_job.py`` in forwarded output lines
+    (``[p] SJSON {...}``), of one job when ``job_id`` is given."""
+    rows = []
+    for line in lines:
+        m = re.match(r"\[\d+\] SJSON (.*)$", line.rstrip())
+        if m:
+            rec = json.loads(m.group(1))
+            if job_id is None or rec.get("job") == job_id:
+                rows.append(rec)
+    return rows
+
+
+def firstcoll_ns(lines) -> int:
+    """The later process's ``FIRSTCOLL`` wall clock."""
+    got = [int(m.group(1)) for m in (re.search(r"FIRSTCOLL ns=(\d+)", l) for l in lines) if m]
+    if len(got) != MP_PROCS:
+        raise SystemExit(f"expected {MP_PROCS} FIRSTCOLL lines, got {got}")
+    return max(got)
+
+
+def span(times) -> dict:
+    t = sorted(times)
+    return {"ms": t, "median_ms": t[len(t) // 2], "min_ms": t[0], "max_ms": t[-1]}
+
+
+class Tpud:
+    """``python -m ompi_tpu_torch tpud -np 2 --nranks 4`` under test (in a
+    session of its own, so that a failure takes every worker with it):
+    its output lines, collected by a thread, go to
+    ``chiprun_out/<log_name>.log`` at close."""
+
+    def __init__(self, log_name: str, cpu: bool):
+        import threading
+
+        cmd = [sys.executable, "-m", "ompi_tpu_torch", "tpud", "-np", str(MP_PROCS),
+               "--nranks", str(MP_RANKS)] + (["--cpu"] if cpu else [])
+        self.log = REPO / "chiprun_out" / f"{log_name}.log"
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True, env=pkg_env(), cwd=str(REPO),
+                                     start_new_session=True)
+        self.lines: list[str] = []
+        self._t = threading.Thread(target=self._read, daemon=True)
+        self._t.start()
+        line = self.wait_line(lambda l: "[tpud] ops: " in l, 120)
+        self.url = line.split("[tpud] ops: ", 1)[1].split("/jobs")[0]
+
+    def _read(self) -> None:
+        for line in iter(self.proc.stdout.readline, ""):
+            self.lines.append(line)
+
+    def wait_line(self, pred, timeout: float, start: int = 0) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for line in self.lines[start:]:
+                if pred(line):
+                    return line
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        self.close()
+        raise SystemExit(f"tpud: no expected line within {timeout} s (see {self.log})")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait()
+        self._t.join(timeout=10)
+        self.log.write_text("".join(self.lines))
+
+
+def http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return r.read().decode()
+
+
+def compute_app_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def maps_cuda_driver(pid: int) -> bool:
+    """Whether the process has mapped the CUDA driver library.  Reported,
+    not gated: a CUDA context needs it, but a process may map it without
+    one (``import torch`` alone does on some builds)."""
+    try:
+        return "libcuda.so" in Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return False
+
+
+def serve_cold(cpu: bool) -> list:
+    """Launch→first collective of a fresh ``run -np 2 --nranks 4`` job."""
+    out = []
+    for i in range(FIRSTCOLL_RUNS):
+        cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(MP_PROCS),
+               "--nranks", str(MP_RANKS)] + (["--cpu"] if cpu else []) + [str(FIRSTCOLL_JOB)]
+        t = time.time_ns()
+        res = subprocess.run(cmd, capture_output=True, text=True, env=pkg_env(),
+                             cwd=str(REPO), timeout=300)
+        if res.returncode != 0:
+            print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"cold first-collective run {i} failed (rc={res.returncode})")
+        out.append((firstcoll_ns(res.stdout.splitlines()) - t) / 1e6)
+    return out
+
+
+def serve_warm(d: Tpud) -> list:
+    """Submit→first collective of the same script in the warm daemon."""
+    from ompi_tpu_torch.serve import client
+
+    out = []
+    for i in range(FIRSTCOLL_RUNS):
+        n0 = len(d.lines)
+        t = time.time_ns()
+        j = client.submit(d.url, str(FIRSTCOLL_JOB), tenant="bench")
+        rec = client.wait(d.url, j["id"], timeout=300)
+        if rec["state"] != "done":
+            raise SystemExit(f"warm first-collective job {i} failed: {rec}")
+        time.sleep(0.2)  # the forwarded lines trail the completion record
+        out.append((firstcoll_ns(d.lines[n0:]) - t) / 1e6)
+    return out
+
+
+def serve_job(d: Tpud, args, tenant: str, nprocs: int | None = None) -> tuple:
+    """Submit ``serve_job.py`` with ``args`` and wait: its completion
+    record and its ``SJSON`` rows."""
+    from ompi_tpu_torch.serve import client
+
+    j = client.submit(d.url, str(SERVE_JOB), args=list(args), tenant=tenant, nprocs=nprocs)
+    rec = client.wait(d.url, j["id"], timeout=600)
+    if rec["state"] != "done":
+        raise SystemExit(f"tpud job {j['id']} failed: {rec.get('error')}")
+    deadline = time.monotonic() + 10  # forwarded stdout trails the record
+    want = len(rec["procs"])
+    while (len([r for r in sjson_rows(d.lines, j["id"]) if r["kind"] == "launches"]) < want
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    return rec, sjson_rows(d.lines, j["id"])
+
+
+def size_rows(rows) -> dict:
+    """Per size: the slower process's p50, per-process digests, launches
+    per call and bit-equality to the plain ring."""
+    out: dict[int, dict] = {}
+    for r in (r for r in rows if r["kind"] == "size"):
+        e = out.setdefault(r["bytes"], {"p50_ms": 0.0, "digests": {}, "launches_per_call": {},
+                                        "bitwise_vs_plain": True})
+        e["p50_ms"] = max(e["p50_ms"], r["p50_ms"])
+        e["digests"][r["proc"]] = r["digest"]
+        e["launches_per_call"][r["proc"]] = r["launches_per_call"]
+        e["bitwise_vs_plain"] = e["bitwise_vs_plain"] and r["bitwise_vs_plain"]
+    return out
+
+
+def launch_rows(rows) -> list:
+    return [r for r in rows if r["kind"] == "launches"]
+
+
+def scrape_loop(url: str, stop, got: list) -> None:
+    while not stop.is_set():
+        try:
+            got.append((http_get(url + "/metrics"), json.loads(http_get(url + "/json")),
+                        json.loads(http_get(url + "/waitgraph"))))
+        except (OSError, ValueError):
+            pass
+        stop.wait(0.2)
+
+
+def telemetry_leg(on: bool, cpu: bool, nbytes: int) -> dict:
+    """A plain ``run -np 2 --nranks 4`` of ``serve_job.py`` (20 calls at
+    ``nbytes`` per rank), telemetry on or off; with it on, ``/metrics``
+    and ``/critical`` are scraped while the job runs."""
+    cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(MP_PROCS),
+           "--nranks", str(MP_RANKS)] + (["--cpu"] if cpu else [])
+    if on:
+        cmd += ["--mca", "telemetry_enable", "1", "--mca", "telemetry_interval_ms", "200"]
+    cmd += [str(SERVE_JOB), "--sizes", str(nbytes), "--calls", "20", "--repeat-sleep", "0.1"]
+    job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           env=pkg_env(), cwd=str(REPO), start_new_session=True)
+    lines: list[str] = []
+    import threading
+
+    t = threading.Thread(target=lambda: lines.extend(iter(job.stdout.readline, "")),
+                         daemon=True)
+    t.start()
+    mid = {}
+    if on:
+        deadline = time.monotonic() + 300
+        url = None
+        while time.monotonic() < deadline and job.poll() is None and not mid:
+            if url is None:
+                m = next((re.search(r"telemetry: (http://\S+)/metrics", l) for l in lines
+                          if "[tpurun] telemetry: " in l), None)
+                url = m.group(1) if m else None
+            if url is not None:
+                try:
+                    text = http_get(url + "/metrics")
+                    # mid-sweep: both processes' frames carry device-plane sends
+                    if all(f'ompi_tpu_dcn_device_sends{{proc="{p}"}}' in text
+                           for p in range(MP_PROCS)):
+                        mid = {"metrics_lines": len(text.splitlines()),
+                               "device_counters": "ompi_tpu_dcn_device_sends" in text,
+                               "critical": json.loads(http_get(url + "/critical")),
+                               "running": job.poll() is None}
+                except (OSError, ValueError):
+                    pass
+            time.sleep(0.1)
+    try:
+        rc = job.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(job.pid, signal.SIGKILL)
+        raise SystemExit("telemetry leg exceeded 600 s")
+    t.join(timeout=10)
+    (REPO / "chiprun_out" / f"serve_telemetry_{'on' if on else 'off'}.log").write_text("".join(lines))
+    if rc != 0:
+        raise SystemExit(f"telemetry leg (on={on}) failed (rc={rc})")
+    rows = sjson_rows(lines)
+    sz = size_rows(rows)[nbytes]
+    return {"p50_ms": sz["p50_ms"], "bitwise_vs_plain": sz["bitwise_vs_plain"],
+            "mid_job": mid, "launches": launch_rows(rows)}
+
+
+def phase_serve(smi, sizes=SERVE_SIZES, cpu: bool = False) -> dict:
+    """The tpud cell: 2 resident workers × 4 ranks on the card (default
+    ``btl/native``, device plane on).  ``cpu=True`` rehearses it with
+    ``--cpu`` workers (no card checks)."""
+    import threading
+
+    from ompi_tpu_torch.serve import client
+    from ompi_tpu_torch.serve import state as sstate
+
+    t_phase = time.perf_counter()
+    sizes_arg = ",".join(str(b) for b in sizes)
+    big = 64 << 20 if (64 << 20) in sizes else sizes[-1]
+    cold = serve_cold(cpu)
+    d = Tpud("serve_tpud", cpu)
+    rows: dict = {}
+    try:
+        # boot: both workers up; the daemon holds no CUDA context
+        for p in range(MP_PROCS):
+            d.wait_line(lambda l, p=p: l.startswith(f"[{p}] serve: resident worker up"), 300)
+        boot_s = time.perf_counter() - d.t0
+        st = client.status(d.url)
+        pids = [int(st["procs"][str(p)]["pid"]) for p in range(MP_PROCS)]
+        apps = [] if cpu else compute_app_pids()
+        daemon = json.loads(http_get(d.url + "/json"))["daemon"]
+        rows["boot"] = {"ready_s": boot_s, "daemon_pid": d.proc.pid, "worker_pids": pids,
+                        "compute_app_pids": apps,
+                        "daemon_in_compute_apps": d.proc.pid in apps,
+                        "daemon_cuda_initialized": daemon["cuda_initialized"],
+                        "daemon_maps_libcuda": maps_cuda_driver(d.proc.pid),
+                        "workers_map_libcuda": [maps_cuda_driver(p) for p in pids]}
+        rows["boot"]["ok"] = (not rows["boot"]["daemon_in_compute_apps"]
+                              and not rows["boot"]["daemon_cuda_initialized"])
+        warm = serve_warm(d)
+        rows["warm_cold"] = {"cold": span(cold), "warm": span(warm)}
+        # jobs: two submissions of the sweep, /metrics, /json and
+        # /waitgraph scraped while the first runs
+        stop, scraped = threading.Event(), []
+        th = threading.Thread(target=scrape_loop, args=(d.url, stop, scraped), daemon=True)
+        th.start()
+        args = ["--sizes", sizes_arg, "--repeat-sleep", "0.05"]
+        jobs = []
+        try:
+            jobs.append(serve_job(d, args, "ops"))
+        finally:
+            stop.set()
+            th.join(timeout=30)
+        jobs.append(serve_job(d, args, "ops"))
+        per = [size_rows(r) for _rec, r in jobs]
+        want = {"ring_hop": MP_RANKS - 1, "ring_hop_fold": MP_RANKS - 1}
+        job_rows = []
+        for k, (rec, r) in enumerate(jobs):
+            ranks = rec["ranks"]
+            job_rows.append({
+                "id": rec["id"],
+                "p50_ms": {b: per[k][b]["p50_ms"] for b in sizes},
+                "launches_per_call": {b: per[k][b]["launches_per_call"] for b in sizes},
+                "dials": {p: [ranks[p]["dials_before"], ranks[p]["dials_after"]] for p in ranks},
+                "sched_cache_hits": {p: ranks[p]["counters"].get("sched_cache_hits", 0)
+                                     for p in ranks},
+                "cuda_allocated": {p: ranks[p].get("cuda_allocated") for p in ranks},
+                "cuda_reserved": {p: ranks[p].get("cuda_reserved") for p in ranks},
+                "windows_left": {p: ranks[p].get("windows_left") for p in ranks},
+                "device": {r2["proc"]: r2["device"] for r2 in launch_rows(r)}})
+        j1, j2 = jobs[0][0]["ranks"], jobs[1][0]["ranks"]
+        rows["jobs"] = {
+            "jobs": job_rows,
+            "bitwise_vs_plain": all(per[k][b]["bitwise_vs_plain"] for k in (0, 1) for b in sizes),
+            "sha256_equal_across_jobs": all(per[0][b]["digests"] == per[1][b]["digests"]
+                                            for b in sizes),
+            "job2_new_dials": {p: {k2: j2[p]["dials_after"][k2] - j2[p]["dials_before"][k2]
+                                   for k2 in j2[p]["dials_after"]} for p in j2},
+            "dials_flat_across_jobs": all(j2[p]["dials_before"] == j1[p]["dials_after"]
+                                          for p in j1),
+            "launches_ok": cpu or all(lc == want for k in (0, 1) for b in sizes
+                                      if b >= (2 << 20)
+                                      for lc in per[k][b]["launches_per_call"].values()),
+            "memory_flat": cpu or all(j2[p]["cuda_allocated"] <= j1[p]["cuda_allocated"]
+                                      for p in j1),
+            "windows_released": all(rec["ranks"][p].get("windows_left") == 0
+                                    for rec, _r in jobs for p in rec["ranks"])}
+        rj = rows["jobs"]
+        rj["ok"] = (rj["bitwise_vs_plain"] and rj["sha256_equal_across_jobs"]
+                    and rj["dials_flat_across_jobs"] and rj["launches_ok"] and rj["memory_flat"]
+                    and rj["windows_released"]
+                    and all(v == 0 for p in rj["job2_new_dials"].values() for v in p.values()))
+        # scrape: job-labelled counters, the device plane's, no hang
+        jid = jobs[0][0]["id"]
+        labelled = [(m, js, wg) for m, js, wg in scraped if f'job="{jid}"' in m]
+        rows["scrape"] = {
+            "scrapes": len(scraped), "job_labelled": len(labelled),
+            "device_counters": any(f'ompi_tpu_dcn_device_sends{{proc="0",job="{jid}"}}' in m
+                                   for m, _js, _wg in labelled),
+            "json_procs": sorted(labelled[-1][1]["procs"]) if labelled else [],
+            "waitgraph_verdicts": sorted({wg["verdict"]["kind"] for _m, _js, wg in labelled})}
+        rs = rows["scrape"]
+        rs["ok"] = bool(labelled) and rs["device_counters"] and all(
+            v == "compute" for v in rs["waitgraph_verdicts"])
+        # tenants: two 1-process jobs at once
+        got: dict = {}
+
+        def tenant_job(name):
+            got[name] = serve_job(d, ["--sizes", str(big), "--repeat-sleep", "0.3"], name, 1)
+
+        ths = [threading.Thread(target=tenant_job, args=(n,)) for n in ("alice", "bob")]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=600)
+        ra, rb = got["alice"][0], got["bob"][0]
+        rows["tenants"] = {
+            "procs": [ra["procs"], rb["procs"]],
+            "overlap": max(ra["start_ns"], rb["start_ns"]) < min(ra["end_ns"], rb["end_ns"]),
+            "bitwise_vs_plain": all(size_rows(got[n][1])[big]["bitwise_vs_plain"]
+                                    for n in got),
+            "p50_ms": {n: size_rows(got[n][1])[big]["p50_ms"] for n in got},
+            "jobs_concurrent_hwm": client.status(d.url)["counters"]["jobs_concurrent_hwm"]}
+        rt = rows["tenants"]
+        rt["ok"] = rt["overlap"] and rt["bitwise_vs_plain"] and rt["jobs_concurrent_hwm"] >= 2
+        # repair: SIGKILL process 1's worker between jobs
+        n0 = len(d.lines)
+        t_kill = time.perf_counter()
+        os.kill(pids[1], signal.SIGKILL)
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline:
+            st = client.status(d.url)
+            p1 = st["procs"]["1"]
+            if st["healthy"] and p1["incarnation"] == 1 and p1["status"] == "active":
+                break
+            time.sleep(0.1)
+        else:
+            raise SystemExit(f"tpud never repaired process 1: {st}")
+        healed_s = time.perf_counter() - t_kill
+        reborn = int(st["procs"]["1"]["pid"])
+        heal = {}
+        for line in d.lines[n0:]:
+            m = re.match(r"\[(\d+)\] serve: .*heal_ms=([0-9.]+)", line)
+            if m:
+                heal[int(m.group(1))] = float(m.group(2))
+        rec3, r3 = serve_job(d, ["--sizes", str(big)], "ops")
+        after = size_rows(r3)[big]
+        rows["repair"] = {
+            "respawned": any("rank 1 died" in l and "respawning (incarnation 1)" in l
+                             for l in d.lines[n0:]),
+            "repair_complete": any("repair complete" in l for l in d.lines[n0:]),
+            "healthy_after_s": healed_s, "heal_ms": heal, "reborn_pid": reborn,
+            "p50_ms_after": after["p50_ms"],
+            "bitwise_vs_before": after["digests"] == per[0][big]["digests"],
+            "bitwise_vs_plain": after["bitwise_vs_plain"],
+            "device_fallbacks": {r2["proc"]: (r2["device"] or {}).get("device_fallbacks")
+                                 for _rec, rr in jobs + [(rec3, r3)]
+                                 for r2 in launch_rows(rr)}}
+        rr = rows["repair"]
+        rr["ok"] = (rr["respawned"] and rr["repair_complete"] and sorted(heal) == [0, 1]
+                    and rr["bitwise_vs_before"] and rr["bitwise_vs_plain"]
+                    and all(v == 0 for v in rr["device_fallbacks"].values()))
+        # drain, shutdown: no worker left, no shared-memory name left
+        client.drain(d.url)
+        client.shutdown(d.url)
+        rc = d.proc.wait(timeout=120)
+        time.sleep(0.5)
+        all_pids = pids + [reborn]
+        rows["shutdown"] = {"rc": rc,
+                            "alive": [p for p in all_pids if sstate.pid_alive(p)],
+                            "shm_leftovers": shm_leftovers(all_pids + [d.proc.pid])}
+        rsd = rows["shutdown"]
+        rsd["ok"] = rc == 0 and not rsd["alive"] and not rsd["shm_leftovers"]
+        launches = [r2 for _rec, r in jobs + list(got.values()) + [(rec3, r3)]
+                    for r2 in launch_rows(r)]
+    finally:
+        d.close()
+    # telemetry: a plain job with the live plane on, then off (each leg
+    # is a cold boot of ~20 s: two keep the script near half its limit)
+    legs = [telemetry_leg(on, cpu, big) for on in (True, False)]
+    rows["telemetry"] = {
+        "p50_on_ms": legs[0]["p50_ms"], "p50_off_ms": legs[1]["p50_ms"],
+        "mid_job": legs[0]["mid_job"],
+        "bitwise_vs_plain": all(leg["bitwise_vs_plain"] for leg in legs)}
+    rtl = rows["telemetry"]
+    rtl["ok"] = (rtl["bitwise_vs_plain"] and bool(rtl["mid_job"])
+                 and rtl["mid_job"]["running"] and rtl["mid_job"]["device_counters"]
+                 and "instances" in rtl["mid_job"]["critical"])
+    launches += [r2 for leg in legs for r2 in leg["launches"]]
+    total = {k: sum(r2[k] for r2 in launches) for k in ("ring_hop", "ring_hop_fold")}
+    print(f"serve: cold {rows['warm_cold']['cold']['median_ms']:.1f} ms, warm "
+          f"{rows['warm_cold']['warm']['median_ms']:.1f} ms submit->first collective; "
+          f"heal_ms {rows['repair']['heal_ms']}; telemetry on/off p50 "
+          f"{rtl['p50_on_ms']}/{rtl['p50_off_ms']} ms ({smi})", flush=True)
+    for name, row in rows.items():
+        emit({"phase": f"serve_{name}", "nvidia_smi": smi, **row})
+    row = {"phase": "serve", "nvidia_smi": smi, "wall_s": time.perf_counter() - t_phase,
+           "launches": total, **{f"{k}_ok": v["ok"] for k, v in rows.items() if "ok" in v}}
+    emit(row)
+    failed = [k for k, v in rows.items() if not v.get("ok", True)]
+    if failed or (not cpu and min(total.values()) == 0):
+        raise SystemExit(f"serve checks failed: {failed}, launches {total}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-bytes", type=int, default=1 << 30,
@@ -1724,15 +2192,16 @@ def main() -> int:
     recovery = phase_recovery(smi, ck)  # finalizes the single-process world
     multiproc = phase_multiproc(smi, ddp_losses)
     native = phase_native(smi, multiproc)
+    serve = phase_serve(smi)
     launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
-                + recovery["launches"][k] for k in launches}
+                + recovery["launches"][k] + serve["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
          "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
-         "recovery": recovery, "kernels": kernels}, indent=1))
+         "recovery": recovery, "serve": serve, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,6 +3,10 @@
 Commands:
   info    — frameworks/components/vars dump (≈ ompi_info); ``--parsable``
   run     — job launcher (≈ mpirun); see ``run --help``
+  tpud    — persistent serving daemon (resident workers, warm job worlds);
+            ``tpud -np 2 --nranks 4 [--cpu]``, see ``tpud --help``
+  ctl     — ops CLI for a running daemon: submit|status|drain|shutdown|scale,
+            ``--selftest``; see ``ctl --help``
 """
 
 from __future__ import annotations
@@ -23,7 +27,16 @@ def main() -> int:
         from ompi_tpu_torch.boot.tpurun import main as run_main
 
         return run_main(rest)
-    print(f"unknown command {cmd!r}; try 'info' or 'run'", file=sys.stderr)
+    if cmd == "tpud":
+        from ompi_tpu_torch.serve.tpud import main as tpud_main
+
+        return tpud_main(rest)
+    if cmd == "ctl":
+        from ompi_tpu_torch.serve.ctl import main as ctl_main
+
+        return ctl_main(rest)
+    print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud' or 'ctl'",
+          file=sys.stderr)
     return 2
 
 

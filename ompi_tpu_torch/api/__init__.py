@@ -16,6 +16,16 @@ modex and the DCN engine) and returns a
 process; COMM_SELF is the process's first rank.  The per-process
 exports then name the process (``<out>.<proc>.*``, ``pid=proc``), and
 ``finalize()`` fences every process before closing the ProcContext.
+A launched worker runs on CUDA unless the launcher's ``--cpu`` switch
+set ``OMPI_TPU_DEVICE=cpu``.  With ``--mca telemetry_enable 1`` and a
+launcher that hosts the aggregator, ``init()`` starts this process's
+live telemetry publisher and ``finalize()`` stops it.
+
+Serve plane (tpud): :func:`push_world`/:func:`pop_world` scope a job's
+communicator as COMM_WORLD inside a resident worker (the job script's
+``init()`` returns it, its ``finalize()`` pops the scope and leaves the
+warm mesh up), :func:`set_world` installs a repaired world, and
+:func:`tpud_submit` submits a script to a running daemon.
 
 Also exported: ``Info``/``INFO_NULL``/``info_env`` (MPI_Info),
 ``create_intercomm``/``Intercomm`` (single-controller intercomms), and
@@ -36,6 +46,11 @@ from .spawn import get_parent, spawn  # noqa: F401
 
 _world: Comm | None = None
 _self_comm: Comm | None = None
+#: serve plane (tpud): saved resident worlds while a job world is
+#: pushed — ``init()`` inside a served job script returns the JOB's
+#: communicator, and ``finalize()`` pops the job scope instead of
+#: tearing the warm mesh down (job re-arm, not finalize-teardown)
+_world_stack: list[Comm] = []
 
 
 def init(mca_params: dict[str, str] | None = None, device=None,
@@ -45,6 +60,8 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     ``device`` defaults to CUDA and raises when no CUDA device is
     present; ``init(device="cpu")`` runs the ranks on the CPU.
     ``nranks`` defaults to ``--mca accelerator_cuda_nranks`` (8).
+    Under the launcher, ``device=None`` takes the launcher's choice
+    (``OMPI_TPU_DEVICE``, set by its ``--cpu`` switch), else CUDA.
     Idempotent once initialized: later calls return the same world."""
     global _world, _self_comm
     if _world is not None:
@@ -79,9 +96,13 @@ def init(mca_params: dict[str, str] | None = None, device=None,
 
     waitgraph.sync_from_store(ctx.store)
     faultsim.sync_from_store(ctx.store)
-    from ompi_tpu_torch.boot.proc import launched_by_tpurun
+    from ompi_tpu_torch.boot.proc import ENV_DEVICE, launched_by_tpurun
     from ompi_tpu_torch.mesh.mesh import world_mesh
 
+    if device is None and launched_by_tpurun():
+        import os
+
+        device = os.environ.get(ENV_DEVICE) or None
     wm = world_mesh(device, nranks)
     if launched_by_tpurun():
         from ompi_tpu_torch.boot.proc import ProcContext
@@ -98,6 +119,12 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     from ompi_tpu_torch.metrics import flight
 
     flight.set_proc(int(getattr(_world, "proc", 0)))
+    # live telemetry: start this process's frame pump when the launcher
+    # hosts an aggregator (it sets OMPI_TPU_TELEMETRY_ADDR); a disabled
+    # run opens no socket and starts no thread
+    from ompi_tpu_torch.metrics import live
+
+    live.start_publisher(_world, ctx.store)
     # crash-path export: a process that dies or aborts without reaching
     # finalize still flushes its configured metrics/trace outputs
     # (marked partial) — atexit covers aborts; the transports'
@@ -135,6 +162,61 @@ def _register_crash_flush() -> None:
 
 def initialized() -> bool:
     return _world is not None
+
+
+# -- serve plane (tpud attach path) -------------------------------------
+
+
+def push_world(comm) -> None:
+    """Enter a job scope: ``comm`` becomes COMM_WORLD for code that
+    calls :func:`init`/:func:`comm_world` until :func:`pop_world` —
+    how a tpud resident worker runs an unmodified worker script in a
+    warm mesh (the script's ``init()`` finds the job's communicator,
+    its ``finalize()`` ends the job, not the daemon)."""
+    global _world
+    if _world is None:
+        raise MPICommError("push_world before init")
+    _world_stack.append(_world)
+    _world = comm
+
+
+def pop_world():
+    """Leave the innermost job scope; returns the job comm that was
+    active (None when no scope is pushed)."""
+    global _world
+    if not _world_stack:
+        return None
+    job, _world = _world, _world_stack.pop()
+    return job
+
+
+def in_job_scope() -> bool:
+    return bool(_world_stack)
+
+
+def set_world(comm) -> None:
+    """Replace the resident COMM_WORLD (the serve plane's repair path:
+    after ``replace()`` restores a full-size communicator, future jobs
+    derive from the healed world, not the poisoned one)."""
+    global _world
+    if _world_stack:
+        _world_stack[0] = comm
+    else:
+        _world = comm
+
+
+def tpud_submit(url: str, script: str, args=(), tenant: str | None = None,
+                wait: bool = True, timeout: float = 600.0) -> dict:
+    """Submit ``script`` to a running ``tpud`` at ``url`` and (by
+    default) wait for its completion record — the warm-world sibling
+    of launching a fresh job.  Thin wrapper over
+    :mod:`ompi_tpu_torch.serve.client`."""
+    from ompi_tpu_torch.serve import client
+
+    job = client.submit(url, script, args=args, tenant=tenant)
+    if wait:
+        return client.wait(url, job["id"], timeout=timeout)
+    return job
 
 
 def comm_world() -> Comm:
@@ -180,9 +262,24 @@ def _export_at_finalize(store, proc: int) -> None:
 
 def finalize() -> None:
     """MPI_Finalize: write the exports, free the world objects and drop
-    the MCA context."""
+    the MCA context.
+
+    Inside a tpud job scope (:func:`push_world`) this is the JOB's
+    finalize: the scope pops and the resident plane stays warm for the
+    next job; the worker loop frees the job communicator itself."""
     global _world, _self_comm
+    if _world_stack:
+        pop_world()
+        return
     hooks.fire("mpi_finalize_top", world=_world)
+    # live telemetry: stop the frame pump before teardown (it sends one
+    # final frame, so the aggregator holds finalize-time counters)
+    try:
+        from ompi_tpu_torch.metrics import live
+
+        live.stop_publisher()
+    except Exception:  # noqa: BLE001 — telemetry must never break finalize
+        pass
     # spawned children: wait them out and drain their output while the
     # interpreter is fully alive (the exit hook alone races thread
     # teardown)

@@ -52,6 +52,10 @@ ENV_RSH = "OMPI_TPU_RSH"
 #: host map exists): detector groups and the sharded modex partition
 #: by real host instead of ft_group_size chunks
 ENV_HOST_IDS = "OMPI_TPU_HOST_IDS"
+#: the device a launched worker runs its ranks on, set by the
+#: launcher's ``--cpu`` switch (``run --cpu``, ``tpud --cpu``) as
+#: ``cpu``; unset, a worker runs on CUDA and raises without it
+ENV_DEVICE = "OMPI_TPU_DEVICE"
 
 
 def respawn_timeout(store) -> float:

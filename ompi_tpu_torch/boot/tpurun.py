@@ -16,19 +16,27 @@ the job on first failure (errmgr default).  Here:
   behind (the C engine's rings and doorbells, the Python sm rings, the
   device plane's windows: each carries its creator's pid) are unlinked —
   a worker killed by the launcher or a signal never runs its own
-  cleanup.
+  cleanup;
+* with ``--mca telemetry_enable 1`` the launcher hosts the live
+  telemetry aggregator (:mod:`ompi_tpu_torch.metrics.live`): workers
+  stream frames to it and ``/metrics``, ``/json``, ``/history``,
+  ``/critical`` and ``/waitgraph`` answer while the job runs;
+* ``--daemon`` starts the persistent serving daemon instead of one job
+  (:func:`ompi_tpu_torch.serve.daemon.run_daemon`).
 
 Usage::
 
-    python -m ompi_tpu_torch run -np 4 [--mca k v ...] [--nranks K] script.py [args...]
+    python -m ompi_tpu_torch run -np 4 [--mca k v ...] [--nranks K] [--cpu] script.py [args...]
+    python -m ompi_tpu_torch run --daemon -np 2 [--nranks K] [--cpu] [--mca k v ...]
 
-Port of ``ompi_tpu/boot/tpurun.py``.  ``--nranks K`` takes the place
-of the reference's ``--cpu-devices K`` (which set ``XLA_FLAGS``): it
-sets each worker's ``accelerator_cuda_nranks``, the number of virtual
-ranks — rows of the process's rank-major tensors — on the process's
-device.  The launcher picks no device: a worker runs on CUDA unless
-its script asks ``api.init(device="cpu")``.  The reference's live
-telemetry aggregator and ``--daemon`` serving plane are not ported.
+Port of ``ompi_tpu/boot/tpurun.py``.  The reference's ``--cpu-devices
+K`` (which set ``XLA_FLAGS`` and ``JAX_PLATFORMS=cpu``) does two jobs
+that the port splits: ``--nranks K`` sets each worker's
+``accelerator_cuda_nranks``, the number of virtual ranks — rows of the
+process's rank-major tensors — on the process's device, and ``--cpu``
+sets ``OMPI_TPU_DEVICE=cpu`` so the workers run on the CPU.  Without
+``--cpu`` a worker runs on CUDA and raises where there is none (a
+script may still pass ``api.init(device="cpu")`` itself).
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ import sys
 import threading
 
 from .kvs import KVSServer
-from .proc import (ENV_HOST_IDS, ENV_INCARNATION, ENV_KVS, ENV_NPROCS,
-                   ENV_PROC, ENV_RSH)
+from .proc import (ENV_DEVICE, ENV_HOST_IDS, ENV_INCARNATION, ENV_KVS,
+                   ENV_NPROCS, ENV_PROC, ENV_RSH)
 
 
 def _forward(stream, prefix: str, out) -> None:
@@ -71,6 +79,15 @@ def _final_cmd(launch_agent: str, cmd: list[str], env: dict,
     return cmd
 
 
+def _truthy(v) -> bool:
+    """MCA-style bool for launcher-side flags — the workers' VarStore
+    accepts exactly this string set, so the launcher-side gate cannot
+    drift from the worker-side parse."""
+    from ompi_tpu_torch.core.var import _TRUE_STRINGS
+
+    return str(v or "").strip().lower() in _TRUE_STRINGS
+
+
 def worker_cmd(argv: list[str]) -> list[str]:
     """The per-rank exec vector: native executables (compiled against
     libtpumpi) run directly; .py scripts go through the interpreter.
@@ -87,11 +104,16 @@ def worker_cmd(argv: list[str]) -> list[str]:
 def worker_env(rank: int, np_: int, kvs_address: str,
                mca: dict[str, str] | None = None,
                nranks: int | None = None,
-               extra_env: dict[str, str] | None = None) -> dict[str, str]:
-    """One rank's environment: framework on PYTHONPATH (≈ mpirun's
-    LD_LIBRARY_PATH forwarding for libmpi), rank/size/rendezvous
-    coordinates, ``--mca`` params as ``OMPI_MCA_*``, and the virtual
-    rank count (``accelerator_cuda_nranks``)."""
+               extra_env: dict[str, str] | None = None,
+               telemetry_addr: str | None = None,
+               cpu: bool = False) -> dict[str, str]:
+    """One rank's environment (shared by ``run_job``, the tpud daemon's
+    resident-worker spawn and its launch agents): framework on
+    PYTHONPATH (≈ mpirun's LD_LIBRARY_PATH forwarding for libmpi),
+    rank/size/rendezvous coordinates, the telemetry ingest address,
+    ``--mca`` params as ``OMPI_MCA_*``, the virtual rank count
+    (``accelerator_cuda_nranks``) and, with ``cpu``, the CPU switch
+    (``OMPI_TPU_DEVICE=cpu``)."""
     import ompi_tpu_torch
 
     pkg_root = os.path.dirname(
@@ -103,10 +125,16 @@ def worker_env(rank: int, np_: int, kvs_address: str,
     env[ENV_PROC] = str(rank)
     env[ENV_NPROCS] = str(np_)
     env[ENV_KVS] = kvs_address
+    if telemetry_addr:
+        from ompi_tpu_torch.metrics.live import ENV_TELEMETRY
+
+        env[ENV_TELEMETRY] = telemetry_addr
     for k, v in (mca or {}).items():
         env[f"OMPI_MCA_{k}"] = v
     if nranks is not None:
         env["OMPI_MCA_accelerator_cuda_nranks"] = str(int(nranks))
+    if cpu:
+        env[ENV_DEVICE] = "cpu"
     env.update(extra_env or {})
     return env
 
@@ -166,6 +194,7 @@ def run_job(
     kvs_host: str | None = None,
     respawn: bool = False,
     max_respawns: int = 2,
+    cpu: bool = False,
 ) -> int:
     """``ft=True`` ≈ ``mpirun --with-ft ulfm``: worker death does NOT
     kill the job (survivors run ULFM recovery); the heartbeat detector
@@ -208,6 +237,28 @@ def run_job(
                 "from the remote side; pass --kvs-host <routable address>"
             )
     server = KVSServer(host=kvs_host or "127.0.0.1")
+    # live telemetry plane (--mca telemetry_enable 1): the launcher
+    # hosts the aggregator — workers stream counter/straggler frames
+    # to its ingest socket (address via env) and anything can scrape
+    # the job MID-RUN at the printed HTTP endpoint
+    telemetry = None
+    env_all = os.environ
+    if _truthy((mca or {}).get("telemetry_enable")
+               or env_all.get("OMPI_MCA_telemetry_enable")):
+        from ompi_tpu_torch.metrics.live import TelemetryAggregator
+
+        telemetry = TelemetryAggregator(
+            http_port=int((mca or {}).get("telemetry_port")
+                          or env_all.get("OMPI_MCA_telemetry_port")
+                          or 0),
+            history=int((mca or {}).get("telemetry_history")
+                        or env_all.get("OMPI_MCA_telemetry_history")
+                        or 256),
+        )
+        print(f"[tpurun] telemetry: {telemetry.url}/metrics "
+              f"(json: {telemetry.url}/json, critical: "
+              f"{telemetry.url}/critical, waitgraph: "
+              f"{telemetry.url}/waitgraph)", flush=True)
     procs: list[subprocess.Popen] = []
     threads: list[threading.Thread] = []
     #: per-rank (cmd, env, target host) for the --respawn restart leg
@@ -251,8 +302,11 @@ def run_job(
         host_ids = ",".join(str(order[h]) for h in rank_host)
     try:
         for rank in range(np_):
-            env = worker_env(rank, np_, server.address, mca=mca,
-                             nranks=nranks, extra_env=extra_env)
+            env = worker_env(
+                rank, np_, server.address, mca=mca, nranks=nranks,
+                extra_env=extra_env, cpu=cpu,
+                telemetry_addr=(telemetry.ingest_address
+                                if telemetry is not None else None))
             if rsh_job:
                 env[ENV_RSH] = "1"
             if host_ids:
@@ -316,6 +370,8 @@ def run_job(
         for p in procs:
             p.wait()
         _unlink_leftovers(spawned)
+        if telemetry is not None:
+            telemetry.close()
         server.close()
 
 
@@ -373,6 +429,19 @@ def main(argv: list[str] | None = None) -> int:
         help="virtual ranks per process (sets accelerator_cuda_nranks)",
     )
     parser.add_argument(
+        "--cpu", action="store_true",
+        help="run the workers' ranks on the CPU (sets OMPI_TPU_DEVICE=cpu; "
+        "default: CUDA, raising where there is none)",
+    )
+    parser.add_argument(
+        "--daemon", action="store_true",
+        help="start a persistent serving daemon (tpud) instead of one "
+        "job: the rank workers, their DCN endpoints and CUDA contexts, "
+        "and the boot KVS stay warm across jobs submitted via "
+        "'python -m ompi_tpu_torch ctl' or ompi_tpu_torch.api.tpud_submit "
+        "(no script argument; see ompi_tpu_torch/serve/)",
+    )
+    parser.add_argument(
         "--ft", action="store_true",
         help="fault-tolerant job: worker death does not kill the job; "
         "heartbeat failure detection + ULFM recovery in the workers",
@@ -426,10 +495,15 @@ def main(argv: list[str] | None = None) -> int:
         help="address the KVS/rendezvous server binds (must be reachable "
         "from every host; default 127.0.0.1 is single-host)",
     )
-    parser.add_argument("script", help="python script to run")
+    parser.add_argument("script", nargs="?", default=None,
+                        help="python script to run (omitted with --daemon)")
     parser.add_argument("args", nargs=argparse.REMAINDER)
     ns = parser.parse_args(argv)
     mca = {k: v for k, v in ns.mca}
+    if ns.daemon:
+        return _daemon_main(parser, ns, mca)
+    if ns.script is None:
+        parser.error("the following arguments are required: script")
     hosts = None
     if ns.hostfile:
         from .rmaps import parse_hostfile
@@ -456,7 +530,46 @@ def main(argv: list[str] | None = None) -> int:
                    launch_agent=ns.launch_agent,
                    oversubscribe=ns.oversubscribe,
                    display_map=ns.display_map, kvs_host=ns.kvs_host,
-                   respawn=ns.respawn, max_respawns=ns.max_respawns)
+                   respawn=ns.respawn, max_respawns=ns.max_respawns,
+                   cpu=ns.cpu)
+
+
+def _daemon_main(parser, ns, mca: dict[str, str]) -> int:
+    """``--daemon``: delegate to the tpud daemon (the one-shot path stays
+    as it is when the flag is absent — no new threads, no new sockets).
+    Flags the daemon does not honour fail loudly: ft/respawn are built
+    in.  A host map IS honoured: one launch agent per remote host
+    (``serve/agent.py``)."""
+    from ompi_tpu_torch.serve.daemon import run_daemon
+
+    if ns.script is not None:
+        parser.error("--daemon takes no script (submit jobs via "
+                     "'python -m ompi_tpu_torch ctl submit')")
+    for flag, val in (("--ft", ns.ft), ("--respawn", ns.respawn)):
+        if val:
+            parser.error(f"{flag} is not supported with --daemon "
+                         "(ft/respawn are built in)")
+    hosts = None
+    if ns.hostfile:
+        from .rmaps import parse_hostfile
+
+        with open(ns.hostfile) as f:
+            hosts = parse_hostfile(f.read())
+    elif ns.host:
+        from .rmaps import parse_host_list
+
+        hosts = parse_host_list(ns.host)
+    if hosts and ns.kvs_host is None and any(
+            not _is_local_host(h) for h, _slots in hosts):
+        parser.error(
+            "--daemon with remote hosts needs --kvs-host <routable "
+            "address> (the control plane binds it; 127.0.0.1 is "
+            "unreachable from the remote side)")
+    return run_daemon(ns.np, mca=mca, nranks=ns.nranks, cpu=ns.cpu,
+                      max_respawns=ns.max_respawns, hosts=hosts,
+                      map_by=ns.map_by, launch_agent=ns.launch_agent,
+                      kvs_host=ns.kvs_host,
+                      oversubscribe=ns.oversubscribe)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ from .var import (
     register_observability_vars,
     register_robustness_vars,
     register_schedule_vars,
+    register_serving_vars,
     register_transport_vars,
 )
 
@@ -178,6 +179,7 @@ class MCAContext:
         register_observability_vars(self.store)
         register_robustness_vars(self.store)
         register_schedule_vars(self.store)
+        register_serving_vars(self.store)
         register_transport_vars(self.store)
         self.frameworks: dict[str, Framework] = {}
         self.refresh_components()

@@ -9,7 +9,8 @@ Of the reference's centrally registered variables, the port keeps the
 ones it reads: ``DEVICE_VARS`` (the device plane's switch and threshold,
 and ``dcn_device_interpret``, the kernel-leg override read by
 ``coll/cuda_kernels.mode``), the ``trace_*``/``metrics_*`` rows of
-``OBSERVABILITY_VARS`` with ``hang_diag_enable``, the DCN deadlines and
+``OBSERVABILITY_VARS`` with the ``telemetry_*`` and ``hang_*`` rows, the
+``serve_*`` knobs of ``SERVING_VARS``, the DCN deadlines and
 the ``ft_*``/``faultsim_*``/``dcn_plane_*`` knobs of ``ROBUSTNESS_VARS``, and
 ``SCHEDULE_VARS``, registered on every store at construction so that
 they show in the MPI_T cvar listing before init.  :func:`dcn_timeout`
@@ -300,8 +301,7 @@ def register_device_vars(store: VarStore) -> None:
 
 
 #: (framework, component, name, default, type, help) — the reference's
-#: trace_* and metrics_* rows and hang_diag_enable (the telemetry rows
-#: come with the live endpoint, which is not ported)
+#: trace_*, metrics_*, telemetry_* and hang_* rows
 OBSERVABILITY_VARS = (
     ("trace", "", "enable", False, "bool",
      "Record cross-layer event spans into the trace ring buffer "
@@ -330,6 +330,29 @@ OBSERVABILITY_VARS = (
     ("metrics", "", "flight_records", 64, "int",
      "Flight-recorder ring capacity: how many counter snapshots are "
      "retained in memory"),
+    ("telemetry", "", "enable", False, "bool",
+     "Live telemetry plane: every rank streams periodic counter/"
+     "straggler frames to an aggregator in tpurun, which serves a "
+     "mid-job Prometheus scrape endpoint (/metrics), a JSON state "
+     "feed (/json — the tools/top.py input), and a JSONL history "
+     "ring (/history); implies the metrics hooks.  Default off — no "
+     "socket, no thread, no frames"),
+    ("telemetry", "", "port", 0, "int",
+     "HTTP port the tpurun aggregator serves scrapes on (0 = pick an "
+     "ephemeral port and print the URL at launch)"),
+    ("telemetry", "", "interval_ms", 500, "int",
+     "Milliseconds between a rank's telemetry frames (each frame is "
+     "one counter snapshot + the collectives completed since the "
+     "last frame)"),
+    ("telemetry", "", "history", 256, "int",
+     "Frames retained in the aggregator's /history JSONL ring"),
+    ("telemetry", "", "relay", False, "bool",
+     "Per-group telemetry relays (the np>=16 fan-in fix): each "
+     "detector group's leader rank hosts a batching relay; group "
+     "members ship their frames there and the relay forwards one "
+     "batched frame per interval to the root aggregator, so the "
+     "root's ingest socket sees O(groups) connections instead of "
+     "O(P).  Off (default): every rank dials the root directly"),
     ("hang", "", "diag_enable", True, "bool",
      "Hang diagnosis: every Deadline-bounded wait site registers its "
      "blocked identity (site, plane, awaited peer) lazily — only after a "
@@ -337,6 +360,11 @@ OBSERVABILITY_VARS = (
      "cross-rank wait-graph solver.  Default on: registration is "
      "cold-path only, so a healthy run does zero extra work; off drops "
      "even the slice-expiry bookkeeping"),
+    ("hang", "", "snapshot_timeout_ms", 2000, "int",
+     "Milliseconds the tpud deadline path waits for fresh per-rank "
+     "blocked-state snapshots (one telemetry interval usually "
+     "suffices) before assembling the pre-revoke hang report from "
+     "whatever frames it holds"),
 )
 
 
@@ -543,3 +571,129 @@ def register_schedule_vars(store: VarStore) -> None:
     """Register the schedule-cache knobs on a store (idempotent)."""
     for fw, comp, name, default, typ, help_ in SCHEDULE_VARS:
         store.register(fw, comp, name, default, type=typ, help=help_)
+
+
+# -- serving variables (central registration, same pattern) --------------
+#
+# The tpud serving plane's tenant quotas and daemon knobs, the
+# reference's table: consumed by ompi_tpu_torch.serve (the ``tpud``
+# command and ``run --daemon``) and introspectable on every store.
+
+#: (framework, component, name, default, type, help)
+SERVING_VARS = (
+    ("serve", "", "max_pending", 8, "int",
+     "Per-tenant admission quota: a tpud submit is rejected (HTTP 429) "
+     "while the tenant already has this many jobs queued or running "
+     "(admission control; 0 = unlimited)"),
+    ("serve", "", "cid_block", 4096, "int",
+     "CID-space block reserved per served job: every job's communicator "
+     "world (and any comms it derives) lives in a disjoint "
+     "[base, base+block) CID range, so per-(comm, op) sequence counters "
+     "start clean without re-dialing anything"),
+    ("serve", "", "cid_base", 1 << 20, "int",
+     "First CID block handed to a served job (above anything the boot "
+     "rendezvous or a normal run allocates)"),
+    ("serve", "", "port", 0, "int",
+     "HTTP port the tpud ops/scrape endpoint serves on (0 = pick an "
+     "ephemeral port and print the URL at daemon start)"),
+    ("serve", "", "poll_ms", 50, "int",
+     "Milliseconds between a resident worker's polls of the job stream "
+     "while idle (the KVS long-poll quantum)"),
+    ("serve", "", "tenant", "default", "string",
+     "Default tenant name a tpud submit is accounted against when the "
+     "client names none"),
+    ("serve", "", "job_timeout", 0.0, "float",
+     "Seconds the daemon lets one job run before marking it failed and "
+     "freeing its rank-set (0 = unbounded)"),
+    ("serve", "", "pidfile", "", "string",
+     "Path of the tpud pidfile — arms the crash-safe control plane: "
+     "the daemon records its pid/KVS/ops addresses there (stale locks "
+     "from a SIGKILLed daemon are reaped and taken over), journals "
+     "the job stream next to it, and resident workers use it to find "
+     "a restarted daemon and re-attach instead of orphaning (empty = "
+     "off, the one-shot daemon lifecycle)"),
+    ("serve", "", "journal", "", "string",
+     "Job-stream journal path (append-only JSONL): submissions, "
+     "published directives, completions, and worker pids — replayed "
+     "by a restarted daemon so queued and in-flight jobs survive a "
+     "daemon SIGKILL and execute exactly once (empty = "
+     "<serve_pidfile>.journal when a pidfile is configured)"),
+    ("serve", "", "agent_poll_ms", 50, "int",
+     "Milliseconds between a per-host launch agent's polls of its "
+     "command stream while idle (the multi-host DVM leg: tpurun "
+     "--daemon with a host map runs one agent per remote host)"),
+    ("serve", "", "agent_hb_ms", 500, "int",
+     "Milliseconds between a launch agent's heartbeat records "
+     "(serve.agent.hb.<hid>: agent pid + per-worker pid/liveness "
+     "table — the daemon's remote view of a host it shares no pid "
+     "namespace with)"),
+    ("serve", "", "agent_timeout", 10.0, "float",
+     "Seconds of agent-heartbeat silence (with the agent's launch "
+     "process also gone) after which the daemon declares the agent "
+     "dead and respawns it over the rsh leg — the reborn agent "
+     "re-adopts still-live workers from the last-known pid table and "
+     "reports the dead ones for the normal respawn+repair leg"),
+    ("serve", "", "journal_max_kb", 0, "int",
+     "Journal rotation size bound: once the crash journal grows past "
+     "this many KiB the daemon rewrites it in place as one compacted "
+     "snapshot line (current replayed state) plus an empty tail, so a "
+     "long-lived daemon's journal stops growing without bound "
+     "(0 = no size-triggered rotation)"),
+    ("serve", "", "journal_max_age_s", 0.0, "float",
+     "Journal rotation age bound: rotate (compact-in-place) once the "
+     "current journal segment is older than this many seconds, "
+     "regardless of size — bounds replay work after a crash even "
+     "under a slow event trickle (0 = no age-triggered rotation)"),
+    ("serve", "", "agent_hb_only", False, "bool",
+     "Judge launch-agent liveness by heartbeat staleness alone, "
+     "ignoring rsh-launcher exit: for backgrounding agent templates "
+     "(rsh wrappers that daemonize and exit immediately) the launch "
+     "process dying is normal, so only serve_agent_timeout seconds "
+     "of heartbeat silence declares the agent dead (default off: "
+     "either signal — rsh exit or hb silence — triggers respawn)"),
+    ("serve", "", "reattach_timeout", 30.0, "float",
+     "Crash-safe control plane window, both sides: how long a "
+     "resident worker that lost its daemon parks and polls the "
+     "pidfile for a restarted one before self-terminating with full "
+     "teardown (no orphans), and how long the restarted daemon waits "
+     "for a live worker's re-adoption record before treating the "
+     "rank as dead and respawning it"),
+    ("serve", "", "max_concurrent", 0, "int",
+     "Concurrency cap for the gang scheduler: at most this many jobs "
+     "run on the mesh at once even when disjoint rank-sets are free "
+     "(0 = unlimited — any job whose full rank-set is free launches)"),
+    ("serve", "", "admission_stall_ns", 0, "int",
+     "Telemetry-driven admission threshold (0 = off): when one daemon "
+     "monitor tick's summed ring/cts/DMA stall delta across the mesh "
+     "exceeds this many nanoseconds (or the detector reports the mesh "
+     "unhealthy), the scheduler queues instead of dispatching; "
+     "serve_shed_policy decides what SUSTAINED overload does to new "
+     "submits"),
+    ("serve", "", "shed_policy", "shed", "string",
+     "Graceful-degradation policy under sustained overload (three "
+     "consecutive over-threshold admission ticks): 'shed' rejects "
+     "submits from tenants that already have work queued or running "
+     "with HTTP 429 + a Retry-After hint (an idle tenant still gets "
+     "one job in — overload must not lock a tenant out entirely); "
+     "'queue' only holds dispatch and keeps admitting"),
+    ("serve", "", "job_deadline_s", 0.0, "float",
+     "Per-job wall deadline, Deadline-bounded (0 = none): an expired "
+     "job gets a revoke directive — its workers revoke the job "
+     "communicator ULFM-style, the job fails with a typed "
+     "DeadlineExpired error on /job/<id>, and concurrently running "
+     "disjoint gangs are untouched — instead of wedging its gang "
+     "(serve_job_timeout remains the harder kill-and-repair bound)"),
+    ("serve", "", "retry_budget", 0, "int",
+     "Automatic re-enqueues for a job killed by mesh repair (a rank "
+     "died under it; 0 = none): each retry is journaled as one atomic "
+     "record, so a daemon crash mid-retry replays to exactly one "
+     "re-run; budget exhaustion fails the job with a typed "
+     "RetryBudgetExhausted error on /job/<id>"),
+)
+
+
+def register_serving_vars(store: VarStore) -> None:
+    """Register the tpud serving knobs on a store (idempotent)."""
+    for fw, comp, name, default, typ, help_ in SERVING_VARS:
+        store.register(fw, comp, name, default, type=typ, help=help_)
+

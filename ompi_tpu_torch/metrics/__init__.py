@@ -4,8 +4,10 @@ Port of ``ompi_tpu/metrics``: :mod:`.core` (counter/histogram
 aggregation, ``--mca metrics_enable 1``), :mod:`.export` (Prometheus
 text + JSONL at finalize, ``--mca metrics_output``) and :mod:`.flight`
 (the flight recorder) and :mod:`.straggler` (the collective straggler
-profiler, armed with the metrics plane).  The reference's live
-telemetry endpoint (``metrics/live.py``) is not ported yet.
+profiler, armed with the metrics plane) and :mod:`.live` (the live
+telemetry plane: per-rank frame publishers, the aggregator's
+``/metrics``, ``/json``, ``/history``, ``/critical`` and ``/waitgraph``
+scrape endpoints, ``--mca telemetry_enable 1``).
 """
 
 from .core import (  # noqa: F401

@@ -4,8 +4,9 @@ Port of ``ompi_tpu/metrics/straggler.py``.  This module records the
 per-rank half of the answer; the cross-rank half (joining one
 collective's records across all ranks, :func:`join_skew`) runs wherever
 records from every rank meet — a bench worker's final allgather or a
-post-mortem report.  (The reference's live telemetry aggregator is not
-ported.)
+post-mortem report, or the live telemetry aggregator
+(:mod:`ompi_tpu_torch.metrics.live`), which drains the queued records
+into each frame.
 
 Per collective call (api dispatch, :meth:`MultiProcComm._lookup`),
 gated on the module ``_enabled`` bool (one test per call when off):
@@ -306,6 +307,17 @@ def summary() -> dict[str, dict]:
         st["wait_ns"] += nat["wait_ns"]
         st["max_wait_ns"] = max(st["max_wait_ns"], nat["max_wait_ns"])
         st["lat_hist"] = list(nat.get("lat_hist") or [])
+    return out
+
+
+def drain_recent() -> list[list]:
+    """Pop every queued instance record (JSON-able ``[key, arrive_ns,
+    exit_ns]`` rows) — one consumer, the telemetry publisher."""
+    out = []
+    with _lock:
+        while _recent:
+            k, a, x = _recent.popleft()
+            out.append([k, a, x])
     return out
 
 

@@ -142,13 +142,26 @@ class RecvRequest(Request):
         if self._guard is None:
             self._event.wait()
         else:
+            from ompi_tpu_torch.trace import waitgraph as _waitgraph
+
             timeout, check, escalate = self._guard
             deadline = time.monotonic() + timeout
-            while not self._event.wait(max(0.0, min(0.25, deadline - time.monotonic()))):
-                check()
-                if time.monotonic() >= deadline:
-                    escalate(timeout)
-                    deadline = time.monotonic() + timeout
+            wtok = 0
+            try:
+                while not self._event.wait(max(0.0, min(0.25, deadline - time.monotonic()))):
+                    # hang diagnosis: one full slice without delivery is a
+                    # blocked wait — register lazily (first failed slice)
+                    if not wtok and _waitgraph._enabled:
+                        wtok = _waitgraph.begin(
+                            "p2p_recv", peer=getattr(self, "wait_peer", None),
+                            plane="host")
+                    check()
+                    if time.monotonic() >= deadline:
+                        escalate(timeout)
+                        deadline = time.monotonic() + timeout
+            finally:
+                if wtok:
+                    _waitgraph.end(wtok)
         if self._copied is not None:
             self._copied.synchronize()
 

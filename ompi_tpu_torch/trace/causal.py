@@ -104,8 +104,9 @@ TIE_FACTOR = 1.25
 
 _lock = threading.Lock()
 _counters: dict[str, int] = {k: 0 for k in PVARS}
-#: the retained ring of completed records (the finalize export's view;
-#: the reference's live publish queue has no consumer here)
+#: completed records queued for the live publisher (drained per frame)
+#: and the retained ring (the finalize export's view, never drained)
+_records: collections.deque = collections.deque(maxlen=_RECENT_CAP)
 _retained: collections.deque = collections.deque(maxlen=_RECENT_CAP)
 _tls = threading.local()
 
@@ -153,6 +154,7 @@ def reset() -> None:
     with _lock:
         for k in _counters:
             _counters[k] = 0
+        _records.clear()
         _retained.clear()
         _seqs.clear()
         _enabled = False
@@ -227,8 +229,9 @@ def end_op(alg: str = "") -> None:
     row = [key, int(ctx.arrive), int(exit_ns), str(alg),
            ctx.sends, ctx.recvs, stalls]
     with _lock:
-        if len(_retained) == _retained.maxlen:
+        if len(_records) == _records.maxlen:
             _counters["dropped"] += 1
+        _records.append(row)
         _retained.append(row)
         _counters["records"] += 1
     if _trace._enabled:
@@ -329,7 +332,17 @@ def _next_seq(comm: str, op: str) -> int:
         return s
 
 
-# -- record access (finalize export / tests) -----------------------------
+# -- record access (publisher / finalize export / tests) -----------------
+
+
+def drain_recent() -> list[list]:
+    """Pop every queued causal record — one consumer, the telemetry
+    publisher (the live /critical feed)."""
+    out = []
+    with _lock:
+        while _records:
+            out.append(_records.popleft())
+    return out
 
 
 def recent() -> list[list]:

@@ -81,6 +81,10 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.api.intercomm, ompi_tpu_torch.api.spawn, ompi_tpu_torch.api.topo\n"
         "import ompi_tpu_torch.api.info, ompi_tpu_torch.core.info\n"
         "import ompi_tpu_torch.examples.ring_attention, ompi_tpu_torch.examples.ft_smoke\n"
+        "import ompi_tpu_torch.metrics.live, ompi_tpu_torch.serve, ompi_tpu_torch.serve.queue\n"
+        "import ompi_tpu_torch.serve.state, ompi_tpu_torch.serve.client, ompi_tpu_torch.serve.worker\n"
+        "import ompi_tpu_torch.serve.agent, ompi_tpu_torch.serve.daemon, ompi_tpu_torch.serve.tpud\n"
+        "import ompi_tpu_torch.serve.ctl, ompi_tpu_torch.examples.serve_job\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
