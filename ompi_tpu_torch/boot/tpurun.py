@@ -113,7 +113,8 @@ def worker_env(rank: int, np_: int, kvs_address: str,
     rank/size/rendezvous coordinates, the telemetry ingest address,
     ``--mca`` params as ``OMPI_MCA_*``, the virtual rank count
     (``accelerator_cuda_nranks``) and, with ``cpu``, the CPU switch
-    (``OMPI_TPU_DEVICE=cpu``)."""
+    (``OMPI_TPU_DEVICE=cpu``).  The switch is never inherited from the
+    caller's environment: ``cpu`` is the only way a worker gets it."""
     import ompi_tpu_torch
 
     pkg_root = os.path.dirname(
@@ -135,6 +136,8 @@ def worker_env(rank: int, np_: int, kvs_address: str,
         env["OMPI_MCA_accelerator_cuda_nranks"] = str(int(nranks))
     if cpu:
         env[ENV_DEVICE] = "cpu"
+    else:
+        env.pop(ENV_DEVICE, None)
     env.update(extra_env or {})
     return env
 

@@ -49,7 +49,7 @@ import threading
 import time
 
 from ompi_tpu_torch.boot.kvs import KVSClient
-from ompi_tpu_torch.boot.proc import ENV_INCARNATION, ENV_KVS, ENV_NPROCS
+from ompi_tpu_torch.boot.proc import ENV_DEVICE, ENV_INCARNATION, ENV_KVS, ENV_NPROCS
 from ompi_tpu_torch.faultsim import core as _fsim
 from . import state as _state
 from .worker import ENV_SERVE_PIDFILE, _PipeSafe, reaim_stdio
@@ -191,9 +191,12 @@ class LaunchAgent:
         # telemetry ingest address from the COMMAND, not the inherited
         # env: after a daemon restart the agent's environment still
         # names the dead predecessor's ingest port, and a worker born
-        # pointing there would publish into the void forever
+        # pointing there would publish into the void forever.  The
+        # daemon's CPU switch rides the agent's own environment (set
+        # only when the daemon was started with --cpu): hand it on
         env = worker_env(rank, self.np, self.kvs_addr,
-                         telemetry_addr=telemetry)
+                         telemetry_addr=telemetry,
+                         cpu=os.environ.get(ENV_DEVICE) == "cpu")
         if incarnation:
             env[ENV_INCARNATION] = str(incarnation)
         p = subprocess.Popen(

@@ -109,9 +109,11 @@ def test_causal_wire_context_on_the_python_plane(traced):
                 e.close()
         causal = PKG[pkg][2]
         recs = causal.recent()
+        # the two ranks' threads end their ops in either order: compare
+        # the records as a sorted list, not in completion order
         got[pkg] = ([sorted(env) for env in envs], [env.get("tc") for env in envs],
                     causal.counters_snapshot(),
-                    [(r[0], len(r[4]), len(r[5]), [e[:2] for e in r[5]]) for r in recs])
+                    sorted((r[0], len(r[4]), len(r[5]), [e[:2] for e in r[5]]) for r in recs))
     assert got["port"] == got["ref"]
     keys, tcs, counters, recs = got["port"]
     if traced:

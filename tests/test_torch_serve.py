@@ -2225,7 +2225,9 @@ def test_tpud_cpu_daemon_never_initializes_cuda(tmp_path):
 def test_resident_worker_boots_on_cuda_or_raises(monkeypatch):
     """The resident worker's ranks run on CUDA unless the daemon handed
     it the CPU switch: without a card and without the switch its boot
-    raises — it never falls back to the CPU quietly."""
+    raises — it never falls back to the CPU quietly.  ``--cpu`` is the
+    one way a worker gets the switch: one already in the caller's
+    environment is not passed on."""
     import torch
 
     import ompi_tpu_torch.api as api
@@ -2234,10 +2236,12 @@ def test_resident_worker_boots_on_cuda_or_raises(monkeypatch):
     from ompi_tpu_torch.core.errors import MPIInternalError
     from ompi_tpu_torch.serve import worker
 
+    monkeypatch.setenv(ENV_DEVICE, "cpu")
+    assert ENV_DEVICE not in worker_env(0, 1, "x:1")
+    assert ENV_DEVICE not in worker_env(1, 2, "x:1", mca={"btl": "native"}, nranks=4)
+    assert worker_env(0, 1, "x:1", cpu=True)[ENV_DEVICE] == "cpu"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise here")
-    assert ENV_DEVICE not in worker_env(0, 1, "x:1")
-    assert worker_env(0, 1, "x:1", cpu=True)[ENV_DEVICE] == "cpu"
     monkeypatch.delenv(ENV_DEVICE, raising=False)
     monkeypatch.delenv(ENV_PROC, raising=False)
     out, err = sys.stdout, sys.stderr
