@@ -161,12 +161,27 @@ exits non-zero:
     failure detector) and with neither; every size's p50 and quartiles
     beside the tpud jobs'.  Output: ``chiprun_out/serve_tpud.log``,
     ``chiprun_out/serve_plain_*.log``.
+16. capi (after serve) — the MPI C ABI: the port's ``libtpumpi`` built
+    from ``ompi_tpu_torch/csrc/capi/shim.c`` (gcc, embedding the running
+    interpreter), ``native/examples/c_suite.c``, ``devsum.c``,
+    ``mixed_handle.c`` and ``native/bench/osu_allreduce.c`` compiled with
+    ``mpicc`` into ``build/ompi_tpu_torch/bin/`` and run ``-np 2 --nranks
+    1`` on the card: ``CSUITE PASS`` and ``MIXED PASS`` on both ranks;
+    devsum's MPI_SUM digest over 2 MiB of doubles on the shim's C fast
+    path (engaged on both ranks), on the Python host plane (``btl/tcp``,
+    device plane off) and on the Python plane with the device plane on
+    (the row a tensor on the card; ``device_sends`` > 0 and CUDA
+    initialized in each process's metrics file), all equal to numpy's;
+    osu_allreduce.c validating up to 64 MiB per rank, its ``Avg
+    Latency(us)`` per size on a line of its own and beside the native
+    phase's p50s.  Output: ``chiprun_out/capi_*.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
 those of the main path, the tuned phase, the ddt phase, the
-multiproc and native workers, the recovery phase and the serve
-phase's jobs (each job prints its own); the last
+multiproc and native workers, the recovery phase, the serve
+phase's jobs (each job prints its own) and the C ranks of the capi
+phase (none: a C rank holds one row); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -2224,6 +2239,190 @@ def phase_serve(smi) -> dict:
     return row
 
 
+#: the C-ABI phase's programs: stock MPI C sources of the repository
+CAPI_PROGRAMS = {"c_suite": "native/examples/c_suite.c", "devsum": "native/examples/devsum.c",
+                 "mixed_handle": "native/examples/mixed_handle.c",
+                 "osu_allreduce": "native/bench/osu_allreduce.c"}
+#: osu_allreduce.c's largest size per rank and its iterations per size
+CAPI_OSU_MAX, CAPI_OSU_ITERS = 64 << 20, 50
+#: devsum.c's default count: 2 MiB of doubles
+DEVSUM_COUNT = 262144
+
+
+def devsum_digest(count: int, size: int) -> str:
+    """devsum.c's inputs and MPI_SUM digest, computed with numpy from
+    the formula in its source (integers × 0.5: every sum is exact)."""
+    import numpy as np
+
+    i = np.arange(count, dtype=np.int64)
+    out = sum(((i * 2654435761 + 7919 * (r + 1)) % 1000003).astype(np.float64) * 0.5
+              for r in range(size))
+    w = out.view(np.uint64)
+    return f"xor={int(np.bitwise_xor.reduce(w)):x} sum={int(w.sum(dtype=np.uint64)):x}"
+
+
+def start_c_job(name: str, binary: Path, args=(), mca=None, env=None, standalone=False):
+    """A compiled C program on the card (no ``--cpu``), in a process
+    group and a working directory of its own, with the per-process
+    metrics file
+    ``chiprun_out/capi_<name>.<proc>.jsonl`` written at finalize; output
+    to ``chiprun_out/capi_<name>.log``.  Under ``run -np 2 --nranks 1``,
+    or with ``standalone`` the binary alone: a size-1 world with neither
+    ``PYTHONPATH`` nor the launcher's ``sys.path``, nor ``OMPI_TPU_DEVICE``."""
+    mca = {"metrics_enable": 1, "metrics_output": REPO / "chiprun_out" / f"capi_{name}",
+           **(mca or {})}
+    env = dict(env or pkg_env())
+    if standalone:
+        for k in ("PYTHONPATH", "TPUMPI_SYS_PATH", "OMPI_TPU_DEVICE", "OMPI_TPU_PROC"):
+            env.pop(k, None)
+        env.update({f"OMPI_MCA_{k}": str(v) for k, v in mca.items()})
+        cmd = [str(binary)]
+    else:
+        cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", "2", "--nranks", "1"]
+        for k, v in mca.items():
+            cmd += ["--mca", k, str(v)]
+        cmd.append(str(binary))
+    cmd += map(str, args)
+    # a directory of its own: c_suite's MPI-IO file is named relative to it
+    cwd = REPO / "build" / "ompi_tpu_torch" / "capi_jobs" / name
+    cwd.mkdir(parents=True, exist_ok=True)
+    job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           env=env, cwd=str(cwd), start_new_session=True)
+    return name, job, time.perf_counter(), 1 if standalone else 2
+
+
+def finish_c_job(started, timeout: float = 240) -> dict:
+    """The job's output, wall time and each process's finalize metrics."""
+    name, job, t0, nprocs = started
+    try:
+        out, err = job.communicate(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        os.killpg(job.pid, signal.SIGKILL)
+        out, err = job.communicate()
+        (REPO / "chiprun_out" / f"capi_{name}.log").write_text(out + err)
+        raise SystemExit(f"capi {name} job exceeded {timeout} s")
+    (REPO / "chiprun_out" / f"capi_{name}.log").write_text(out + err)
+    if job.returncode != 0:
+        print(out[-4000:] + err[-4000:], file=sys.stderr)
+        raise SystemExit(f"capi {name} job failed (rc={job.returncode})")
+    return {"out": out, "err": err, "wall_s": time.perf_counter() - t0,
+            "metrics": metrics_rows(REPO / "chiprun_out" / f"capi_{name}", nprocs)}
+
+
+def devsum_run(res: dict) -> str:
+    """The one digest both ranks printed."""
+    rows = {line.split("DEVSUM ", 1)[1].split(" ", 2)[2]
+            for line in res["out"].splitlines() if "DEVSUM " in line}
+    if len(rows) != 1 or len(re.findall(r"DEVSUM ", res["out"])) != 2:
+        raise SystemExit(f"capi devsum: not one digest from two ranks: {res['out'][-2000:]}")
+    return rows.pop()
+
+
+def metrics_rows(base: Path, nprocs: int) -> list:
+    """Each process's finalize snapshot (the last line of its metrics file)."""
+    return [json.loads(Path(f"{base}.{p}.jsonl").read_text().splitlines()[-1])
+            for p in range(nprocs)]
+
+
+def phase_capi(smi, native) -> dict:
+    """The MPI C ABI on the card: the port's ``libtpumpi`` built from
+    ``ompi_tpu_torch/csrc/capi/shim.c``, stock C programs compiled with
+    ``mpicc`` into ``build/ompi_tpu_torch/bin/`` and run with ``run -np 2
+    --nranks 1`` (one rank per process, the world on ``cuda:0``):
+    c_suite and mixed_handle pass on both ranks, and c_suite standalone
+    (no launcher, no ``PYTHONPATH``: the embedded interpreter takes the
+    ``sys.path`` baked into libtpumpi); devsum's MPI_SUM digest (2 MiB of
+    doubles) on the shim's C fast path, on the Python host plane
+    (``btl/tcp``, device plane off) and on the Python plane with the
+    device plane on (the row a tensor on the card, riding a CUDA IPC
+    window: ``device_sends`` > 0) equals numpy's; osu_allreduce.c
+    validates up to 64 MiB per rank on the C fast path, its latency
+    beside the Python native phase's p50s.  Every C process writes its
+    metrics file at finalize: each must have brought up CUDA, and their
+    kernel launches are the phase's.  The validation jobs run side by
+    side, osu_allreduce alone after them."""
+    from ompi_tpu_torch import native as native_lib
+
+    t0 = time.perf_counter()
+    native_lib.build_capi()
+    bins = {name: native_lib.compile_mpi_program(REPO / src, native_lib.BIN_DIR / name)
+            for name, src in CAPI_PROGRAMS.items()}
+    build_s = time.perf_counter() - t0
+    fp_env = dict(pkg_env(), TPUMPI_FP_DEBUG="1")
+    started = [
+        start_c_job("c_suite", bins["c_suite"]),
+        start_c_job("c_suite_standalone", bins["c_suite"], standalone=True),
+        start_c_job("mixed_handle", bins["mixed_handle"]),
+        start_c_job("devsum_c_fast_path", bins["devsum"], env=fp_env),
+        start_c_job("devsum_python_host", bins["devsum"], mca={
+            "btl": "tcp", "dcn_device_enable": 0}),
+        start_c_job("devsum_python_device", bins["devsum"], mca={"btl": "tcp"}),
+    ]
+    res = {s[0]: finish_c_job(s) for s in started}
+    osu = finish_c_job(start_c_job("osu_allreduce", bins["osu_allreduce"],
+                                   args=[CAPI_OSU_MAX, CAPI_OSU_ITERS]))
+    wall_s = time.perf_counter() - t0
+    failures = []
+    for name, marker, fail, n in (("c_suite", "CSUITE PASS", "FAIL", 2),
+                                  ("c_suite_standalone", "CSUITE PASS rank=0 size=1", "FAIL", 1),
+                                  ("mixed_handle", "MIXED PASS", "MIXED FAIL", 2)):
+        if res[name]["out"].count(marker) != n or fail in res[name]["out"]:
+            failures.append(name)
+    # every C rank defaults to the card: each process brought up CUDA
+    every = {**res, "osu_allreduce": osu}
+    cuda_up = {k: [m["cuda_initialized"] for m in v["metrics"]] for k, v in every.items()}
+    if not all(all(v) for v in cuda_up.values()):
+        failures.append("cuda_initialized")
+    want = devsum_digest(DEVSUM_COUNT, 2)
+    digests = {k: devsum_run(res[f"devsum_{k}"])
+               for k in ("c_fast_path", "python_host", "python_device")}
+    engaged = (res["devsum_c_fast_path"]["out"]
+               + res["devsum_c_fast_path"]["err"]).count("fast path ACTIVE")
+    dev = {k: {"device_sends": [m["native"].get("device_sends", 0)
+                                for m in res[f"devsum_python_{k}"]["metrics"]]}
+           for k in ("host", "device")}
+    if set(digests.values()) != {want}:
+        failures.append("devsum_digests")
+    if engaged != 2:
+        failures.append("devsum_c_fast_path_engaged")
+    if min(dev["device"]["device_sends"]) <= 0:
+        failures.append("devsum_python_device_plane")
+    if max(dev["host"]["device_sends"]) != 0:
+        failures.append("devsum_python_host_plane")
+    osu_us = {}
+    for line in osu["out"].splitlines():
+        m = re.match(r"^\[0\] (\d+)\s+([0-9.]+)\s*$", line)
+        if m:
+            osu_us[int(m.group(1))] = float(m.group(2))
+    if "VALIDATION FAILED" in osu["out"] + osu["err"] or max(osu_us, default=0) != CAPI_OSU_MAX:
+        failures.append("osu_allreduce")
+    for nbytes, us in osu_us.items():
+        print(f"capi osu_allreduce.c bytes={nbytes} Avg Latency(us)={us} ({smi})", flush=True)
+    py = {r["bytes"]: r["p50_ms"] for r in native["osu_allreduce"]}
+    py_split = {r["bytes"]: r["call_ms"] for r in native["split_ms"]}
+    # what every C process of the phase launched (a C rank holds one row:
+    # han's local leg launches no hop)
+    launches = {k: sum(m["kernel_launches"].get(k, 0) for v in every.values()
+                       for m in v["metrics"])
+                for k in ("ring_hop", "ring_hop_fold")}
+    row = {"phase": "capi", "nvidia_smi": smi, "build_s": build_s, "wall_s": wall_s,
+           "job_wall_s": {k: v["wall_s"] for k, v in res.items()} | {"osu_allreduce":
+                                                                      osu["wall_s"]},
+           "devsum": {"count": DEVSUM_COUNT, "numpy": want, "digests": digests,
+                      "c_fast_path_engaged": engaged, "metrics": dev},
+           "cuda_initialized": cuda_up,
+           "osu_allreduce_c_us": osu_us,
+           "osu_ranks": "2 x 1 (C fast path, host buffers)",
+           "native_py_p50_ms": {"ranks": f"{MP_PROCS} x {MP_RANKS}",
+                                "8": py.get(8), "2097152": py.get(2097152),
+                                "64MiB_call_ms": py_split.get(64 << 20)},
+           "launches": launches, "failures": failures, "ok": not failures}
+    emit(row)
+    if failures:
+        raise SystemExit(f"capi checks failed: {failures}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-bytes", type=int, default=1 << 30,
@@ -2258,15 +2457,17 @@ def main() -> int:
     multiproc = phase_multiproc(smi, ddp_losses)
     native = phase_native(smi, multiproc)
     serve = phase_serve(smi)
+    capi = phase_capi(smi, native)
     launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
-                + recovery["launches"][k] + serve["launches"][k] for k in launches}
+                + recovery["launches"][k] + serve["launches"][k] + capi["launches"][k]
+                for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
          "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
-         "recovery": recovery, "serve": serve, "kernels": kernels}, indent=1))
+         "recovery": recovery, "serve": serve, "capi": capi, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

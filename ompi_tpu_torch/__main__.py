@@ -7,6 +7,9 @@ Commands:
             ``tpud -np 2 --nranks 4 [--cpu]``, see ``tpud --help``
   ctl     — ops CLI for a running daemon: submit|status|drain|shutdown|scale,
             ``--selftest``; see ``ctl --help``
+  mpicc   — compile a stock MPI C program against the port's libtpumpi:
+            ``mpicc prog.c [-o out] [gcc flags]`` (default out:
+            build/ompi_tpu_torch/bin/<stem>); run it with ``run``
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ def main() -> int:
         from ompi_tpu_torch.serve.ctl import main as ctl_main
 
         return ctl_main(rest)
-    print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud' or 'ctl'",
+    if cmd == "mpicc":
+        from ompi_tpu_torch.native import mpicc_main
+
+        return mpicc_main(rest)
+    print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl' or 'mpicc'",
           file=sys.stderr)
     return 2
 

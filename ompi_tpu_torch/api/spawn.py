@@ -83,6 +83,9 @@ def _join_world(world, join: DcnJoinEngine, ns: str, proc_sizes: list[int],
     c.proc = join.proc
     c.nprocs = join.nprocs
     c.dcn = join
+    # the union spans two worlds' KVS namespaces; the spawn's own is the
+    # one every member shares (the C ABI's handle agreement keys on it)
+    join.kvs_ns = ns
     c.local_mesh = world.local_mesh
     c.cid = cid if cid is not None else f"{ns}world"
     c.name = f"{c.cid}.comm"

@@ -110,7 +110,9 @@ def worker_env(rank: int, np_: int, kvs_address: str,
     """One rank's environment (shared by ``run_job``, the tpud daemon's
     resident-worker spawn and its launch agents): framework on
     PYTHONPATH (≈ mpirun's LD_LIBRARY_PATH forwarding for libmpi),
-    rank/size/rendezvous coordinates, the telemetry ingest address,
+    the launcher's ``sys.path`` for a compiled C rank's embedded
+    interpreter (``TPUMPI_SYS_PATH``), rank/size/rendezvous
+    coordinates, the telemetry ingest address,
     ``--mca`` params as ``OMPI_MCA_*``, the virtual rank count
     (``accelerator_cuda_nranks``) and, with ``cpu``, the CPU switch
     (``OMPI_TPU_DEVICE=cpu``).  The switch is never inherited from the
@@ -123,6 +125,10 @@ def worker_env(rank: int, np_: int, kvs_address: str,
     env["PYTHONPATH"] = pkg_root + (
         ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else ""
     )
+    # a compiled C rank embeds the interpreter, which would not see a
+    # virtual environment's site-packages: the shim puts the launcher's
+    # sys.path first, so it imports the same torch as the launcher
+    env["TPUMPI_SYS_PATH"] = ":".join(p for p in sys.path if p)
     env[ENV_PROC] = str(rank)
     env[ENV_NPROCS] = str(np_)
     env[ENV_KVS] = kvs_address

@@ -13,8 +13,12 @@ indices on the host, so a device pack makes no host sync.
 The partial-pack contract holds: :class:`Convertor` packs and unpacks
 with a byte budget and resumes mid-element (``set_position``).
 
-The reference's native C leg (its ``ddt_convertor_native`` var) is not
-ported: it waits for the port's own native build.
+Native leg: a one-shot :func:`pack`/:func:`unpack` of a numpy buffer
+(the C ABI's case) runs the committed iovec program in the C++ kernels
+of ``csrc/convertor.cc`` (``libtpuconvertor.so``, built on first use by
+:func:`ompi_tpu_torch.native.load_convertor`) while the MCA var
+``ddt_convertor_native`` is on (the default); the numpy path stays for
+partial pack streams, tensors, and a machine without a C++ compiler.
 """
 
 from __future__ import annotations
@@ -139,6 +143,95 @@ class Convertor:
         return n
 
 
+# -- native leg: the C++ pack/unpack kernels over numpy buffers --------
+
+_native_var_cache: tuple[int, object] | None = None
+
+
+def _native_enabled() -> bool:
+    # hot path: cache the registered Var per store (register() walks the
+    # dedup table); re-fetch only if the MCA context was reset
+    global _native_var_cache
+    from ompi_tpu_torch.core import mca
+
+    store = mca.default_context().store
+    if _native_var_cache is None or _native_var_cache[0] != id(store):
+        var = store.register(
+            "ddt", None, "convertor_native", True,
+            help="use the libtpuconvertor C++ pack/unpack kernels "
+                 "for host buffers when available")
+        _native_var_cache = (id(store), var)
+    return bool(_native_var_cache[1].value)
+
+
+def _native_bounds_check(dt: Datatype, count: int, origin: int, bufsize: int):
+    """The iovec program for the native kernels as (offsets, lengths,
+    packed bytes), bounds-checked with the numpy path's errors."""
+    iov = dt.iovec()
+    offs = np.array([o for o, _ in iov], np.int64)
+    lens = np.array([n for _, n in iov], np.int64)
+    lo_e = int(offs.min())
+    hi_e = int((offs + lens).max())
+    if dt.extent >= 0:
+        lo, hi = lo_e, hi_e + (count - 1) * dt.extent
+    else:
+        lo, hi = lo_e + (count - 1) * dt.extent, hi_e
+    if origin + lo < 0:
+        raise MPIArgError(
+            f"datatype addresses byte {origin + lo} before the buffer "
+            f"start; pass origin >= {-lo} for negative-lb types")
+    if origin + hi > bufsize:
+        raise MPITruncateError(
+            f"buffer too small: {bufsize} bytes < {origin + hi} required "
+            f"for {count} x {dt.name or 'datatype'}")
+    return offs, lens, count * int(lens.sum())
+
+
+def _native_call(fn, buf: np.ndarray, other: np.ndarray, dt: Datatype,
+                 count: int, origin: int, offs, lens) -> None:
+    import ctypes
+
+    I64P = ctypes.POINTER(ctypes.c_int64)
+    fn(buf.ctypes.data + origin, other.ctypes.data,
+       offs.ctypes.data_as(I64P), lens.ctypes.data_as(I64P),
+       len(offs), count, dt.extent)
+
+
+def _native_pack(buf: np.ndarray, dt: Datatype, count: int, origin: int):
+    """The packed bytes from the C++ kernel, or None when the library
+    is unavailable or the type is zero-size."""
+    from ompi_tpu_torch import native
+
+    lib = native.load_convertor()
+    if lib is None or not dt.iovec():
+        return None
+    offs, lens, nbytes = _native_bounds_check(dt, count, origin, buf.size)
+    out = np.empty(nbytes, np.uint8)
+    _native_call(lib.tpuconv_pack, buf, out, dt, count, origin, offs, lens)
+    return out
+
+
+def _native_unpack(buf: np.ndarray, dt: Datatype, count: int, data,
+                   origin: int) -> bool:
+    """Unpack through the C++ kernel; False when it cannot serve (no
+    library, zero-size type, read-only buffer: the numpy path then
+    raises the caller's error)."""
+    from ompi_tpu_torch import native
+
+    lib = native.load_convertor()
+    if lib is None or not dt.iovec() or not buf.flags.writeable:
+        return False
+    src = _as_byte_view(data)
+    if isinstance(src, torch.Tensor):
+        src = src.cpu().numpy()
+    offs, lens, nbytes = _native_bounds_check(dt, count, origin, buf.size)
+    if src.size != nbytes:
+        raise MPITruncateError(f"expected {nbytes} packed bytes, got {src.size}")
+    src = np.ascontiguousarray(src)
+    _native_call(lib.tpuconv_unpack, buf, src, dt, count, origin, offs, lens)
+    return True
+
+
 def pack(buffer, datatype: Datatype, count: int, origin: int = 0):
     """One-shot full pack → contiguous ``uint8`` bytes (numpy for a
     numpy buffer, a tensor on the tensor's device).  A contiguous
@@ -152,6 +245,10 @@ def pack(buffer, datatype: Datatype, count: int, origin: int = 0):
                 f"buffer too small: {_nbytes(buf)} bytes < {end} required "
                 f"for {count} x {datatype.name or 'datatype'}")
         return buf[start:end]
+    if isinstance(buffer, np.ndarray) and count and _native_enabled():
+        out = _native_pack(_as_byte_view(buffer), datatype, count, origin)
+        if out is not None:
+            return out
     return Convertor(buffer, datatype, count, origin).pack()
 
 
@@ -176,6 +273,9 @@ def unpack(buffer, datatype: Datatype, count: int, data, origin: int = 0) -> Non
             buf[start: start + size] = src.cpu().numpy() if isinstance(
                 src, torch.Tensor) else src
         return
+    if isinstance(buffer, np.ndarray) and count and _native_enabled():
+        if _native_unpack(_as_byte_view(buffer), datatype, count, data, origin):
+            return
     c = Convertor(buffer, datatype, count, origin)
     c.unpack(data)
     if not c.done:

@@ -18,6 +18,7 @@ process that never reached finalize.
 from __future__ import annotations
 
 import json
+import sys
 
 from . import core as _core
 from . import flight as _flight
@@ -138,6 +139,14 @@ def write(path_base: str, proc: int = 0,
                           proc=proc)
     if partial:
         snap["partial"] = True
+    # whether this process brought up a CUDA context (a CPU job never
+    # does): the file then tells which processes worked on the card
+    torch = sys.modules.get("torch")
+    snap["cuda_initialized"] = bool(torch is not None and torch.cuda.is_initialized())
+    # and the hand-written kernels it launched (none in a process that
+    # never loaded them)
+    ck = sys.modules.get("ompi_tpu_torch.coll.cuda_kernels")
+    snap["kernel_launches"] = dict(ck.LAUNCHES) if ck is not None else {}
     from ompi_tpu_torch.trace import causal as _causal
 
     if _causal.enabled():

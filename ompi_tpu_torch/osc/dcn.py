@@ -154,6 +154,10 @@ class MultiProcWin:
                   f"{env['target']} on {self.name}", file=sys.stderr)
             return
         mem = self._mem[li]
+        # C-ABI windows are byte-typed: ops may carry their element
+        # dtype ("dt") and address in elements of it
+        if "dt" in env:
+            mem = mem.view(torch_dtype(np.dtype(env["dt"])))
 
         def data() -> torch.Tensor:
             return to_device(np.ascontiguousarray(payload).view(_wire_dtype(mem.dtype)),
@@ -242,11 +246,22 @@ class MultiProcWin:
             return ev[1][0]
         return None
 
-    def _bytes(self, target: int, data) -> np.ndarray:
-        """Origin data as the target's element bytes: converted to the
-        target's dtype (a tensor on its device, numpy on the host), then
-        its host bytes."""
-        want = self.dtypes[target]
+    def _elem(self, target: int, dt) -> np.dtype:
+        """The element dtype an op addresses: ``dt`` (a byte-typed C-ABI
+        window's view) or the target's own."""
+        return self.dtypes[target] if dt is None else np.dtype(dt)
+
+    @staticmethod
+    def _env(env: dict, dt) -> dict:
+        if dt is not None:
+            env["dt"] = np.dtype(dt).str
+        return env
+
+    def _bytes(self, target: int, data, dt=None) -> np.ndarray:
+        """Origin data as the element bytes the op addresses: converted
+        to the target's dtype (or ``dt``) — a tensor on its device,
+        numpy on the host — then its host bytes."""
+        want = self._elem(target, dt)
         if want == BF16_HOST:
             t = data if isinstance(data, torch.Tensor) else torch.as_tensor(
                 np.asarray(data))
@@ -257,30 +272,34 @@ class MultiProcWin:
             arr = np.ascontiguousarray(np.asarray(data, want))
         return arr.view(np.uint8).reshape(-1)
 
-    def put(self, target: int, data, disp: int = 0) -> None:
-        self._issue(target, {"rma": "put", "disp": int(disp)}, self._bytes(target, data))
+    def put(self, target: int, data, disp: int = 0, dt=None) -> None:
+        """``dt``: the element dtype of a byte-typed window's view
+        (``disp`` counts its elements), as the C ABI's typed RMA uses."""
+        env = self._env({"rma": "put", "disp": int(disp)}, dt)
+        self._issue(target, env, self._bytes(target, data, dt))
 
-    def get(self, target: int, count: int, disp: int = 0) -> np.ndarray:
-        env = {"rma": "get", "disp": int(disp), "count": int(count)}
+    def get(self, target: int, count: int, disp: int = 0, dt=None) -> np.ndarray:
+        env = self._env({"rma": "get", "disp": int(disp), "count": int(count)}, dt)
         out = self._issue(target, env, np.zeros(0, np.uint8), reply=True)
-        return np.asarray(out).view(self.dtypes[target])
+        return np.asarray(out).view(self._elem(target, dt))
 
     def accumulate(self, target: int, data, disp: int = 0,
-                   op: opmod.Op = opmod.SUM) -> None:
-        env = {"rma": "acc", "disp": int(disp), "op": op.name}
-        self._issue(target, env, self._bytes(target, data))
+                   op: opmod.Op = opmod.SUM, dt=None) -> None:
+        env = self._env({"rma": "acc", "disp": int(disp), "op": op.name}, dt)
+        self._issue(target, env, self._bytes(target, data, dt))
 
     def fetch_and_op(self, target: int, value, disp: int = 0,
-                     op: opmod.Op = opmod.SUM):
-        env = {"rma": "fao", "disp": int(disp), "op": op.name}
-        out = self._issue(target, env, self._bytes(target, [value]), reply=True)
-        return np.asarray(out).view(self.dtypes[target])[0]
+                     op: opmod.Op = opmod.SUM, dt=None):
+        env = self._env({"rma": "fao", "disp": int(disp), "op": op.name}, dt)
+        out = self._issue(target, env, self._bytes(target, [value], dt), reply=True)
+        return np.asarray(out).view(self._elem(target, dt))[0]
 
-    def compare_and_swap(self, target: int, value, compare, disp: int = 0):
-        env = {"rma": "cas", "disp": int(disp)}
-        out = self._issue(target, env, self._bytes(target, [value, compare]),
+    def compare_and_swap(self, target: int, value, compare, disp: int = 0,
+                         dt=None):
+        env = self._env({"rma": "cas", "disp": int(disp)}, dt)
+        out = self._issue(target, env, self._bytes(target, [value, compare], dt),
                           reply=True)
-        return np.asarray(out).view(self.dtypes[target])[0]
+        return np.asarray(out).view(self._elem(target, dt))[0]
 
     # -- synchronization -------------------------------------------------
 

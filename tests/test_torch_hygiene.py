@@ -7,7 +7,12 @@
   C++/CUDA sources under ``csrc/`` include only system, C++ and CUDA
   headers (nothing of ``native/``, no Python or PyTorch headers) and
   name no module of the JAX package;
-* the entry points default to CUDA and raise where there is none, and
+* the C ABI's sources under ``csrc/capi/``, which embed Python, include
+  only system headers, ``<Python.h>`` and the port's own ``mpi.h``
+  (nothing resolves into ``native/``), and import ``ompi_tpu_torch.capi``
+  and no module of the JAX package;
+* the entry points default to CUDA and raise where there is none (a
+  compiled C rank too), and
   the point-to-point, window and convertor paths keep a tensor on its
   own device (checked on the meta device, which has no host copy);
 * the kernel wrappers launch or raise for tensors that are not on the
@@ -57,6 +62,64 @@ def test_csrc_includes_no_python_and_names_no_jax_package(path):
     assert not re.search(r"\b(ompi_tpu|jax)\.\w|\"(ompi_tpu|jax)\b", text)
 
 
+CAPI_DIR = REPO / "ompi_tpu_torch" / "csrc" / "capi"
+CAPI_FILES = sorted(p for p in CAPI_DIR.rglob("*") if p.suffix in (".c", ".h"))
+
+
+@pytest.mark.parametrize("path", CAPI_FILES, ids=[str(p.relative_to(CAPI_DIR)) for p in CAPI_FILES])
+def test_capi_sources_include_only_python_and_their_own_mpi_h(path):
+    """The C ABI embeds Python, which the sources directly under
+    ``csrc/`` must not: its files may include system headers,
+    ``<Python.h>`` and the ``"mpi.h"`` of ``csrc/capi/include/``, and
+    nothing that resolves into ``native/``."""
+    import re
+
+    text = path.read_text()
+    includes = re.findall(r"^\s*#\s*include\s*([<\"][^>\"]+[>\"])", text, re.M)
+    assert includes or path.suffix == ".h"
+    for inc in includes:
+        name = inc[1:-1]
+        if inc.startswith('"'):
+            assert name == "mpi.h" and (CAPI_DIR / "include" / name).is_file(), inc
+        else:
+            assert not re.match(r"(torch|ATen|c10|pybind11)", name), inc
+            assert ".." not in name and "native" not in name, inc
+    assert not re.search(r"\b(ompi_tpu|jax)\.\w|\"(ompi_tpu|jax)\b", text)
+    if path.name == "shim.c":
+        assert re.findall(r'PyImport_ImportModule\("([\w.]+)"\)', text) == ["ompi_tpu_torch.capi"]
+
+
+def test_capi_covers_the_shim_and_its_header():
+    assert {str(p.relative_to(CAPI_DIR)) for p in CAPI_FILES} == {"shim.c", "include/mpi.h"}
+
+
+def test_c_rank_defaults_to_cuda_and_raises_without_it(tmp_path):
+    """A compiled MPI program runs its rank on CUDA: standalone without
+    ``OMPI_TPU_DEVICE=cpu``, or under the launcher without ``--cpu``, it
+    raises at MPI_Init where there is no card and prints no result."""
+    import os
+
+    from ompi_tpu_torch import native
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise here")
+    src = tmp_path / "init.c"
+    src.write_text('#include <mpi.h>\n#include <stdio.h>\n'
+                   'int main(int c, char **v) { MPI_Init(&c, &v); puts("INIT OK");'
+                   ' MPI_Finalize(); return 0; }\n')
+    binary = native.compile_mpi_program(src, tmp_path / "init")
+    env = {k: v for k, v in os.environ.items() if k not in ("OMPI_TPU_DEVICE", "OMPI_TPU_PROC")}
+    alone = subprocess.run([str(binary)], capture_output=True, text=True, timeout=120,
+                           env=env, cwd=tmp_path)
+    launched = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", "2", "--nranks", "1",
+         str(binary)], capture_output=True, text=True, timeout=120,
+        env=dict(env, PYTHONPATH=f"{REPO}:{env.get('PYTHONPATH', '')}"), cwd=tmp_path)
+    for res in (alone, launched):
+        assert res.returncode != 0 and "INIT OK" not in res.stdout
+        assert "no CUDA device" in res.stdout + res.stderr
+
+
 def test_csrc_covers_the_device_window_library():
     assert {p.name for p in CSRC_FILES} >= {"dcn.cc", "ring_hop.cu", "device_window.cu"}
 
@@ -85,6 +148,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.serve.state, ompi_tpu_torch.serve.client, ompi_tpu_torch.serve.worker\n"
         "import ompi_tpu_torch.serve.agent, ompi_tpu_torch.serve.daemon, ompi_tpu_torch.serve.tpud\n"
         "import ompi_tpu_torch.serve.ctl, ompi_tpu_torch.examples.serve_job\n"
+        "import ompi_tpu_torch.capi\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
