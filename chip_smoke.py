@@ -175,11 +175,29 @@ exits non-zero:
     osu_allreduce.c validating up to 64 MiB per rank, its ``Avg
     Latency(us)`` per size on a line of its own and beside the native
     phase's p50s.  Output: ``chiprun_out/capi_*.log``.
+17. shmem (after phase 6, before the recovery phase) — OpenSHMEM on the
+    card: ``ompi_tpu_torch.shmem`` adopts the 8-rank world with the
+    reference's default symmetric heap of 64 MiB per PE (a ``uint8``
+    tensor on the card); each single-controller family once (put/get,
+    the atomics with a ``uint64`` ``SIGNAL_ADD`` past 2**63, wait/test,
+    the locks, a signaled put, a team); a 32 MiB f32 block put to and got
+    from the right-hand PE 20 times, p50s beside the copy bound;
+    ``sum_to_all`` and ``fcollect`` at 16 MiB f32 per PE with
+    ``cuda_ring`` forced, bit-equal to the plain ring with exactly 7 + 7
+    and 7 + 0 launches; ``pgas_stencil`` on 4 Mi doubles per PE for 10
+    iterations within rtol 1e-12 of ``jacobi_reference``; then, side by
+    side, ``ompi_tpu_torch/examples/shmem_worker.py`` under ``run -np 3
+    --nranks 1`` and ``native/examples/shmem_suite.c`` and
+    ``shmem_pipeline.c`` (compiled against the port's ``libtpushmem``
+    from ``ompi_tpu_torch/csrc/capi/shmem_shim.c``) under ``run -np 2
+    --nranks 1``: every PE passes and every process brought up CUDA.
+    Output: ``chiprun_out/capi_shmem_*.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
 those of the main path, the tuned phase, the ddt phase, the
-multiproc and native workers, the recovery phase, the serve
+multiproc and native workers, the shmem phase (its single-controller
+path, its worker and its C ranks), the recovery phase, the serve
 phase's jobs (each job prints its own) and the C ranks of the capi
 phase (none: a C rank holds one row); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
@@ -2261,12 +2279,13 @@ def devsum_digest(count: int, size: int) -> str:
     return f"xor={int(np.bitwise_xor.reduce(w)):x} sum={int(w.sum(dtype=np.uint64)):x}"
 
 
-def start_c_job(name: str, binary: Path, args=(), mca=None, env=None, standalone=False):
-    """A compiled C program on the card (no ``--cpu``), in a process
-    group and a working directory of its own, with the per-process
-    metrics file
+def start_c_job(name: str, binary: Path, args=(), mca=None, env=None, standalone=False,
+                np_: int = 2):
+    """A compiled C program (or a Python script) on the card (no
+    ``--cpu``), in a process group and a working directory of its own,
+    with the per-process metrics file
     ``chiprun_out/capi_<name>.<proc>.jsonl`` written at finalize; output
-    to ``chiprun_out/capi_<name>.log``.  Under ``run -np 2 --nranks 1``,
+    to ``chiprun_out/capi_<name>.log``.  Under ``run -np <np_> --nranks 1``,
     or with ``standalone`` the binary alone: a size-1 world with neither
     ``PYTHONPATH`` nor the launcher's ``sys.path``, nor ``OMPI_TPU_DEVICE``."""
     mca = {"metrics_enable": 1, "metrics_output": REPO / "chiprun_out" / f"capi_{name}",
@@ -2278,7 +2297,7 @@ def start_c_job(name: str, binary: Path, args=(), mca=None, env=None, standalone
         env.update({f"OMPI_MCA_{k}": str(v) for k, v in mca.items()})
         cmd = [str(binary)]
     else:
-        cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", "2", "--nranks", "1"]
+        cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(np_), "--nranks", "1"]
         for k, v in mca.items():
             cmd += ["--mca", k, str(v)]
         cmd.append(str(binary))
@@ -2288,7 +2307,7 @@ def start_c_job(name: str, binary: Path, args=(), mca=None, env=None, standalone
     cwd.mkdir(parents=True, exist_ok=True)
     job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                            env=env, cwd=str(cwd), start_new_session=True)
-    return name, job, time.perf_counter(), 1 if standalone else 2
+    return name, job, time.perf_counter(), 1 if standalone else np_
 
 
 def finish_c_job(started, timeout: float = 240) -> dict:
@@ -2423,6 +2442,225 @@ def phase_capi(smi, native) -> dict:
     return row
 
 
+# -- phase 17 ---------------------------------------------------------------
+
+#: the reference's default symmetric heap per PE (``SHMEM_SYMMETRIC_SIZE``)
+SHMEM_HEAP = 64 << 20
+#: the put/get block (f32, to the right-hand PE) and its rounds
+SHMEM_BLOCK, SHMEM_ROUNDS = 32 << 20, 20
+#: bytes per PE of the sum_to_all / fcollect calls (f32)
+SHMEM_COLL = 16 << 20
+#: pgas_stencil: doubles per PE's strip (32 MiB) and iterations
+SHMEM_STRIP, SHMEM_ITERS = 4 << 20, 10
+#: the stock OpenSHMEM C programs of the phase
+SHMEM_PROGRAMS = {"shmem_suite": "native/examples/shmem_suite.c",
+                  "shmem_pipeline": "native/examples/shmem_pipeline.c"}
+
+
+def shmem_families(shmem) -> dict:
+    """One pass of each single-controller family on the 8-PE heap: put/
+    get, the atomics (an int64 counter, a uint64 SIGNAL_ADD past 2**63),
+    wait/test, the locks, a signaled put and a team."""
+    import numpy as np
+    import torch
+
+    n, last = shmem.n_pes(), shmem.n_pes() - 1
+    ok = {}
+    b = shmem.malloc((2, 3), np.float64)
+    shmem.put(b, np.full((2, 3), 7.5), last)
+    got = shmem.get(b, last)
+    ok["put_get"] = bool(got.is_cuda and torch.equal(got.cpu(), torch.full((2, 3), 7.5,
+                                                                           dtype=torch.float64)))
+    c = shmem.malloc(1, np.int64)
+    c.view(last).zero_()
+    ok["atomics"] = [shmem.atomic_fetch_add(c, 5, last), shmem.atomic_fetch(c, last),
+                     shmem.atomic_compare_swap(c, 5, 9, last),
+                     shmem.atomic_compare_swap(c, 5, 1, last),
+                     shmem.atomic_fetch(c, last)] == [0, 5, 5, 9, 9]
+    iv = shmem.malloc(1, np.int64)
+    iv.view().zero_()
+    was = shmem.test(iv, shmem.CMP_NE, 0)
+    shmem.atomic_set(iv, 7, shmem.my_pe())
+    shmem.wait_until(iv, shmem.CMP_EQ, 7)
+    ok["wait_test"] = not was and shmem.test(iv, shmem.CMP_GE, 7)
+    lk = shmem.malloc(1, np.int64)
+    lk.view().zero_()
+    shmem.set_lock(lk)
+    busy = shmem.test_lock(lk)
+    shmem.clear_lock(lk)
+    free_ = shmem.test_lock(lk)
+    shmem.clear_lock(lk)
+    ok["locks"] = (busy, free_) == (1, 0)
+    dest = shmem.malloc(4, np.float64)
+    sig = shmem.malloc(1, np.uint64)
+    sig.view().zero_()
+    for k in range(2):
+        shmem.put_signal(dest, torch.arange(4.0, device="cuda", dtype=torch.float64) + k,
+                         sig, (1 << 63) + k, 0, shmem.SIGNAL_ADD)
+    ok["signal_uint64"] = (shmem.signal_wait_until(sig, shmem.CMP_GE, 1) == 1
+                           and torch.equal(shmem.get(dest, 0).cpu(),
+                                           torch.arange(4.0, dtype=torch.float64) + 1))
+    tw = shmem.team_world()
+    ev = shmem.team_split_strided(0, 2, n // 2)
+    red = ev.sum_reduce(torch.arange(n // 2, device="cuda", dtype=torch.float64)[:, None])
+    ok["team"] = (ev.my_pe() == 0 and ev.translate_pe(1, tw) == 2
+                  and tw.translate_pe(3, ev) == -1 and red.is_cuda
+                  and bool((red == sum(range(n // 2))).all()))
+    ev.sync()
+    ev.destroy()
+    return ok
+
+
+def phase_shmem(ck, smi) -> dict:
+    """OpenSHMEM on the card (``ompi_tpu_torch.shmem``, ``libtpushmem``).
+
+    (1) The single-controller path: ``shmem.init`` adopts the 8-rank CUDA
+    world with the reference's default heap of 64 MiB per PE (512 MiB on
+    the card, one ``uint8`` tensor); each family once; a 32 MiB f32 block
+    put to and got from the right-hand PE 20 times (CUDA-event p50s beside
+    the copy bound, bit for bit); ``sum_to_all`` and ``fcollect`` at 16 MiB
+    f32 per PE with ``cuda_ring`` forced (allreduce 7, allgather 4), each
+    bit-equal to the plain ring (2) and adding exactly its schedule's
+    launches (7 + 7, 7 + 0); ``broadcast`` on what tuned picks;
+    ``pgas_stencil`` on strips of 4 Mi doubles per PE for 10 iterations
+    against ``jacobi_reference`` (rtol 1e-12; bit-equality reported).
+    (2) ``ompi_tpu_torch/examples/shmem_worker.py`` under ``run -np 3
+    --nranks 1`` on the card, and (3) ``native/examples/shmem_suite.c``
+    and ``shmem_pipeline.c`` compiled against the port's libtpushmem under
+    ``run -np 2 --nranks 1``, the three jobs side by side: every PE
+    passes, every process brought up CUDA, and their launches (0: a
+    process holds one row) join the phase's.  Logs:
+    ``chiprun_out/capi_shmem_*.log``."""
+    import numpy as np
+    import torch
+
+    import ompi_tpu_torch.shmem as shmem
+    from ompi_tpu_torch import native as native_lib
+    from ompi_tpu_torch.core import mca
+    from ompi_tpu_torch.examples import pgas_stencil
+
+    t0 = time.perf_counter()
+    native_lib.build_shmem()
+    bins = {name: native_lib.compile_mpi_program(REPO / src, native_lib.BIN_DIR / name,
+                                                 extra_flags=["-ltpushmem"])
+            for name, src in SHMEM_PROGRAMS.items()}
+    build_s = time.perf_counter() - t0
+    failures = []
+    ck.reset_launches()  # the shmem path's launches are counted from here
+    world = shmem.init(heap_bytes=SHMEM_HEAP)
+    heap = shmem._st().win.device_view()
+    if not (world.size == N and heap.is_cuda and tuple(heap.shape) == (N, SHMEM_HEAP)):
+        raise SystemExit(f"shmem heap {tuple(heap.shape)} on {heap.device}, world {world.size}")
+    families = shmem_families(shmem)
+    failures += [f"family_{k}" for k, v in families.items() if not v]
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    blk = shmem.malloc(SHMEM_BLOCK // 4, np.float32)
+    src = torch.randn(SHMEM_BLOCK // 4, generator=gen, device="cuda")
+    right = (shmem.my_pe() + 1) % N
+    put_ms = event_ms(lambda: shmem.put(blk, src, right), SHMEM_ROUNDS)
+    get_ms = event_ms(lambda: shmem.get(blk, right), SHMEM_ROUNDS)
+    if not (torch.equal(bits(blk.view(right)), bits(src))
+            and torch.equal(bits(shmem.get(blk, right)), bits(src))):
+        failures.append("put_get_32MiB_bitwise")
+    copy_bound_ms = 2 * SHMEM_BLOCK / HBM_BYTES_PER_S * 1e3
+    del src
+
+    store = mca.default_context().store
+    x = torch.randn((N, SHMEM_COLL // 4), generator=gen, device="cuda")
+    coll = {}
+    for name, var, fn, want in (
+            ("sum_to_all", "coll_cuda_allreduce_algorithm", shmem.sum_to_all,
+             {"ring_hop": N - 1, "ring_hop_fold": N - 1}),
+            ("fcollect", "coll_cuda_allgather_algorithm", shmem.fcollect,
+             {"ring_hop": N - 1, "ring_hop_fold": 0})):
+        store.set(var, 7 if name == "sum_to_all" else 4)
+        before = dict(ck.LAUNCHES)
+        got = fn(x)
+        torch.cuda.synchronize()
+        per_call = launched(ck, before)
+        ms = event_ms(lambda: fn(x), 10)
+        store.set(var, 2)
+        plain = fn(x)
+        plain_ms = event_ms(lambda: fn(x), 10)
+        store.set(var, 0)
+        coll[name] = {"launches": per_call, "predicted": want, "p50_ms": ms,
+                      "plain_ring_p50_ms": plain_ms, "on_card": got.is_cuda,
+                      "bitwise_vs_plain_ring": torch.equal(bits(got), bits(plain))}
+        if per_call != want or not coll[name]["bitwise_vs_plain_ring"] or not got.is_cuda:
+            failures.append(name)
+        del got, plain
+    before = dict(ck.LAUNCHES)
+    b = shmem.broadcast(x, 3)
+    torch.cuda.synchronize()
+    coll["broadcast"] = {"launches": launched(ck, before), "on_card": b.is_cuda,
+                         "bitwise": bool(torch.equal(bits(b), bits(x[3:4].expand_as(x))))}
+    if not (coll["broadcast"]["bitwise"] and b.is_cuda):
+        failures.append("broadcast")
+    del x, b
+    shmem.finalize()
+
+    shmem.init(heap_bytes=SHMEM_HEAP)  # a fresh heap for the stencil
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = pgas_stencil.jacobi_pgas(strip_len=SHMEM_STRIP, iters=SHMEM_ITERS, seed=0)
+    torch.cuda.synchronize()
+    stencil_s = time.perf_counter() - t1
+    shmem.finalize()
+    want = pgas_stencil.jacobi_reference(SHMEM_STRIP, N, SHMEM_ITERS, seed=0)
+    got = out.cpu().numpy()
+    stencil = {"strip_doubles": SHMEM_STRIP, "iters": SHMEM_ITERS, "wall_s": stencil_s,
+               "on_card": out.is_cuda,
+               "allclose_rtol_1e-12": bool(np.allclose(got, want, rtol=1e-12, atol=0)),
+               "bitwise_vs_reference": got.tobytes() == want.tobytes(),
+               "max_rel_err": float(np.max(np.abs(got - want) / np.abs(want)))}
+    if not (stencil["allclose_rtol_1e-12"] and stencil["on_card"]):
+        failures.append("pgas_stencil")
+    del out
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)  # the single-controller path ends here
+    torch.cuda.empty_cache()
+
+    started = [start_c_job("shmem_worker", REPO / "ompi_tpu_torch" / "examples" /
+                           "shmem_worker.py", np_=3),
+               start_c_job("shmem_suite", bins["shmem_suite"]),
+               start_c_job("shmem_pipeline", bins["shmem_pipeline"])]
+    jobs = {s[0]: finish_c_job(s) for s in started}
+    want_ok = sorted(f"[{p}] OK shmem_py pe={p} device=cuda:0" for p in range(3))
+    if sorted(ln for ln in jobs["shmem_worker"]["out"].splitlines()
+              if "OK shmem_py" in ln) != want_ok:
+        failures.append("shmem_worker")
+    suite = jobs["shmem_suite"]["out"]
+    if "SHMEM SUITE COMPLETE" not in suite or "FAIL" in suite:
+        failures.append("shmem_suite")
+    pipe = jobs["shmem_pipeline"]["out"]
+    if "pipeline OK" not in pipe or "MISMATCH" in pipe:
+        failures.append("shmem_pipeline")
+    cuda_up = {k: [m["cuda_initialized"] for m in v["metrics"]] for k, v in jobs.items()}
+    if not all(all(v) for v in cuda_up.values()):
+        failures.append("cuda_initialized")
+    job_launches = {k: {name: sum(m["kernel_launches"].get(name, 0) for m in v["metrics"])
+                        for name in launches} for k, v in jobs.items()}
+    for k in launches:
+        launches[k] += sum(v[k] for v in job_launches.values())
+    wall_s = time.perf_counter() - t0
+    print(f"shmem: put {put_ms} ms, get {get_ms} ms p50 of {SHMEM_ROUNDS} (32 MiB f32 to "
+          f"PE {right}), copy bound {copy_bound_ms} ms; phase {wall_s} s, build {build_s} s "
+          f"({smi})", flush=True)
+    row = {"phase": "shmem", "nvidia_smi": smi, "build_s": build_s, "wall_s": wall_s,
+           "heap_bytes_per_pe": SHMEM_HEAP, "families": families,
+           "put_32MiB_p50_ms": put_ms, "get_32MiB_p50_ms": get_ms,
+           "copy_bound_ms": copy_bound_ms, "collectives_16MiB": coll, "stencil": stencil,
+           "job_wall_s": {k: v["wall_s"] for k, v in jobs.items()},
+           "cuda_initialized": cuda_up, "job_launches": job_launches,
+           "launches": launches, "failures": failures, "ok": not failures}
+    emit(row)
+    if failures:
+        raise SystemExit(f"shmem checks failed: {failures}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-bytes", type=int, default=1 << 30,
@@ -2453,6 +2691,7 @@ def main() -> int:
     ddt = phase_ddt(ck, smi)
     io = phase_io(smi)
     ddp_losses = phase_ddp()
+    shmem = phase_shmem(ck, smi)
     recovery = phase_recovery(smi, ck)  # finalizes the single-process world
     multiproc = phase_multiproc(smi, ddp_losses)
     native = phase_native(smi, multiproc)
@@ -2460,14 +2699,15 @@ def main() -> int:
     capi = phase_capi(smi, native)
     launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
-                + recovery["launches"][k] + serve["launches"][k] + capi["launches"][k]
-                for k in launches}
+                + shmem["launches"][k] + recovery["launches"][k] + serve["launches"][k]
+                + capi["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
          "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
-         "recovery": recovery, "serve": serve, "capi": capi, "kernels": kernels}, indent=1))
+         "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
+         "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from .registry import MCAContext
+from .registry import MCAContext, load_external_components
 
 _default: MCAContext | None = None
 
@@ -30,6 +30,7 @@ def default_context() -> MCAContext:
     global _default
     if _default is None:
         _load_builtin_components()
+        load_external_components()
         _default = MCAContext()
     _default.refresh_components()
     return _default
@@ -39,6 +40,7 @@ def init(cmdline: dict[str, str] | None = None) -> MCAContext:
     """(Re)create the default context with command-line ``--mca`` params."""
     global _default
     _load_builtin_components()
+    load_external_components()
     _default = MCAContext(cmdline=cmdline)
     return _default
 

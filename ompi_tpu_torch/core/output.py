@@ -15,6 +15,12 @@ _levels: dict[str, int] = {}
 _shown: set[tuple] = set()
 
 
+def set_verbosity(framework: str, level: int) -> None:
+    """Pin the framework's stream at ``level`` (over its MCA var)."""
+    with _lock:
+        _levels[framework] = int(level)
+
+
 def _level(framework: str) -> int:
     with _lock:
         lvl = _levels.get(framework)
@@ -61,3 +67,9 @@ def show_help(topic: str, key: str, fmt: str, *args, dedup: bool = True) -> None
     sys.stderr.write(f"{bar}\n[ompi_tpu_torch] {topic}: {key}\n\n{msg}\n{bar}\n")
     sys.stderr.flush()
 
+
+def reset() -> None:
+    """Clear the pinned and cached levels and the show_help dedup."""
+    with _lock:
+        _levels.clear()
+        _shown.clear()

@@ -4,10 +4,14 @@ Frameworks hold competing components; the framework-level selection var
 (``--mca coll cuda,basic``, ``--mca coll ^cuda``) filters them; each
 component registers ``<fw>_<comp>_priority``; frameworks either pick one
 winner (``select_one``) or stack many (``selectable``, coll-style).
+Out-of-tree components join by import: the modules named in
+``OMPI_TPU_COMPONENT_MODULES`` (:func:`load_external_components`).
 """
 
 from __future__ import annotations
 
+import importlib
+import os
 from typing import Iterable, Type
 
 from .var import (
@@ -220,3 +224,12 @@ def register_component(cls: Type[Component]) -> Type[Component]:
     MCAContext._global_component_classes.append(cls)
     return cls
 
+
+def load_external_components() -> None:
+    """Import the extra component modules named in
+    ``OMPI_TPU_COMPONENT_MODULES`` (colon-separated): the dlopen path
+    for out-of-tree components."""
+    for mod in os.environ.get("OMPI_TPU_COMPONENT_MODULES", "").split(":"):
+        mod = mod.strip()
+        if mod:
+            importlib.import_module(mod)

@@ -270,6 +270,22 @@ class VarStore:
     def all_vars(self) -> list[Var]:
         return sorted(self._vars.values(), key=lambda v: v.full_name)
 
+    def build_env(self, only_non_default: bool = True) -> dict[str, str]:
+        """Current values as ``OMPI_MCA_*`` environment variables, so the
+        processes a launcher starts inherit the resolved configuration
+        (``--mca`` pairs not registered here included)."""
+        out: dict[str, str] = {}
+        for var in self._vars.values():
+            if only_non_default and var.source == SOURCE_DEFAULT:
+                continue
+            val = var.value
+            if isinstance(val, bool):
+                val = "1" if val else "0"
+            out[ENV_PREFIXES[0] + var.full_name] = str(val)
+        for k, v in self._cmdline.items():
+            out.setdefault(ENV_PREFIXES[0] + k, v)
+        return out
+
 
 #: (framework, component, name, default, type, help) — the reference's
 #: device-plane rows (dcn/device.py), same names, defaults and types

@@ -679,7 +679,6 @@ class NativeDcnEngine(_NativeOpsMixin, DcnCollEngine):
         chunk, inflight, coalesce = transport_tuning()
         self._lib.tdcn_set_stream(self._h, chunk, inflight,
                                   1 if coalesce else 0)
-        #: the reference's device-resident plane; not ported
         # the device-resident zero-copy plane (dcn/device.py): coll-
         # stream payloads arbitrate onto device windows exactly like the
         # Python engine's; the C p2p channel path keeps the host plane

@@ -9,8 +9,9 @@ metrics_enable 1``), so a disabled run pays one attribute test per hook.
   provider, under the reference's fixed counter schema
   (:data:`NATIVE_COUNTERS`, the ``dcn_*`` pvars): the native engine's C
   block (``TdcnStats``, read through one ctypes call), the Python
-  transports' stats and the persistent-schedule cache; the device-plane
-  and serving counters read 0 (those planes are not ported);
+  transports' stats, the persistent-schedule cache, the device plane's
+  counters (``dcn/device.py``) and, in a tpud daemon, the serving
+  counters (``serve/daemon.py``);
 * **per-op histograms** — log2 size (bytes) and latency (µs) buckets
   per operation, grow-only key order;
 * **snapshots** — one JSON-able dict of both plus the SPC counters, the

@@ -11,6 +11,10 @@ library, or written):
   imports :mod:`ompi_tpu_torch.capi`, :func:`build_capi`;
   :func:`compile_mpi_program` (``python -m ompi_tpu_torch mpicc``) builds
   a stock MPI C program against it;
+* ``libtpushmem.so`` — the OpenSHMEM C API over libtpumpi
+  (``csrc/capi/shmem_shim.c`` over ``csrc/capi/include/shmem.h``; no
+  embedded Python of its own), :func:`build_shmem`; a program linked
+  with ``-ltpushmem`` builds it;
 * ``libtpuconvertor.so`` — the datatype pack/unpack kernels
   (``csrc/convertor.cc``), :func:`load_convertor`;
 * the one ``nvcc`` build of the port's CUDA sources (:func:`build_cuda`:
@@ -57,6 +61,9 @@ CAPI_SRC = CSRC / "capi" / "shim.c"
 CAPI_INCLUDE = CSRC / "capi" / "include"
 MPI_LIB = BUILD_DIR / "libtpumpi.so"
 BIN_DIR = BUILD_DIR / "bin"
+#: the OpenSHMEM C API over the MPI one
+SHMEM_SRC = CSRC / "capi" / "shmem_shim.c"
+SHMEM_LIB = BUILD_DIR / "libtpushmem.so"
 CFLAGS = ("-O2", "-Wall", "-Wextra", "-fPIC")
 
 CONV_SRC = CSRC / "convertor.cc"
@@ -193,16 +200,37 @@ def build_capi() -> Path:
         *py_ldflags, f"-L{BUILD_DIR}", "-ltpudcn", "-Wl,-rpath,$ORIGIN"], stamped=True)
 
 
+def build_shmem() -> Path:
+    """``build/ompi_tpu_torch/libtpushmem.so`` from
+    ``csrc/capi/shmem_shim.c``, linked ``-ltpumpi`` against the port's
+    libtpumpi (built first; found next to it through ``$ORIGIN``), as
+    the reference's ``native/Makefile`` links its own.  Rebuilt when the
+    shim, ``shmem.h``, ``mpi.h`` or libtpumpi is newer.  Raises
+    :class:`NativeBuildError` when it cannot be built."""
+    mpi = build_capi()
+    cc = c_compiler()
+    if cc is None:
+        raise NativeBuildError(
+            f"no C compiler ({os.environ.get('CC') or 'gcc'}) on PATH")
+    deps = [SHMEM_SRC, CAPI_INCLUDE / "shmem.h", CAPI_INCLUDE / "mpi.h", mpi]
+    return _locked_build(SHMEM_LIB, deps, lambda tmp: [
+        cc, "-shared", *CFLAGS, f"-I{CAPI_INCLUDE}", str(SHMEM_SRC), "-o", str(tmp),
+        f"-L{BUILD_DIR}", "-ltpumpi", "-Wl,-rpath,$ORIGIN"])
+
+
 def compile_mpi_program(source: str | Path, output: str | Path | None = None,
                         extra_flags: list[str] | None = None) -> Path:
     """Compile a stock MPI C program against the port's libtpumpi.
 
-    ≈ ``mpicc``: adds ``-I`` for the port's ``mpi.h`` and links
-    ``-ltpumpi`` with an rpath, so the binary runs without
-    ``LD_LIBRARY_PATH``.  ``output`` defaults to
+    ≈ ``mpicc``: adds ``-I`` for the port's ``mpi.h`` and ``shmem.h`` and
+    links ``-ltpumpi`` with an rpath, so the binary runs without
+    ``LD_LIBRARY_PATH``; with ``-ltpushmem`` among ``extra_flags`` it
+    builds libtpushmem first.  ``output`` defaults to
     ``build/ompi_tpu_torch/bin/<stem>``; it may not lie under the
     reference's ``native/`` tree."""
     build_capi()
+    if "-ltpushmem" in (extra_flags or ()):
+        build_shmem()
     src = Path(source)
     out = Path(output) if output is not None else BIN_DIR / src.stem
     if (REPO_ROOT / "native") in out.resolve().parents:

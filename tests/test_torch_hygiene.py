@@ -7,10 +7,11 @@
   C++/CUDA sources under ``csrc/`` include only system, C++ and CUDA
   headers (nothing of ``native/``, no Python or PyTorch headers) and
   name no module of the JAX package;
-* the C ABI's sources under ``csrc/capi/``, which embed Python, include
-  only system headers, ``<Python.h>`` and the port's own ``mpi.h``
-  (nothing resolves into ``native/``), and import ``ompi_tpu_torch.capi``
-  and no module of the JAX package;
+* the C ABI's sources under ``csrc/capi/`` (the MPI shim, which embeds
+  Python, and the OpenSHMEM shim over it) include only system headers,
+  ``<Python.h>`` and the port's own ``mpi.h`` and ``shmem.h`` (nothing
+  resolves into ``native/``), and import ``ompi_tpu_torch.capi`` and no
+  module of the JAX package;
 * the entry points default to CUDA and raise where there is none (a
   compiled C rank too), and
   the point-to-point, window and convertor paths keep a tensor on its
@@ -70,8 +71,8 @@ CAPI_FILES = sorted(p for p in CAPI_DIR.rglob("*") if p.suffix in (".c", ".h"))
 def test_capi_sources_include_only_python_and_their_own_mpi_h(path):
     """The C ABI embeds Python, which the sources directly under
     ``csrc/`` must not: its files may include system headers,
-    ``<Python.h>`` and the ``"mpi.h"`` of ``csrc/capi/include/``, and
-    nothing that resolves into ``native/``."""
+    ``<Python.h>`` and the ``"mpi.h"`` and ``"shmem.h"`` of
+    ``csrc/capi/include/``, and nothing that resolves into ``native/``."""
     import re
 
     text = path.read_text()
@@ -80,17 +81,20 @@ def test_capi_sources_include_only_python_and_their_own_mpi_h(path):
     for inc in includes:
         name = inc[1:-1]
         if inc.startswith('"'):
-            assert name == "mpi.h" and (CAPI_DIR / "include" / name).is_file(), inc
+            assert name in ("mpi.h", "shmem.h") and (CAPI_DIR / "include" / name).is_file(), inc
         else:
             assert not re.match(r"(torch|ATen|c10|pybind11)", name), inc
             assert ".." not in name and "native" not in name, inc
     assert not re.search(r"\b(ompi_tpu|jax)\.\w|\"(ompi_tpu|jax)\b", text)
     if path.name == "shim.c":
         assert re.findall(r'PyImport_ImportModule\("([\w.]+)"\)', text) == ["ompi_tpu_torch.capi"]
+    if path.name == "shmem_shim.c":  # a thin mapping onto MPI: no Python of its own
+        assert "Python.h" not in text and "PyImport" not in text
 
 
 def test_capi_covers_the_shim_and_its_header():
-    assert {str(p.relative_to(CAPI_DIR)) for p in CAPI_FILES} == {"shim.c", "include/mpi.h"}
+    assert {str(p.relative_to(CAPI_DIR)) for p in CAPI_FILES} == {
+        "shim.c", "shmem_shim.c", "include/mpi.h", "include/shmem.h"}
 
 
 def test_c_rank_defaults_to_cuda_and_raises_without_it(tmp_path):
@@ -148,7 +152,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.serve.state, ompi_tpu_torch.serve.client, ompi_tpu_torch.serve.worker\n"
         "import ompi_tpu_torch.serve.agent, ompi_tpu_torch.serve.daemon, ompi_tpu_torch.serve.tpud\n"
         "import ompi_tpu_torch.serve.ctl, ompi_tpu_torch.examples.serve_job\n"
-        "import ompi_tpu_torch.capi\n"
+        "import ompi_tpu_torch.capi, ompi_tpu_torch.shmem, ompi_tpu_torch.examples.pgas_stencil\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
@@ -175,6 +179,40 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
             call()
     assert not api.initialized()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_shmem_init_raises_without_cuda_unless_a_cpu_world_exists():
+    """``shmem.init()`` builds its world through ``api.init()``: on CUDA,
+    raising where there is none; a CPU world built first is adopted."""
+    import ompi_tpu_torch.api as api
+    import ompi_tpu_torch.shmem as shmem
+    from ompi_tpu_torch.core.errors import MPIInternalError
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default does not raise here")
+    api.finalize()
+    with pytest.raises(MPIInternalError, match="no CUDA device"):
+        shmem.init(heap_bytes=1 << 16)
+    assert not api.initialized() and shmem._state is None
+    with pytest.raises(MPIInternalError, match="shmem.init"):
+        shmem.my_pe()
+    world = api.init(device="cpu", nranks=2)
+    try:
+        assert shmem.init(heap_bytes=1 << 16) is world
+        assert shmem.malloc(4, torch.int32).view(1).device == torch.device("cpu")
+    finally:
+        shmem.finalize()
+        api.finalize()
+
+
+def test_stale_not_ported_notes_are_gone():
+    """The device plane and the serving plane are ported: neither the
+    metrics core nor the native engine says otherwise."""
+    import ompi_tpu_torch.metrics.core as mcore
+
+    for rel in ("metrics/core.py", "dcn/native.py"):
+        assert "not ported" not in (REPO / "ompi_tpu_torch" / rel).read_text(), rel
+    assert "dcn/device.py" in mcore.__doc__ and "serve/daemon.py" in mcore.__doc__
 
 
 def test_new_entry_points_keep_tensors_on_the_comms_device():

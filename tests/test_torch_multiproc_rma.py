@@ -35,6 +35,7 @@ win.fence()
 win.fetch_and_op(1, 10.0, disp=0, op=SUM)
 win.fence()
 res["fao"] = np.stack([np.asarray(win.memory(lo + l)) for l in range(ln)])
+w.barrier()  # the next epoch's compare_and_swap must not land before every read
 win.compare_and_swap(n - 1, value=500.0 + p, compare=float(n - 1), disp=1)
 win.fence()
 if lo + ln == n:
@@ -77,6 +78,7 @@ for l in range(ln):
 t.fence()
 assert all(torch.equal(t.memory(lo + l), torch.full((4,), float((lo + l - 1) % n + 1)))
            for l in range(ln))
+w.barrier()  # the next epoch's fetch_and_op must not land before every check
 assert float(t.fetch_and_op((lo + ln) % n, 2.0, 1, SUM)) == float(lo + ln)
 t.fence()
 t.free()
