@@ -193,13 +193,40 @@ exits non-zero:
     --nranks 1``: every PE passes and every process brought up CUDA.
     Output: ``chiprun_out/capi_shmem_*.log``.
 
+18. analysis (after capi, last) — tpucheck on the card:
+    ``python -m ompi_tpu_torch check`` (the static passes) must exit 0;
+    ``check --pass sanitize`` must report no error and run the ``asan``
+    leg (the port's engine and ``csrc/dcn_sanity.cc`` under
+    ASan/UBSan; ``tsan``, ``cppcheck`` and ``cuda-memcheck`` may be
+    skips, their reasons printed); the memcheck child
+    (``python -m ompi_tpu_torch.analysis.memcheck``: ``ring_hop`` at all
+    five load widths, ``ring_hop_fold`` over its 8 dtypes × 4 ops, in
+    place and out of place, and the three rings at a padded size, bit
+    for bit against the plain twins) runs under ``compute-sanitizer
+    --tool memcheck`` with ``PYTORCH_NO_CUDA_MEMORY_CACHING=1`` when the
+    sanitize pass could, else without it, the reason on the line; the
+    lockdep child (``chip_smoke.py --lockdep-child``: the port's witness
+    armed before ``init(device="cuda", nranks=8)``, blocking and ``i*``
+    allreduce sweeps 8 B–64 MiB on ``cuda_ring``, a persistent allreduce
+    started three times, an ``isend``/``irecv`` round) must witness
+    locks and edges and no inversion; so must each process of the
+    lockdep job (``run -np 2 --nranks 4`` on ``btl/tcp`` with the device
+    plane off, ``chip_smoke.py --lockdep-worker``: its ``i*``
+    collectives run on the ``nbc_pool`` threads and its 8 MiB message's
+    rendezvous grant on the ``rts_pool`` threads, whose locks must be
+    among those witnessed).  The phase's wall time is on its line.
+    Output: ``chiprun_out/tpucheck_sanitize.{json,log}``,
+    ``chiprun_out/analysis_lockdep.log``,
+    ``chiprun_out/analysis_lockdep_job.log``.
+
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
 those of the main path, the tuned phase, the ddt phase, the
 multiproc and native workers, the shmem phase (its single-controller
 path, its worker and its C ranks), the recovery phase, the serve
-phase's jobs (each job prints its own) and the C ranks of the capi
-phase (none: a C rank holds one row); the last
+phase's jobs (each job prints its own), the C ranks of the capi
+phase (none: a C rank holds one row) and the analysis phase's two
+children; the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -2661,10 +2688,220 @@ def phase_shmem(ck, smi) -> dict:
     return row
 
 
+# -- phase 18 ---------------------------------------------------------------
+
+#: per-rank bytes of the lockdep child's allreduce sweeps (8 B … 64 MiB)
+LOCKDEP_SIZES = tuple(8 << (4 * i) for i in range(6)) + (64 << 20,)
+
+
+def lockdep_child() -> int:
+    """``chip_smoke.py --lockdep-child``: the port's lock-order witness
+    armed before the port is imported (its module-level locks, the
+    thread pools' among them, are witnessed too) and before
+    ``api.init(device="cuda", nranks=8)``; blocking and ``i*`` allreduce
+    sweeps on ``cuda_ring``, one persistent allreduce started three
+    times, a p2p round; then ``assert_clean()``.  Prints one ``LOCKDEP``
+    line."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from ompi_tpu_torch.analysis import lockdep
+
+    lockdep.enable()
+    try:
+        import ompi_tpu_torch.api as api
+        from ompi_tpu_torch.coll import cuda_kernels as ck
+        from ompi_tpu_torch.core import mca
+        from ompi_tpu_torch.op import SUM
+
+        world = api.init(device="cuda", nranks=N)
+        mca.default_context().store.set("coll_cuda_allreduce_algorithm", 7)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(23)
+        ck.reset_launches()
+        for nbytes in LOCKDEP_SIZES:
+            x = torch.randn((N, max(1, nbytes // 4)), generator=gen, device="cuda")
+            blocking = world.allreduce(x, SUM)
+            nonblocking = world.iallreduce(x, SUM).wait()
+            if not torch.equal(bits(blocking), bits(nonblocking)):
+                raise SystemExit(f"iallreduce differs from allreduce at {nbytes} B")
+        x = torch.randn((N, 1 << 18), generator=gen, device="cuda")
+        plan = world.allreduce_init(x, SUM)
+        outs = [plan.start().wait() for _ in range(3)]
+        if not all(torch.equal(bits(o), bits(outs[0])) for o in outs):
+            raise SystemExit("persistent allreduce starts differ")
+        reqs = [world.irecv(r, (r - 1) % N, tag=5) for r in range(N)]
+        for r in range(N):
+            world.isend(torch.full((1024,), float(r), device="cuda"), r, (r + 1) % N, tag=5)
+        got = [req.wait() for req in reqs]
+        p2p_ok = all(float(p[0]) == float((r - 1) % N) for r, p in enumerate(got))
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        api.finalize()
+        row = {"locks": len(lockdep.witnessed_locks()),
+               "edges": len(lockdep.current_edges()),
+               "inversions": len(lockdep.violations()), "p2p_ok": p2p_ok,
+               "launches": launches, "sizes": list(LOCKDEP_SIZES),
+               "lock_sites": lockdep.witnessed_locks()}
+        print("LOCKDEP " + json.dumps(row), flush=True)
+        lockdep.assert_clean()
+    finally:
+        lockdep.disable()
+    return 0
+
+
+#: the lockdep worker's job: 2 processes × 4 ranks on the Python tcp
+#: transport with the device plane off, so that the i-collectives run on
+#: the ``nbc_pool`` threads and the 8 MiB message takes the rendezvous
+#: whose grants run on the ``rts_pool`` threads
+LOCKDEP_JOB = ("-np", "2", "--nranks", "4", "--mca", "btl", "tcp",
+               "--mca", "dcn_device_enable", "0")
+
+
+def lockdep_worker() -> int:
+    """``chip_smoke.py --lockdep-worker``, one process of the
+    :data:`LOCKDEP_JOB` job: the witness armed before the port is
+    imported; blocking and ``i*`` allreduces at 8 B, 1 MiB and 16 MiB per
+    rank, a persistent allreduce started three times, an 8 MiB message
+    from process 0 to process 1; then ``assert_clean()``.  Prints one
+    ``LOCKDEP`` line per process."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from ompi_tpu_torch.analysis import lockdep
+
+    lockdep.enable()
+    try:
+        import ompi_tpu_torch.api as api
+        from ompi_tpu_torch.op import SUM
+
+        w = api.init()
+        dev, k, lo = w.device, w.local_size, w.local_offset
+        want = float(sum((r // k + 1) for r in range(w.size)))
+        exact = True
+        for nbytes in (8, 1 << 20, 16 << 20):
+            x = torch.full((k, max(1, nbytes // 4)), float(w.proc + 1), device=dev)
+            exact &= bool((w.allreduce(x, SUM) == want).all())
+            exact &= bool((w.iallreduce(x, SUM).wait() == want).all())
+        plan = w.allreduce_init(torch.full((k, 1024), float(w.proc + 1), device=dev), SUM)
+        exact &= all(bool((plan.start().wait() == want).all()) for _ in range(3))
+        src, dst = k - 1, k  # the last rank of process 0 → the first of process 1
+        act = torch.arange(2 << 20, dtype=torch.float32, device=dev)
+        if lo <= src < lo + k:
+            w.send(act, src, dst, tag=9)
+        elif lo <= dst < lo + k:
+            got, _st = w.recv(dst, src, tag=9)
+            exact &= bool(torch.equal(torch.as_tensor(got).to(dev), act))
+        w.barrier()
+        api.finalize()
+        sites = lockdep.witnessed_locks()
+        row = {"proc": w.proc, "locks": len(sites), "edges": len(lockdep.current_edges()),
+               "inversions": len(lockdep.violations()), "exact": exact,
+               "pools": sorted(x for x in sites if x.startswith("threads.py")),
+               "lock_sites": sites}
+        print("LOCKDEP " + json.dumps(row), flush=True)
+        lockdep.assert_clean()
+    finally:
+        lockdep.disable()
+    return 0 if exact else 1
+
+
+def check_cli(*args, timeout: float = 900) -> tuple[subprocess.CompletedProcess, float]:
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "ompi_tpu_torch", "check", *args],
+                         cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
+                         timeout=timeout)
+    return res, time.perf_counter() - t0
+
+
+def phase_analysis(smi) -> dict:
+    """tpucheck on the card: the static passes, the sanitize pass (the
+    ASan leg must run), the memcheck child and the lockdep child."""
+    from ompi_tpu_torch.analysis import memcheck
+
+    t0 = time.perf_counter()
+    static, static_s = check_cli()
+    if static.returncode != 0:
+        print(static.stdout[-6000:] + static.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"tpucheck static passes: rc={static.returncode}")
+    report = REPO / "chiprun_out" / "tpucheck_sanitize.json"
+    san, san_s = check_cli("--pass", "sanitize", "--json", str(report))
+    (REPO / "chiprun_out" / "tpucheck_sanitize.log").write_text(san.stdout + san.stderr)
+    if san.returncode != 0 or not report.exists():
+        print(san.stdout[-6000:] + san.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"tpucheck sanitize pass: rc={san.returncode}")
+    findings = json.loads(report.read_text())["findings"]
+    errors = [f for f in findings if f["severity"] == "error"]
+    legs = {f["symbol"]: {"rule": f["rule"], "message": f["message"]}
+            for f in findings if f["pass_name"] == "sanitize"}
+    if errors or legs.get("asan", {}).get("rule") != "sanitize-ok":
+        raise SystemExit(f"sanitize pass: errors {errors}, asan {legs.get('asan')}")
+    cuda_leg = legs.get("cuda-memcheck", {})
+    if cuda_leg.get("rule") == "sanitize-ok":
+        child = json.loads(memcheck.SUMMARY.read_text())
+        memcheck_row = {"ran": True, "detail": cuda_leg["message"], "child": child}
+    else:
+        # the tool did not run here: its reason goes on the line, and
+        # the same child runs without it to hold the kernels bit for
+        # bit (this is not a memcheck)
+        res = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.analysis.memcheck"],
+                             cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
+                             timeout=600)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("MEMCHECK ")]
+        if res.returncode != 0 or not lines:
+            print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+            raise SystemExit(f"memcheck child without the tool: rc={res.returncode}")
+        child = json.loads(lines[-1][len("MEMCHECK "):])
+        memcheck_row = {"ran": False, "detail": cuda_leg.get("message"),
+                        "child_without_tool": child}
+    if not child["bitwise"] or child["widths"] != [1, 2, 4, 8, 16] \
+            or child["fold_pairs"] != 32:
+        raise SystemExit(f"memcheck child: {child}")
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--lockdep-child"],
+                         cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
+                         timeout=600)
+    (REPO / "chiprun_out" / "analysis_lockdep.log").write_text(res.stdout + res.stderr)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("LOCKDEP ")]
+    if res.returncode != 0 or not lines:
+        print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"lockdep child: rc={res.returncode}")
+    lock = json.loads(lines[-1][len("LOCKDEP "):])
+    if lock["inversions"] or not lock["locks"] or not lock["edges"] or not lock["p2p_ok"]:
+        raise SystemExit(f"lockdep child: {lock}")
+    job = subprocess.run([sys.executable, "-m", "ompi_tpu_torch", "run", *LOCKDEP_JOB,
+                          str(REPO / "chip_smoke.py"), "--lockdep-worker"],
+                         cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
+                         timeout=600)
+    (REPO / "chiprun_out" / "analysis_lockdep_job.log").write_text(job.stdout + job.stderr)
+    procs = [json.loads(m.group(1)) for m in
+             re.finditer(r"^\[\d+\] LOCKDEP (.*)$", job.stdout, re.M)]
+    if job.returncode != 0 or len(procs) != 2 or any(
+            r["inversions"] or not r["exact"] or not r["pools"] for r in procs):
+        print(job.stdout[-4000:] + job.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"lockdep job: rc={job.returncode}, rows {procs}")
+    launches = {k: child["launches"][k] + lock["launches"][k] for k in child["launches"]}
+    row = {"phase": "analysis", "nvidia_smi": smi,
+           "static": static.stdout.strip().splitlines()[-1], "static_s": static_s,
+           "sanitize_s": san_s,
+           "sanitize_legs": {k: v["rule"] for k, v in legs.items()},
+           "skip_reasons": {k: v["message"] for k, v in legs.items()
+                            if v["rule"] == "sanitize-skip"},
+           "memcheck": memcheck_row,
+           "lockdep": {k: v for k, v in lock.items() if k != "lock_sites"},
+           "lockdep_job": [{k: v for k, v in r.items() if k != "lock_sites"} for r in procs],
+           "launches": launches, "wall_s": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-bytes", type=int, default=1 << 30,
                     help="largest per-rank osu_allreduce size (default 1 GiB)")
+    ap.add_argument("--lockdep-child", action="store_true",
+                    help="run the analysis phase's lockdep child (internal)")
+    ap.add_argument("--lockdep-worker", action="store_true",
+                    help="one process of the analysis phase's lockdep job (internal)")
     args = ap.parse_args()
     if not (REPO / "ompi_tpu_torch" / "csrc" / "ring_hop.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -2675,6 +2912,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
+    if args.lockdep_child:
+        return lockdep_child()
+    if args.lockdep_worker:
+        return lockdep_worker()
     sys.path.insert(0, str(REPO))
     from ompi_tpu_torch.coll import cuda_kernels as ck
     from ompi_tpu_torch.op import MAX, MIN, PROD, SUM
@@ -2697,17 +2938,18 @@ def main() -> int:
     native = phase_native(smi, multiproc)
     serve = phase_serve(smi)
     capi = phase_capi(smi, native)
+    analysis = phase_analysis(smi)
     launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
                 + shmem["launches"][k] + recovery["launches"][k] + serve["launches"][k]
-                + capi["launches"][k] for k in launches}
+                + capi["launches"][k] + analysis["launches"][k] for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
          "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
-         "kernels": kernels}, indent=1))
+         "analysis": analysis, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

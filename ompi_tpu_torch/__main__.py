@@ -10,6 +10,8 @@ Commands:
   mpicc   — compile a stock MPI C program against the port's libtpumpi:
             ``mpicc prog.c [-o out] [gcc flags]`` (default out:
             build/ompi_tpu_torch/bin/<stem>); run it with ``run``
+  check   — tpucheck over the port's tree (invariants, lockorder,
+            abidrift; ``--sanitize``, ``--selftest``); see ``check --help``
 """
 
 from __future__ import annotations
@@ -42,8 +44,12 @@ def main() -> int:
         from ompi_tpu_torch.native import mpicc_main
 
         return mpicc_main(rest)
-    print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl' or 'mpicc'",
-          file=sys.stderr)
+    if cmd == "check":
+        from ompi_tpu_torch.analysis.check import main as check_main
+
+        return check_main(rest)
+    print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl', 'mpicc' "
+          "or 'check'", file=sys.stderr)
     return 2
 
 

@@ -402,11 +402,6 @@ class Comm(PersistentP2PMixin):
             + ((root,) if root is not None else ())
         return xd, host, args, (base, op, root, tuple(xd.shape), xd.dtype)
 
-    def _span(self, slot: str, t0: int, xd) -> None:
-        _trace.complete("api", slot, t0, comm=self.name,
-                        seq=_trace.next_seq(self.name, slot),
-                        nbytes=spc.payload_nbytes(xd))
-
     def _call(self, base: str, x, depth: int, op: Op | None = None,
               root: int | None = None):
         xd, host, args, key = self._prepare(base, x, depth, op, root)
@@ -414,7 +409,9 @@ class Comm(PersistentP2PMixin):
         fn = self._resolved(base, base, args, key)
         out = fn(xd) if fn is not None else self.coll.lookup(base)(*args)
         if t0:
-            self._span(base, t0, xd)
+            _trace.complete("api", base, t0, comm=self.name,
+                            seq=_trace.next_seq(self.name, base),
+                            nbytes=spc.payload_nbytes(xd))
         return self._unstage(out, host)
 
     def _icall(self, base: str, x, depth: int, op: Op | None = None,
@@ -426,7 +423,9 @@ class Comm(PersistentP2PMixin):
         req = (ArrayRequest(fn(xd)) if fn is not None
                else self.coll.lookup(slot)(*args))
         if t0:
-            self._span(slot, t0, xd)
+            _trace.complete("api", slot, t0, comm=self.name,
+                            seq=_trace.next_seq(self.name, slot),
+                            nbytes=spc.payload_nbytes(xd))
         return _wrap_unstage(req, self, host)
 
     def _init(self, base: str, x, depth: int, op: Op | None = None,

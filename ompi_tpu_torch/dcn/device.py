@@ -228,6 +228,7 @@ def _cuda_lib():
             lib.ompi_dw_ipc_open.argtypes = [i, ctypes.c_char_p, ctypes.POINTER(p)]
             lib.ompi_dw_ipc_close.argtypes = [i, p]
             lib.ompi_dw_copy.argtypes = [p, p, u64, p]
+            lib.ompi_dw_ipc_handle_size.argtypes = []
             for fn in ("alloc", "free", "ipc_handle", "ipc_handle_size",
                        "ipc_open", "ipc_close", "copy"):
                 getattr(lib, f"ompi_dw_{fn}").restype = i

@@ -68,6 +68,9 @@ NATIVE_COUNTERS = (
 #: counters that are gauges (instantaneous), not monotone totals
 GAUGES = frozenset({"rndv_depth", "stream_depth", "stream_inflight"})
 
+#: the C block's version slot: stays 1 while the schema is append-only
+NATIVE_STATS_VERSION = 1
+
 _lock = threading.Lock()
 #: per-op aggregates, insertion-ordered and grow-only (reset zeroes in
 #: place — the pvar namespace must not shrink)

@@ -289,10 +289,13 @@ def load_convertor() -> ctypes.CDLL | None:
         lib.tpuconv_pack.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, I64P, I64P,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
-        lib.tpuconv_unpack.argtypes = list(lib.tpuconv_pack.argtypes)
+        lib.tpuconv_unpack.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, I64P, I64P,
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
         lib.tpuconv_copy_strided.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+        lib.tpuconv_version.argtypes = []
         lib.tpuconv_version.restype = ctypes.c_int
         _convertor = lib
         return lib

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.core.errors import MPIArgError, MPIInternalError
+from ompi_tpu_torch.core.var import Deadline
 from ompi_tpu_torch.ddt.datatype import SIGNED_TWIN, from_numpy, numpy_dtype, to_numpy, torch_dtype
 
 _state = None
@@ -349,9 +350,13 @@ def test(ivar: SymmArray, cmp: int, value, pe: int | None = None) -> bool:
 
 
 def wait_until(ivar: SymmArray, cmp: int, value) -> None:
-    """shmem_wait_until on the calling PE's copy of ``ivar``."""
+    """shmem_wait_until on the calling PE's copy of ``ivar``; a peer's
+    update that does not come within ``dcn_recv_timeout`` raises
+    :class:`~ompi_tpu_torch.core.errors.DeadlineExpiredError`."""
     me = my_pe()
+    deadline = Deadline.for_timeout("recv")
     while not _CMP[cmp](atomic_fetch(ivar, me), value):
+        deadline.check("shmem wait_until")
         time.sleep(0.0002)
 
 
@@ -398,12 +403,15 @@ def put_signal(dest: SymmArray, source, sig: SymmArray, signal: int,
 
 
 def signal_wait_until(sig: SymmArray, cmp: int, value) -> int:
-    """Returns the signal value that satisfied the wait (1.5)."""
+    """Returns the signal value that satisfied the wait (1.5); bounded
+    by ``dcn_recv_timeout`` like :func:`wait_until`."""
     me = my_pe()
+    deadline = Deadline.for_timeout("recv")
     while True:
         cur = atomic_fetch(sig, me)
         if _CMP[cmp](cur, value):
             return int(cur)
+        deadline.check("shmem signal_wait_until")
         time.sleep(0.0002)
 
 

@@ -153,6 +153,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.serve.agent, ompi_tpu_torch.serve.daemon, ompi_tpu_torch.serve.tpud\n"
         "import ompi_tpu_torch.serve.ctl, ompi_tpu_torch.examples.serve_job\n"
         "import ompi_tpu_torch.capi, ompi_tpu_torch.shmem, ompi_tpu_torch.examples.pgas_stencil\n"
+        "import ompi_tpu_torch.analysis.check, ompi_tpu_torch.analysis.sanitize\n"
+        "import ompi_tpu_torch.analysis.memcheck, ompi_tpu_torch.analysis.lockdep\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
