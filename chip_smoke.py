@@ -219,14 +219,36 @@ exits non-zero:
     ``chiprun_out/analysis_lockdep.log``,
     ``chiprun_out/analysis_lockdep_job.log``.
 
+19. tools (after capi, before analysis) — the port's operator tools on
+    the card, no ``--cpu``, in three lanes side by side: ``python -m
+    ompi_tpu_torch chaos --np 2 --seed 12 --ops 18 --runs 2 --out``
+    (the default plan; both runs' injected counts equal each other and
+    the reference's for that seed; every rank on ``cuda:0``), then
+    ``metrics-report --correlate`` and ``trace-report --merge-out`` over
+    its exports (joined windows, the same collective keys on both
+    processes up to the first escalation, CUDA not initialized by
+    either report), ``chaos --respawn`` (full size, the reborn
+    incarnation on ``cuda:0``) and ``top --once`` against a live
+    telemetry job; ``chaos --planes --runs 2`` (rank 0's golden
+    transitions, ``device_sends`` > 0 on both ranks over CUDA IPC
+    windows, every result's SHA-256 equal to the exact sum computed
+    here, no window left, ``memory_allocated`` not above its start),
+    ``chaos --daemon-restart`` (zero re-dials, the queued job once, zero
+    orphans, the daemon CUDA-free) and ``chaos --kill-in-repair``; and
+    ``chaos --traffic`` (p50/p99 submit→start, the 429 shed and its
+    restore).  Afterwards no ``/dev/shm`` name and no process of the
+    port may be left.  The row holds each leg's tallies and wall times
+    and the ring-kernel launches of its workers (0: one rank per
+    process).  Output: ``chiprun_out/tools_*``.
+
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
 those of the main path, the tuned phase, the ddt phase, the
 multiproc and native workers, the shmem phase (its single-controller
 path, its worker and its C ranks), the recovery phase, the serve
 phase's jobs (each job prints its own), the C ranks of the capi
-phase (none: a C rank holds one row) and the analysis phase's two
-children; the last
+phase (none: a C rank holds one row), the tools phase's workers and
+the analysis phase's two children; the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -1218,6 +1240,31 @@ def pkg_env() -> dict:
     return env
 
 
+def port_cli(log_name: str, args, timeout: float = 600, env: dict | None = None):
+    """``python -m ompi_tpu_torch <args>`` in a process group of its own (a
+    run that outlives its limit goes with every process it started): its
+    stdout, its stderr and its wall time; both streams also go to
+    ``chiprun_out/<log_name>.log``.  Fails on a non-zero exit."""
+    log = REPO / "chiprun_out" / f"{log_name}.log"
+    t0 = time.perf_counter()
+    job = subprocess.Popen([sys.executable, "-m", "ompi_tpu_torch", *map(str, args)],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           env=env or pkg_env(), cwd=str(REPO), start_new_session=True)
+    try:
+        out, err = job.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(job.pid, signal.SIGKILL)
+        out, err = job.communicate()
+        log.write_text(out + err)
+        raise SystemExit(f"{log_name} exceeded {timeout} s")
+    wall_s = time.perf_counter() - t0
+    log.write_text(out + err)
+    if job.returncode != 0:
+        print(out[-6000:] + err[-6000:], file=sys.stderr)
+        raise SystemExit(f"{log_name} failed (rc={job.returncode})")
+    return out, err, wall_s
+
+
 def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float = 600,
             plane: bool = True):
     """One tpurun job of P processes × K ranks of the
@@ -1225,32 +1272,13 @@ def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float =
     plane off): its output goes to ``chiprun_out/<log_name>.log``;
     returns the workers' JSON rows by kind and process, the wall time
     and the job's stderr."""
-    cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(MP_PROCS),
-           "--nranks", str(MP_RANKS)]
+    args = ["run", "-np", MP_PROCS, "--nranks", MP_RANKS]
     if btl:
-        cmd += ["--mca", "btl", btl]
+        args += ["--mca", "btl", btl]
     if not plane:
-        cmd += ["--mca", "dcn_device_enable", "0"]
-    cmd += [str(REPO / "ompi_tpu_torch" / "examples" / "multiproc_smoke.py"), *worker_args]
-    env = pkg_env()
-    log = REPO / "chiprun_out" / f"{log_name}.log"
-    t0 = time.perf_counter()
-    # a process group of its own: a job that outlives its limit goes with
-    # every worker the launcher started
-    job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                           env=env, cwd=str(REPO), start_new_session=True)
-    try:
-        out, err = job.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(job.pid, signal.SIGKILL)
-        out, err = job.communicate()
-        log.write_text(out + err)
-        raise SystemExit(f"{log_name} job exceeded {timeout} s")
-    wall_s = time.perf_counter() - t0
-    log.write_text(out + err)
-    if job.returncode != 0:
-        print(out[-6000:] + err[-6000:], file=sys.stderr)
-        raise SystemExit(f"{log_name} job failed (rc={job.returncode})")
+        args += ["--mca", "dcn_device_enable", "0"]
+    args += [REPO / "ompi_tpu_torch" / "examples" / "multiproc_smoke.py", *worker_args]
+    out, err, wall_s = port_cli(log_name, args, timeout)
     by: dict[str, dict[int, list]] = {}
     for line in out.splitlines():
         m = re.match(r"\[(\d+)\] MPJSON (.*)$", line)
@@ -1528,26 +1556,10 @@ def ft_job(log_name: str, nprocs: int, flags, worker_args, timeout: float = 600)
     card (2 or 3 processes × 4 ranks, default ``btl/native``, device plane
     on): its FTJSON rows by kind, the launcher's stdout and the wall time.
     The output goes to ``chiprun_out/<log_name>.log``."""
-    cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(nprocs),
-           "--nranks", str(MP_RANKS), *flags,
-           str(REPO / "ompi_tpu_torch" / "examples" / "ft_smoke.py"), *worker_args]
-    env = pkg_env()
-    log = REPO / "chiprun_out" / f"{log_name}.log"
-    t0 = time.perf_counter()
-    job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                           env=env, cwd=str(REPO), start_new_session=True)
-    try:
-        out, err = job.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(job.pid, signal.SIGKILL)
-        out, err = job.communicate()
-        log.write_text(out + err)
-        raise SystemExit(f"{log_name} job exceeded {timeout} s")
-    wall_s = time.perf_counter() - t0
-    log.write_text(out + err)
-    if job.returncode != 0:
-        print(out[-6000:] + err[-6000:], file=sys.stderr)
-        raise SystemExit(f"{log_name} job failed (rc={job.returncode})")
+    out, _err, wall_s = port_cli(
+        log_name, ["run", "-np", nprocs, "--nranks", MP_RANKS, *flags,
+                   REPO / "ompi_tpu_torch" / "examples" / "ft_smoke.py", *worker_args],
+        timeout)
     by: dict[str, list] = {}
     for line in out.splitlines():
         m = re.match(r"\[\d+\] FTJSON (.*)$", line)
@@ -2688,6 +2700,265 @@ def phase_shmem(ck, smi) -> dict:
     return row
 
 
+# -- phase 19 ---------------------------------------------------------------
+
+#: the reference's chaos prints these injected counts (the non-zero kinds)
+#: for ``--np 2 --seed 12 --ops 18`` under its default plan; the port's
+#: CPU run equals them (tests/test_torch_chaos.py)
+SEED12_INJECTED = [{"connkill": 1, "delay": 5, "drop": 1, "dup": 3},
+                   {"connkill": 1, "delay": 7, "dup": 5}]
+#: rank 0's plane-health log under the --planes soak's default plan
+GOLDEN_PLANE_TRANSITIONS = ["demote", "probe", "probe_fail", "probe", "probe_fail",
+                            "probe", "probe_fail", "probe", "promote"]
+#: names the soak's processes may leave in /dev/shm (their pid follows)
+SHM_NAMES = ("tdcn-", "ompitpu-", "tpudev-")
+
+
+def chaos_leg(name: str, *args, timeout: float = 600) -> dict:
+    """One ``chaos`` soak on the card (no ``--cpu``): the tallies and wall
+    time of each run (its ``--json`` record) and the leg's wall time."""
+    rec = REPO / "chiprun_out" / f"tools_{name}.json"
+    _out, _err, wall_s = port_cli(f"tools_{name}", ["chaos", *args, "--json", rec], timeout)
+    runs = json.loads(rec.read_text())["runs"]
+    return {"runs": runs, "wall_s": wall_s}
+
+
+def report_cuda_free(log_name: str, args) -> tuple[str, bool]:
+    """A report tool through the CLI's ``main`` in a fresh interpreter that
+    then says whether CUDA was initialized: its output and that answer."""
+    code = ("import sys, torch\n"
+            "from ompi_tpu_torch.__main__ import main\n"
+            f"sys.argv = ['ompi_tpu_torch', *{[str(a) for a in args]!r}]\n"
+            "rc = main()\n"
+            "print('CUDA_INITIALIZED', torch.cuda.is_initialized())\n"
+            "sys.exit(rc)\n")
+    log = REPO / "chiprun_out" / f"{log_name}.log"
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=pkg_env(), cwd=str(REPO), timeout=300)
+    log.write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"{log_name}: rc={res.returncode}")
+    return res.stdout, "CUDA_INITIALIZED False" in res.stdout
+
+
+def planes_digest(ops: int = 70, count: int = 1024) -> str:
+    """SHA-256 of the --planes worker's results in op order, computed here
+    without any plane: its rows are integer-derived halves, so the f64
+    sum of the two is exact (the worker's ``rank_vec``)."""
+    import hashlib
+
+    import numpy as np
+
+    idx = np.arange(count, dtype=np.int64)
+
+    def rank_vec(op: int, proc: int):
+        return (((idx * 2654435761 + 7919 * (proc + 1) + 104729 * (op + 1))
+                 % 1000003).astype(np.float64) * 0.5)
+
+    h = hashlib.sha256()
+    for i in range(ops):
+        h.update((rank_vec(i, 0) + rank_vec(i, 1)).tobytes())
+    return h.hexdigest()
+
+
+def stray_port_procs() -> list:
+    """Processes other than this one whose command line names the port
+    (a worker, a daemon or a launcher the soaks left behind)."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit() or int(d.name) == os.getpid():
+            continue
+        try:
+            cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        if "ompi_tpu_torch" in cmd:
+            out.append({"pid": int(d.name), "cmd": cmd[:200]})
+    return out
+
+
+def tools_np2(outdir: Path) -> dict:
+    """The np=2 soak twice under the default plan with its exports, then
+    ``metrics-report --correlate`` and ``trace-report --merge-out`` over
+    them."""
+    from ompi_tpu_torch.trace import merge
+
+    out = outdir / "tools_np2"
+    shutil.rmtree(out, ignore_errors=True)
+    leg = chaos_leg("np2", "--np", "2", "--seed", "12", "--ops", "18", "--runs", "2",
+                    "--out", out)
+    tallies = [r["tally"] for r in leg["runs"]]
+    injected = [[{k: v for k, v in t["injected"].items() if v} for t in run]
+                for run in tallies]
+    if injected[0] != injected[1] or injected[0] != SEED12_INJECTED:
+        raise SystemExit(f"tools np2: injected {injected}, reference {SEED12_INJECTED}")
+    if any(t["device"] != "cuda:0" for run in tallies for t in run):
+        raise SystemExit(f"tools np2: devices {[t['device'] for t in tallies[-1]]}")
+    jsonl = sorted(out.glob("chaos.[0-9].jsonl"))
+    traces = sorted(out.glob("chaos.trace.[0-9].json"))
+    if len(jsonl) != 2 or len(traces) != 2:
+        raise SystemExit(f"tools np2: exports {jsonl} {traces}")
+    corr, corr_free = report_cuda_free("tools_metrics_report",
+                                       ["metrics-report", *jsonl, "--correlate", *traces])
+    joined = sum(1 for ln in corr.splitlines()
+                 if re.search(r"Δstall .* ([1-9]\d*) trace span\(s\) in window", ln))
+    merged = out / "merged.json"
+    summary, trace_free = report_cuda_free("tools_trace_report",
+                                           ["trace-report", *traces, "--merge-out", merged])
+    doc = json.loads(merged.read_text())
+    keys = [merge.collective_keys(doc, pid=p) for p in (0, 1)]
+    # both processes ran the same collectives until the first escalated
+    m = min(t["completed"] for t in tallies[-1])
+    same_keys = m > 0 and keys[0][:m] == keys[1][:m] and len(keys[0][:m]) == m
+    if not (corr_free and trace_free and joined and same_keys
+            and "trace correlation:" in corr and "slowest" in summary):
+        raise SystemExit(f"tools np2 reports: cuda-free {corr_free}/{trace_free}, "
+                         f"joined {joined}, keys {keys}")
+    return {"wall_s": leg["wall_s"], "run_wall_s": [r["wall_s"] for r in leg["runs"]],
+            "tallies": tallies[-1], "injected_equal_runs_and_reference": True,
+            "correlated_windows": joined, "common_keys": m,
+            "reports_cuda_initialized": [not corr_free, not trace_free]}
+
+
+def tools_planes() -> dict:
+    leg = chaos_leg("planes", "--planes", "--runs", "2")
+    want = planes_digest()
+    for run in leg["runs"]:
+        t0, t1 = run["tally"]
+        events = [tr[0] for tr in t0["transitions"]]
+        sends = [t["plane"]["device_sends"] for t in (t0, t1)]
+        if (events != GOLDEN_PLANE_TRANSITIONS or min(sends) <= 0
+                or {t["device"] for t in (t0, t1)} != {"cuda:0"}
+                or {t["digest"] for t in (t0, t1)} != {want}
+                or any(t["windows_left"] or t["cuda_allocated"][1] > t["cuda_allocated"][0]
+                       for t in (t0, t1))):
+            raise SystemExit(f"tools planes: {run['tally']}")
+    last = leg["runs"][-1]["tally"]
+    return {"wall_s": leg["wall_s"], "run_wall_s": [r["wall_s"] for r in leg["runs"]],
+            "transitions": [tr[0] for tr in last[0]["transitions"]],
+            "plane": [t["plane"] for t in last], "bitwise_vs_exact_sum": True,
+            "windows_left": [t["windows_left"] for t in last],
+            "cuda_allocated": [t["cuda_allocated"] for t in last],
+            "launches": [t["launches"] for t in last]}
+
+
+def tools_respawn() -> dict:
+    leg = chaos_leg("respawn", "--respawn")
+    tallies = leg["runs"][-1]["tally"]
+    reborn = [t for t in tallies if t["incarnation"] > 0]
+    full = all(t["size"] == len(tallies) for t in tallies)
+    if not (full and reborn and all(t["device"] == "cuda:0" for t in tallies)):
+        raise SystemExit(f"tools respawn: {tallies}")
+    return {"wall_s": leg["wall_s"], "full_size": full, "tallies": tallies}
+
+
+def tools_daemon(name: str, flag: str) -> dict:
+    leg = chaos_leg(name, flag)
+    tally = leg["runs"][-1]["tally"]
+    if tally["orphans"] or tally.get("daemon_cuda"):
+        raise SystemExit(f"tools {name}: {tally}")
+    return {"wall_s": leg["wall_s"], "tally": tally}
+
+
+def tools_top() -> dict:
+    """``top --once`` against a live telemetry-enabled 2-process job."""
+    import threading
+
+    cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", "2", "--nranks", "1",
+           "--mca", "telemetry_enable", "1", "--mca", "telemetry_interval_ms", "200",
+           str(SERVE_JOB), "--sizes", "8,65536", "--calls", "2"]
+    env = dict(pkg_env(), SERVE_ITERS="200", SERVE_ITER_SLEEP="0.05")
+    job = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                           env=env, cwd=str(REPO), start_new_session=True)
+    lines: list[str] = []
+    reader = threading.Thread(target=lambda: lines.extend(iter(job.stdout.readline, "")),
+                              daemon=True)
+    reader.start()
+    try:
+        url = None
+        deadline = time.monotonic() + 120
+        while url is None and time.monotonic() < deadline and job.poll() is None:
+            for ln in list(lines):
+                m = re.search(r"telemetry: (http://[^/\s]+)/metrics", ln)
+                if m:
+                    url = m.group(1)
+            time.sleep(0.05)
+        if url is None:
+            raise SystemExit("tools top: no telemetry URL:\n" + "".join(lines)[-4000:])
+        while time.monotonic() < deadline:  # a frame from each process first
+            procs = json.loads(http_get(url + "/json")).get("procs") or {}
+            if sorted(procs) == ["0", "1"]:
+                break
+            time.sleep(0.1)
+        frame, top_free = report_cuda_free("tools_top", ["top", "--url", url, "--once"])
+        rows = [ln for ln in frame.splitlines() if re.match(r"^[01] +\d", ln)]
+        rc = job.wait(timeout=300)
+    finally:
+        if job.poll() is None:
+            os.killpg(job.pid, signal.SIGKILL)
+            job.wait()
+        reader.join(timeout=10)
+        (REPO / "chiprun_out" / "tools_top_job.log").write_text("".join(lines))
+    sj = [json.loads(ln.split("SJSON ", 1)[1]) for ln in lines if "SJSON " in ln]
+    launches = {k: sum(r.get(k, 0) for r in sj if r.get("kind") == "launches")
+                for k in ("ring_hop", "ring_hop_fold")}
+    if rc != 0 or not frame.startswith("ompi_tpu top — ") or len(rows) != 2 or not top_free:
+        raise SystemExit(f"tools top: rc={rc}, cuda-free {top_free}, frame:\n{frame}")
+    return {"frame_rows": rows, "job_launches": launches}
+
+
+def tools_traffic(outdir: Path) -> dict:
+    leg = chaos_leg("traffic", "--traffic", "--out", outdir / "tools_traffic")
+    t = leg["runs"][-1]["tally"]
+    if not (t["shed_429"] and t["admission_restored"]) or t["orphans"]:
+        raise SystemExit(f"tools traffic: {t}")
+    return {"wall_s": leg["wall_s"], "tally": t}
+
+
+def phase_tools(smi) -> dict:
+    """The port's operator tools on the card: every chaos soak but
+    ``--scale`` and ``--hosts``, the report tools over the np=2 soak's
+    exports, and ``top --once`` over a live job.  The legs run in three
+    lanes side by side (each lane's legs one after another), and any
+    leg's failure fails the phase."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    names0 = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") else set()
+    procs0 = {p["pid"] for p in stray_port_procs()}
+    t0 = time.perf_counter()
+    outdir = REPO / "chiprun_out"
+    lanes = [
+        [("np2", lambda: tools_np2(outdir)), ("respawn", tools_respawn),
+         ("top", tools_top)],
+        [("planes", tools_planes),
+         ("daemon_restart", lambda: tools_daemon("daemon_restart", "--daemon-restart")),
+         ("kill_in_repair", lambda: tools_daemon("kill_in_repair", "--kill-in-repair"))],
+        [("traffic", lambda: tools_traffic(outdir))],
+    ]
+    with ThreadPoolExecutor(len(lanes)) as pool:
+        done = [pool.submit(lambda lane=lane: {name: fn() for name, fn in lane})
+                for lane in lanes]
+        legs = {k: v for f in done for k, v in f.result().items()}
+    time.sleep(0.5)
+    names1 = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") else set()
+    shm_left = sorted(n for n in names1 - names0 if n.startswith(SHM_NAMES))
+    stray = [p for p in stray_port_procs() if p["pid"] not in procs0]
+    if shm_left or stray:
+        raise SystemExit(f"tools: /dev/shm names {shm_left}, processes {stray}")
+    launches = dict(legs["top"]["job_launches"])
+    for tally in legs["np2"]["tallies"] + legs["respawn"]["tallies"]:
+        for k in launches:
+            launches[k] += tally["launches"][k]
+    for tally in legs["planes"]["launches"]:
+        for k in launches:
+            launches[k] += tally[k]
+    row = {"phase": "tools", "nvidia_smi": smi, "legs": legs, "shm_left": shm_left,
+           "stray_processes": stray, "launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    return row
+
 # -- phase 18 ---------------------------------------------------------------
 
 #: per-rank bytes of the lockdep child's allreduce sweeps (8 B … 64 MiB)
@@ -2938,18 +3209,20 @@ def main() -> int:
     native = phase_native(smi, multiproc)
     serve = phase_serve(smi)
     capi = phase_capi(smi, native)
+    tools = phase_tools(smi)
     analysis = phase_analysis(smi)
     launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
                 + shmem["launches"][k] + recovery["launches"][k] + serve["launches"][k]
-                + capi["launches"][k] + analysis["launches"][k] for k in launches}
+                + capi["launches"][k] + tools["launches"][k] + analysis["launches"][k]
+                for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
          "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
-         "analysis": analysis, "kernels": kernels}, indent=1))
+         "tools": tools, "analysis": analysis, "kernels": kernels}, indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

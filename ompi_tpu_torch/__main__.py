@@ -12,11 +12,25 @@ Commands:
             build/ompi_tpu_torch/bin/<stem>); run it with ``run``
   check   — tpucheck over the port's tree (invariants, lockorder,
             abidrift; ``--sanitize``, ``--selftest``); see ``check --help``
+  chaos   — the seeded fault soaks (np=2 framed TCP, ``--planes``,
+            ``--respawn``, ``--daemon-restart``, ``--kill-in-repair``,
+            ``--traffic``, ``--scale``, ``--hosts``; ``--selftest``); every
+            process on cuda:0 unless ``--cpu``; see ``chaos --help``
+  metrics-report — per-process tables, the stall-cause breakdown and
+            ``--correlate`` over the metrics exports (``--selftest``)
+  trace-report   — summary, ``--merge-out``, ``--critical-path`` and
+            ``--hangs`` over the trace exports (``--selftest``)
+  top     — dashboard over a live job's telemetry ``/json``:
+            ``top --url URL [--once]`` (``--selftest``)
 """
 
 from __future__ import annotations
 
 import sys
+
+#: the operator tools: command → module of ``ompi_tpu_torch.tools``
+TOOLS = {"chaos": "chaos", "metrics-report": "metrics_report",
+         "trace-report": "trace_report", "top": "top"}
 
 
 def main() -> int:
@@ -48,8 +62,14 @@ def main() -> int:
         from ompi_tpu_torch.analysis.check import main as check_main
 
         return check_main(rest)
-    print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl', 'mpicc' "
-          "or 'check'", file=sys.stderr)
+    if cmd in TOOLS:
+        import importlib
+
+        return importlib.import_module(
+            f"ompi_tpu_torch.tools.{TOOLS[cmd]}").main(rest)
+    print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl', 'mpicc', "
+          "'check', 'chaos', 'metrics-report', 'trace-report' or 'top'",
+          file=sys.stderr)
     return 2
 
 

@@ -19,10 +19,11 @@ reference's expectations on the port's record:
   ``clear_failed``, a reclaimed probe;
 * lifecycle: the close drain, the bounded close, stage after close.
 
-The reference's np=2 ``tools/chaos.py --planes`` soak has a port-side
-counterpart here: an np=2 port job whose process 0 drops six device
-stages mid-allreduce demotes, heals through probes, and finishes bit
-for bit equal to the plane-off job.
+The reference's np=2 ``tools/chaos.py --planes`` soak is ported as
+``python -m ompi_tpu_torch chaos --planes`` (``tests/test_torch_chaos.py``:
+the golden transition log, run twice); here an np=2 port job whose
+process 0 drops six device stages mid-allreduce demotes, heals through
+probes, and finishes bit for bit equal to the plane-off job.
 """
 
 import json

@@ -397,9 +397,10 @@ def test_faultsim_proc_targeted_rule():
 
 
 def test_aggregator_serves_every_endpoint_over_http():
-    """The port has no ``tools/top.py`` yet: its scrape surface is
-    checked directly — a golden 2-rank frame schedule over real HTTP,
-    every endpoint answering with the content its readers parse."""
+    """The scrape surface that the port's ``top`` reads (its renderer is
+    held to the reference's in ``tests/test_torch_tools.py``), checked
+    directly — a golden 2-rank frame schedule over real HTTP, every
+    endpoint answering with the content its readers parse."""
     agg = live.TelemetryAggregator(http_port=0, history=4)
     try:
         t = time.time_ns()
