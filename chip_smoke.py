@@ -241,9 +241,29 @@ exits non-zero:
     and the ring-kernel launches of its workers (0: one rank per
     process).  Output: ``chiprun_out/tools_*``.
 
+20. golden (after phase 3, on its world) — the reference library's own
+    vectors from ``tests/golden/reduce_local.json`` (Open MPI 4.1.4's
+    ``MPI_Reduce_local`` left folds over 8 ranks × 257 elements, and its
+    np=1 ``MPI_Allreduce``/``MPI_Scan``; libmpi itself is not needed):
+    the 12 folds (SUM/MAX/MIN/PROD × f32/f64/int32) through ``allreduce``
+    with ``coll_cuda_reproducible`` and through ``ordered_reduce_torch``
+    on the card; the 8 order-free folds (int32 under every op, float
+    MAX/MIN) through ``cuda_ring`` forced, exactly 7 + 7 launches per
+    call; the 24 singleton collectives on ``comm_self()``.  Every row
+    bit-equal to libmpi's bytes; the row holds the count matched per
+    family, the names of any that were not, the launches per call and
+    the wall time;
+21. diag_pp (after the native phase) — ``python -m ompi_tpu_torch run
+    -np 2 ompi_tpu_torch/tools/diag_pp.py`` on the card with the tool's
+    defaults (1 MiB, 60 round trips over ``btl/native``/``pml_native``,
+    the buffer on ``cuda:0``): rc 0, rank 0's ``PPDIAG device=cuda:0``
+    line, its ``rt_us`` quartiles and its histogram, and how many round
+    trips sit at +2 ms multiples of the fastest (the missed-doorbell
+    cadence; reported, not a gate).  Output: ``chiprun_out/diag_pp.log``.
+
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
-those of the main path, the tuned phase, the ddt phase, the
+those of the main path, the golden phase, the tuned phase, the ddt phase, the
 multiproc and native workers, the shmem phase (its single-controller
 path, its worker and its C ranks), the recovery phase, the serve
 phase's jobs (each job prints its own), the C ranks of the capi
@@ -640,6 +660,111 @@ def kernel_rows(ck, launches):
                 "bound_by": "bytes", "library_ms": None, "shape": [N, N, m],
                 "dtype": "float32", "op": "MPI_SUM"})
     return out
+
+
+# -- golden -----------------------------------------------------------------
+
+#: Open MPI 4.1.4's own fold results (``MPI_Reduce_local`` left folds over
+#: 8 ranks, np=1 ``MPI_Allreduce``/``MPI_Scan``), committed with the repo
+GOLDEN = REPO / "tests" / "golden" / "reduce_local.json"
+
+
+def golden_vectors():
+    """The golden file's folds and singleton collectives as numpy arrays:
+    ``(name, op name, input, result bytes)`` and ``(name, coll, op name,
+    input, result bytes)``."""
+    import numpy as np
+
+    data = json.loads(GOLDEN.read_text())
+    dtypes = {"float32": np.float32, "float64": np.float64, "int32": np.int32}
+
+    def arr(c, shape):
+        return np.frombuffer(bytes.fromhex(c["input_hex"]), dtypes[c["dtype"]]).reshape(shape)
+
+    folds = [(name, c["op"], arr(c, (c["n_ranks"], c["count"])), bytes.fromhex(c["result_hex"]))
+             for name, c in sorted(data["cases"].items())]
+    singles = [(name, c["coll"], c["op"], arr(c, (c["count"],)), bytes.fromhex(c["result_hex"]))
+               for name, c in sorted(data["singleton_colls"].items())]
+    return folds, singles
+
+
+def phase_golden(ck, smi):
+    """The reference library's vectors on the card, through the 8-rank
+    world: every fold through ``allreduce`` with ``coll_cuda_reproducible``
+    and through ``ordered_reduce_torch``; the order-free folds (int32
+    under every op, float MAX/MIN) through ``cuda_ring`` forced, exactly
+    (n-1) + (n-1) launches per call; the singleton ``allreduce`` and
+    ``scan`` on ``comm_self()``.  Every result bit-equal to libmpi's."""
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.coll.cuda import ALLREDUCE_ALGOS
+    from ompi_tpu_torch.core import mca
+    from ompi_tpu_torch.op import PREDEFINED_OPS, ordered_reduce_torch
+
+    t0 = time.perf_counter()
+    world = api.init(device="cuda", nranks=N)  # the main path's world
+    if world.device.type != "cuda" or world.size != N:
+        raise SystemExit(f"golden: the world is {world.size} ranks on {world.device}")
+    store = mca.default_context().store
+    folds, singles = golden_vectors()
+
+    def pinned(var, value, fn):
+        prev = store.get(var)
+        store.set(var, value)
+        try:
+            return fn()
+        finally:
+            store.set(var, prev)
+
+    def same(out, ref: bytes) -> bool:
+        host = out.cpu().numpy()
+        return out.device.type == "cuda" and all(
+            host[r].tobytes() == ref for r in range(host.shape[0]))
+
+    matched = {"reproducible": [], "ring": [], "singleton": [], "fold": []}
+    mismatched, ring_launches = [], []
+    before = dict(ck.LAUNCHES)
+    for name, opname, x, ref in folds:
+        op = PREDEFINED_OPS[opname]
+        xd = torch.from_numpy(x.copy()).to("cuda")
+        families = [("reproducible", lambda: pinned("coll_cuda_reproducible", True,
+                                                    lambda: world.allreduce(xd, op))),
+                    ("fold", lambda: ordered_reduce_torch(xd, op)[None])]
+        if name.endswith(":int32") or opname in ("MPI_MAX", "MPI_MIN"):
+            def ring():
+                b = dict(ck.LAUNCHES)
+                out = pinned("coll_cuda_allreduce_algorithm", ALLREDUCE_ALGOS["cuda_ring"],
+                             lambda: world.allreduce(xd, op))
+                torch.cuda.synchronize()
+                ring_launches.append(launched(ck, b))
+                return out
+            families.append(("ring", ring))
+        for family, fn in families:
+            (matched[family] if same(fn(), ref) else mismatched).append(f"{family}:{name}")
+    selfc = api.comm_self()
+    for name, coll, opname, x, ref in singles:
+        out = pinned("coll_cuda_allreduce_algorithm", ALLREDUCE_ALGOS["auto"],
+                     lambda: getattr(selfc, coll)(torch.from_numpy(x[None].copy()).to("cuda"),
+                                                  PREDEFINED_OPS[opname]))
+        (matched["singleton"] if out.shape == (1, x.size) and same(out, ref)
+         else mismatched).append(f"singleton:{name}")
+    torch.cuda.synchronize()
+    launches = launched(ck, before)
+    want = {"ring_hop": N - 1, "ring_hop_fold": N - 1}
+    counts = {k: len(v) for k, v in matched.items()}
+    row = {"phase": "golden", "nvidia_smi": smi, "source": str(GOLDEN.relative_to(REPO)),
+           "matched": counts,
+           "expected": {"reproducible": len(folds), "ring": 8, "singleton": len(singles),
+                        "fold": len(folds)},
+           "mismatched": mismatched, "ring_launches_per_call": ring_launches,
+           "ring_launches_ok": len(ring_launches) == 8 and all(c == want for c in ring_launches),
+           "launches": launches, "wall_s": time.perf_counter() - t0}
+    emit(row)
+    if mismatched or counts != row["expected"] or not row["ring_launches_ok"] \
+            or sum(launches.values()) != 8 * 2 * (N - 1):
+        raise SystemExit(f"golden checks failed: {row}")
+    return row
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -1456,6 +1581,45 @@ def phase_native(smi, tcp):
         raise SystemExit(f"native checks failed: {row}")
     if not plane["ok"]:
         raise SystemExit(f"device_plane checks failed: {plane}")
+    return row
+
+
+DIAG_PP = REPO / "ompi_tpu_torch" / "tools" / "diag_pp.py"
+DIAG_DEVICE = re.compile(r"PPDIAG device=(\S+) bytes=(\d+) iters=(\d+)")
+DIAG_RT = re.compile(r"PPDIAG rt_us min=(\d+) p25=(\d+) med=(\d+) p75=(\d+) p90=(\d+) max=(\d+)")
+
+
+def at_2ms_multiples(hist_ms) -> int:
+    """Round trips that sit a whole number (≥ 1) of 2 ms steps above the
+    fastest, within 0.5 ms: the cadence of a missed doorbell wakeup (the
+    futex timeout) that the tool exists to find."""
+    gaps = [t - min(hist_ms) for t in hist_ms]
+    return sum(1 for d in gaps if d >= 1.5 and abs(d - 2 * round(d / 2)) <= 0.5)
+
+
+def phase_diag_pp(smi):
+    """``ompi_tpu_torch/tools/diag_pp.py`` as an np=2 job on the card with
+    its defaults (1 MiB, 60 round trips over ``btl/native`` and
+    ``pml_native`` from ``cuda:0``): both ``PPDIAG`` lines parsed, the
+    quartiles and the histogram kept, and whether round trips cluster at
+    +2 ms multiples: ``doorbell_pattern`` when at least a tenth of them
+    (and 3) do (a finding, not a gate)."""
+    out, err, wall_s = port_cli("diag_pp", ["run", "-np", 2, DIAG_PP], timeout=180)
+    lines = [ln[len("[0] "):] for ln in out.splitlines() if ln.startswith("[0] PPDIAG ")]
+    dev = next((m for m in map(DIAG_DEVICE.fullmatch, lines) if m), None)
+    rt = next((m for m in map(DIAG_RT.fullmatch, lines) if m), None)
+    hist = next((ln.split()[2:] for ln in lines if ln.startswith("PPDIAG hist_ms ")), None)
+    if not (dev and rt and hist) or dev.group(1) != "cuda:0" or len(hist) != int(dev.group(3)):
+        raise SystemExit(f"diag_pp: unexpected output {lines}")
+    hist_ms = [float(v) for v in hist]
+    rt_us = dict(zip(("min", "p25", "med", "p75", "p90", "max"), map(int, rt.groups())))
+    clustered = at_2ms_multiples(hist_ms)
+    row = {"phase": "diag_pp", "nvidia_smi": smi, "device": dev.group(1),
+           "bytes": int(dev.group(2)), "iters": int(dev.group(3)), "rt_us": rt_us,
+           "hist_ms": hist_ms, "at_2ms_multiples": clustered,
+           "doorbell_pattern": clustered >= max(3, len(hist_ms) // 10),
+           "wall_s": wall_s}
+    emit(row)
     return row
 
 
@@ -3196,6 +3360,7 @@ def main() -> int:
     smi = phase_env(ck)
     phase_kernels(ck, (SUM, PROD, MAX, MIN))
     rows, profiles, launches = phase_main(ck, args.max_bytes)
+    golden = phase_golden(ck, smi)
     tuned = phase_tuned(ck, outdir)
     observability = phase_observability(ck)
     p2p = phase_p2p(smi)
@@ -3207,11 +3372,12 @@ def main() -> int:
     recovery = phase_recovery(smi, ck)  # finalizes the single-process world
     multiproc = phase_multiproc(smi, ddp_losses)
     native = phase_native(smi, multiproc)
+    diag_pp = phase_diag_pp(smi)
     serve = phase_serve(smi)
     capi = phase_capi(smi, native)
     tools = phase_tools(smi)
     analysis = phase_analysis(smi)
-    launches = {k: launches[k] + tuned["launches"][k] + ddt["launches"][k]
+    launches = {k: launches[k] + golden["launches"][k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
                 + shmem["launches"][k] + recovery["launches"][k] + serve["launches"][k]
                 + capi["launches"][k] + tools["launches"][k] + analysis["launches"][k]
@@ -3219,8 +3385,9 @@ def main() -> int:
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
-         "tuned": tuned, "observability": observability, "p2p": p2p, "osc": osc,
-         "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
+         "golden": golden, "tuned": tuned, "observability": observability, "p2p": p2p,
+         "osc": osc, "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
+         "diag_pp": diag_pp,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
          "tools": tools, "analysis": analysis, "kernels": kernels}, indent=1))
     print(smi, flush=True)

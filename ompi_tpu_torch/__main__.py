@@ -22,6 +22,9 @@ Commands:
             ``--hangs`` over the trace exports (``--selftest``)
   top     — dashboard over a live job's telemetry ``/json``:
             ``top --url URL [--once]`` (``--selftest``)
+  golden-capture — the reference library's golden fold vectors from Open
+            MPI 4.1.4's libmpi (``--out``, default
+            build/ompi_tpu_torch/golden/reduce_local.json)
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import sys
 
 #: the operator tools: command → module of ``ompi_tpu_torch.tools``
 TOOLS = {"chaos": "chaos", "metrics-report": "metrics_report",
-         "trace-report": "trace_report", "top": "top"}
+         "trace-report": "trace_report", "top": "top",
+         "golden-capture": "golden_capture"}
 
 
 def main() -> int:
@@ -68,7 +72,8 @@ def main() -> int:
         return importlib.import_module(
             f"ompi_tpu_torch.tools.{TOOLS[cmd]}").main(rest)
     print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl', 'mpicc', "
-          "'check', 'chaos', 'metrics-report', 'trace-report' or 'top'",
+          "'check', 'chaos', 'metrics-report', 'trace-report', 'top' or "
+          "'golden-capture'",
           file=sys.stderr)
     return 2
 

@@ -427,7 +427,7 @@ def test_report_json_schema(tmp_path):
 
 def test_every_port_waiver_carries_a_reason_and_names_a_port_file():
     waivers = F.load_waivers(REPO / WAIVERS)
-    assert len(waivers) == 6
+    assert len(waivers) == 7  # + golden_capture's upstream libmpi variable
     for w in waivers:
         assert w.reason and (REPO / w.file).is_file() and w.file.startswith(f"{PKG}/")
 

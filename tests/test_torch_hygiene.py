@@ -125,13 +125,15 @@ def test_c_rank_defaults_to_cuda_and_raises_without_it(tmp_path):
 
 
 def test_source_walk_covers_the_tools_and_their_workers():
-    """The AST walk above reaches ``ompi_tpu_torch/tools/`` and the soaks'
-    worker scripts (which run ``init`` when imported, so the import walk
-    below stops at their package)."""
+    """The AST walk above reaches ``ompi_tpu_torch/tools/``, ``diag_pp.py``
+    and the soaks' worker scripts (which run ``init`` when imported, so
+    the import walk below stops at ``golden_capture`` and the workers'
+    package)."""
     names = {str(p.relative_to(REPO / "ompi_tpu_torch")) for p in PORT_FILES
              if "tools" in p.parts}
     assert names >= {"tools/__init__.py", "tools/chaos.py", "tools/metrics_report.py",
-                     "tools/trace_report.py", "tools/top.py", "tools/workers/__init__.py",
+                     "tools/trace_report.py", "tools/top.py", "tools/golden_capture.py",
+                     "tools/diag_pp.py", "tools/workers/__init__.py",
                      "tools/workers/chaos_worker.py", "tools/workers/planes_worker.py",
                      "tools/workers/respawn_worker.py", "tools/workers/scale_worker.py",
                      "tools/workers/modex_worker.py"}, names
@@ -170,7 +172,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.analysis.memcheck, ompi_tpu_torch.analysis.lockdep\n"
         "import ompi_tpu_torch.tools, ompi_tpu_torch.tools.chaos, ompi_tpu_torch.tools.top\n"
         "import ompi_tpu_torch.tools.metrics_report, ompi_tpu_torch.tools.trace_report\n"
-        "import ompi_tpu_torch.tools.workers\n"
+        "import ompi_tpu_torch.tools.workers, ompi_tpu_torch.tools.golden_capture\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
