@@ -139,8 +139,8 @@ exits non-zero:
     no ``/dev/nvidia*`` file open in its ``/proc/<pid>/fd`` (where each
     worker's are);
     ``warm_cold`` — submit→``FIRSTCOLL`` of
-    ``ompi_tpu_torch/examples/serve_firstcoll.py``, five fresh ``run -np
-    2 --nranks 4`` jobs and five submissions to the daemon (median and
+    ``ompi_tpu_torch/examples/serve_firstcoll.py``, three fresh ``run -np
+    2 --nranks 4`` jobs and three submissions to the daemon (median and
     range); ``jobs`` — two submissions of the f32 SUM sweep at 8 B,
     2 MiB, 64 MiB and 256 MiB per rank with ``cuda_ring`` forced: each
     size bit-equal to the plain ring, the same SHA-256 in both jobs, job
@@ -236,10 +236,18 @@ exits non-zero:
     ``chaos --daemon-restart`` (zero re-dials, the queued job once, zero
     orphans, the daemon CUDA-free) and ``chaos --kill-in-repair``; and
     ``chaos --traffic`` (p50/p99 submit→start, the 429 shed and its
-    restore).  Afterwards no ``/dev/shm`` name and no process of the
-    port may be left.  The row holds each leg's tallies and wall times
-    and the ring-kernel launches of its workers (0: one rank per
-    process).  Output: ``chiprun_out/tools_*``.
+    restore).  After the lanes, alone and one after the other: ``chaos
+    --hosts 3 --np 6`` (three emulated hosts, host 0 SIGKILLed
+    mid-collective and healed through its agent, plus the relay-failover
+    and native sharded-modex legs; every worker of the three on
+    ``cuda:0``, neither the daemon nor an agent holding a CUDA context)
+    and ``chaos --scale --np 16`` (sixteen CUDA contexts on the card; the
+    convergence spread within its 2 s bound, every tally on ``cuda:0``;
+    a ``tools:`` line with the spread, the wall time and the boot split).
+    Afterwards no ``/dev/shm`` name and no process of the port may be
+    left.  The row holds each leg's tallies and wall times and the
+    ring-kernel launches of its workers (0: one rank per process).
+    Output: ``chiprun_out/tools_*``.
 
 20. golden (after phase 3, on its world) — the reference library's own
     vectors from ``tests/golden/reduce_local.json`` (Open MPI 4.1.4's
@@ -282,6 +290,7 @@ import os
 import re
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import time
@@ -1970,8 +1979,10 @@ def phase_recovery(smi, ck) -> dict:
 SERVE_SIZES = [8, 2 << 20, 64 << 20, 256 << 20]
 SERVE_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_job.py"
 FIRSTCOLL_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_firstcoll.py"
-#: cold and warm launch→first-collective samples per leg
-FIRSTCOLL_RUNS = 5
+#: cold and warm launch→first-collective samples per leg (three, not
+#: five: two cold ``run`` boots of ~14 s each make room in the script's
+#: time for the tools phase's ``--hosts`` and ``--scale`` legs)
+FIRSTCOLL_RUNS = 3
 
 
 def sjson_rows(lines, job_id: str | None = None) -> list:
@@ -3080,12 +3091,71 @@ def tools_traffic(outdir: Path) -> dict:
     return {"wall_s": leg["wall_s"], "tally": t}
 
 
+def _on_card(workers: dict, what: str) -> None:
+    """Every worker of a soak leg on ``cuda:0`` with no ring launch (one
+    rank per process)."""
+    bad = {p: w for p, w in workers.items()
+           if w.get("device") != "cuda:0" or any((w.get("launches") or {}).values())}
+    if not workers or bad:
+        raise SystemExit(f"tools {what}: workers off the card or launching: {bad or workers}")
+
+
+def tools_hosts(outdir: Path) -> dict:
+    """``chaos --hosts 3 --np 6`` on the card: the runner's own assertions
+    (incarnations, the full job done, no noisy bystander, relay frames
+    within their bound, eager installs within the group, no orphans),
+    then every worker of the heal, relay and modex legs on ``cuda:0`` and
+    neither the daemon nor any launch agent holding a CUDA context."""
+    leg = chaos_leg("hosts", "--hosts", "3", "--np", "6", "--out", outdir / "tools_hosts",
+                    timeout=900)
+    t = leg["runs"][-1]["tally"]
+    _on_card(t["workers"], "hosts (phase 2)")
+    _on_card(t["relay_failover"]["workers"], "hosts (relay leg)")
+    _on_card(t["modex"]["workers"], "hosts (modex leg)")
+    if t["daemon_cuda"]:
+        raise SystemExit(f"tools hosts: the daemon or an agent holds CUDA: {t['daemon_cuda']}")
+    return {"wall_s": leg["wall_s"], "run_wall_s": [r["wall_s"] for r in leg["runs"]],
+            "tally": t}
+
+
+def tools_scale() -> dict:
+    """``chaos --scale --np 16`` on the card: the runner's own assertions
+    (16 tallies, full size, exact phase 2, reborn = victims, at most 2
+    modex gets per first incarnation, convergence within the bound, no
+    bystander noise), then every tally on ``cuda:0`` with 0 launches.
+    The line holds the spread against its bound, the wall time and each
+    rank's boot split (interpreter, ``import torch``, the port's imports,
+    CUDA context, ``api.init``)."""
+    from ompi_tpu_torch.tools import chaos
+
+    leg = chaos_leg("scale", "--scale", "--np", "16", timeout=600)
+    tallies = leg["runs"][-1]["tally"]
+    _on_card({str(t["proc"]): t for t in tallies}, "scale")
+    stamps = [t["t_detect_all"] for t in tallies
+              if t["incarnation"] == 0 and t["t_detect_all"] > 0]
+    boot = {str(t["proc"]): dict(t["boot"], incarnation=t["incarnation"]) for t in tallies}
+    first = [b for b in boot.values() if not b["incarnation"]]
+    return {"wall_s": leg["wall_s"], "run_wall_s": [r["wall_s"] for r in leg["runs"]],
+            "spread_s": max(stamps) - min(stamps) if len(stamps) > 1 else 0.0,
+            "bound_s": chaos.scale_bound(tallies[0]["period"], tallies[0]["groups"]),
+            "victims": sorted(t["proc"] for t in tallies if t["incarnation"]),
+            "late": chaos.scale_late(tallies),
+            "cuda_allocated": {str(t["proc"]): t["cuda_allocated"] for t in tallies},
+            "boot": boot,
+            "boot_median_s": {k: statistics.median(b[k] for b in first if b[k] is not None)
+                              for k in ("interpreter_s", "import_torch_s", "import_port_s",
+                                        "cuda_init_s", "api_init_s")},
+            "tallies": tallies}
+
+
 def phase_tools(smi) -> dict:
-    """The port's operator tools on the card: every chaos soak but
-    ``--scale`` and ``--hosts``, the report tools over the np=2 soak's
-    exports, and ``top --once`` over a live job.  The legs run in three
-    lanes side by side (each lane's legs one after another), and any
-    leg's failure fails the phase."""
+    """The port's operator tools on the card: every chaos soak, the
+    report tools over the np=2 soak's exports, and ``top --once`` over a
+    live job.  All but ``--hosts`` and ``--scale`` run in three lanes
+    side by side (each lane's legs one after another); those two run
+    after the lanes, alone and one after the other, since their checks
+    are timing checks the lanes' load would skew.  Any leg's failure
+    fails the phase."""
     from concurrent.futures import ThreadPoolExecutor
 
     names0 = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") else set()
@@ -3104,6 +3174,8 @@ def phase_tools(smi) -> dict:
         done = [pool.submit(lambda lane=lane: {name: fn() for name, fn in lane})
                 for lane in lanes]
         legs = {k: v for f in done for k, v in f.result().items()}
+    legs["hosts"] = tools_hosts(outdir)
+    legs["scale"] = tools_scale()
     time.sleep(0.5)
     names1 = set(os.listdir("/dev/shm")) if os.path.isdir("/dev/shm") else set()
     shm_left = sorted(n for n in names1 - names0 if n.startswith(SHM_NAMES))
@@ -3120,6 +3192,11 @@ def phase_tools(smi) -> dict:
     row = {"phase": "tools", "nvidia_smi": smi, "legs": legs, "shm_left": shm_left,
            "stray_processes": stray, "launches": launches,
            "wall_s": time.perf_counter() - t0}
+    sc = legs["scale"]
+    print(f"tools: scale np=16 spread {sc['spread_s'] * 1e3:.1f} ms (bound "
+          f"{sc['bound_s'] * 1e3:.0f} ms) wall {sc['wall_s']:.1f} s, boot median "
+          + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in sc["boot_median_s"].items())
+          + f"; hosts wall {legs['hosts']['wall_s']:.1f} s", flush=True)
     emit(row)
     return row
 

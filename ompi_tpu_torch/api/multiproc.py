@@ -1081,8 +1081,15 @@ class MultiProcComm(PersistentP2PMixin):
         mid-job or fresh-booted.  Hub pattern: 2(P−1) frames through the
         minimum member instead of a full-mesh dial storm on a degraded
         mesh."""
+        ctx = self.procctx
+        rec = {"stream": f"replace.{p}.i{inc}", "members": list(members),
+               "incs": [inc if m == p else ctx.incarnation if m == self.proc
+                        else ctx.incarnations.get(m, 0) for m in members]}
+        ctx.replace_rounds.append(rec)
+        t0 = time.monotonic()
         eng = self.dcn if len(members) == self.nprocs else self.dcn.sub(members)
-        infos = eng.allgather_obj_hub(int(_peek_cid()), f"replace.{p}.i{inc}")
+        infos = eng.allgather_obj_hub(int(_peek_cid()), rec["stream"])
+        rec["ms"] = round((time.monotonic() - t0) * 1e3, 3)
         return [int(c) for c in infos]
 
     def _integrate_respawn(self, p: int, inc: int, addr: str) -> None:

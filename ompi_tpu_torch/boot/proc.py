@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import os
 
-from ompi_tpu_torch.dcn.collops import DcnCollEngine
 from .kvs import KVSClient
 
 ENV_PROC = "OMPI_TPU_PROC"
@@ -88,6 +87,10 @@ class ProcContext:
         #: partial-replace beacon keys this reborn incarnation already
         #: consumed — replace_partial walks the (proc, inc, cid) queue
         self.healed_partials: set[str] = set()
+        #: the world replace() rounds this process entered, oldest first:
+        #: stream, members, the incarnation it held for each, and the
+        #: round's milliseconds once it completed (the repair record)
+        self.replace_rounds: list[dict] = []
         self.kvs = KVSClient(os.environ[ENV_KVS])
         # modex: publish DCN endpoint, fence, gather peers. Transport
         # tunables come from the btl/tcp component's MCA vars (so
@@ -319,6 +322,11 @@ class ProcContext:
                     f"Python bml transport", file=sys.stderr, flush=True)
             params["transport"] = "bml"
         params.pop("ring_bytes", None)
+        # imported here, not with the module: the launch agent and the
+        # daemon read this module's names, and an agent's boot (torch
+        # included) would count against serve_agent_timeout
+        from ompi_tpu_torch.dcn.collops import DcnCollEngine
+
         return DcnCollEngine(self.proc, self.nprocs, **params)
 
     def _fan_out_failure(self, root_proc: int) -> None:

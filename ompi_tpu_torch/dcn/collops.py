@@ -161,6 +161,9 @@ class DcnCollEngine:
         # to its proc and marks it failed before the transport raises
         # MPIProcFailedError
         self.transport.on_peer_failed = self._transport_peer_failed
+        # ... and a dial toward a proc already held failed gives up at
+        # once instead of retrying until dcn_connect_timeout
+        self.transport.peer_known_failed = self._transport_peer_known_failed
         # the device-resident zero-copy plane (dcn/device.py): large
         # contiguous payloads move through device windows while this
         # transport carries only their descriptor control frames; None
@@ -361,6 +364,12 @@ class DcnCollEngine:
             else:
                 root.note_proc_failed(proc)
         return proc
+
+    def _transport_peer_known_failed(self, address: str) -> bool:
+        """Transport dial cut-off: whether the ROOT proc owning a peer
+        address is held failed on this engine."""
+        proc = self._addr_proc(address)
+        return proc is not None and proc in self._root_engine()._failed_procs
 
     def _escalate_deadline(self, site: str, timeout: float, msg: str,
                            failed_rank: int | None = None,

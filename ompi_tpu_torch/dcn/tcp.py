@@ -277,6 +277,10 @@ class TcpTransport:
         #: detector/engine on the way; None result → unmapped, the
         #: escalation stays a ConnectionError
         self.on_peer_failed: Callable[[str], int | None] | None = None
+        #: set by the owning engine: True once a peer address's proc is
+        #: held failed — a data dial toward it stops retrying at once
+        #: instead of backing off until dcn_connect_timeout
+        self.peer_known_failed: Callable[[str], bool] | None = None
         self._listen, self.address = self._make_listen(host)
         self._peers: dict[str, _Peer] = {}
         self._lock = threading.Lock()
@@ -727,6 +731,16 @@ class TcpTransport:
                 attempts += 1
                 if not retry or not self._running:
                     raise
+                known = self.peer_known_failed
+                if known is not None and known(address):
+                    # the detector (or an escalation) already declared
+                    # the peer dead: no dial can reach it, and backing
+                    # off to the deadline would stall the sender — a
+                    # revoke's fan-out, a recovery round — for the
+                    # whole dcn_connect_timeout
+                    self._peer_dead(
+                        address, f"peer held failed after {attempts} "
+                        f"dials: {e}")
                 if dl.expired():
                     self.stats["deadline_expired"] += 1
                     self._peer_dead(
@@ -1417,6 +1431,15 @@ class BmlTransport:
         # both legs escalate through the same engine callback
         self.tcp.on_peer_failed = cb
         self.sm.on_peer_failed = cb
+
+    @property
+    def peer_known_failed(self):
+        return self.tcp.peer_known_failed
+
+    @peer_known_failed.setter
+    def peer_known_failed(self, fn) -> None:
+        self.tcp.peer_known_failed = fn
+        self.sm.peer_known_failed = fn
 
     def _route(self, address: str):
         """(leg, leg-address) for a peer's composite address."""

@@ -46,8 +46,11 @@ when the launcher published one (``OMPI_TPU_HOST_IDS``), else into
 * gossip converges hierarchically: a detector floods its own group's
   live members plus every live leader; a *leader* that accepts new
   gossip relays it into its group.  As the lost-message backstop,
-  leader↔leader heartbeats piggyback an **anti-entropy digest** of
-  the failure-record set (``ft_gossip_digest``); a digest mismatch
+  heartbeats piggyback an **anti-entropy digest** of the
+  failure-record set (``ft_gossip_digest``) — leader↔leader, and on a
+  member's heartbeats to its leader and successor too (the reference
+  digests only leaders' heartbeats: a member whose one relay frame was
+  lost stayed ignorant of the death for good); a digest mismatch
   triggers one ``flrsync`` frame carrying the full (tiny) record set,
   so survivor knowledge converges in O(log groups) heartbeat periods
   even under gossip loss — instead of full-mesh flooding.
@@ -125,6 +128,9 @@ class HeartbeatDetector:
         self.period = float(period)
         self.timeout = float(timeout)
         self.incarnation = int(incarnation)
+        #: wall-clock instant the detector was built: every peer's
+        #: silence clock starts here (plus ``grace``)
+        self.t_boot = time.time()
         self._peers = [p for p in range(engine.nprocs) if p != engine.proc]
         if group_size <= 0:
             group_size = engine.nprocs
@@ -146,7 +152,7 @@ class HeartbeatDetector:
         #: reborn boot's heartbeat apart from the corpse's liveness
         self._epoch: dict[int, int] = {}
         self._inc: dict[int, int] = {}
-        #: anti-entropy memo: leader peer → (their last digest, the
+        #: anti-entropy memo: peer → (their last digest, the
         #: digest we last synced against) so one persistent honest
         #: mismatch (a partial-replace bystander's frozen view) costs
         #: one flrsync, not one per period
@@ -254,7 +260,7 @@ class HeartbeatDetector:
                 # beats the silence timeout, which the reborn's frames
                 # would otherwise mask by refreshing the corpse's
                 # liveness clock forever)
-                if self.mark_failed(src):
+                if self.mark_failed(src, how="rebirth"):
                     with self._lock:
                         self.counters["rebirth_detects"] += 1
             # inc < floor: a zombie frame from a replaced incarnation —
@@ -281,7 +287,7 @@ class HeartbeatDetector:
         dg = env.get("dg")
         if dg is None:
             return
-        # leader↔leader anti-entropy: a digest mismatch means the
+        # anti-entropy: a digest mismatch means the
         # sender's failure-record set differs from ours — ship ours
         # once per (their digest, our digest) pair; stale records are
         # dropped by the receiver's version floor, so a persistent
@@ -322,7 +328,7 @@ class HeartbeatDetector:
         self.mark_failed(proc, gossip="relay",
                          inc=int(env.get("inc", 0)),
                          epoch=int(env.get("epoch", 0)),
-                         src=env.get("src"))
+                         src=env.get("src"), how="gossip")
 
     def on_flrsync(self, env: dict) -> None:
         """Anti-entropy payload: merge every record through the same
@@ -333,7 +339,7 @@ class HeartbeatDetector:
             except (TypeError, ValueError, IndexError):
                 continue
             self.mark_failed(proc, gossip="relay", inc=inc, epoch=epoch,
-                             src=env.get("src"))
+                             src=env.get("src"), how="digest")
 
     def _heal(self, proc: int, inc: int | None = None,
               epoch: int | None = None, origin: bool = False,
@@ -494,9 +500,16 @@ class HeartbeatDetector:
             self._failed.discard(proc)
 
     def mark_failed(self, proc: int, gossip=True, inc: int | None = None,
-                    epoch: int | None = None, src=None) -> bool:
+                    epoch: int | None = None, src=None,
+                    how: str = "engine") -> bool:
         """Declare ``proc`` dead (timeout, in-band error, rebirth
         announcement, or gossip).
+
+        ``how`` names the path the news came by — ``strike`` (two failed
+        heartbeat sends), ``timeout`` (silence), ``rebirth``, ``gossip``
+        (an ``flr`` record), ``digest`` (an anti-entropy ``flrsync``) or
+        ``engine`` (a transport or deadline escalation).  The detector
+        does not act on it; an observer that wraps this method reads it.
 
         Local detections (no ``inc``/``epoch``) are stamped with the
         proc's CURRENT floor — always valid.  Remote records below the
@@ -561,8 +574,12 @@ class HeartbeatDetector:
         while not self._stop.wait(self.period):
             with self._lock:
                 targets, watch, is_leader = self._topology_locked()
-                dg = (self._digest_locked()
-                      if is_leader and self.digest_enabled else None)
+                # every heartbeat carries the digest, a member's too:
+                # a member hears of a death only through its leader's
+                # one gossip frame (control frames are sent once and
+                # fail fast), and the leader's push on a mismatch is
+                # the only way a lost one is made good
+                dg = self._digest_locked() if self.digest_enabled else None
                 flipped = (self._lead_cbs and self._was_leader is not None
                            and is_leader != self._was_leader)
                 if self._was_leader is not None or self._lead_cbs:
@@ -607,7 +624,7 @@ class HeartbeatDetector:
                                      - self._last.get(p, time.monotonic())
                                      > 2 * self.period)
                         if quiet:
-                            self.mark_failed(p)
+                            self.mark_failed(p, how="strike")
             now = time.monotonic()
             with self._lock:
                 late = [p for p in watch
@@ -615,7 +632,7 @@ class HeartbeatDetector:
                         and p in self._last
                         and now - self._last[p] > self.timeout]
             for p in late:
-                self.mark_failed(p)
+                self.mark_failed(p, how="timeout")
 
     def close(self) -> None:
         """Stop AND join: the transport is torn down right after, and a

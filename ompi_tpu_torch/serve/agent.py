@@ -150,10 +150,13 @@ class LaunchAgent:
         self._threads: list[threading.Thread] = []
         self._stop = False
         # knobs (resolved from the inherited OMPI_MCA_* environment —
-        # the agent has no --mca line of its own)
-        from ompi_tpu_torch.core import mca as _mca
+        # the agent has no --mca line of its own).  They are all central
+        # variables, so a bare context resolves them without loading the
+        # components — which would import torch: seconds of boot that
+        # count against serve_agent_timeout before the first heartbeat
+        from ompi_tpu_torch.core.registry import MCAContext
 
-        store = _mca.default_context().store
+        store = MCAContext().store
         self.poll = max(0.02, int(
             store.get("serve_agent_poll_ms", 50) or 50) / 1000.0)
         self.hb_interval = max(0.05, int(
@@ -267,11 +270,12 @@ class LaunchAgent:
             except OSError:
                 pass  # unwritable path: the poll fallback stands
 
-    def _hb(self) -> None:
-        # supersession fence (checked at heartbeat cadence): a daemon
-        # that rotated this host's session replaced us — a wedged
-        # agent that un-wedges here must NOT go on to execute its old
-        # session's commands (the replacement already re-issued them)
+    def _fence(self) -> None:
+        """Supersession fence: a daemon that rotated this host's
+        session replaced us — an agent that was slow or wedged past
+        serve_agent_timeout must NOT go on to execute its old session's
+        commands (the replacement already re-issued them: a spawn run
+        here too is a second live process of the rank)."""
         try:
             current = self.kvs.get(f"{K_ASESSION}{self.hid}",
                                    wait=False)
@@ -283,6 +287,9 @@ class LaunchAgent:
                   "live workers stay for the replacement's adoption",
                   flush=True)
             raise SystemExit(0)
+
+    def _hb(self) -> None:
+        self._fence()
         self.kvs.put(f"{K_AHB}{self.hid}", {
             "pid": os.getpid(), "host": self.hid,
             "generation": self.generation, "session": self.session,
@@ -344,6 +351,11 @@ class LaunchAgent:
             cmd = self.kvs.get(key, wait=False)
         except KeyError:
             return False
+        # the fence before every command, not only at heartbeat
+        # cadence: an agent whose boot outlasted serve_agent_timeout
+        # finds its first spawn command waiting and would run it before
+        # its first heartbeat looked at the session
+        self._fence()
         idx, self.cursor = self.cursor, self.cursor + 1
         try:
             ack = self._exec(dict(cmd))

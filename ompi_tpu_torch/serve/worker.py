@@ -29,13 +29,16 @@ Per job directive:
   freed and the device plane's windows of the job are released, so no
   job pins device memory into the next one;
 * a completion record (timings, transport dial counters — the
-  warm-reuse proof — and, on the card, ``torch.cuda.memory_allocated``)
-  is published for the daemon.
+  warm-reuse proof — the device, the ring-kernel launches and, on the
+  card, ``torch.cuda.memory_allocated``) is published for the daemon.
 
 ``repair`` directives fire the elastic plane on demand: survivors run
 ``replace()`` to restore a respawned rank; a reborn worker rejoins
 through the replace beacon and resumes the stream at the cursor the
-daemon published for its incarnation.
+daemon published for its incarnation.  Both log, and the survivor's
+repair record carries, the directive acted on and every replace round
+entered: its stream, its members with the incarnation held for each,
+and its milliseconds.
 
 **Daemon crash-safety** (the worker half): every KVS interaction goes
 through :class:`DaemonLink`.  When the daemon dies (connection loss on
@@ -503,6 +506,12 @@ def _run_job(api, world, link: DaemonLink, jd: dict, idx: int,
     rec["counters"] = {k: int(after.get(k, 0)) for k in _REPORT_KEYS}
     rec["windows_left"] = _release_job_windows(world)
     rec.update(_device_memory(world))
+    from ompi_tpu_torch.coll import cuda_kernels as _ck
+
+    # the worker's device and its ring-kernel launches so far (none
+    # with one rank per process)
+    rec["device"] = str(getattr(world, "device", ""))
+    rec["launches"] = dict(_ck.LAUNCHES)
     link.report(idx, rec)
 
 
@@ -514,7 +523,8 @@ def _repair(api, world, link: DaemonLink, jd: dict, idx: int,
     inside it — and adopt the healed world for future jobs."""
     dead = [int(d) for d in jd.get("dead", ())]
     dead_ranks = {r for p in dead for r in range(*world.proc_range(p))}
-    deadline = time.monotonic() + timeout
+    t_settle = time.monotonic()
+    deadline = t_settle + timeout
     while True:
         failed = set(world.get_failed())
         missing = [p for p in dead
@@ -529,27 +539,51 @@ def _repair(api, world, link: DaemonLink, jd: dict, idx: int,
         if time.monotonic() > deadline:
             if not missing:
                 break  # extras never healed: best-effort repair
-            link.report(idx, {
-                "ok": False,
-                "error": f"repair: procs {missing} never surfaced as "
-                         f"failed within {timeout}s"})
+            err = (f"repair: procs {missing} never surfaced as failed "
+                   f"within {timeout}s")
+            link.report(idx, {"ok": False, "directive": idx,
+                              "failed": sorted(failed), "error": err})
+            print(f"serve: repair of directive {idx} failed (dead={dead}, "
+                  f"failed={sorted(failed)}): {err}", flush=True)
             return world
         time.sleep(0.05)
     t0 = time.monotonic()
+    # how long the failed set took to settle, and what it held then
+    settle = {"settle_ms": round((t0 - t_settle) * 1e3, 3),
+              "failed": sorted(failed)}
+    rounds = world.procctx.replace_rounds
+    first = len(rounds)
     try:
         healed = world.replace()
     except BaseException as e:  # noqa: BLE001 — repair must report
         if isinstance(e, _Stop):
             raise
-        link.report(idx, {"ok": False,
+        link.report(idx, {"ok": False, "directive": idx,
+                          "rounds": rounds[first:], **settle,
                           "error": f"{type(e).__name__}: {e}"})
+        print(f"serve: repair of directive {idx} failed (dead={dead}, "
+              f"settle_ms={settle['settle_ms']}, "
+              f"rounds={_rounds_text(rounds[first:])}): "
+              f"{type(e).__name__}: {e}", flush=True)
         return world
     api.set_world(healed)
     heal_ms = round((time.monotonic() - t0) * 1e3, 3)
-    link.report(idx, {"ok": True, "heal_ms": heal_ms})
-    print(f"serve: repaired world (dead={dead}, heal_ms={heal_ms})",
-          flush=True)
+    link.report(idx, {"ok": True, "heal_ms": heal_ms, "directive": idx,
+                      "rounds": rounds[first:], **settle})
+    print(f"serve: repaired world (dead={dead}, heal_ms={heal_ms}, "
+          f"directive={idx}, settle_ms={settle['settle_ms']}, "
+          f"rounds={_rounds_text(rounds[first:])})", flush=True)
     return healed
+
+
+def _rounds_text(rounds: list[dict]) -> str:
+    """The replace rounds of one repair on a log line: each round's
+    stream, its members as ``proc.incarnation`` and its milliseconds
+    (``-`` while it never completed)."""
+    return "[" + "; ".join(
+        f"{r['stream']} "
+        + ",".join(f"{m}.{i}" for m, i in zip(r["members"], r["incs"]))
+        + f" {r.get('ms', '-')}ms" for r in rounds) + "]"
 
 
 def _teardown_resident(api, world) -> None:
@@ -641,15 +675,21 @@ def _serve_loop(api, ctx, link: DaemonLink, current: dict,
         # reborn incarnation: rejoin the warm world via the survivors'
         # replace round, then resume the stream where the daemon says
         t0 = time.monotonic()
-        world = world.replace()
+        try:
+            world = world.replace()
+        except Exception as e:
+            print(f"serve: incarnation {ctx.incarnation} failed to rejoin "
+                  f"(rounds={_rounds_text(ctx.replace_rounds)}): "
+                  f"{type(e).__name__}: {e}", flush=True)
+            raise
         heal_ms = round((time.monotonic() - t0) * 1e3, 3)
         api.set_world(world)
         current["world"] = world
         link.cursor = int(link.get(
             f"{K_RESUME}{ctx.proc}.i{ctx.incarnation}"))
         print(f"serve: incarnation {ctx.incarnation} rejoined; "
-              f"resuming at directive {link.cursor} (heal_ms={heal_ms})",
-              flush=True)
+              f"resuming at directive {link.cursor} (heal_ms={heal_ms}, "
+              f"rounds={_rounds_text(ctx.replace_rounds)})", flush=True)
     else:
         try:
             # cold-boot after a daemon restart that lost the whole

@@ -477,8 +477,6 @@ def run_scale_soak(np_: int, seed: int, ops: int, kill_at: int,
     phase-2 results.  With ``kill_groups`` below the group count, the
     bystander groups' ranks must show ZERO reconnects/retry_dials —
     the failure never perturbed them."""
-    import math
-
     from ompi_tpu_torch.ft.detector import compute_groups
 
     groups = compute_groups(np_, group_size)
@@ -556,8 +554,13 @@ def run_scale_soak(np_: int, seed: int, ops: int, kill_at: int,
     stamps = [t["t_detect_all"] for t in tallies
               if t["incarnation"] == 0 and t["t_detect_all"] > 0]
     spread = (max(stamps) - min(stamps)) if len(stamps) > 1 else 0.0
-    bound = 2 * period * max(1, math.ceil(math.log2(max(2, len(groups)))))
+    bound = scale_bound(period, len(groups))
     if stamps and spread > bound:
+        # the miss must name its late ranks: their detection stamps and
+        # paths, and every tally as recorded
+        render_scale(tallies)
+        for t in tallies:
+            print("SCALE_TALLY " + json.dumps(t, sort_keys=True))
         raise SystemExit(
             f"scale soak: failure-set convergence spread {spread:.3f}s "
             f"exceeds 2*period*ceil(log2(groups)) = {bound:.3f}s")
@@ -576,6 +579,43 @@ def run_scale_soak(np_: int, seed: int, ops: int, kill_at: int,
           f"convergence={spread * 1e3:.1f} ms (bound "
           f"{bound * 1e3:.0f} ms) wall={time.time() - t0:.1f}s")
     return tallies
+
+
+def scale_bound(period: float, groups: int) -> float:
+    """The convergence bound: ``2 × period × ceil(log2(groups))``."""
+    import math
+
+    return 2 * period * max(1, math.ceil(math.log2(max(2, groups))))
+
+
+def scale_late(tallies: list[dict]) -> list[dict]:
+    """The survivors whose convergence stamp trails the earliest one by
+    more than half the bound — or, when none does, the one latest — each
+    with its detection stamps relative to the earliest convergence:
+    ``boot`` (detector built), ``caught`` (left the aborted collective),
+    ``seen`` (per victim: offset and the path that marked it) and
+    ``all`` (every victim seen)."""
+    surv = [t for t in tallies
+            if t["incarnation"] == 0 and t.get("t_detect_all", 0) > 0]
+    if not surv:
+        return []
+    t0 = min(t["t_detect_all"] for t in surv)
+    bound = scale_bound(float(surv[0].get("period") or 0.0),
+                        int(surv[0].get("groups") or 1))
+    late = [t for t in surv if t["t_detect_all"] - t0 > bound / 2]
+    if not late:
+        late = [max(surv, key=lambda t: t["t_detect_all"])]
+
+    def rel(x: float):
+        return round(x - t0, 4) if x else None
+
+    return [{"proc": t["proc"], "group": t["group"],
+             "boot": rel(t.get("t_boot", 0.0)),
+             "caught": rel(t.get("t_caught", 0.0)),
+             "seen": {v: {"at": rel(s["t"]), "how": s["how"]}
+                      for v, s in (t.get("t_seen") or {}).items()},
+             "all": rel(t["t_detect_all"])}
+            for t in sorted(late, key=lambda t: t["proc"])]
 
 
 def render_scale(tallies: list[dict]) -> None:
@@ -600,6 +640,17 @@ def render_scale(tallies: list[dict]) -> None:
           f"gossip_tx={sum((t.get('detector') or {}).get('gossip_tx', 0) for t in tallies)}, "
           f"relayed={sum((t.get('detector') or {}).get('gossip_relayed', 0) for t in tallies)}, "
           f"digest_syncs={sum((t.get('detector') or {}).get('digest_syncs', 0) for t in tallies)}")
+    for r in scale_late(tallies):
+        seen = " ".join(f"v{v}@{s['at']:+.3f}s/{s['how']}"
+                        for v, s in r["seen"].items())
+        print(f"late: rank {r['proc']} grp {r['group']} "
+              f"(s from the earliest convergence) boot "
+              f"{_fmt_off(r['boot'])} caught {_fmt_off(r['caught'])} "
+              f"seen {seen or '-'} all {_fmt_off(r['all'])}")
+
+
+def _fmt_off(x) -> str:
+    return "-" if x is None else f"{x:+.3f}s"
 
 
 #: the daemon soaks' job script (the port's counterpart of the
@@ -793,15 +844,26 @@ def _daemon_cuda(pid: int, url: str) -> list[str]:
         if (json.loads(r.read().decode()).get("daemon") or {}).get(
                 "cuda_initialized"):
             found.append("cuda_initialized")
+    return sorted(set(found + _nvidia_fds(pid)))
+
+
+def _nvidia_fds(pid: int) -> list[str]:
+    """The ``/dev/nvidia*`` files process ``pid`` holds open (read from
+    ``/proc/<pid>/fd``): a CUDA context holds them, an import does not."""
+    found = set()
     fd_dir = f"/proc/{pid}/fd"
-    for fd in (os.listdir(fd_dir) if os.path.isdir(fd_dir) else ()):
+    try:
+        fds = os.listdir(fd_dir)
+    except OSError:
+        return []  # gone, or not ours to read
+    for fd in fds:
         try:
             target = os.readlink(os.path.join(fd_dir, fd))
         except OSError:
             continue  # closed between the listing and the read
         if target.startswith("/dev/nvidia"):
-            found.append(target)
-    return sorted(set(found))
+            found.add(target)
+    return sorted(found)
 
 
 def _stall_injector(ingest: str, stop_evt):
@@ -1274,7 +1336,7 @@ def run_repair_window_soak(np_: int, seed: int, extra_mca: list[str],
 def run_hosts_soak(np_: int, hosts_n: int, seed: int,
                    extra_mca: list[str], timeout: float,
                    relay: bool = True, modex: bool = True,
-                   cpu: bool = False) -> dict:
+                   cpu: bool = False, log: str = "") -> dict:
     """The multi-host DVM headline: a tpud with an emulated host map
     (the hermetic ``/bin/sh -c {cmd}`` rsh shim + fake hostnames
     partitions the ranks into ``hosts_n`` fake hosts, one launch
@@ -1290,7 +1352,9 @@ def run_hosts_soak(np_: int, hosts_n: int, seed: int,
     frames must keep flowing within the detector's detection bound);
     ``modex`` adds the np≥16 native-plane sharded-boot leg (per-rank
     eager ``addr_installs`` ≤ group size, vs P−1 before the
-    incremental-install surface)."""
+    incremental-install surface).  ``log`` keeps the daemon's whole
+    output (its workers' and agents' lines included) of this run, pass
+    or fail."""
     import tempfile
     import urllib.request
 
@@ -1393,6 +1457,15 @@ def run_hosts_soak(np_: int, hosts_n: int, seed: int,
                              f"{st.get('procs')}")
         incs = [int(st["procs"][str(r)]["incarnation"])
                 for r in range(np_)]
+        # the daemon and every launch agent (the respawned one included)
+        # only schedule: none may hold a CUDA context
+        host_cuda = {"daemon": _daemon_cuda(d.pid, url)}
+        with urllib.request.urlopen(url + "/json", timeout=5) as r:
+            agents = (json.loads(r.read().decode())["daemon"]
+                      .get("agents") or {})
+        for h, ag in sorted(agents.items()):
+            if int(ag.get("pid", 0)) > 0:
+                host_cuda[f"agent{h}"] = _nvidia_fds(int(ag["pid"]))
         # phase 2: EXACT full-size results on the healed mesh (the
         # job worker asserts every allreduce value internally)
         jb = client.submit(url, JOB_WORKER, tenant="bob", nprocs=np_)
@@ -1420,6 +1493,14 @@ def run_hosts_soak(np_: int, hosts_n: int, seed: int,
             "bystanders_noisy": sorted(noisy),
             "shutdown_rc": rc,
             "orphans": len(orphans),
+            # the phase-2 job's completion records: each worker's
+            # device, ring-kernel launches and allocated card bytes
+            "workers": {str(rec.get("proc", r)): {
+                k: rec.get(k) for k in ("device", "launches",
+                                        "cuda_allocated")}
+                for r, rec in sorted((rb.get("ranks") or {}).items())},
+            "daemon_cuda": sorted({f"{k}:{v}" for k, vs in
+                                   host_cuda.items() for v in vs}),
         }
         ok = (tally["agent_respawned"] >= 1 and rb["state"] == "done"
               and incs == [1] * per + [0] * (np_ - per)
@@ -1436,6 +1517,16 @@ def run_hosts_soak(np_: int, hosts_n: int, seed: int,
     finally:
         if d is not None and d.poll() is None:
             d.kill()
+        if log:
+            if d is not None:
+                try:
+                    d.wait(timeout=10)  # its reader drains the pipe
+                except subprocess.TimeoutExpired:
+                    pass
+            time.sleep(0.2)
+            os.makedirs(os.path.dirname(log) or ".", exist_ok=True)
+            with open(log, "w") as f:
+                f.write("".join(lines))
     if relay:
         tally["relay_failover"] = run_relay_failover_leg(
             max(8, 2 * per), seed, extra_mca, timeout, cpu=cpu)
@@ -1546,7 +1637,8 @@ def run_relay_failover_leg(np_: int, seed: int, extra_mca: list[str],
              + 15.0)
     tally = {"np": np_, "victim": victim, "member_frames": len(stamps),
              "worst_gap_s": round(worst, 3), "bound_s": bound,
-             "batches": batches[-1] if batches else 0}
+             "batches": batches[-1] if batches else 0,
+             "workers": _worker_devices(lines, "SCALE_TALLY ")}
     if len(stamps) < 4 or worst > bound:
         sys.stderr.write("".join(lines[-60:]))
         raise SystemExit(f"relay-failover leg failed: {tally}")
@@ -1595,7 +1687,22 @@ def run_native_modex_leg(np_: int, group: int, timeout: float,
           f"{sum(t['addr_lazy_resolved'] for t in tallies)} "
           f"wall={time.time() - t0:.1f}s")
     return {"max_installs": max(installs),
-            "lazy": sum(t["addr_lazy_resolved"] for t in tallies)}
+            "lazy": sum(t["addr_lazy_resolved"] for t in tallies),
+            "workers": _worker_devices(out_text.splitlines(),
+                                       "MODEX_TALLY ")}
+
+
+def _worker_devices(lines, marker: str) -> dict:
+    """Per proc, the device, ring-kernel launches and allocated card
+    bytes of the ``marker`` tally lines in a job's output (the last
+    line of each proc: a reborn incarnation's replaces its corpse's)."""
+    out: dict[str, dict] = {}
+    for line in lines:
+        if marker in line:
+            t = json.loads(line.split(marker, 1)[1])
+            out[str(t["proc"])] = {k: t.get(k) for k in
+                                   ("device", "launches", "cuda_allocated")}
+    return dict(sorted(out.items(), key=lambda kv: int(kv[0])))
 
 
 def render_hosts(tally: dict) -> None:
@@ -1606,6 +1713,11 @@ def render_hosts(tally: dict) -> None:
         + f"   bystanders noisy: {tally['bystanders_noisy'] or 'none'}")
     print(f"  shutdown rc={tally['shutdown_rc']}   orphans: "
           f"{tally['orphans']}")
+    if "workers" in tally:
+        devs = sorted({str(w.get("device")) for w in
+                       tally["workers"].values()})
+        print(f"  workers on: {', '.join(devs)}   daemon/agent CUDA: "
+              f"{', '.join(tally.get('daemon_cuda') or ()) or 'none'}")
     if "relay_failover" in tally:
         rf = tally["relay_failover"]
         print(f"  relay failover: worst member gap "
@@ -2301,10 +2413,15 @@ def _run(ns, record: list[dict]) -> int:
         baseline = None
         for run in range(ns.runs):
             t_run = time.time()
+            log = os.path.join(ns.out or DETAIL_DIR,
+                               f"hosts.run{run + 1}.log")
+            print(f"hosts soak: run {run + 1} keeps its log in {log}",
+                  flush=True)
             tally = run_hosts_soak(
                 ns.np_, ns.hosts, ns.seed, ns.mca, ns.timeout,
                 relay=not ns.no_relay_leg and run == 0,
-                modex=not ns.no_modex_leg and run == 0, cpu=ns.cpu)
+                modex=not ns.no_modex_leg and run == 0, cpu=ns.cpu,
+                log=log)
             record.append({"wall_s": time.time() - t_run, "tally": tally})
             render_hosts(tally)
             # the structural tally is the determinism contract (the

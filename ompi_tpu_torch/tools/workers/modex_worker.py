@@ -6,7 +6,8 @@ allreduces (first sends force lazy cross-group address resolution),
 and prints one ``MODEX_TALLY <json>`` line carrying the new
 ``addr_installs`` / ``addr_lazy_resolved`` native counters plus the
 Python-side AddressTable signature — the proof that a native boot now
-does ≤ group-size eager installs instead of P−1.
+does ≤ group-size eager installs instead of P−1 — and the rank's device,
+ring-kernel launches and allocated card bytes.
 """
 
 import json
@@ -14,6 +15,7 @@ import json
 import torch
 
 import ompi_tpu_torch.api as api
+from ompi_tpu_torch.coll import cuda_kernels as ck
 from ompi_tpu_torch.metrics import core as mcore
 from ompi_tpu_torch.op import SUM
 
@@ -41,6 +43,11 @@ tally = {
     "addr_lazy_resolved": int(counters.get("addr_lazy_resolved", 0)),
     "table_lazy": int(getattr(table, "lazy_resolved", 0)),
     "kvs_gets": int(ctx.kvs.ops.get("get", 0)),
+    "device": str(world.device),
+    # ring-kernel launches: none, with one rank per process
+    "launches": dict(ck.LAUNCHES),
+    "cuda_allocated": (int(torch.cuda.memory_allocated(world.device))
+                       if world.device.type == "cuda" else 0),
 }
 print("MODEX_TALLY " + json.dumps(tally, sort_keys=True), flush=True)
 

@@ -14,7 +14,8 @@
   tool's own assertions (full size, zero re-dials, the queued job
   exactly once, zero orphans, a CUDA-free daemon, the healed mesh);
 * without ``--cpu`` and without a card the tool exits non-zero and
-  names the missing card;
+  names the missing card, before any process starts (``--np 2``,
+  ``--hosts 3 --np 6`` and ``--scale --np 16``): no tally, no record;
 * slow, as the reference keeps its full soaks out of tier-1: ``--traffic``
   and ``--hosts 3 --np 6``.
 
@@ -147,6 +148,17 @@ def test_without_cpu_and_without_a_card_chaos_names_the_missing_card():
     res = chaos("--np", "2", timeout=120)
     assert res.returncode != 0 and "CHAOS_TALLY" not in res.stdout
     assert "no CUDA device" in res.stderr
+
+
+@pytest.mark.parametrize("args", [["--hosts", "3", "--np", "6"], ["--scale", "--np", "16"]],
+                         ids=["hosts", "scale"])
+def test_hosts_and_scale_without_cpu_and_without_a_card_raise(args, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the soak would run on it")
+    res = chaos(*args, "--json", tmp_path / "t.json", timeout=120)
+    assert res.returncode != 0 and "no CUDA device" in res.stderr
+    assert "TALLY" not in res.stdout and "soak:" not in res.stdout
+    assert not (tmp_path / "t.json").exists()
 
 
 @pytest.mark.slow
