@@ -268,6 +268,19 @@ exits non-zero:
     line, its ``rt_us`` quartiles and its histogram, and how many round
     trips sit at +2 ms multiples of the fastest (the missed-doorbell
     cadence; reported, not a gate).  Output: ``chiprun_out/diag_pp.log``.
+22. bench (after capi, before tools) — the reference's single-process
+    measurement tools, each in its own process on ``cuda:0``: ``python
+    -m ompi_tpu_torch bench-algos --check`` (every entry of ``coll/base``'s
+    seven families held against the same entry on the CPU on seeded
+    rows at both payloads — bit for bit, ``allclose`` rtol 1e-6 for
+    ``psum`` and ``reduce_scatter_direct`` — then ``ALGOS8``),
+    ``bench-hostpath --check`` (numpy in and out through ``allreduce`` at
+    64 KiB, 1 MiB and 16 MiB per rank, every row within the rounding
+    bound of the numpy sum, ``stage_calls`` rising by the calls made,
+    then ``HOSTPATH8`` with the overlap row) and ``run -np 1 --nranks 1``
+    of ``ompi_tpu_torch/tools/bench_pyapi.py`` (``PYAPI device=cuda:0``,
+    then the rows to 4 KiB).  Each leg's ring launches go into the
+    totals.  Output: ``chiprun_out/bench_*.log``.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
@@ -275,7 +288,8 @@ those of the main path, the golden phase, the tuned phase, the ddt phase, the
 multiproc and native workers, the shmem phase (its single-controller
 path, its worker and its C ranks), the recovery phase, the serve
 phase's jobs (each job prints its own), the C ranks of the capi
-phase (none: a C rank holds one row), the tools phase's workers and
+phase (none: a C rank holds one row), the bench phase's three legs, the
+tools phase's workers and
 the analysis phase's two children; the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
@@ -2656,6 +2670,86 @@ def phase_capi(smi, native) -> dict:
     return row
 
 
+# -- phase 22 ---------------------------------------------------------------
+
+BENCH_PYAPI = REPO / "ompi_tpu_torch" / "tools" / "bench_pyapi.py"
+PYAPI_DEVICE = re.compile(r"\[0\] PYAPI device=(\S+) max_bytes=(\d+) iters=(\d+)")
+
+
+def marked(out: str, marker: str):
+    """The JSON of the one ``<marker> {...}`` or ``<marker> [...]`` line
+    (a launcher's ``[p] `` prefix dropped)."""
+    found = []
+    for line in out.splitlines():
+        line = re.sub(r"^\[\d+\] ", "", line)
+        if line.startswith(marker + " ") and line[len(marker) + 1:][:1] in "{[":
+            found.append(json.loads(line[len(marker) + 1:]))
+    if len(found) != 1:
+        raise SystemExit(f"bench: {len(found)} {marker} lines, not 1")
+    return found[0]
+
+
+def phase_bench(smi) -> dict:
+    """The reference's single-process measurement tools on the card, each
+    leg in its own process, no ``--cpu``: ``bench-algos --check`` (every
+    entry of the seven families on ``cuda:0`` against the CPU on seeded
+    rows, bit for bit but ``psum`` and ``reduce_scatter_direct``, then
+    ``ALGOS8``), ``bench-hostpath --check`` (every row within the
+    rounding bound of the numpy sum, ``stage_calls`` equal to the calls
+    made, then ``HOSTPATH8``) and ``run -np 1 --nranks 1`` of
+    ``ompi_tpu_torch/tools/bench_pyapi.py`` with its defaults (``PYAPI``;
+    the metrics export on, for its launches and CUDA bring-up).  Each leg
+    must print its marker line from ``cuda:0``; the row holds the lines,
+    each leg's ring launches and wall time.  Output:
+    ``chiprun_out/bench_*.log``."""
+    t0 = time.perf_counter()
+    out, _err, algos_s = port_cli("bench_algos", ["bench-algos", "--check"], timeout=300)
+    algos_chk, algos = marked(out, "ALGOS8_CHECK"), marked(out, "ALGOS8")
+    out, _err, hostpath_s = port_cli("bench_hostpath", ["bench-hostpath", "--check"],
+                                     timeout=300)
+    host_chk, hostpath = marked(out, "HOSTPATH8_CHECK"), marked(out, "HOSTPATH8")
+    base = REPO / "chiprun_out" / "bench_pyapi"
+    out, _err, pyapi_s = port_cli("bench_pyapi", [
+        "run", "-np", 1, "--nranks", 1, "--mca", "metrics_enable", 1,
+        "--mca", "metrics_output", base, BENCH_PYAPI], timeout=300)
+    pyapi = marked(out, "PYAPI")
+    dev = next((m for m in map(PYAPI_DEVICE.fullmatch, out.splitlines()) if m), None)
+    pyapi_metrics = metrics_rows(base, 1)[0]
+    failures = []
+    if not (algos_chk["ok"] and algos_chk["device"] == algos["device"] == "cuda:0"):
+        failures.append("algos")
+    if not (host_chk["ok"] and host_chk["stage_calls"] == host_chk["calls"]
+            and hostpath["arena"]["stage_calls"] == host_chk["calls"]
+            and hostpath["device"] == "cuda:0"):
+        failures.append("hostpath")
+    if not (dev and dev.group(1) == "cuda:0" and pyapi_metrics["cuda_initialized"]
+            and [r["bytes"] for r in pyapi] == [4 << (2 * i) for i in range(6)]):
+        failures.append("pyapi")
+    legs = {"algos": algos_chk["launches"], "hostpath": host_chk["launches"],
+            "pyapi": pyapi_metrics["kernel_launches"]}
+    launches = {k: sum(leg.get(k, 0) for leg in legs.values())
+                for k in ("ring_hop", "ring_hop_fold")}
+    order = {family: sorted(algs, key=lambda n, algs=algs: algs[n]["large_us"])
+             for family, algs in algos.items()
+             if isinstance(algs, dict) and family != "barrier"}  # barriers: small only
+    row = {"phase": "bench", "nvidia_smi": smi, "algos": algos,
+           "algos_check": algos_chk["entries"], "algos_large_us_order": order,
+           "hostpath": hostpath, "hostpath_check": host_chk["rows"], "pyapi": pyapi,
+           "launches_per_leg": legs, "launches": launches,
+           "wall_s": {"algos": algos_s, "hostpath": hostpath_s, "pyapi": pyapi_s,
+                      "phase": time.perf_counter() - t0},
+           "failures": failures, "ok": not failures}
+    r16 = hostpath["rows"][-1]
+    print(f"bench: ALGOS8 large_us order {order}; HOSTPATH8 {r16['bytes']} B "
+          f"{r16['fw_GBs']:.4f} GB/s p50 {r16['fw_us_p50']:.1f} us; PYAPI "
+          + ", ".join(f"{r['bytes']} B {r['py_us']:.2f} us" for r in pyapi)
+          + f"; walls {algos_s:.1f} / {hostpath_s:.1f} / {pyapi_s:.1f} s ({smi})", flush=True)
+    emit(row)
+    if failures:
+        raise SystemExit(f"bench checks failed: {failures}")
+    return row
+
+
 # -- phase 17 ---------------------------------------------------------------
 
 #: the reference's default symmetric heap per PE (``SHMEM_SYMMETRIC_SIZE``)
@@ -3452,12 +3546,14 @@ def main() -> int:
     diag_pp = phase_diag_pp(smi)
     serve = phase_serve(smi)
     capi = phase_capi(smi, native)
+    bench = phase_bench(smi)
     tools = phase_tools(smi)
     analysis = phase_analysis(smi)
     launches = {k: launches[k] + golden["launches"][k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
                 + shmem["launches"][k] + recovery["launches"][k] + serve["launches"][k]
-                + capi["launches"][k] + tools["launches"][k] + analysis["launches"][k]
+                + capi["launches"][k] + bench["launches"][k] + tools["launches"][k]
+                + analysis["launches"][k]
                 for k in launches}
     kernels = kernel_rows(ck, launches)
     (outdir / "chip_smoke.json").write_text(json.dumps(
@@ -3466,7 +3562,8 @@ def main() -> int:
          "osc": osc, "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
          "diag_pp": diag_pp,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
-         "tools": tools, "analysis": analysis, "kernels": kernels}, indent=1))
+         "bench": bench, "tools": tools, "analysis": analysis, "kernels": kernels},
+        indent=1))
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,6 +25,14 @@ Commands:
   golden-capture — the reference library's golden fold vectors from Open
             MPI 4.1.4's libmpi (``--out``, default
             build/ompi_tpu_torch/golden/reduce_local.json)
+  bench-algos    — coll/base's seven algorithm families at n = 8, µs per
+            call at a small and a large payload (``ALGOS8``); ``--cpu``,
+            ``--check``
+  bench-hostpath — numpy in, numpy out through ``allreduce`` at 64 KiB,
+            1 MiB and 16 MiB per rank with the arena's counters, and the
+            n = 8 non-blocking overlap (``HOSTPATH8``); ``--cpu``, ``--check``
+  (the np=1 Python-API latency is a ``run`` target:
+   ``run -np 1 --nranks 1 [--cpu] ompi_tpu_torch/tools/bench_pyapi.py``)
 """
 
 from __future__ import annotations
@@ -34,7 +42,8 @@ import sys
 #: the operator tools: command → module of ``ompi_tpu_torch.tools``
 TOOLS = {"chaos": "chaos", "metrics-report": "metrics_report",
          "trace-report": "trace_report", "top": "top",
-         "golden-capture": "golden_capture"}
+         "golden-capture": "golden_capture", "bench-algos": "bench_algos",
+         "bench-hostpath": "bench_hostpath"}
 
 
 def main() -> int:
@@ -72,8 +81,8 @@ def main() -> int:
         return importlib.import_module(
             f"ompi_tpu_torch.tools.{TOOLS[cmd]}").main(rest)
     print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl', 'mpicc', "
-          "'check', 'chaos', 'metrics-report', 'trace-report', 'top' or "
-          "'golden-capture'",
+          "'check', 'chaos', 'metrics-report', 'trace-report', 'top', "
+          "'golden-capture', 'bench-algos' or 'bench-hostpath'",
           file=sys.stderr)
     return 2
 

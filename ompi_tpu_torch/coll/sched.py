@@ -76,20 +76,21 @@ class ScheduleCache:
 #: the process-wide store
 CACHE = ScheduleCache()
 
-_registered = False
 _reg_lock = threading.Lock()
 
 
 def register_metrics_provider() -> None:
-    """Merge the cache's counters into the metrics core, once."""
-    global _registered
-    with _reg_lock:
-        if _registered:
-            return
-        from ompi_tpu_torch.metrics import core as _mcore
+    """Merge the cache's counters into the metrics core unless a live
+    provider entry already anchors :data:`CACHE`: ``metrics.core.reset()``
+    drops the provider list, so registration is re-playable without
+    counting twice."""
+    from ompi_tpu_torch.metrics import core as _mcore
 
+    with _reg_lock:
+        with _mcore._lock:
+            if any(ref() is CACHE for ref, _fn in _mcore._providers):
+                return
         _mcore.register_provider(CACHE, CACHE.provider_stats)
-        _registered = True
 
 
 def lookup(key: tuple, builder: Callable[[], Any]) -> Any:

@@ -6,10 +6,16 @@ arena keeps the parts that are the framework's own: :meth:`stage_in`
 (the H2D staging of host buffers, counted) and ``acquire``/``release``
 pool temporaries (barrier tokens) keyed by ``(shape, dtype, device)``,
 so that after warm-up every acquisition is a pool hit with no
-allocation.  Contents are unspecified on a hit.  The SPC counters
+allocation.  Contents are unspecified on a hit.
+
+:meth:`stats` has the reference's eight keys.  ``stage_calls`` and
+``stage_bytes`` count every staging; ``addr_reuse``/``addr_new`` say
+whether the allocator handed a staged tensor an address it had handed
+that signature before (``data_ptr()``, sampled as the reference samples
+its buffer pointers: the first 8 calls, then 1 in 8).  The SPC counters
 ``arena_stage_in``/``arena_stage_bytes``/``arena_pool_alloc`` are the
-reference's; the port has no donating programs, so ``arena_donations``
-stays 0.
+reference's; the port has no donating programs, so ``donate_signatures``
+and ``arena_donations`` stay 0.
 """
 
 from __future__ import annotations
@@ -25,22 +31,55 @@ from ompi_tpu_torch.tool import spc
 #: free-list depth per (shape, dtype, device) signature
 _POOL_CAP = 4
 
+#: per-signature cap on remembered addresses (bounds ``_addrs``)
+_ADDR_CAP = 64
+
 
 class DeviceArena:
-    """Per-mesh pool of device temporaries."""
+    """Per-mesh staging accounting and pool of device temporaries."""
 
     def __init__(self):
+        self.stage_calls = 0
+        self.stage_bytes = 0
         self.pool_hits = 0
         self.pool_allocs = 0
+        self.addr_reuse = 0
+        self.addr_new = 0
         self._lock = threading.Lock()
         self._free: dict[tuple, list[torch.Tensor]] = {}
+        #: (shape, dtype str) → addresses staged to before
+        self._addrs: dict[tuple, set] = {}
+        #: a signature overflowed _ADDR_CAP — reuse counts undercount
+        self._addr_overflow = False
+
+    def _note_addr(self, ptr: int, key: tuple) -> None:
+        """Count whether the allocator recycled an address this
+        signature was staged to before (``_lock`` held)."""
+        if len(self._addrs) > 512:  # unbounded-signature backstop
+            self._addrs.clear()
+        seen = self._addrs.setdefault(key, set())
+        if ptr in seen:
+            self.addr_reuse += 1
+        else:
+            if len(seen) < _ADDR_CAP:
+                seen.add(ptr)
+            else:
+                # recycled and fresh can no longer be told apart
+                self._addr_overflow = True
+            self.addr_new += 1
 
     def stage_in(self, host_array: np.ndarray, device: torch.device) -> torch.Tensor:
-        """A host buffer as a tensor on ``device`` (counted in SPC)."""
+        """A host buffer as a tensor on ``device`` (counted here and in SPC)."""
         if spc.attached():
             spc.inc("arena_stage_in")
             spc.inc("arena_stage_bytes", host_array.nbytes)
-        return from_numpy(host_array, device)
+        t = from_numpy(host_array, device)
+        with self._lock:
+            self.stage_calls += 1
+            self.stage_bytes += host_array.nbytes
+            if self.stage_calls <= 8 or (self.stage_calls & 7) == 0:
+                self._note_addr(t.data_ptr(), (host_array.shape, host_array.dtype.str))
+        return t
 
     def acquire(self, shape: tuple, dtype: torch.dtype,
                 device: torch.device) -> torch.Tensor:
@@ -68,3 +107,16 @@ class DeviceArena:
             lst = self._free.setdefault(key, [])
             if len(lst) < _POOL_CAP:
                 lst.append(buf)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "stage_calls": self.stage_calls,
+                "stage_bytes": self.stage_bytes,
+                "donate_signatures": 0,  # no donating programs
+                "pool_hits": self.pool_hits,
+                "pool_allocs": self.pool_allocs,
+                "addr_reuse": self.addr_reuse,
+                "addr_new": self.addr_new,
+                "addr_overflow": self._addr_overflow,
+            }

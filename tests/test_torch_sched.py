@@ -134,3 +134,21 @@ def test_hit_miss_counts_match_reference(worlds):
     assert deltas[0] == deltas[1] == (3, 5)
     for want, got in zip(*outs):
         assert got.tobytes() == want.tobytes()
+
+
+def test_cache_counters_survive_a_metrics_reset(world):
+    """``metrics.core.reset()`` drops every provider; the next lookup
+    registers the cache again, and a second registration counts nothing
+    twice."""
+    x = rank_data((9,), seed=37)
+    world.allreduce_init(x, top.SUM)
+    tmetrics.reset()
+    world.allreduce_init(x, top.SUM)
+    counters = tmetrics.native_counters()
+    assert sched.CACHE.hits > 0 and sched.CACHE.misses > 0
+    assert counters["sched_cache_hits"] == sched.CACHE.hits
+    assert counters["sched_cache_misses"] == sched.CACHE.misses
+    sched.register_metrics_provider()
+    counters = tmetrics.native_counters()
+    assert counters["sched_cache_hits"] == sched.CACHE.hits
+    assert counters["sched_cache_misses"] == sched.CACHE.misses
