@@ -127,7 +127,9 @@ exits non-zero:
     (d) a 2 × 4 job spawns 2 children; the merged 4-process comm's 1 MiB
     SUM on ``cuda_ring`` is bit-equal to the plain ring's;
     and a probe of a CUDA IPC mapping whose exporter was killed (read
-    through it, then a fresh open).  It prints the time to heal and the
+    through it, then a fresh open).  After (b), (c) and (d) plus the
+    probe run in two lanes side by side (each is a pass/fail check), and
+    the analysis phase runs beside the whole phase.  It prints the time to heal and the
     64 MiB p50 before and after recovery beside the card's name and
     power limit.  Output: ``chiprun_out/recovery_*.log``.
 15. serve (last) — ``python -m ompi_tpu_torch tpud -np 2 --nranks 4``
@@ -139,8 +141,8 @@ exits non-zero:
     no ``/dev/nvidia*`` file open in its ``/proc/<pid>/fd`` (where each
     worker's are);
     ``warm_cold`` — submit→``FIRSTCOLL`` of
-    ``ompi_tpu_torch/examples/serve_firstcoll.py``, three fresh ``run -np
-    2 --nranks 4`` jobs and three submissions to the daemon (median and
+    ``ompi_tpu_torch/examples/serve_firstcoll.py``, two fresh ``run -np
+    2 --nranks 4`` jobs and two submissions to the daemon (median and
     range); ``jobs`` — two submissions of the f32 SUM sweep at 8 B,
     2 MiB, 64 MiB and 256 MiB per rank with ``cuda_ring`` forced: each
     size bit-equal to the plain ring, the same SHA-256 in both jobs, job
@@ -193,19 +195,21 @@ exits non-zero:
     --nranks 1``: every PE passes and every process brought up CUDA.
     Output: ``chiprun_out/capi_shmem_*.log``.
 
-18. analysis (after capi, last) — tpucheck on the card:
+18. analysis (beside recovery) — tpucheck on the card, in two lanes
+    side by side:
     ``python -m ompi_tpu_torch check`` (the static passes) must exit 0;
     ``check --pass sanitize`` must report no error and run the ``asan``
     leg (the port's engine and ``csrc/dcn_sanity.cc`` under
     ASan/UBSan; ``tsan``, ``cppcheck`` and ``cuda-memcheck`` may be
-    skips, their reasons printed); the memcheck child
-    (``python -m ompi_tpu_torch.analysis.memcheck``: ``ring_hop`` at all
-    five load widths, ``ring_hop_fold`` over its 8 dtypes × 4 ops, in
-    place and out of place, and the three rings at a padded size, bit
-    for bit against the plain twins) runs under ``compute-sanitizer
-    --tool memcheck`` with ``PYTORCH_NO_CUDA_MEMORY_CACHING=1`` when the
-    sanitize pass could, else without it, the reason on the line; the
-    lockdep child (``chip_smoke.py --lockdep-child``: the port's witness
+    skips, their reasons printed), and the sanitize pass runs the
+    memcheck child (``python -m ompi_tpu_torch.analysis.memcheck``:
+    ``ring_hop`` at all five load widths, ``ring_hop_fold`` over its 8
+    dtypes × 4 ops, in place and out of place, and the three rings at a
+    padded size, bit for bit against the plain twins) under
+    ``compute-sanitizer --tool memcheck`` with
+    ``PYTORCH_NO_CUDA_MEMORY_CACHING=1`` where it can, the reason on the
+    line where it cannot; in the other lane the same child without the
+    tool, the lockdep child (``chip_smoke.py --lockdep-child``: the port's witness
     armed before ``init(device="cuda", nranks=8)``, blocking and ``i*``
     allreduce sweeps 8 B–64 MiB on ``cuda_ring``, a persistent allreduce
     started three times, an ``isend``/``irecv`` round) must witness
@@ -219,24 +223,24 @@ exits non-zero:
     ``chiprun_out/analysis_lockdep.log``,
     ``chiprun_out/analysis_lockdep_job.log``.
 
-19. tools (after capi, before analysis) — the port's operator tools on
-    the card, no ``--cpu``, in three lanes side by side: ``python -m
+19. tools (after bench_np2, last) — the port's operator tools on
+    the card, no ``--cpu``, in four lanes side by side: ``python -m
     ompi_tpu_torch chaos --np 2 --seed 12 --ops 18 --runs 2 --out``
     (the default plan; both runs' injected counts equal each other and
     the reference's for that seed; every rank on ``cuda:0``), then
     ``metrics-report --correlate`` and ``trace-report --merge-out`` over
     its exports (joined windows, the same collective keys on both
     processes up to the first escalation, CUDA not initialized by
-    either report), ``chaos --respawn`` (full size, the reborn
-    incarnation on ``cuda:0``) and ``top --once`` against a live
-    telemetry job; ``chaos --planes --runs 2`` (rank 0's golden
+    either report); ``chaos --planes --runs 2`` (rank 0's golden
     transitions, ``device_sends`` > 0 on both ranks over CUDA IPC
     windows, every result's SHA-256 equal to the exact sum computed
-    here, no window left, ``memory_allocated`` not above its start),
+    here, no window left, ``memory_allocated`` not above its start) and
     ``chaos --daemon-restart`` (zero re-dials, the queued job once, zero
-    orphans, the daemon CUDA-free) and ``chaos --kill-in-repair``; and
-    ``chaos --traffic`` (p50/p99 submit→start, the 429 shed and its
-    restore).  After the lanes, alone and one after the other: ``chaos
+    orphans, the daemon CUDA-free); ``chaos --kill-in-repair``, then
+    ``top --once`` against a live telemetry job; and ``chaos
+    --traffic`` (p50/p99 submit→start, the 429 shed and its restore),
+    then ``chaos --respawn`` (full size, the reborn incarnation on
+    ``cuda:0``).  After the lanes, alone and one after the other: ``chaos
     --hosts 3 --np 6`` (three emulated hosts, host 0 SIGKILLed
     mid-collective and healed through its agent, plus the relay-failover
     and native sharded-modex legs; every worker of the three on
@@ -281,6 +285,23 @@ exits non-zero:
     of ``ompi_tpu_torch/tools/bench_pyapi.py`` (``PYAPI device=cuda:0``,
     then the rows to 4 KiB).  Each leg's ring launches go into the
     totals.  Output: ``chiprun_out/bench_*.log``.
+23. bench_np2 (right after bench) — the reference's np=2 measurement
+    workers through their joins, each its own command on ``cuda:0`` at
+    the reference's iteration counts: ``python -m ompi_tpu_torch
+    bench-dispatch-floor`` (``native/bench/dispatch_floor.c`` built with
+    ``mpicc`` and ``ompi_tpu_torch/tools/bench_dispatch_floor.py`` at np
+    1 and 2; every C line with its 17 rows and its ``persistent`` block,
+    every row joined with its Python twin, each Python process's last
+    results exact, every C rank with CUDA up), ``bench-dcn`` (ping-pong
+    and han's allreduce over ``btl`` native, tcp and sm) and
+    ``bench-device-plane`` (osu_bw with the buffer on the card and
+    allreduce, plane on and off; the reference's arbitration-counter
+    check).  Every Python worker must name ``cuda:0``; the ring launches
+    of every process go into the totals.  Output:
+    ``chiprun_out/bench_{dispatch_floor,dcn,device_plane}.log``.
+
+Every phase's wall time goes into ``chiprun_out/chip_smoke.json``
+(``phase_wall_s``) and onto one ``{"phase_wall_s": ...}`` line.
 
 Before the last line it prints the card's name and power limit
 (``nvidia-smi``) and one ``{"kernels": [...]}`` line, whose launches are
@@ -289,7 +310,7 @@ multiproc and native workers, the shmem phase (its single-controller
 path, its worker and its C ranks), the recovery phase, the serve
 phase's jobs (each job prints its own), the C ranks of the capi
 phase (none: a C rank holds one row), the bench phase's three legs, the
-tools phase's workers and
+bench_np2 phase's workers and C ranks, the tools phase's workers and
 the analysis phase's two children; the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
@@ -319,7 +340,9 @@ N = 8
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    # one write per line: phases that run side by side emit from threads
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
 
 
 def launched(ck, before) -> dict:
@@ -1393,23 +1416,21 @@ def port_cli(log_name: str, args, timeout: float = 600, env: dict | None = None)
     run that outlives its limit goes with every process it started): its
     stdout, its stderr and its wall time; both streams also go to
     ``chiprun_out/<log_name>.log``.  Fails on a non-zero exit."""
+    from ompi_tpu_torch.tools.bench_joins import group_run
+
     log = REPO / "chiprun_out" / f"{log_name}.log"
     t0 = time.perf_counter()
-    job = subprocess.Popen([sys.executable, "-m", "ompi_tpu_torch", *map(str, args)],
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                           env=env or pkg_env(), cwd=str(REPO), start_new_session=True)
     try:
-        out, err = job.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(job.pid, signal.SIGKILL)
-        out, err = job.communicate()
-        log.write_text(out + err)
+        rc, out, err = group_run([sys.executable, "-m", "ompi_tpu_torch", *args], timeout,
+                                 env or pkg_env())
+    except subprocess.TimeoutExpired as e:
+        log.write_text((e.output or "") + (e.stderr or ""))
         raise SystemExit(f"{log_name} exceeded {timeout} s")
     wall_s = time.perf_counter() - t0
     log.write_text(out + err)
-    if job.returncode != 0:
+    if rc != 0:
         print(out[-6000:] + err[-6000:], file=sys.stderr)
-        raise SystemExit(f"{log_name} failed (rc={job.returncode})")
+        raise SystemExit(f"{log_name} failed (rc={rc})")
     return out, err, wall_s
 
 
@@ -1949,6 +1970,8 @@ def ipc_dead_exporter() -> dict:
 
 
 def phase_recovery(smi, ck) -> dict:
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     t0 = time.perf_counter()
@@ -1962,15 +1985,18 @@ def phase_recovery(smi, ck) -> dict:
     torch.cuda.empty_cache()
     respawn = recovery_respawn(smi)
     emit({"phase": "recovery_respawn", **respawn})
-    shrink = recovery_shrink()
+    # the pass/fail jobs, in two lanes side by side
+    with ThreadPoolExecutor(2) as pool:
+        shrink_f = pool.submit(recovery_shrink)
+        spawn_f = pool.submit(lambda: (recovery_spawn(), ipc_dead_exporter()))
+        shrink, (spawn, probe) = shrink_f.result(), spawn_f.result()
     emit({"phase": "recovery_shrink_procs", "nvidia_smi": smi, **shrink})
-    spawn = recovery_spawn()
     emit({"phase": "recovery_spawn", "nvidia_smi": smi, **spawn})
-    probe = ipc_dead_exporter()
     emit({"phase": "recovery_ipc_dead_exporter", "nvidia_smi": smi, **probe})
-    print(f"recovery: heal_ms {respawn['heal_ms']} (survivor, reborn); 64 MiB p50 "
-          f"{respawn['pre_p50_ms']} ms before the failure, {respawn['post_p50_ms']} ms "
-          f"after ({smi})", flush=True)
+    sys.stdout.write(f"recovery: heal_ms {respawn['heal_ms']} (survivor, reborn); 64 MiB p50 "
+                     f"{respawn['pre_p50_ms']} ms before the failure, "
+                     f"{respawn['post_p50_ms']} ms after ({smi})\n")
+    sys.stdout.flush()
     job_launches = [lc for lc in respawn["post_launches"] + spawn["launches"]]
     launches = {name: single["launches"][name] + attn["launches_per_call"][name]
                 + sum(lc[name] for lc in job_launches) for name in single["launches"]}
@@ -1993,10 +2019,9 @@ def phase_recovery(smi, ck) -> dict:
 SERVE_SIZES = [8, 2 << 20, 64 << 20, 256 << 20]
 SERVE_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_job.py"
 FIRSTCOLL_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_firstcoll.py"
-#: cold and warm launch→first-collective samples per leg (three, not
-#: five: two cold ``run`` boots of ~14 s each make room in the script's
-#: time for the tools phase's ``--hosts`` and ``--scale`` legs)
-FIRSTCOLL_RUNS = 3
+#: cold and warm launch→first-collective samples per leg: each cold
+#: ``run`` boot costs 14–20 s of the script's time
+FIRSTCOLL_RUNS = 2
 
 
 def sjson_rows(lines, job_id: str | None = None) -> list:
@@ -2678,15 +2703,10 @@ PYAPI_DEVICE = re.compile(r"\[0\] PYAPI device=(\S+) max_bytes=(\d+) iters=(\d+)
 
 def marked(out: str, marker: str):
     """The JSON of the one ``<marker> {...}`` or ``<marker> [...]`` line
-    (a launcher's ``[p] `` prefix dropped)."""
-    found = []
-    for line in out.splitlines():
-        line = re.sub(r"^\[\d+\] ", "", line)
-        if line.startswith(marker + " ") and line[len(marker) + 1:][:1] in "{[":
-            found.append(json.loads(line[len(marker) + 1:]))
-    if len(found) != 1:
-        raise SystemExit(f"bench: {len(found)} {marker} lines, not 1")
-    return found[0]
+    (a launcher's ``[p] `` prefix dropped); fails unless there is one."""
+    from ompi_tpu_torch.tools import bench_joins
+
+    return bench_joins.marked(out, marker, strict=True)
 
 
 def phase_bench(smi) -> dict:
@@ -2747,6 +2767,75 @@ def phase_bench(smi) -> dict:
     emit(row)
     if failures:
         raise SystemExit(f"bench checks failed: {failures}")
+    return row
+
+
+# -- phase 23 ---------------------------------------------------------------
+
+#: ``(op, bytes)`` of the rows ``native/bench/dispatch_floor.c`` prints
+DISPATCH_ROWS = [(op, n) for n in (8, 64, 512, 4096)
+                 for op in ("allreduce", "bcast", "reduce", "allgather")] + [("barrier", 0)]
+PERSISTENT_KEYS = ["bytes", "percall_us", "start_us", "start_speedup"]
+
+
+def phase_bench_np2(smi) -> dict:
+    """The np=2 measurement workers on the card through their joins, one
+    command each, no ``--cpu``: ``bench-dispatch-floor``, ``bench-dcn``,
+    ``bench-device-plane``.  A join fails on a failed job (a Python
+    dispatch worker exits 1 on an inexact result) and on the device
+    plane's counter check; this phase also fails unless every Python
+    worker names ``cuda:0``, each C ``DISPATCH`` line has its 17 rows and
+    its ``persistent`` block with every row joined, and every C rank
+    brought up CUDA.  Output: ``chiprun_out/bench_*.log``."""
+    t0 = time.perf_counter()
+    out, _err, dispatch_s = port_cli("bench_dispatch_floor", ["bench-dispatch-floor"],
+                                     timeout=600)
+    dispatch = marked(out, "DISPATCHFLOOR")
+    out, _err, dcn_s = port_cli("bench_dcn", ["bench-dcn"], timeout=600)
+    dcn = marked(out, "DCNBENCH_ALL")
+    dcn_launches = dcn.pop("launches")
+    out, _err, plane_s = port_cli("bench_device_plane", ["bench-device-plane"], timeout=900)
+    plane = marked(out, "DEVBENCH_ALL")
+    failures = []
+    for np_ in ("np1", "np2"):
+        leg = dispatch[np_]
+        if not (leg["py_device"] == "cuda:0"
+                and [(r["op"], r["bytes"]) for r in leg["rows"]] == DISPATCH_ROWS
+                and all("c_over_py" in r for r in leg["rows"])
+                and list(leg["persistent"] or {}) == PERSISTENT_KEYS):
+            failures.append(f"dispatch_floor {np_}")
+    if dispatch["c_cuda_initialized"] != [True] * 3:
+        failures.append("dispatch_floor C ranks without CUDA")
+    if sorted(dcn) != ["native", "sm", "tcp"] or any(v["device"] != "cuda:0"
+                                                     for v in dcn.values()):
+        failures.append("dcn")
+    if plane["device"] != {"device": "cuda:0", "host": "cuda:0"} or plane["buffer"] != {
+            "device": "cuda:0", "host": "cuda:0"}:
+        failures.append("device_plane")
+    legs = {"dispatch_floor": dispatch["launches"], "dcn": dcn_launches,
+            "device_plane": plane["launches"]}
+    launches = {k: sum(leg[k] for leg in legs.values()) for k in ("ring_hop", "ring_hop_fold")}
+    row = {"phase": "bench_np2", "nvidia_smi": smi, "dispatch_floor": dispatch, "dcn": dcn,
+           "device_plane": plane, "launches_per_leg": legs, "launches": launches,
+           "wall_s": {"dispatch_floor": dispatch_s, "dcn": dcn_s, "device_plane": plane_s,
+                      "phase": time.perf_counter() - t0},
+           "failures": failures, "ok": not failures}
+    by_op = {np_: {(r["op"], r["bytes"]): r for r in dispatch[np_]["rows"]}
+             for np_ in ("np1", "np2")}
+    print("bench_np2: DISPATCHFLOOR " + "; ".join(
+        f"{np_} allreduce 8 B c {by_op[np_][('allreduce', 8)]['c_us']} us py "
+        f"{by_op[np_][('allreduce', 8)]['py_us']:.2f} us, c_over_py geomean "
+        f"{dispatch[np_]['c_over_py_geomean']}, persistent start_speedup "
+        f"{dispatch[np_]['persistent']['start_speedup']}" for np_ in ("np1", "np2"))
+          + "; DCNBENCH 4 MiB p2p " + ", ".join(
+              f"{btl} {dcn[btl]['p2p'][-1]['p2p_MBs']:.1f} MB/s" for btl in sorted(dcn))
+          + "; DEVBENCH 4 MiB bw_vs_host "
+          + f"{plane['rows'][-1].get('bw_vs_host')} allreduce_vs_host "
+          + f"{plane['rows'][-1].get('allreduce_vs_host')}; walls {dispatch_s:.1f} / "
+          + f"{dcn_s:.1f} / {plane_s:.1f} s ({smi})", flush=True)
+    emit(row)
+    if failures:
+        raise SystemExit(f"bench_np2 checks failed: {failures}")
     return row
 
 
@@ -3134,6 +3223,7 @@ def tools_top() -> dict:
     """``top --once`` against a live telemetry-enabled 2-process job."""
     import threading
 
+    t0 = time.perf_counter()
     cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", "2", "--nranks", "1",
            "--mca", "telemetry_enable", "1", "--mca", "telemetry_interval_ms", "200",
            str(SERVE_JOB), "--sizes", "8,65536", "--calls", "2"]
@@ -3174,7 +3264,7 @@ def tools_top() -> dict:
                 for k in ("ring_hop", "ring_hop_fold")}
     if rc != 0 or not frame.startswith("ompi_tpu top — ") or len(rows) != 2 or not top_free:
         raise SystemExit(f"tools top: rc={rc}, cuda-free {top_free}, frame:\n{frame}")
-    return {"frame_rows": rows, "job_launches": launches}
+    return {"frame_rows": rows, "job_launches": launches, "wall_s": time.perf_counter() - t0}
 
 
 def tools_traffic(outdir: Path) -> dict:
@@ -3245,7 +3335,7 @@ def tools_scale() -> dict:
 def phase_tools(smi) -> dict:
     """The port's operator tools on the card: every chaos soak, the
     report tools over the np=2 soak's exports, and ``top --once`` over a
-    live job.  All but ``--hosts`` and ``--scale`` run in three lanes
+    live job.  All but ``--hosts`` and ``--scale`` run in four lanes
     side by side (each lane's legs one after another); those two run
     after the lanes, alone and one after the other, since their checks
     are timing checks the lanes' load would skew.  Any leg's failure
@@ -3256,13 +3346,14 @@ def phase_tools(smi) -> dict:
     procs0 = {p["pid"] for p in stray_port_procs()}
     t0 = time.perf_counter()
     outdir = REPO / "chiprun_out"
+    # lanes of about equal length (PERF.md §6 lists each leg's wall time)
     lanes = [
-        [("np2", lambda: tools_np2(outdir)), ("respawn", tools_respawn),
-         ("top", tools_top)],
+        [("np2", lambda: tools_np2(outdir))],
         [("planes", tools_planes),
-         ("daemon_restart", lambda: tools_daemon("daemon_restart", "--daemon-restart")),
-         ("kill_in_repair", lambda: tools_daemon("kill_in_repair", "--kill-in-repair"))],
-        [("traffic", lambda: tools_traffic(outdir))],
+         ("daemon_restart", lambda: tools_daemon("daemon_restart", "--daemon-restart"))],
+        [("kill_in_repair", lambda: tools_daemon("kill_in_repair", "--kill-in-repair")),
+         ("top", tools_top)],
+        [("traffic", lambda: tools_traffic(outdir)), ("respawn", tools_respawn)],
     ]
     with ThreadPoolExecutor(len(lanes)) as pool:
         done = [pool.submit(lambda lane=lane: {name: fn() for name, fn in lane})
@@ -3420,12 +3511,8 @@ def check_cli(*args, timeout: float = 900) -> tuple[subprocess.CompletedProcess,
     return res, time.perf_counter() - t0
 
 
-def phase_analysis(smi) -> dict:
-    """tpucheck on the card: the static passes, the sanitize pass (the
-    ASan leg must run), the memcheck child and the lockdep child."""
-    from ompi_tpu_torch.analysis import memcheck
-
-    t0 = time.perf_counter()
+def analysis_sanitize() -> dict:
+    """The static passes, then the sanitize pass (the ASan leg must run)."""
     static, static_s = check_cli()
     if static.returncode != 0:
         print(static.stdout[-6000:] + static.stderr[-3000:], file=sys.stderr)
@@ -3442,27 +3529,22 @@ def phase_analysis(smi) -> dict:
             for f in findings if f["pass_name"] == "sanitize"}
     if errors or legs.get("asan", {}).get("rule") != "sanitize-ok":
         raise SystemExit(f"sanitize pass: errors {errors}, asan {legs.get('asan')}")
-    cuda_leg = legs.get("cuda-memcheck", {})
-    if cuda_leg.get("rule") == "sanitize-ok":
-        child = json.loads(memcheck.SUMMARY.read_text())
-        memcheck_row = {"ran": True, "detail": cuda_leg["message"], "child": child}
-    else:
-        # the tool did not run here: its reason goes on the line, and
-        # the same child runs without it to hold the kernels bit for
-        # bit (this is not a memcheck)
-        res = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.analysis.memcheck"],
-                             cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
-                             timeout=600)
-        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("MEMCHECK ")]
-        if res.returncode != 0 or not lines:
-            print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
-            raise SystemExit(f"memcheck child without the tool: rc={res.returncode}")
-        child = json.loads(lines[-1][len("MEMCHECK "):])
-        memcheck_row = {"ran": False, "detail": cuda_leg.get("message"),
-                        "child_without_tool": child}
-    if not child["bitwise"] or child["widths"] != [1, 2, 4, 8, 16] \
-            or child["fold_pairs"] != 32:
-        raise SystemExit(f"memcheck child: {child}")
+    return {"static": static.stdout.strip().splitlines()[-1], "static_s": static_s,
+            "sanitize_s": san_s, "legs": legs}
+
+
+def analysis_children() -> dict:
+    """The memcheck child without the tool (the kernels bit for bit at
+    every load width and fold dtype; not a memcheck), the lockdep child
+    and the lockdep job."""
+    res = subprocess.run([sys.executable, "-m", "ompi_tpu_torch.analysis.memcheck"],
+                         cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
+                         timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("MEMCHECK ")]
+    if res.returncode != 0 or not lines:
+        print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"memcheck child without the tool: rc={res.returncode}")
+    plain = json.loads(lines[-1][len("MEMCHECK "):])
     res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--lockdep-child"],
                          cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
                          timeout=600)
@@ -3485,10 +3567,41 @@ def phase_analysis(smi) -> dict:
             r["inversions"] or not r["exact"] or not r["pools"] for r in procs):
         print(job.stdout[-4000:] + job.stderr[-4000:], file=sys.stderr)
         raise SystemExit(f"lockdep job: rc={job.returncode}, rows {procs}")
-    launches = {k: child["launches"][k] + lock["launches"][k] for k in child["launches"]}
+    return {"plain": plain, "lock": lock, "procs": procs}
+
+
+def phase_analysis(smi) -> dict:
+    """tpucheck on the card: the static passes and the sanitize pass (the
+    ASan leg must run) in one lane, the memcheck child without the tool,
+    the lockdep child and the lockdep job in another, side by side (each
+    is a pass/fail check in processes of its own).  Where the sanitize
+    pass's ``cuda-memcheck`` leg ran, its child is held to the same
+    checks as the child without the tool."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ompi_tpu_torch.analysis import memcheck
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        san_f, kids_f = pool.submit(analysis_sanitize), pool.submit(analysis_children)
+        san, kids = san_f.result(), kids_f.result()
+    legs, lock, procs = san["legs"], kids["lock"], kids["procs"]
+    cuda_leg = legs.get("cuda-memcheck", {})
+    memcheck_row = {"ran": cuda_leg.get("rule") == "sanitize-ok",
+                    "detail": cuda_leg.get("message"), "child_without_tool": kids["plain"]}
+    children = [kids["plain"]]
+    if memcheck_row["ran"]:
+        memcheck_row["child"] = json.loads(memcheck.SUMMARY.read_text())
+        children.append(memcheck_row["child"])
+    for child in children:
+        if not child["bitwise"] or child["widths"] != [1, 2, 4, 8, 16] \
+                or child["fold_pairs"] != 32:
+            raise SystemExit(f"memcheck child: {child}")
+    launches = {k: sum(c["launches"][k] for c in children) + lock["launches"][k]
+                for k in lock["launches"]}
     row = {"phase": "analysis", "nvidia_smi": smi,
-           "static": static.stdout.strip().splitlines()[-1], "static_s": static_s,
-           "sanitize_s": san_s,
+           "static": san["static"], "static_s": san["static_s"],
+           "sanitize_s": san["sanitize_s"],
            "sanitize_legs": {k: v["rule"] for k, v in legs.items()},
            "skip_reasons": {k: v["message"] for k, v in legs.items()
                             if v["rule"] == "sanitize-skip"},
@@ -3501,6 +3614,7 @@ def phase_analysis(smi) -> dict:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--max-bytes", type=int, default=1 << 30,
                     help="largest per-rank osu_allreduce size (default 1 GiB)")
@@ -3522,49 +3636,67 @@ def main() -> int:
         return lockdep_child()
     if args.lockdep_worker:
         return lockdep_worker()
+    from concurrent.futures import ThreadPoolExecutor
+
     sys.path.insert(0, str(REPO))
     from ompi_tpu_torch.coll import cuda_kernels as ck
     from ompi_tpu_torch.op import MAX, MIN, PROD, SUM
 
     outdir = REPO / "chiprun_out"
     outdir.mkdir(exist_ok=True)
-    smi = phase_env(ck)
-    phase_kernels(ck, (SUM, PROD, MAX, MIN))
-    rows, profiles, launches = phase_main(ck, args.max_bytes)
-    golden = phase_golden(ck, smi)
-    tuned = phase_tuned(ck, outdir)
-    observability = phase_observability(ck)
-    p2p = phase_p2p(smi)
-    osc = phase_osc(smi)
-    ddt = phase_ddt(ck, smi)
-    io = phase_io(smi)
-    ddp_losses = phase_ddp()
-    shmem = phase_shmem(ck, smi)
-    recovery = phase_recovery(smi, ck)  # finalizes the single-process world
-    multiproc = phase_multiproc(smi, ddp_losses)
-    native = phase_native(smi, multiproc)
-    diag_pp = phase_diag_pp(smi)
-    serve = phase_serve(smi)
-    capi = phase_capi(smi, native)
-    bench = phase_bench(smi)
-    tools = phase_tools(smi)
-    analysis = phase_analysis(smi)
+    walls: dict[str, float] = {}
+
+    def phase(name: str, fn, *fn_args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*fn_args)
+        finally:
+            walls[name] = time.perf_counter() - t0
+
+    smi = phase("env", phase_env, ck)
+    phase("kernels", phase_kernels, ck, (SUM, PROD, MAX, MIN))
+    rows, profiles, launches = phase("main", phase_main, ck, args.max_bytes)
+    golden = phase("golden", phase_golden, ck, smi)
+    tuned = phase("tuned", phase_tuned, ck, outdir)
+    observability = phase("observability", phase_observability, ck)
+    p2p = phase("p2p", phase_p2p, smi)
+    osc = phase("osc", phase_osc, smi)
+    ddt = phase("ddt", phase_ddt, ck, smi)
+    io = phase("io", phase_io, smi)
+    ddp_losses = phase("ddp", phase_ddp)
+    shmem = phase("shmem", phase_shmem, ck, smi)
+    # analysis's legs are pass/fail checks in processes of their own: they
+    # run beside recovery's (which finalizes the single-process world)
+    with ThreadPoolExecutor(1) as side:
+        analysis_f = side.submit(phase, "analysis", phase_analysis, smi)
+        recovery = phase("recovery", phase_recovery, smi, ck)
+        analysis = analysis_f.result()
+    multiproc = phase("multiproc", phase_multiproc, smi, ddp_losses)
+    native = phase("native", phase_native, smi, multiproc)
+    diag_pp = phase("diag_pp", phase_diag_pp, smi)
+    serve = phase("serve", phase_serve, smi)
+    capi = phase("capi", phase_capi, smi, native)
+    bench = phase("bench", phase_bench, smi)
+    bench_np2 = phase("bench_np2", phase_bench_np2, smi)
+    tools = phase("tools", phase_tools, smi)
     launches = {k: launches[k] + golden["launches"][k] + tuned["launches"][k] + ddt["launches"][k]
                 + multiproc["launches"][k] + native["launches"][k]
                 + shmem["launches"][k] + recovery["launches"][k] + serve["launches"][k]
-                + capi["launches"][k] + bench["launches"][k] + tools["launches"][k]
-                + analysis["launches"][k]
+                + capi["launches"][k] + bench["launches"][k] + bench_np2["launches"][k]
+                + tools["launches"][k] + analysis["launches"][k]
                 for k in launches}
-    kernels = kernel_rows(ck, launches)
+    kernels = phase("kernel_rows", kernel_rows, ck, launches)
+    walls["script"] = time.perf_counter() - t_script  # analysis overlaps recovery
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
          "golden": golden, "tuned": tuned, "observability": observability, "p2p": p2p,
          "osc": osc, "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
          "diag_pp": diag_pp,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
-         "bench": bench, "tools": tools, "analysis": analysis, "kernels": kernels},
-        indent=1))
+         "bench": bench, "bench_np2": bench_np2, "tools": tools, "analysis": analysis,
+         "kernels": kernels, "phase_wall_s": walls}, indent=1))
     print(smi, flush=True)
+    emit({"phase_wall_s": walls})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,17 @@ Commands:
   bench-hostpath — numpy in, numpy out through ``allreduce`` at 64 KiB,
             1 MiB and 16 MiB per rank with the arena's counters, and the
             n = 8 non-blocking overlap (``HOSTPATH8``); ``--cpu``, ``--check``
-  (the np=1 Python-API latency is a ``run`` target:
-   ``run -np 1 --nranks 1 [--cpu] ompi_tpu_torch/tools/bench_pyapi.py``)
+  bench-dispatch-floor — the C-ABI per-op floor (``dispatch_floor.c``,
+            built with ``mpicc``) against the Python API's at 8 B … 4 KiB,
+            np 1 and 2, and the persistent replay rate (``DISPATCHFLOOR``);
+            ``--cpu``, ``--iters``, ``--py-iters``
+  bench-dcn      — np=2 ping-pong and han's allreduce, median and p90, over
+            btl native, tcp and sm (``DCNBENCH_ALL``); ``--cpu``
+  bench-device-plane — np=2 osu_bw and allreduce with the device plane on
+            and off, its arbitration counters checked (``DEVBENCH_ALL``); ``--cpu``
+  (the workers are ``run`` targets: ``run -np 1 --nranks 1 [--cpu]
+   ompi_tpu_torch/tools/bench_pyapi.py``, and ``run -np 2 --nranks 1 [--cpu]``
+   of ``bench_dispatch_floor.py``, ``bench_dcn.py``, ``bench_device_plane.py``)
 """
 
 from __future__ import annotations
@@ -40,10 +49,14 @@ from __future__ import annotations
 import sys
 
 #: the operator tools: command → module of ``ompi_tpu_torch.tools``
+#: (``module:function`` where the entry point is not ``main``)
 TOOLS = {"chaos": "chaos", "metrics-report": "metrics_report",
          "trace-report": "trace_report", "top": "top",
          "golden-capture": "golden_capture", "bench-algos": "bench_algos",
-         "bench-hostpath": "bench_hostpath"}
+         "bench-hostpath": "bench_hostpath",
+         "bench-dispatch-floor": "bench_joins:dispatch_floor_main",
+         "bench-dcn": "bench_joins:dcn_main",
+         "bench-device-plane": "bench_joins:device_plane_main"}
 
 
 def main() -> int:
@@ -78,11 +91,13 @@ def main() -> int:
     if cmd in TOOLS:
         import importlib
 
-        return importlib.import_module(
-            f"ompi_tpu_torch.tools.{TOOLS[cmd]}").main(rest)
+        module, _, entry = TOOLS[cmd].partition(":")
+        return getattr(importlib.import_module(f"ompi_tpu_torch.tools.{module}"),
+                       entry or "main")(rest)
     print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl', 'mpicc', "
           "'check', 'chaos', 'metrics-report', 'trace-report', 'top', "
-          "'golden-capture', 'bench-algos' or 'bench-hostpath'",
+          "'golden-capture', 'bench-algos', 'bench-hostpath', "
+          "'bench-dispatch-floor', 'bench-dcn' or 'bench-device-plane'",
           file=sys.stderr)
     return 2
 

@@ -136,7 +136,9 @@ def test_source_walk_covers_the_tools_and_their_workers():
                      "tools/diag_pp.py", "tools/workers/__init__.py",
                      "tools/workers/chaos_worker.py", "tools/workers/planes_worker.py",
                      "tools/workers/respawn_worker.py", "tools/workers/scale_worker.py",
-                     "tools/workers/modex_worker.py"}, names
+                     "tools/workers/modex_worker.py", "tools/bench_joins.py",
+                     "tools/bench_dispatch_floor.py", "tools/bench_dcn.py",
+                     "tools/bench_device_plane.py"}, names
 
 
 def test_csrc_covers_the_device_window_library():
@@ -173,6 +175,8 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.tools, ompi_tpu_torch.tools.chaos, ompi_tpu_torch.tools.top\n"
         "import ompi_tpu_torch.tools.metrics_report, ompi_tpu_torch.tools.trace_report\n"
         "import ompi_tpu_torch.tools.workers, ompi_tpu_torch.tools.golden_capture\n"
+        "import ompi_tpu_torch.tools.bench_joins, ompi_tpu_torch.tools.bench_dispatch_floor\n"
+        "import ompi_tpu_torch.tools.bench_dcn, ompi_tpu_torch.tools.bench_device_plane\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
