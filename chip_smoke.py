@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port (``ompi_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--max-bytes N]
+    python3 chip_smoke.py [--max-bytes N] [--cross-device-only]
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
-1. environment — build the ring-hop kernels and the device-window
-   library from ``ompi_tpu_torch/csrc`` with nvcc (the two builds run
-   side by side) and time them; the card, torch and CUDA versions;
+1. environment — build the ring-hop kernels, the cross-device hop and
+   the device-window library from ``ompi_tpu_torch/csrc`` with nvcc (one
+   nvcc per source, all three side by side) and time them; the card,
+   torch and CUDA versions;
 2. kernels — ``ring_hop`` and ``ring_hop_fold`` against their plain torch
    twins, bit for bit, over every supported op × dtype, n ∈ {2, 3, 8},
    chunk lengths 1, odd, misaligned and aligned, with inputs spanning
@@ -300,6 +301,26 @@ exits non-zero:
     of every process go into the totals.  Output:
     ``chiprun_out/bench_{dispatch_floor,dcn,device_plane}.log``.
 
+24. cross_device (right after golden) — the reference's one rank per
+    device: ``init()`` with ``accelerator_cuda_layout devices`` puts rank
+    r on card ``r * count // 8`` (all eight on ``cuda:0`` with one card:
+    printed, with each neighbour pair's link, same card or peer);
+    ``ring_hop_peer`` (``csrc/ring_hop_peer.cu``) against its plain twin
+    bit for bit for n in {2, 3, 8}, chunk lengths 1, 7, 1003 and 4096,
+    element offsets 0 and 1, f32, f64, bf16, i32, u64, u8 and complex64;
+    the three ``cuda_ring`` schedules through ``Comm`` at 8 B, 1 MiB,
+    32 MiB and 1 GiB per rank (f32 SUM) and at 32 MiB f64 MAX and bf16
+    SUM, each bit-equal to the rows layout's same call and taking
+    exactly n puts and 2n waits per hop; every wait under a host-side
+    timeout; the CUDA-event median of one hop step at a 128 MiB chunk
+    per rank beside its bound, its plain twin and eight ``copy_`` calls,
+    and a 1 GiB allreduce on each layout in turns.  With
+    ``--cross-device-only`` the script runs phases 1 and 24 alone, for a
+    machine of four cards: rank r on card
+    ``r // 2``, four of the eight hops across NVLink, timed on the host
+    clock over every card; its row goes to
+    ``chiprun_out/chip_smoke_cross_device.json``.
+
 Every phase's wall time goes into ``chiprun_out/chip_smoke.json``
 (``phase_wall_s``) and onto one ``{"phase_wall_s": ...}`` line.
 
@@ -311,7 +332,9 @@ path, its worker and its C ranks), the recovery phase, the serve
 phase's jobs (each job prints its own), the C ranks of the capi
 phase (none: a C rank holds one row), the bench phase's three legs, the
 bench_np2 phase's workers and C ranks, the tools phase's workers and
-the analysis phase's two children; the last
+the analysis phase's two children (for ``ring_hop`` and
+``ring_hop_fold``), and the cross_device phase's ``Comm`` rings (for
+``ring_hop_peer`` and ``ring_hop_wait``); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -336,6 +359,8 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, FLOP/s
 F32_FLOPS = 67e12
+#: H100 SXM NVLink 4 rate each way, bytes/s (NVIDIA data sheet: 900 GB/s both ways)
+NVLINK_BYTES_PER_S = 450e9
 N = 8
 
 
@@ -347,6 +372,16 @@ def emit(obj) -> None:
 
 def launched(ck, before) -> dict:
     return {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
+
+
+#: the rows layout's ring kernels: every phase but cross_device launches
+#: these and no other
+ROWS = ("ring_hop", "ring_hop_fold")
+
+
+def rows_of(launches: dict) -> dict:
+    """The rows layout's kernels' counts of a launch tally."""
+    return {k: launches.get(k, 0) for k in ROWS}
 
 
 def event_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -386,16 +421,19 @@ def phase_env(ck):
     from ompi_tpu_torch.dcn import device
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, side by side
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all at once
         hop = pool.submit(ck.build)
+        peer = pool.submit(ck.build_peer)
         window = pool.submit(native.build_cuda, device._CUDA_SRC)
-        lib, window_lib = hop.result(), window.result()[0]
+        lib, peer_lib, window_lib = hop.result(), peer.result(), window.result()[0]
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     regs = [ln.strip() for ln in ck.build_log.splitlines() if "registers" in ln]
+    peer_regs = [ln.strip() for ln in ck.peer_build_log.splitlines() if "registers" in ln]
     emit({"phase": "env", "build_s": build_s, "library": lib.name,
+          "peer_library": peer_lib.name, "peer_ptxas_registers": peer_regs,
           "window_library": window_lib.name,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
@@ -585,7 +623,7 @@ def phase_main(ck, max_bytes):
         out = world.allreduce(x, SUM)
         torch.cuda.synchronize()
         per_call = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        if per_call != {"ring_hop": N - 1, "ring_hop_fold": N - 1}:
+        if rows_of(per_call) != {"ring_hop": N - 1, "ring_hop_fold": N - 1}:
             raise SystemExit(f"launches per allreduce at {nbytes} B: {per_call}")
         ref = plain_allreduce(x)
         if not torch.equal(bits(out), bits(ref)):
@@ -650,7 +688,7 @@ def phase_main(ck, max_bytes):
     if not (checks["allgather_vs_ring"] and checks["reduce_scatter_vs_ring"]
             and all(grid.values()) and repro_ok):
         raise SystemExit(f"main-path checks failed: {checks}")
-    if min(launches.values()) == 0:
+    if min(rows_of(launches).values()) == 0:
         raise SystemExit(f"a kernel of the main path never launched: {launches}")
     return rows, profiles, launches
 
@@ -804,13 +842,283 @@ def phase_golden(ck, smi):
            "expected": {"reproducible": len(folds), "ring": 8, "singleton": len(singles),
                         "fold": len(folds)},
            "mismatched": mismatched, "ring_launches_per_call": ring_launches,
-           "ring_launches_ok": len(ring_launches) == 8 and all(c == want for c in ring_launches),
+           "ring_launches_ok": len(ring_launches) == 8 and all(rows_of(c) == want
+                                                               for c in ring_launches),
            "launches": launches, "wall_s": time.perf_counter() - t0}
     emit(row)
     if mismatched or counts != row["expected"] or not row["ring_launches_ok"] \
             or sum(launches.values()) != 8 * 2 * (N - 1):
         raise SystemExit(f"golden checks failed: {row}")
     return row
+
+
+# -- cross_device -----------------------------------------------------------
+
+#: per-rank bytes, dtype and op of the cross_device phase's rings
+CROSS_CASES = ((8, "float32", "MPI_SUM"), (1 << 20, "float32", "MPI_SUM"),
+               (32 << 20, "float32", "MPI_SUM"), (1 << 30, "float32", "MPI_SUM"),
+               (32 << 20, "float64", "MPI_MAX"), (32 << 20, "bfloat16", "MPI_SUM"))
+#: seconds the host gives a ring on the card before it calls it hung
+CROSS_TIMEOUT_S = 60.0
+#: where the reference's hop kernel is
+REMOTE_HOP = "ompi_tpu/coll/pallas_kernels.py:95"
+
+
+def synced_within(devices, seconds: float, what: str) -> None:
+    """Wait for the current stream of every card of ``devices``, at most
+    ``seconds``: a signal that never comes fails the phase instead of
+    hanging it (the device-side waits give up on their own too)."""
+    import torch
+
+    events = []
+    for index in sorted({d.index for d in devices}):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(index))
+        events.append(ev)
+    deadline = time.monotonic() + seconds
+    while not all(ev.query() for ev in events):
+        if time.monotonic() > deadline:
+            raise SystemExit(f"cross_device: {what} did not finish within {seconds} s")
+        time.sleep(0.0002)
+
+
+def mesh_ms(fn, devices, iters: int, warmup: int = 2) -> float:
+    """Median time of ``fn`` (ms) over every card of ``devices``: CUDA
+    events on one card, else the host clock between synchronises of
+    all of them (events time one card's stream only)."""
+    import torch
+
+    cards = sorted({d.index for d in devices})
+    if len(cards) == 1:
+        return event_ms(fn, iters, warmup)
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        t0 = time.perf_counter()
+        fn()
+        for c in cards:
+            torch.cuda.synchronize(c)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def cross_ring_input(coll: str, nbytes: int, dtype, gen):
+    """The rows-layout input of one ring: ``nbytes`` per rank in the
+    rank's larger buffer (the allgather's output, the reduce_scatter's
+    input)."""
+    import torch
+
+    es = torch.empty((), dtype=dtype).element_size()
+    if coll == "allreduce":
+        shape = (N, max(1, nbytes // es))
+    elif coll == "allgather":
+        shape = (N, max(1, nbytes // (N * es)))
+    else:
+        shape = (N, N, max(1, nbytes // (N * es)))
+    gen_dtype = dtype if dtype in (torch.float32, torch.float64) else torch.float32
+    return torch.randn(shape, generator=gen, device="cuda", dtype=gen_dtype).to(dtype)
+
+
+def cross_kernel_cases(ck, mesh_of, gen) -> tuple[int, list]:
+    """``ring_hop_peer`` against its plain twin, bit for bit: n in {2, 3,
+    8}, chunk lengths 1, 7, 1003 and 4096, element offsets 0 and 1, seven
+    dtypes (random bits)."""
+    import torch
+
+    cases, failures = 0, []
+    for n in (2, 3, N):
+        mesh = mesh_of(n)
+        ring = ck.peer_ring(mesh)
+        for length in (1, 7, 1003, 4096):
+            for off in (0, 1):
+                for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.int32,
+                              torch.uint64, torch.uint8, torch.complex64):
+                    def buf(d):
+                        return torch.randint(0, 256, ((length + 1) * dtype.itemsize,),
+                                             generator=gen, device="cuda",
+                                             dtype=torch.uint8).to(d).view(dtype)
+                    srcs = [buf(d) for d in mesh.devices]
+                    dsts = [buf(d) for d in mesh.devices]
+                    want = [t.clone() for t in dsts]
+                    offs = [off] * n
+                    ck.ring_hop_peer_plain(srcs, offs, want, offs, length)
+                    ck.ring_hop_peer(srcs, offs, dsts, offs, length, ring)
+                    synced_within(mesh.devices, CROSS_TIMEOUT_S, f"hop n={n} m={length}")
+                    cases += 1
+                    if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                               for a, b in zip(dsts, want)):
+                        failures.append(("ring_hop_peer", n, length, off, str(dtype)))
+        ring.check()
+    return cases, failures
+
+
+def phase_cross_device(ck, smi):
+    """The reference's one-rank-per-device layout on the card: every rank
+    a buffer of its own, the cross-device hop (``ring_hop_peer`` and
+    ``ring_hop_wait``) against its plain twin, then the three
+    ``cuda_ring`` schedules through ``init()`` with
+    ``accelerator_cuda_layout devices``, each bit-equal to the same call
+    on the rows layout; the hop step and a 1 GiB allreduce timed."""
+    import torch
+
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.api import Comm, Group
+    from ompi_tpu_torch.mesh import CommMesh
+    from ompi_tpu_torch.mesh.shards import RankShards
+    from ompi_tpu_torch.op import MAX, SUM
+
+    t0 = time.perf_counter()
+    api.finalize()
+    world = api.init({"accelerator_cuda_layout": "devices",
+                      "coll_cuda_allreduce_algorithm": "cuda_ring",
+                      "coll_cuda_allgather_algorithm": "cuda_ring",
+                      "coll_cuda_reduce_scatter_algorithm": "cuda_ring"}, nranks=N)
+    mesh = world.mesh
+    count = torch.cuda.device_count()
+    if mesh.layout != "devices" or world.size != N:
+        raise SystemExit(f"cross_device: the world is {world.size} ranks, {mesh.layout}")
+    pairs = []
+    for r in range(N):
+        a, b = mesh.devices[r], mesh.devices[(r + 1) % N]
+        link = ("same card" if a == b else "peer" if torch.cuda.can_device_access_peer(
+            a.index, b.index) else "no peer access")
+        pairs.append({"from": r, "to": (r + 1) % N, "devices": [str(a), str(b)], "link": link})
+    note = (f"{count} card(s): ranks {[str(d) for d in mesh.devices]}; "
+            + ("every hop stays on one card, so the NVLink leg is not measured"
+               if count == 1 else "hops between cards run over peer pointers"))
+    print(f"cross_device: {note}", flush=True)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    kernel_cases, failures = cross_kernel_cases(
+        ck, lambda n: mesh if n == N else CommMesh("cuda", n, layout="devices"), gen)
+    # the three rings through Comm, against the rows layout's cuda_ring
+    rows_comm = Comm(Group(range(N)), CommMesh("cuda", N), name="rows")
+    ops = {"MPI_SUM": SUM, "MPI_MAX": MAX}
+    want_launches = {"allreduce": 2 * (N - 1), "allgather": N - 1,
+                     "reduce_scatter_block": N - 1}
+    rings, launches = [], dict.fromkeys(ck.LAUNCHES, 0)
+    for i, (nbytes, dname, opname) in enumerate(CROSS_CASES):
+        dtype = getattr(torch, dname)
+        for coll in ("allreduce", "allgather", "reduce_scatter_block"):
+            gen.manual_seed(1000 + i)
+            x = cross_ring_input(coll, nbytes, dtype, gen)
+            shards = RankShards([x[r].to(d, copy=True) for r, d in enumerate(mesh.devices)])
+            if coll == "allgather":
+                want = rows_comm.allgather(x)
+            else:
+                want = getattr(rows_comm, coll)(x, ops[opname])
+            del x
+            torch.cuda.synchronize()
+            before = dict(ck.LAUNCHES)
+            got = world.allgather(shards) if coll == "allgather" else \
+                getattr(world, coll)(shards, ops[opname])
+            synced_within(mesh.devices, CROSS_TIMEOUT_S, f"{coll} at {nbytes} B")
+            per_call = launched(ck, before)
+            for k in launches:
+                launches[k] += per_call[k]
+            hops = want_launches[coll]
+            equal = isinstance(got, RankShards) and all(
+                torch.equal(bits(got[r].to(want.device)), bits(want[r])) for r in range(N))
+            rings.append({"coll": coll, "bytes_per_rank": nbytes, "dtype": dname,
+                          "op": opname if coll != "allgather" else None,
+                          "bitwise_vs_rows": equal, "launches": per_call,
+                          "launches_ok": per_call == {**dict.fromkeys(ck.LAUNCHES, 0),
+                                                      "ring_hop_peer": hops * N,
+                                                      "ring_hop_wait": 2 * hops * N}})
+            del shards, want, got
+    ck.peer_ring(mesh).check()
+    torch.cuda.empty_cache()
+    # one hop step at the 1 GiB ring's chunk shape: 128 MiB per rank
+    m = (1 << 30) // 4 // N
+    ring = ck.peer_ring(mesh)
+    zero = [0] * N
+    srcs = [torch.randn(m, generator=gen, device="cuda").to(d) for d in mesh.devices]
+    dk = [torch.empty(m, device=d) for d in mesh.devices]
+    dp = [torch.empty(m, device=d) for d in mesh.devices]
+    ck.ring_hop_peer(srcs, zero, dk, zero, m, ring)
+    ck.ring_hop_peer_plain(srcs, zero, dp, zero, m)
+    synced_within(mesh.devices, CROSS_TIMEOUT_S, "the 128 MiB hop")
+    hop_err = max((a - b).abs().max().item() for a, b in zip(dk, dp))
+    cards = sorted({d.index for d in mesh.devices})
+    # the least time of a hop step: every card's HBM traffic, or the
+    # NVLink bytes a card sends, whichever is longer
+    hbm = max(sum(2 * m * 4 for r in range(N) if mesh.devices[r].index == c) for c in cards)
+    link = max(sum(m * 4 for r in range(N) if mesh.devices[r].index == c
+                   and mesh.devices[(r + 1) % N].index != c) for c in cards)
+    hop_bound_ms = max(hbm / HBM_BYTES_PER_S, link / NVLINK_BYTES_PER_S) * 1e3
+    hop_bound_link = "hbm" if hbm / HBM_BYTES_PER_S >= link / NVLINK_BYTES_PER_S else "nvlink"
+
+    def copies():
+        for r in range(N):
+            dk[(r + 1) % N].copy_(srcs[r])
+
+    lib = ck._load_peer()
+    flags = ring.timed_out.data_ptr()
+
+    def waits():  # a hop step's 2N waits, every one already satisfied
+        for _ in range(2):
+            for r, d in enumerate(mesh.devices):
+                lib.ompi_peer_wait(d.index, None, 0, ring.pages[r] + 8, 0, flags + 8 * r,
+                                   ck.PEER_WAIT_TIMEOUT_NS,
+                                   torch.cuda.current_stream(d).cuda_stream)
+
+    devs = mesh.devices
+    hop_ms = mesh_ms(lambda: ck.ring_hop_peer(srcs, zero, dk, zero, m, ring), devs, 10)
+    plain_ms = mesh_ms(lambda: ck.ring_hop_peer_plain(srcs, zero, dp, zero, m), devs, 10)
+    library_ms = mesh_ms(copies, devs, 10)
+    hop_ms2 = mesh_ms(lambda: ck.ring_hop_peer(srcs, zero, dk, zero, m, ring), devs, 10)
+    wait_ms = mesh_ms(waits, devs, 10)
+    empty_ms = mesh_ms(lambda: None, devs, 10)
+    synced_within(mesh.devices, CROSS_TIMEOUT_S, "the timed hops")
+    ring.check()
+    del srcs, dk, dp
+    torch.cuda.empty_cache()
+    # one 1 GiB f32 SUM allreduce on each layout, in turns
+    gen.manual_seed(7)
+    x = torch.randn((N, (1 << 30) // 4), generator=gen, device="cuda")
+    shards = RankShards([x[r].to(d, copy=True) for r, d in enumerate(mesh.devices)])
+    p50 = {"rows": [], "devices": []}
+    for layout in ("rows", "devices", "devices", "rows"):
+        p50[layout].append(mesh_ms(
+            (lambda: rows_comm.allreduce(x, SUM)) if layout == "rows"
+            else (lambda: world.allreduce(shards, SUM)), devs, 3, warmup=1))
+    ring.check()
+    del x, shards
+    torch.cuda.empty_cache()
+    api.finalize()
+    kernel_rows = [
+        {"name": "ring_hop_peer", "route": "cuda",
+         "source": "ompi_tpu_torch/csrc/ring_hop_peer.cu", "replaces": REMOTE_HOP,
+         "launches": launches["ring_hop_peer"], "max_abs_err": hop_err,
+         "ms": statistics.median([hop_ms, hop_ms2]), "plain_ms": plain_ms,
+         "bound_ms": hop_bound_ms, "bound_by": "bytes",
+         "library_ms": library_ms, "shape": [N, m], "dtype": "float32",
+         "unit": "one hop step: 8 puts and their 16 waits"},
+        {"name": "ring_hop_wait", "route": "cuda",
+         "source": "ompi_tpu_torch/csrc/ring_hop_peer.cu", "replaces": REMOTE_HOP,
+         "launches": launches["ring_hop_wait"], "max_abs_err": hop_err,
+         "ms": wait_ms, "plain_ms": empty_ms,
+         "bound_ms": 2 * N * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": None, "shape": [2 * N], "dtype": "uint64",
+         "unit": "a hop step's 16 waits, already satisfied; the plain twin has none "
+                 "(stream order), so plain_ms is an empty event interval"}]
+    row = {"phase": "cross_device", "nvidia_smi": smi, "cards": count, "note": note,
+           "rank_devices": [str(d) for d in mesh.devices], "pairs": pairs,
+           "kernel_cases": kernel_cases, "kernel_failures": failures[:20],
+           "rings": rings, "hop_step_ms": [hop_ms, hop_ms2], "hop_plain_ms": plain_ms,
+           "hop_library_copy_ms": library_ms,
+           "hop_bound_ms": hop_bound_ms, "hop_bound_link": hop_bound_link,
+           "waits_ms": wait_ms, "allreduce_1GiB_ms": p50,
+           "timeouts": int(ring.timed_out.sum()), "launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    bad = [r for r in rings if not (r["bitwise_vs_rows"] and r["launches_ok"])]
+    if failures or bad or row["timeouts"] or min(launches[k] for k in ck.PEER_KERNELS) == 0:
+        raise SystemExit(f"cross_device checks failed: kernel {failures[:5]}, rings {bad[:5]}")
+    return {**row, "kernel_rows": kernel_rows}
 
 
 # -- phase 4 ----------------------------------------------------------------
@@ -876,7 +1184,7 @@ def phase_tuned(ck, outdir):
                "finite": bool(torch.isfinite(out).all()),
                "bitwise_vs_plain_ring": torch.equal(bits(out), bits(ring)),
                "max_rel_vs_plain_ring": ((out - ring).abs() / ring.abs()).max().item()}
-        if dec != [want] or per_call != expect or not row["finite"] \
+        if dec != [want] or rows_of(per_call) != expect or not row["finite"] \
                 or (kernel and not row["bitwise_vs_plain_ring"]) \
                 or row["max_rel_vs_plain_ring"] > 1e-5:
             raise SystemExit(f"tuned at {nbytes} B: {row}, expected {want}, {expect}")
@@ -1313,7 +1621,7 @@ def phase_ddt(ck, smi):
     api.finalize()
     del bufs, out, packed, recv, recvbufs, back
     torch.cuda.empty_cache()
-    if launches != {"ring_hop": N - 1, "ring_hop_fold": N - 1}:
+    if rows_of(launches) != {"ring_hop": N - 1, "ring_hop_fold": N - 1}:
         raise SystemExit(f"ddt allreduce launches: {launches}")
     if not (ring_ok and pack_ok and unpack_ok and recv_ok):
         raise SystemExit(f"ddt checks failed: {row}")
@@ -1501,7 +1809,7 @@ def prod_row(by) -> dict:
     prod = [by["prod"][p][0] for p in range(MP_PROCS)]
     want = {"ring_hop": MP_RANKS - 1, "ring_hop_fold": MP_RANKS - 1}
     return {"launches_per_call": [r["per_call"] for r in prod],
-            "launches_ok": all(r["per_call"] == want for r in prod),
+            "launches_ok": all(rows_of(r["per_call"]) == want for r in prod),
             "bitwise_vs_plain": all(r["bitwise_vs_plain"] for r in prod),
             "bitwise_vs_numpy": all(r["bitwise_vs_numpy"] for r in prod)}
 
@@ -1747,7 +2055,7 @@ def recovery_single(ck) -> dict:
             want = {"ring_hop": n - 1, "ring_hop_fold": n - 1}
             rows.append({"ranks": n, "bytes": nbytes, "dtype": str(dtype)[6:], "op": op.name,
                          "launches": per_call, "bitwise_vs_plain": equal})
-            ok = ok and equal and per_call == want
+            ok = ok and equal and rows_of(per_call) == want
             del x, got, plain
         rows.append({"ranks": n, "agree": agreed, "group": list(comm.group.ranks)})
         ok = ok and agreed == 0b1011
@@ -1755,7 +2063,7 @@ def recovery_single(ck) -> dict:
     torch.cuda.empty_cache()
     launches = dict(ck.LAUNCHES)
     ok = ok and [r["group"] for r in rows if "group" in r] == [
-        [0, 1, 2, 4, 5, 6, 7], [0, 1, 2, 4, 5, 7]] and min(launches.values()) > 0
+        [0, 1, 2, 4, 5, 6, 7], [0, 1, 2, 4, 5, 7]] and min(rows_of(launches).values()) > 0
     return {"calls": rows, "launches": launches, "ok": ok}
 
 
@@ -1823,7 +2131,7 @@ def recovery_respawn(smi) -> dict:
            "bitwise_vs_pre_failure": bitwise, "shm_leftovers": left}
     row["ok"] = (row["respawned"] and bitwise and row["sizes"] == [8, 8]
                  and row["incarnations"] == [0, 1] and row["respawns"] >= 1
-                 and all(min(lc.values()) > 0 for lc in row["post_launches"])
+                 and all(min(rows_of(lc).values()) > 0 for lc in row["post_launches"])
                  and all(d is not None and d["device_sends"] > 0 and d["device_fallbacks"] == 0
                          for d in row["device"])
                  and all(h is not None for h in row["heal_ms"]) and not left)
@@ -1863,7 +2171,7 @@ def recovery_spawn() -> dict:
            "same_everywhere": len({r["ring"] for r in merged}) == 1}
     row["ok"] = (row["processes"] == 4 and row["nprocs"] == [4] and row["bitwise_vs_plain"]
                  and row["same_everywhere"]
-                 and all(min(lc.values()) > 0 for lc in row["launches"]))
+                 and all(min(rows_of(lc).values()) > 0 for lc in row["launches"]))
     return row
 
 
@@ -1917,7 +2225,7 @@ def recovery_ring_attention(ck) -> dict:
     row = {"ranks": N, "heads": ATTN_HEADS, "dh": ATTN_DH, "block": ATTN_BLOCK,
            "allclose_f64": close, "max_abs_err": max_err, "launches_per_call": per_call,
            "timed_block": ATTN_TIMED_BLOCK, "p50_ms": ms, "timed_launches_per_call": per_timed}
-    row["ok"] = (close and per_call == {"ring_hop": 2 * (N - 1), "ring_hop_fold": 0}
+    row["ok"] = (close and rows_of(per_call) == {"ring_hop": 2 * (N - 1), "ring_hop_fold": 0}
                  and per_timed["ring_hop"] == 2 * (N - 1))
     return row
 
@@ -2385,7 +2693,8 @@ def phase_serve(smi) -> dict:
                                    for k2 in j2[p]["dials_after"]} for p in j2},
             "dials_flat_across_jobs": all(j2[p]["dials_before"] == j1[p]["dials_after"]
                                           for p in j1),
-            "launches_ok": all(lc == want for k in (0, 1) for b in sizes if b >= (2 << 20)
+            "launches_ok": all(rows_of(lc) == want for k in (0, 1) for b in sizes
+                               if b >= (2 << 20)
                                for lc in per[k][b]["launches_per_call"].values()),
             "memory_flat": all(j2[p]["cuda_allocated"] <= j1[p]["cuda_allocated"] for p in j1),
             "windows_released": all(rec["ranks"][p].get("windows_left") == 0
@@ -2985,7 +3294,8 @@ def phase_shmem(ck, smi) -> dict:
         coll[name] = {"launches": per_call, "predicted": want, "p50_ms": ms,
                       "plain_ring_p50_ms": plain_ms, "on_card": got.is_cuda,
                       "bitwise_vs_plain_ring": torch.equal(bits(got), bits(plain))}
-        if per_call != want or not coll[name]["bitwise_vs_plain_ring"] or not got.is_cuda:
+        if rows_of(per_call) != want or not coll[name]["bitwise_vs_plain_ring"] \
+                or not got.is_cuda:
             failures.append(name)
         del got, plain
     before = dict(ck.LAUNCHES)
@@ -3370,10 +3680,10 @@ def phase_tools(smi) -> dict:
     launches = dict(legs["top"]["job_launches"])
     for tally in legs["np2"]["tallies"] + legs["respawn"]["tallies"]:
         for k in launches:
-            launches[k] += tally["launches"][k]
+            launches[k] += tally["launches"].get(k, 0)
     for tally in legs["planes"]["launches"]:
         for k in launches:
-            launches[k] += tally[k]
+            launches[k] += tally.get(k, 0)
     row = {"phase": "tools", "nvidia_smi": smi, "legs": legs, "shm_left": shm_left,
            "stray_processes": stray, "launches": launches,
            "wall_s": time.perf_counter() - t0}
@@ -3622,6 +3932,10 @@ def main() -> int:
                     help="run the analysis phase's lockdep child (internal)")
     ap.add_argument("--lockdep-worker", action="store_true",
                     help="one process of the analysis phase's lockdep job (internal)")
+    ap.add_argument("--cross-device-only", action="store_true",
+                    help="run only the environment and cross_device phases: the "
+                    "devices layout on every card of the machine (a cell of several "
+                    "cards, where hops cross NVLink)")
     args = ap.parse_args()
     if not (REPO / "ompi_tpu_torch" / "csrc" / "ring_hop.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -3654,9 +3968,21 @@ def main() -> int:
             walls[name] = time.perf_counter() - t0
 
     smi = phase("env", phase_env, ck)
+    if args.cross_device_only:
+        cross = phase("cross_device", phase_cross_device, ck, smi)
+        (outdir / "chip_smoke_cross_device.json").write_text(json.dumps(
+            {"nvidia_smi": smi, "cross_device": cross, "phase_wall_s": walls}, indent=1))
+        print(smi, flush=True)
+        emit({"phase_wall_s": walls})
+        emit({"kernels": cross.pop("kernel_rows")})
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     phase("kernels", phase_kernels, ck, (SUM, PROD, MAX, MIN))
     rows, profiles, launches = phase("main", phase_main, ck, args.max_bytes)
     golden = phase("golden", phase_golden, ck, smi)
+    cross = phase("cross_device", phase_cross_device, ck, smi)
     tuned = phase("tuned", phase_tuned, ck, outdir)
     observability = phase("observability", phase_observability, ck)
     p2p = phase("p2p", phase_p2p, smi)
@@ -3679,17 +4005,19 @@ def main() -> int:
     bench = phase("bench", phase_bench, smi)
     bench_np2 = phase("bench_np2", phase_bench_np2, smi)
     tools = phase("tools", phase_tools, smi)
-    launches = {k: launches[k] + golden["launches"][k] + tuned["launches"][k] + ddt["launches"][k]
-                + multiproc["launches"][k] + native["launches"][k]
-                + shmem["launches"][k] + recovery["launches"][k] + serve["launches"][k]
-                + capi["launches"][k] + bench["launches"][k] + bench_np2["launches"][k]
-                + tools["launches"][k] + analysis["launches"][k]
-                for k in launches}
-    kernels = phase("kernel_rows", kernel_rows, ck, launches)
+    # the rows layout's kernels run on every path but cross_device's, the
+    # peer kernels on that one alone
+    launches = {k: launches.get(k, 0) + sum(
+        ph["launches"].get(k, 0) for ph in (golden, tuned, ddt, multiproc, native, shmem,
+                                            recovery, serve, capi, bench, bench_np2, tools,
+                                            analysis)) for k in ROWS}
+    launches.update({k: cross["launches"][k] for k in ck.PEER_KERNELS})
+    kernels = phase("kernel_rows", kernel_rows, ck, launches) + cross.pop("kernel_rows")
     walls["script"] = time.perf_counter() - t_script  # analysis overlaps recovery
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
-         "golden": golden, "tuned": tuned, "observability": observability, "p2p": p2p,
+         "golden": golden, "cross_device": cross, "tuned": tuned,
+         "observability": observability, "p2p": p2p,
          "osc": osc, "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
          "diag_pp": diag_pp,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,

@@ -110,6 +110,7 @@ LIVE_PY = f"{PORT}/metrics/live.py"
 LIBRARIES = (
     (DCN_CC, "tdcn_", NATIVE_PY),
     (f"{PORT}/csrc/ring_hop.cu", "ompi_ring_", f"{PORT}/coll/cuda_kernels.py"),
+    (f"{PORT}/csrc/ring_hop_peer.cu", "ompi_peer_", f"{PORT}/coll/cuda_kernels.py"),
     (f"{PORT}/csrc/device_window.cu", "ompi_dw_", DEVICE_PY),
     (f"{PORT}/csrc/convertor.cc", "tpuconv_", f"{PORT}/native.py"),
 )

@@ -14,7 +14,11 @@ launches ``ring_hop`` and ``ring_hop_fold`` (``csrc/ring_hop.cu``) on
 * ``ring_hop_fold`` over each of its 8 dtypes and 4 ops;
 * one 8-rank ``ring_allreduce``, ``ring_allgather`` and
   ``ring_reduce_scatter`` at a size that does not split into 8 equal
-  chunks (the padded path).
+  chunks (the padded path);
+* ``ring_hop_peer`` and ``ring_hop_wait`` (``csrc/ring_hop_peer.cu``)
+  over 8 ranks that each own a buffer, all on this card: one hop at each
+  of the hop cases' sizes and offsets, then the three shard rings at the
+  padded size.
 
 Every result is held bit for bit against the plain twins
 (``ring_hop_plain``, ``ring_hop_fold_plain``, the rings' interpret
@@ -169,6 +173,41 @@ def _ring_cases(ck, gen, dev) -> list:
     return rows
 
 
+def _peer_cases(ck, gen, dev) -> list:
+    import torch
+
+    from ompi_tpu_torch.op import SUM
+
+    ring = ck.PeerRing([dev] * N)
+    zero = [0] * N
+    rows = []
+    for nbytes, off in HOP_CASES:
+        srcs = [_view(nbytes, off, dev)[0, 0] for _ in range(N)]
+        dsts = [_view(nbytes, off, dev)[0, 0] for _ in range(N)]
+        for t in srcs + dsts:
+            _fill(t, gen)
+        want = [d.clone() for d in dsts]
+        ck.ring_hop_peer_plain(srcs, zero, want, zero, nbytes)
+        ck.ring_hop_peer(srcs, zero, dsts, zero, nbytes, ring)
+        torch.cuda.synchronize()
+        rows.append({"kernel": "ring_hop_peer", "chunk_bytes": nbytes, "offset": off,
+                     "bitwise": all(torch.equal(a, b) for a, b in zip(dsts, want))})
+    xs = [_fold_input((RING_SIZE,), torch.float32, gen, dev) for _ in range(N)]
+    xss = [_fold_input((N, RING_SIZE), torch.float32, gen, dev) for _ in range(N)]
+    for name, fn, args in (
+            ("ring_allreduce_shards", ck.ring_allreduce_shards, (xs, SUM)),
+            ("ring_allgather_shards", ck.ring_allgather_shards, (xs,)),
+            ("ring_reduce_scatter_shards", ck.ring_reduce_scatter_shards, (xss, SUM))):
+        got = fn(*args, ring=ring, _mode="cuda")
+        want = fn(*args, _mode="plain")
+        torch.cuda.synchronize()
+        rows.append({"kernel": name, "size": RING_SIZE,
+                     "bitwise": all(torch.equal(_bits(a), _bits(b))
+                                    for a, b in zip(got, want))})
+    ring.check()
+    return rows
+
+
 def drive() -> dict:
     """Run every case on ``cuda:0``; the summary dict."""
     import torch
@@ -182,7 +221,8 @@ def drive() -> dict:
     hops, widths = _hop_cases(ck, tbl, gen, dev)
     folds = _fold_cases(ck, tbl, gen, dev)
     rings = _ring_cases(ck, gen, dev)
-    cases = hops + folds + rings
+    peers = _peer_cases(ck, gen, dev)
+    cases = hops + folds + rings + peers
     return {"cases": len(cases), "widths": sorted(widths),
             "fold_pairs": len({(r["dtype"], r["op"]) for r in folds}),
             "launches": dict(ck.LAUNCHES),

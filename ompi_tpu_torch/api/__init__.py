@@ -60,6 +60,10 @@ def init(mca_params: dict[str, str] | None = None, device=None,
     ``device`` defaults to CUDA and raises when no CUDA device is
     present; ``init(device="cpu")`` runs the ranks on the CPU.
     ``nranks`` defaults to ``--mca accelerator_cuda_nranks`` (8).
+    ``--mca accelerator_cuda_layout devices`` gives every rank a buffer
+    of its own, rank r on card ``r * count // nranks`` (all on ``cuda:0``
+    with one card; all on the CPU with ``device="cpu"``); ``rows`` (the
+    default) makes them the rows of one tensor.
     Under the launcher, ``device=None`` takes the launcher's choice
     (``OMPI_TPU_DEVICE``, set by its ``--cpu`` switch), else CUDA.
     Idempotent once initialized: later calls return the same world."""
@@ -104,6 +108,10 @@ def init(mca_params: dict[str, str] | None = None, device=None,
 
         device = os.environ.get(ENV_DEVICE) or None
     wm = world_mesh(device, nranks)
+    if launched_by_tpurun() and wm.layout == "devices":
+        from ompi_tpu_torch.coll.cuda import unsupported_on_devices
+
+        unsupported_on_devices("a job of several processes (tpurun)")
     if launched_by_tpurun():
         from ompi_tpu_torch.boot.proc import ProcContext
 

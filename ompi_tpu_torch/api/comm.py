@@ -9,7 +9,13 @@ basic → host/jagged), built on first use.
 
 Buffer flavours, as ``Comm._stage`` in the reference: numpy in → numpy
 out (staged onto the mesh device and back), tensor in → tensor out
-(stays on the device).
+(stays on the device).  On a mesh with the ``devices`` layout (one
+buffer per rank) a comm takes numpy (staged into
+:class:`~ompi_tpu_torch.mesh.shards.RankShards`, row r on rank r's
+device, and back) or ``RankShards`` (returned as ``RankShards``); only
+the blocking ``cuda_ring`` allreduce, allgather and reduce_scatter_block
+run there yet, and everything else raises
+:class:`~ompi_tpu_torch.coll.cuda.DevicesLayoutUnsupported`.
 
 Dispatch: an entry point checks its arguments once per call signature,
 then asks the winning module's ``resolve()`` for the callable of that
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.coll import sched
+from ompi_tpu_torch.coll.cuda import unsupported_on_devices
 from ompi_tpu_torch.coll.module import CollTable, select_coll_modules
 from ompi_tpu_torch.core import mca
 from ompi_tpu_torch.core import errors as _errors
@@ -66,6 +73,7 @@ from ompi_tpu_torch.ddt.convertor import unpack as ddt_unpack
 from ompi_tpu_torch.ddt.datatype import Datatype, from_torch_dtype, to_numpy, torch_dtype
 from ompi_tpu_torch.ft import ulfm
 from ompi_tpu_torch.mesh.mesh import CommMesh
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op.op import SUM, Op
 from ompi_tpu_torch.p2p.part import PersistentP2PMixin
 from ompi_tpu_torch.p2p.pml import ANY_SOURCE, ANY_TAG
@@ -328,6 +336,8 @@ class Comm(PersistentP2PMixin):
 
     def _stage(self, x, depth: int):
         """Normalize a rank-major input; returns (tensor, was_host)."""
+        if self.mesh.layout == "devices":
+            return self._stage_shards(x, depth)
         if isinstance(x, torch.Tensor):
             if x.dim() < depth or x.shape[0] != self.size:
                 raise MPIArgError(
@@ -342,8 +352,29 @@ class Comm(PersistentP2PMixin):
                 f"rank-major buffer must have shape ({self.size}, ...); got {arr.shape}")
         return self.mesh.stage_in(arr), True
 
+    def _stage_shards(self, x, depth: int):
+        """The devices layout's inputs: ``RankShards`` on the mesh's
+        devices as they are, numpy staged one row per rank's device."""
+        if isinstance(x, RankShards):
+            if len(x.shape) < depth or x.size != self.size:
+                raise MPIArgError(
+                    f"rank-major buffer must have shape ({self.size}, ...); got {x.shape}")
+            if x.devices != self.mesh.devices:
+                raise MPIArgError(
+                    f"shards lie on {[str(d) for d in x.devices]}, the comm's ranks on "
+                    f"{[str(d) for d in self.mesh.devices]}: nothing is moved implicitly")
+            return x, False
+        if isinstance(x, torch.Tensor):
+            raise MPIArgError("a devices-layout comm takes numpy or RankShards, "
+                              "not one tensor")
+        arr = np.asarray(x)
+        if arr.ndim < depth or arr.shape[0] != self.size:
+            raise MPIArgError(
+                f"rank-major buffer must have shape ({self.size}, ...); got {arr.shape}")
+        return self.mesh.stage_in(arr), True
+
     def _unstage(self, out, host: bool):
-        if host and isinstance(out, torch.Tensor):
+        if host and isinstance(out, (torch.Tensor, RankShards)):
             return self.mesh.stage_out(out)
         return out
 
@@ -416,8 +447,10 @@ class Comm(PersistentP2PMixin):
 
     def _icall(self, base: str, x, depth: int, op: Op | None = None,
                root: int | None = None) -> Request:
-        xd, host, args, key = self._prepare(base, x, depth, op, root)
         slot = "i" + base
+        if self.mesh.layout == "devices":
+            unsupported_on_devices(slot)
+        xd, host, args, key = self._prepare(base, x, depth, op, root)
         t0 = _trace.now() if _trace._enabled else 0
         fn = self._resolved(slot, base, args, key)
         req = (ArrayRequest(fn(xd)) if fn is not None
@@ -433,6 +466,8 @@ class Comm(PersistentP2PMixin):
         """Persistent collective: staged once, its plan taken from the
         process-wide schedule cache, each ``start()`` re-dispatching on
         the same buffer."""
+        if self.mesh.layout == "devices":
+            unsupported_on_devices(base + "_init")
         xd, host, args, _ = self._prepare(base, x, depth, op, root)
         fn = self._sched_fn(base, args, op, root)
         if fn is None:
@@ -539,6 +574,8 @@ class Comm(PersistentP2PMixin):
         (n, n*c, …) sendbufs reduced as blocks, returning (n, c, …);
         counts=None → x is (n, n, *s)."""
         self._check()
+        if self.mesh.layout == "devices":
+            unsupported_on_devices("reduce_scatter")
         self._check_op(op, x)
         if counts is not None:
             if len(counts) != self.size:

@@ -24,6 +24,14 @@ is one dict hit.
   paths.
 * i-variants return :class:`ArrayRequest` (a CUDA event on the current
   stream); ``*_init`` variants return :class:`PersistentRequest`.
+* On a communicator whose mesh has the ``devices`` layout (one buffer
+  per rank, :class:`~ompi_tpu_torch.mesh.shards.RankShards`), only the
+  blocking ``allreduce``, ``allgather`` and ``reduce_scatter_block`` run
+  yet, and only as ``cuda_ring``: the shard schedules of
+  :mod:`.cuda_kernels` over the cross-device hop.  Every other
+  algorithm (``auto`` and the fallbacks' targets included) and every
+  other collective raises :class:`DevicesLayoutUnsupported`; nothing is
+  gathered onto one device instead.
 """
 
 from __future__ import annotations
@@ -33,7 +41,9 @@ from typing import Callable
 
 import torch
 
+from ompi_tpu_torch.core.errors import MPIInternalError
 from ompi_tpu_torch.core.registry import Component, register_component
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op.op import Op, fused_reduce
 from ompi_tpu_torch.request import (
     ArrayRequest,
@@ -45,7 +55,7 @@ from ompi_tpu_torch.request import (
 
 from . import base as algos
 from . import cuda_kernels as ck
-from .module import CollModule
+from .module import CollModule, all_slots
 
 ALLREDUCE_ALGOS = {
     "auto": 0,
@@ -69,6 +79,23 @@ BARRIER_ALGOS = {"auto": 0, "allreduce": 1, "dissemination": 2}
 def _named(coll: str, enum: dict[str, int], algo: int) -> str:
     """``<coll>_<algorithm name>``, the name of a compile event."""
     return coll + "_" + next(k for k, v in enum.items() if v == algo)
+
+
+class DevicesLayoutUnsupported(MPIInternalError):
+    """A collective or an algorithm that does not run on the ``devices``
+    layout yet (only the blocking ``cuda_ring`` allreduce, allgather and
+    reduce_scatter_block do)."""
+
+
+#: the blocking collectives that run on the devices layout
+SHARD_COLLECTIVES = ("allreduce", "allgather", "reduce_scatter_block")
+
+
+def unsupported_on_devices(what: str):
+    raise DevicesLayoutUnsupported(
+        f"{what} does not run on the devices layout yet: only the blocking "
+        f"{', '.join(SHARD_COLLECTIVES)} with the cuda_ring algorithm "
+        "(--mca coll_cuda_<coll>_algorithm cuda_ring) do")
 
 
 class CudaCollModule(CollModule):
@@ -107,6 +134,34 @@ class CudaCollModule(CollModule):
     def _n(self) -> int:
         return self.comm.size
 
+    def _on_devices(self) -> bool:
+        return self.comm.mesh.layout == "devices"
+
+    def provided(self):
+        """On the devices layout every slot but the shard collectives'
+        blocking ones raises :class:`DevicesLayoutUnsupported`."""
+        out = super().provided()
+        if self._on_devices():
+            for slot in all_slots():
+                if slot not in SHARD_COLLECTIVES:
+                    out[slot] = _raiser(slot)
+        return out
+
+    def _on_shards(self, key: tuple, coll: str, enum: dict[str, int], algo: int, run):
+        """The devices layout's cached callable: ``run(shards, ring)`` for
+        ``cuda_ring``, else the named error."""
+        name = _named(coll, enum, algo)
+        if algo != enum["cuda_ring"]:
+            unsupported_on_devices(f"{name} (the algorithm the var, reproducible "
+                                   "mode or a fallback rule chose)")
+        mesh = self.comm.mesh
+
+        def fn(v):
+            kernel = ck._shard_mode(mesh.device, None) == "cuda"
+            return RankShards(run(v, ck.peer_ring(mesh) if kernel else None))
+
+        return self._compiled(key, lambda: fn, name)
+
     def _algo(self, var: str, enum: dict[str, int]) -> int:
         if var in self._forced:
             return int(self._forced[var])
@@ -125,6 +180,8 @@ class CudaCollModule(CollModule):
     def resolve(self, base: str, *args):
         """The cached tensor → tensor callable for a call signature (the
         same positional arguments the blocking entry point takes)."""
+        if self._on_devices() and base not in SHARD_COLLECTIVES:
+            unsupported_on_devices(base)
         if base == "allreduce":
             return self._allreduce_fn(args[0], args[1])
         if base == "bcast":
@@ -171,6 +228,9 @@ class CudaCollModule(CollModule):
         seg = self._segcount()
         # op keyed by identity: two user ops may share a name
         key = ("allreduce", algo, tuple(x.shape), x.dtype, op, seg)
+        if self._on_devices():
+            return self._on_shards(key, "allreduce", ALLREDUCE_ALGOS, algo,
+                                   lambda v, ring: ck.ring_allreduce_shards(v, op, ring))
 
         def build():
             return {
@@ -266,6 +326,9 @@ class CudaCollModule(CollModule):
         if algo == ALLGATHER_ALGOS["auto"]:
             algo = ALLGATHER_ALGOS["direct"]
         key = ("allgather", algo, tuple(x.shape), x.dtype)
+        if self._on_devices():
+            return self._on_shards(key, "allgather", ALLGATHER_ALGOS, algo,
+                                   ck.ring_allgather_shards)
 
         def build():
             return {
@@ -339,6 +402,9 @@ class CudaCollModule(CollModule):
             # non-commutative ops; promote to the rank-ordered path
             algo = REDUCE_SCATTER_ALGOS["ordered"]
         key = ("reduce_scatter_block", algo, tuple(x.shape), x.dtype, op)
+        if self._on_devices():
+            return self._on_shards(key, "reduce_scatter", REDUCE_SCATTER_ALGOS, algo,
+                                   lambda v, ring: ck.ring_reduce_scatter_shards(v, op, ring))
 
         def build():
             return {
@@ -489,6 +555,14 @@ class CudaCollModule(CollModule):
     def exscan_init(self, x, op: Op) -> PersistentRequest:
         fn = self._scan_fn(x, op, True)
         return PersistentRequest(lambda: ArrayRequest(fn(x)))
+
+
+def _raiser(slot: str):
+    def unsupported(*_args, **_kwargs):
+        unsupported_on_devices(slot)
+
+    unsupported.__name__ = slot
+    return unsupported
 
 
 @register_component

@@ -38,7 +38,28 @@ the reference exactly, so MPI_SUM results are bit-identical to
 buffered for :func:`ring_reduce_scatter`, whose next input is the
 neighbour's current partial).
 
-The library is compiled with ``nvcc`` at first use into
+On the mesh's ``devices`` layout every rank owns a buffer of its own
+(:class:`~ompi_tpu_torch.mesh.shards.RankShards`), and the reference's
+``_remote_hop_kernel`` is ported as it runs on its chip, in
+``ompi_tpu_torch/csrc/ring_hop_peer.cu``:
+
+* :func:`ring_hop_peer` — rank r's chunk is pushed into the buffer that
+  rank (r+1)%n owns, through that buffer's pointer (a peer pointer when
+  the two ranks are on different cards), and device-side semaphores
+  order it: the ``ring_hop_wait`` kernel waits for the receiver's
+  arrival counter and, before a put, for the receiver's credit on the
+  double-buffered landing zone (:class:`PeerRing`, one per mesh);
+* :func:`ring_allreduce_shards`, :func:`ring_allgather_shards` and
+  :func:`ring_reduce_scatter_shards` — the reference's three schedules
+  line for line over shards: ``_pad_chunks`` per rank, the same
+  ``send_idx``/``recv_idx`` rotation, and the fold after a landed chunk
+  as the op's ``torch_fn`` (XLA's op in the reference, not Pallas).
+
+:func:`ring_hop_peer_plain` is its plain twin, taken for CPU shards and
+under ``dcn_device_interpret``; for CUDA shards the wrapper launches or
+raises.
+
+The libraries are compiled with ``nvcc`` at first use into
 ``build/ompi_tpu_torch/`` at the repository root and loaded with
 ``ctypes`` (a plain C interface; no PyTorch headers).
 """
@@ -47,7 +68,9 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import weakref
 from pathlib import Path
+from typing import Sequence
 
 import torch
 
@@ -61,13 +84,23 @@ __all__ = [
     "mode", "kernel_available", "build", "LAUNCHES", "reset_launches",
     "ring_hop", "ring_hop_plain", "ring_hop_fold", "ring_hop_fold_plain",
     "fold_supported", "ring_allreduce", "ring_allgather", "ring_reduce_scatter",
+    "build_peer", "PeerRing", "peer_ring", "PeerWaitTimeout", "ring_hop_peer",
+    "ring_hop_peer_plain", "ring_allreduce_shards", "ring_allgather_shards",
+    "ring_reduce_scatter_shards",
 ]
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "ring_hop.cu"
+_PEER_SRC = Path(__file__).resolve().parents[1] / "csrc" / "ring_hop_peer.cu"
 
 #: kernel launches per wrapper: each wrapper adds one where it launches
 #: its kernel, and nowhere else
-LAUNCHES = {"ring_hop": 0, "ring_hop_fold": 0}
+LAUNCHES = {"ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": 0, "ring_hop_wait": 0}
+#: the kernels of the devices layout's rings
+PEER_KERNELS = ("ring_hop_peer", "ring_hop_wait")
+
+#: how long a device-side wait of the peer hop spins before it gives up
+PEER_WAIT_TIMEOUT_NS = 20_000_000_000
+_U64 = (1 << 64) - 1
 
 _FOLD_DTYPES = {
     torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3,
@@ -76,9 +109,11 @@ _FOLD_DTYPES = {
 _FOLD_OPS = {SUM: 0, PROD: 1, MAX: 2, MIN: 3}
 
 _lib = None
+_peer_lib = None
 _lib_lock = threading.Lock()
-#: ptxas report of the last build (registers, spills per kernel)
+#: ptxas reports of the last builds (registers, spills per kernel)
 build_log = ""
+peer_build_log = ""
 
 
 class KernelUnavailable(MPIInternalError):
@@ -147,6 +182,40 @@ def _load():
             lib.ompi_ring_hop_fold.restype = i
             _lib = lib
         return _lib
+
+
+def build_peer() -> Path:
+    """Compile ``csrc/ring_hop_peer.cu`` (once per source content) and
+    return the shared library's path."""
+    global peer_build_log
+    from ompi_tpu_torch import native
+
+    try:
+        out, log = native.build_cuda(_PEER_SRC)
+    except native.NativeBuildError as e:
+        raise KernelUnavailable(str(e)) from e
+    peer_build_log = log or peer_build_log
+    return out
+
+
+def _load_peer():
+    global _peer_lib
+    with _lib_lock:
+        if _peer_lib is None:
+            lib = ctypes.CDLL(str(build_peer()))
+            p, ll, ull, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int
+            lib.ompi_peer_put.argtypes = [i, p, p, ll, p, p, ctypes.POINTER(ll)]
+            lib.ompi_peer_put.restype = i
+            lib.ompi_peer_wait.argtypes = [i, p, ull, p, ull, p, ll, p]
+            lib.ompi_peer_wait.restype = i
+            lib.ompi_peer_page_alloc.argtypes = [i, ctypes.POINTER(p)]
+            lib.ompi_peer_page_alloc.restype = i
+            lib.ompi_peer_page_free.argtypes = [i, p]
+            lib.ompi_peer_page_free.restype = i
+            lib.ompi_peer_enable.argtypes = [i, i]
+            lib.ompi_peer_enable.restype = i
+            _peer_lib = lib
+        return _peer_lib
 
 
 def _require_kernel(*ts: torch.Tensor) -> None:
@@ -437,3 +506,315 @@ def ring_reduce_scatter(x: torch.Tensor, op: Op, _mode: str | None = None) -> to
         src, src_idx = cur, zero
     return cur.reshape((n,) + blk)
 
+
+
+# -- the cross-device hop (devices layout) ---------------------------------
+
+
+class PeerWaitTimeout(MPIInternalError):
+    """A device-side wait of the peer hop gave up: a signal never came."""
+
+
+def _free_pages(lib, pages) -> None:
+    for dev, ptr in pages:
+        lib.ompi_peer_page_free(dev, ptr)
+
+
+class PeerRing:
+    """The cross-device hop's state for one mesh: per rank a counter page
+    (``recv`` at byte 0, ``consumed`` at byte 8; cudaMalloc'd and zeroed
+    once), two landing zones, and the host's epoch numbers: ``hops`` (hop
+    h of the mesh's life uses zone h % 2) and ``expected`` (the arrivals
+    each rank's ``recv`` reaches once every put so far has landed).  A
+    pinned host flag per rank says whether one of its waits timed out.
+    On CPU devices it keeps only the zones and ``hops`` (the hops there
+    are the plain twin's copies)."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.devices = tuple(torch.device(d) for d in devices)
+        kinds = {d.type for d in self.devices}
+        if kinds not in ({"cuda"}, {"cpu"}):
+            raise MPIArgError(f"a PeerRing is all CPU or all CUDA, got {sorted(kinds)}")
+        self.n = len(self.devices)
+        self.hops = 0
+        self.expected = [0] * self.n
+        self.broken = False
+        self._zones: list[tuple[torch.Tensor, torch.Tensor]] = []
+        self._zone_bytes = 0
+        self.pages: list[int] = []
+        if kinds == {"cpu"}:
+            self.timed_out = torch.zeros(self.n, dtype=torch.int64)
+            return
+        _require_kernel()
+        lib = _load_peer()
+        for r, d in enumerate(self.devices):
+            to = self.devices[(r + 1) % self.n]
+            if to.index != d.index:  # the sender's card reaches the receiver's
+                _check_rc(lib.ompi_peer_enable(d.index, to.index), "ompi_peer_enable")
+        for d in self.devices:
+            ptr = ctypes.c_void_p()
+            _check_rc(lib.ompi_peer_page_alloc(d.index, ctypes.byref(ptr)),
+                      "ompi_peer_page_alloc")
+            self.pages.append(ptr.value)
+        weakref.finalize(self, _free_pages, lib,
+                         [(d.index, ptr) for d, ptr in zip(self.devices, self.pages)])
+        self.timed_out = torch.zeros(self.n, dtype=torch.int64, pin_memory=True)
+
+    def landing(self, nbytes: int) -> list[torch.Tensor]:
+        """Each rank's landing zone for the next hop (``hops % 2``), as
+        ``nbytes`` of uint8 on its device; grows both zones as needed."""
+        if nbytes > self._zone_bytes:
+            cap = max(nbytes, 2 * self._zone_bytes)
+            self._zones = [(torch.empty(cap, dtype=torch.uint8, device=d),
+                            torch.empty(cap, dtype=torch.uint8, device=d))
+                           for d in self.devices]
+            self._zone_bytes = cap
+        return [z[self.hops % 2][:nbytes] for z in self._zones]
+
+    def check(self) -> None:
+        """Raise if a wait of this ring timed out (reads pinned host
+        memory: no synchronise)."""
+        if self.broken or bool(self.timed_out.any()):
+            self.broken = True
+            raise PeerWaitTimeout(
+                f"a ring_hop_wait gave up after {PEER_WAIT_TIMEOUT_NS / 1e9:g} s "
+                f"(ranks {self.timed_out.nonzero().view(-1).tolist()}): the ring's "
+                "results are not valid")
+
+
+def peer_ring(mesh) -> PeerRing:
+    """The mesh's :class:`PeerRing`, made at its first CUDA hop."""
+    ring = getattr(mesh, "_peer_ring", None)
+    if ring is None:
+        ring = PeerRing(mesh.devices)
+        mesh._peer_ring = ring
+    return ring
+
+
+def _check_rc(rc: int, what: str) -> None:
+    if rc != 0:
+        raise KernelUnavailable(f"{what} failed: cudaError {rc}")
+
+
+def _check_peer_args(srcs, src_offsets, dsts, dst_offsets, length) -> None:
+    n = len(srcs)
+    if n == 0 or len(dsts) != n or len(src_offsets) != n or len(dst_offsets) != n:
+        raise MPIArgError("ring_hop_peer: one source, destination and offset per rank")
+    kinds = sorted({t.device.type for t in (*srcs, *dsts)})
+    if len(kinds) > 1:
+        raise MPIArgError(f"ring_hop_peer: buffers mix device kinds {kinds}")
+    for name, ts, offs in (("src", srcs, src_offsets), ("dst", dsts, dst_offsets)):
+        for r, (t, off) in enumerate(zip(ts, offs)):
+            if t.dtype != srcs[0].dtype or not t.is_contiguous():
+                raise MPIArgError(f"ring_hop_peer {name}[{r}]: need contiguous "
+                                  f"{srcs[0].dtype}, got {t.dtype}")
+            if length < 0 or off < 0 or off + length > t.numel():
+                raise MPIArgError(f"ring_hop_peer {name}[{r}]: [{off}, {off + length}) "
+                                  f"outside {t.numel()} elements")
+
+
+def ring_hop_peer_plain(srcs: Sequence[torch.Tensor], src_offsets: Sequence[int],
+                        dsts: Sequence[torch.Tensor], dst_offsets: Sequence[int],
+                        length: int) -> None:
+    """Plain torch twin of :func:`ring_hop_peer`: for each rank r,
+    ``dsts[(r+1)%n][...].copy_(srcs[r][...])``."""
+    n = len(srcs)
+    for r in range(n):
+        to = (r + 1) % n
+        dst = dsts[to].view(-1)[dst_offsets[to]: dst_offsets[to] + length]
+        dst.copy_(srcs[r].view(-1)[src_offsets[r]: src_offsets[r] + length])
+
+
+def ring_hop_peer(srcs: Sequence[torch.Tensor], src_offsets: Sequence[int],
+                  dsts: Sequence[torch.Tensor], dst_offsets: Sequence[int],
+                  length: int, ring: PeerRing | None = None) -> None:
+    """One ring hop over ranks that each own a buffer: ``length`` elements
+    of ``srcs[r]`` from element ``src_offsets[r]`` land in
+    ``dsts[(r+1)%n]`` from element ``dst_offsets[(r+1)%n]``.
+
+    ``srcs[r]`` lies on rank r's device and ``dsts[r]`` on rank r's too
+    (contiguous, one dtype, all CPU or all CUDA).  CPU buffers take the
+    plain twin; CUDA buffers launch, for every rank, the credit wait and
+    the put on the sender's stream, then every receiver's arrival wait
+    (``ring`` holds the counters), and the hop has landed on each
+    receiver's stream when this returns; or it raises."""
+    _check_peer_args(srcs, src_offsets, dsts, dst_offsets, length)
+    if srcs[0].device.type == "cpu":
+        ring_hop_peer_plain(srcs, src_offsets, dsts, dst_offsets, length)
+        if ring is not None:
+            ring.hops += 1  # the next hop lands in the other zone
+        return
+    _launch_peer(ring, srcs, src_offsets, dsts, dst_offsets, length)
+
+
+def _launch_peer(ring, srcs, src_offsets, dsts, dst_offsets, length) -> None:
+    _require_kernel(*srcs, *dsts)
+    if ring is None:
+        raise MPIArgError("ring_hop_peer: CUDA buffers need the mesh's PeerRing")
+    n = ring.n
+    if len(srcs) != n:
+        raise MPIArgError(f"ring_hop_peer: {len(srcs)} buffers for a ring of {n}")
+    for r in range(n):
+        if srcs[r].device != ring.devices[r] or dsts[r].device != ring.devices[r]:
+            raise MPIArgError(f"ring_hop_peer: rank {r}'s buffers are not on "
+                              f"{ring.devices[r]}")
+    ring.check()
+    lib = _load_peer()
+    es = srcs[0].element_size()
+    h = ring.hops
+    flags = ring.timed_out.data_ptr()
+    blocks = ctypes.c_longlong()
+    ring.broken = True  # until every launch of the hop went in
+    # every put of the hop before any wait of it (the waits of ranks that
+    # share a card share its stream)
+    for r in range(n):
+        to = (r + 1) % n
+        dev = ring.devices[r]
+        st = torch.cuda.current_stream(dev).cuda_stream
+        # credit: the receiver's zone h % 2 was last read before its wait of h-1
+        _check_rc(lib.ompi_peer_wait(dev.index, None, 0, ring.pages[to] + 8,
+                                     (h - 1) & _U64, flags + 8 * r,
+                                     PEER_WAIT_TIMEOUT_NS, st), "ring_hop_wait launch")
+        LAUNCHES["ring_hop_wait"] += 1
+        _check_rc(lib.ompi_peer_put(
+            dev.index, srcs[r].data_ptr() + src_offsets[r] * es,
+            dsts[to].data_ptr() + dst_offsets[to] * es, length * es,
+            ring.pages[to], st, ctypes.byref(blocks)), "ring_hop_peer launch")
+        LAUNCHES["ring_hop_peer"] += 1
+        ring.expected[to] = (ring.expected[to] + blocks.value) & _U64
+    for r in range(n):
+        dev = ring.devices[r]
+        st = torch.cuda.current_stream(dev).cuda_stream
+        # consumed := h (every reader of hop h-1's zone is done), then
+        # wait for the arrivals of every put into rank r so far
+        _check_rc(lib.ompi_peer_wait(dev.index, ring.pages[r] + 8, h & _U64,
+                                     ring.pages[r], ring.expected[r], flags + 8 * r,
+                                     PEER_WAIT_TIMEOUT_NS, st), "ring_hop_wait launch")
+        LAUNCHES["ring_hop_wait"] += 1
+    ring.hops = h + 1
+    ring.broken = False
+
+
+# -- ring schedules over shards (pallas_kernels.py's, per rank) ------------
+
+
+def _shard_mode(device: torch.device, _mode: str | None) -> str:
+    """The rung of a shard schedule: ``cuda`` (the kernel form: the
+    ring's landing zones and :func:`ring_hop_peer`, whose CUDA buffers
+    launch the peer kernels) for CUDA shards, else ``plain`` (fresh
+    landing buffers and the plain twin: CPU shards, or any shards under
+    ``dcn_device_interpret``)."""
+    if _mode is not None:
+        return _mode
+    if _interpret_forced() or device.type != "cuda":
+        return "plain"
+    return "cuda"
+
+
+def _shard_hop(ring, m: str, srcs, offsets, length: int, dtype) -> list[torch.Tensor]:
+    """One hop of ``length`` elements from ``srcs[r]`` at ``offsets[r]``:
+    returns rank r's 1-D landed chunk (its left neighbour's), on rank r's
+    device — a landing zone of ``ring`` in the kernel form."""
+    n = len(srcs)
+    if m == "cuda":
+        if ring is None:
+            raise MPIArgError("the kernel form of a shard ring needs the mesh's PeerRing")
+        land = [z.view(dtype) for z in ring.landing(length * srcs[0].element_size())]
+        ring_hop_peer(srcs, offsets, land, [0] * n, length, ring)
+        return land
+    land = [torch.empty(length, dtype=dtype, device=s.device) for s in srcs]
+    ring_hop_peer_plain(srcs, offsets, land, [0] * n, length)
+    return land
+
+
+def _pad_chunks_1(x: torch.Tensor, n: int):
+    """The reference's ``_pad_chunks`` on one rank's block: flatten, zero
+    pad to a multiple of n, a fresh contiguous (n, chunk) tensor."""
+    flat = x.reshape(-1)
+    size = flat.shape[0]
+    pad = (-size) % n
+    flat = torch.cat([flat, flat.new_zeros((pad,))]) if pad else flat.clone()
+    return flat.reshape(n, -1), size
+
+
+def _shard_list(xs) -> list[torch.Tensor]:
+    return [x.contiguous() for x in getattr(xs, "shards", xs)]
+
+
+def ring_allreduce_shards(xs, op: Op, ring: PeerRing | None = None,
+                          _mode: str | None = None) -> list[torch.Tensor]:
+    """``pallas_kernels.ring_allreduce`` over shards: ring reduce-scatter
+    (fold ``op(mine, recv)``) then ring allgather, 2(n-1) hops.  Returns
+    rank r's result on rank r's device; commutative ops only."""
+    xs = _shard_list(xs)
+    n = len(xs)
+    if n == 1:
+        return [xs[0].clone()]
+    m = _shard_mode(xs[0].device, _mode)
+    padded = [_pad_chunks_1(x, n) for x in xs]
+    chunks = [c for c, _ in padded]
+    size, c = padded[0][1], chunks[0].shape[1]
+    flat = [ch.view(-1) for ch in chunks]
+    # reduce-scatter: at step s rank r sends chunk (r - s) right and folds
+    # the left neighbour's arrival into chunk (r - s - 1)
+    for s in range(n - 1):
+        send_idx = [(r - s) % n for r in range(n)]
+        recv = _shard_hop(ring, m, flat, [i * c for i in send_idx], c, xs[0].dtype)
+        for r in range(n):
+            mine = chunks[r][(r - s - 1) % n]
+            mine.copy_(op.torch_fn(mine, recv[r]))
+    # allgather: rotate the owned fully-reduced chunk around the ring
+    srcs, offs = flat, [((r + 1) % n) * c for r in range(n)]
+    for s in range(n - 1):
+        cur = _shard_hop(ring, m, srcs, offs, c, xs[0].dtype)
+        for r in range(n):
+            chunks[r][(r - s) % n].copy_(cur[r])
+        srcs, offs = cur, [0] * n
+    return [ch.reshape(-1)[:size].reshape(x.shape) for ch, x in zip(chunks, xs)]
+
+
+def ring_allgather_shards(xs, ring: PeerRing | None = None,
+                          _mode: str | None = None) -> list[torch.Tensor]:
+    """``pallas_kernels.ring_allgather`` over shards: rank r's ``(…)``
+    block → its ``(n, …)`` gathered rows, n-1 hops each forwarding the
+    newest block."""
+    xs = _shard_list(xs)
+    n = len(xs)
+    if n == 1:
+        return [xs[0][None].clone()]
+    m = _shard_mode(xs[0].device, _mode)
+    outs = []
+    for r, x in enumerate(xs):
+        out = x.new_zeros((n,) + tuple(x.shape))
+        out[r].copy_(x)
+        outs.append(out)
+    cur = [x.view(-1) for x in xs]
+    for s in range(n - 1):
+        cur = _shard_hop(ring, m, cur, [0] * n, cur[0].numel(), xs[0].dtype)
+        for r in range(n):
+            outs[r][(r - s - 1) % n].view(-1).copy_(cur[r])
+    return outs
+
+
+def ring_reduce_scatter_shards(xs, op: Op, ring: PeerRing | None = None,
+                               _mode: str | None = None) -> list[torch.Tensor]:
+    """``pallas_kernels.ring_reduce_scatter`` over shards: rank r's
+    ``(n, …)`` contributions → its reduced ``(…)`` block.  The partial for
+    block b starts at rank (b+1)%n and folds ``op(recv, own)`` (the
+    received partial first) on its way to its owner.  Commutative ops
+    only."""
+    xs = _shard_list(xs)
+    n = len(xs)
+    if n == 1:
+        return [xs[0][0].clone()]
+    m = _shard_mode(xs[0].device, _mode)
+    blk = tuple(xs[0].shape[1:])
+    k = xs[0][0].numel()
+    own = [x.view(n, -1) for x in xs]
+    srcs, offs = [x.view(-1) for x in xs], [((r - 1) % n) * k for r in range(n)]
+    for s in range(n - 1):
+        recv = _shard_hop(ring, m, srcs, offs, k, xs[0].dtype)
+        # received: the partial for block b = r - s - 2; add our own
+        srcs = [op.torch_fn(recv[r], own[r][(r - s - 2) % n]) for r in range(n)]
+        offs = [0] * n
+    return [cur.reshape(blk) for cur in srcs]

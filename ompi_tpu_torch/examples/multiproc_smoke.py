@@ -252,7 +252,8 @@ def prod_check(w, ck, prod_bytes: int) -> None:
     emit("prod", bytes=prod_bytes, per_call=per_call, bitwise_vs_plain=vs_plain,
          bitwise_vs_numpy=vs_numpy, digest=digest(got[0]))
     want = k - 1 if dev.type == "cuda" else 0  # the CPU runs the plain twins
-    if per_call != {"ring_hop": want, "ring_hop_fold": want} or not (vs_plain and vs_numpy):
+    if per_call != {**dict.fromkeys(ck.LAUNCHES, 0), "ring_hop": want, "ring_hop_fold": want} \
+            or not (vs_plain and vs_numpy):
         raise SystemExit(f"64 MiB PROD check failed: {per_call} {vs_plain} {vs_numpy}")
 
 

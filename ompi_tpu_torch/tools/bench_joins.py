@@ -117,7 +117,7 @@ def count_launches(out: str, np_: int) -> dict:
     total = dict.fromkeys(KERNELS, 0)
     for _p, text in lines:
         for k, v in json.loads(text).items():
-            total[k] += v
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -158,7 +158,7 @@ class Jobs:
                                f"{out[-2000:]}\n{err[-2000:]}")
         if str(target).endswith(".py"):
             for k, v in count_launches(out, np_).items():
-                self.launches[k] += v
+                self.launches[k] = self.launches.get(k, 0) + v
         return out
 
     def c_job(self, np_: int, binary, args=(), timeout: float = 300) -> str:

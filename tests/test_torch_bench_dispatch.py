@@ -92,7 +92,8 @@ def test_dispatch_join_on_the_cpu():
         assert list(leg["persistent"]) == ["bytes", "percall_us", "start_us", "start_speedup"]
         assert leg["py_device"] == "cpu"
     assert line["c_cuda_initialized"] == [False] * 3  # one C rank at np 1, two at np 2
-    assert line["launches"] == {"ring_hop": 0, "ring_hop_fold": 0}
+    assert line["launches"] == {"ring_hop": 0, "ring_hop_fold": 0,
+                                "ring_hop_peer": 0, "ring_hop_wait": 0}
     # the workers' own lines, echoed on stderr: np 1's, then np 2's
     assert re.findall(r"^\[0\] PYDISPATCH device=(\S+) iters=(\d+)$", err, re.M) == \
         [("cpu", "10")] * 2

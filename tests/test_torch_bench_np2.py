@@ -96,7 +96,8 @@ def test_dcnbench_equals_reference_on_tcp():
     assert sorted(skew["per_proc"]) == sorted(ref_skew["per_proc"]) == ["0", "1"]
     assert got["native_counters"]["eager_msgs"] == want["native_counters"]["eager_msgs"]
     assert sorted(re.findall(r"^\[(\d)\] LAUNCHES (.*)$", out, re.M)) == \
-        [(p, '{"ring_hop": 0, "ring_hop_fold": 0}') for p in "01"]
+        [(p, '{"ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": 0, "ring_hop_wait": 0}')
+         for p in "01"]
 
 
 # -- DEVBENCH ---------------------------------------------------------------------------
@@ -134,7 +135,8 @@ def test_devbench_equals_reference_plane_on_and_off():
     assert line["device"] == line["buffer"] == {"device": "cpu", "host": "cpu"}
     assert line["tpu_gate"]["applied"] is False and line["tpu_gate"]["passed"] is None
     assert all("bw_vs_host" in r and "allreduce_vs_host" in r for r in line["rows"])
-    assert line["launches"] == {"ring_hop": 0, "ring_hop_fold": 0}
+    assert line["launches"] == {"ring_hop": 0, "ring_hop_fold": 0,
+                                "ring_hop_peer": 0, "ring_hop_wait": 0}
 
 
 # -- the joins on fixed inputs ----------------------------------------------------------

@@ -162,7 +162,8 @@ def test_algos_cli_on_the_cpu():
     chk = _marked(text, "ALGOS8_CHECK")
     assert chk["ok"] and chk["device"] == "cpu"
     assert len(chk["entries"]) == len(ENTRIES)
-    assert chk["launches"] == {"ring_hop": 0, "ring_hop_fold": 0}
+    assert chk["launches"] == {"ring_hop": 0, "ring_hop_fold": 0,
+                               "ring_hop_peer": 0, "ring_hop_wait": 0}
     line = _marked(text, "ALGOS8")
     ref_keys = ["n_devices", "allreduce", "allgather", "bcast", "reduce",
                 "reduce_scatter", "alltoall", "barrier"]

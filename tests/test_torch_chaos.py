@@ -98,7 +98,8 @@ def test_np2_soak_deterministic_and_equal_to_the_reference(tmp_path):
         {k: v for k, v in c.items() if v} for c in injected_table(ref_out)]
     assert sum(sum(c.values()) for c in counts[0]) > 0
     for t in runs[0]["tally"]:
-        assert t["device"] == "cpu" and t["launches"] == {"ring_hop": 0, "ring_hop_fold": 0}
+        assert t["device"] == "cpu" and t["launches"] == {
+            "ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": 0, "ring_hop_wait": 0}
     reasons = {json.loads(line)["reason"]
                for p in (tmp_path / "port").glob("*.flight.*.jsonl")
                for line in p.read_text().splitlines() if line.strip()}

@@ -92,8 +92,59 @@ def test_cuda_ring_allreduce_counts_its_launches(dev):
     finally:
         store.set("coll_cuda_allreduce_algorithm", 0)
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
-        "ring_hop": n - 1, "ring_hop_fold": n - 1}
+        "ring_hop": n - 1, "ring_hop_fold": n - 1, "ring_hop_peer": 0, "ring_hop_wait": 0}
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [2, 3, 8])
+def test_ring_hop_peer_matches_plain(dev, n):
+    """The cross-device hop over ranks that each own a buffer (on one
+    card all of them on ``dev``), at element offsets 0 and 1."""
+    from ompi_tpu_torch.mesh import CommMesh
+
+    mesh = CommMesh(dev, n, layout="devices")
+    ring = ck.peer_ring(mesh)
+    g = torch.Generator(device=dev).manual_seed(n)
+    for m in (1, 1003):
+        for off in (0, 1):
+            for dtype in (torch.float32, torch.bfloat16, torch.uint8, torch.complex64):
+                raw = [torch.randint(0, 256, ((m + 1) * dtype.itemsize,), generator=g,
+                                     device=d, dtype=torch.uint8).view(dtype)
+                       for d in mesh.devices * 2]
+                srcs, got = raw[:n], raw[n:]
+                want = [t.clone() for t in got]
+                ck.ring_hop_peer_plain(srcs, [off] * n, want, [off] * n, m)
+                ck.ring_hop_peer(srcs, [off] * n, got, [off] * n, m, ring)
+                torch.cuda.synchronize()
+                assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+    ring.check()
+
+
+def test_devices_layout_allreduce_matches_the_rows_layout(dev):
+    from ompi_tpu_torch.api.comm import Comm
+    from ompi_tpu_torch.api.group import Group
+    from ompi_tpu_torch.core import mca
+    from ompi_tpu_torch.mesh import CommMesh
+    from ompi_tpu_torch.mesh.shards import RankShards
+
+    n = 8
+    rows = Comm(Group(range(n)), CommMesh(dev, n))
+    devs = Comm(Group(range(n)), CommMesh(dev, n, layout="devices"))
+    x = torch.randn((n, 12345), device=dev)
+    store = mca.default_context().store
+    try:
+        store.set("coll_cuda_allreduce_algorithm", 7)
+        want = rows.allreduce(x, SUM)
+        before = dict(ck.LAUNCHES)
+        got = devs.allreduce(RankShards([x[r].clone() for r in range(n)]), SUM)
+        torch.cuda.synchronize()
+    finally:
+        store.set("coll_cuda_allreduce_algorithm", 0)
+    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
+        "ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": 2 * (n - 1) * n,
+        "ring_hop_wait": 4 * (n - 1) * n}
+    assert all(torch.equal(got[r], want[r]) for r in range(n))
+    ck.peer_ring(devs.mesh).check()
 
 
 def test_p2p_payload_is_a_clone_on_the_card_that_wait_fences(dev):

@@ -142,7 +142,8 @@ def test_source_walk_covers_the_tools_and_their_workers():
 
 
 def test_csrc_covers_the_device_window_library():
-    assert {p.name for p in CSRC_FILES} >= {"dcn.cc", "ring_hop.cu", "device_window.cu"}
+    assert {p.name for p in CSRC_FILES} >= {"dcn.cc", "ring_hop.cu", "device_window.cu",
+                                            "ring_hop_peer.cu"}
 
 
 def test_import_leaves_jax_out_of_sys_modules():
@@ -150,6 +151,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import sys\n"
         "import ompi_tpu_torch, ompi_tpu_torch.api, ompi_tpu_torch.coll, ompi_tpu_torch.entry\n"
         "import ompi_tpu_torch.coll.cuda_kernels, ompi_tpu_torch.examples.ddp_training\n"
+        "import ompi_tpu_torch.mesh.shards\n"
         "import ompi_tpu_torch.p2p, ompi_tpu_torch.p2p.part, ompi_tpu_torch.osc\n"
         "import ompi_tpu_torch.io, ompi_tpu_torch.io.checkpoint, ompi_tpu_torch.ddt.convertor\n"
         "import ompi_tpu_torch.tool.memchecker, ompi_tpu_torch.p2p.vprotocol\n"
@@ -288,6 +290,11 @@ def test_kernel_wrappers_raise_instead_of_running_the_plain_twin():
         ck._launch_hop(cpu, cidx, cpu, cidx)
     with pytest.raises(ck.KernelUnavailable):
         ck._launch_fold(cpu, cidx, cpu, cidx, cpu, cidx, SUM, False)
+    shards = [torch.zeros(8, device="meta") for _ in range(4)]
+    with pytest.raises(ck.KernelUnavailable):
+        ck.ring_hop_peer(shards, [0] * 4, shards, [0] * 4, 8)
+    with pytest.raises(ck.KernelUnavailable):  # a CPU ring has no kernel either
+        ck._launch_peer(ck.PeerRing(["cpu"] * 4), [cpu] * 4, [0] * 4, [cpu] * 4, [0] * 4, 8)
     assert ck.LAUNCHES == before
     assert not ck.kernel_available()
 
