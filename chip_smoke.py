@@ -307,14 +307,19 @@ exits non-zero:
     printed, with each neighbour pair's link, same card or peer);
     ``ring_hop_peer`` (``csrc/ring_hop_peer.cu``) against its plain twin
     bit for bit for n in {2, 3, 8}, chunk lengths 1, 7, 1003 and 4096,
-    element offsets 0 and 1, f32, f64, bf16, i32, u64, u8 and complex64;
-    the three ``cuda_ring`` schedules through ``Comm`` at 8 B, 1 MiB,
-    32 MiB and 1 GiB per rank (f32 SUM) and at 32 MiB f64 MAX and bf16
-    SUM, each bit-equal to the rows layout's same call and taking
-    exactly n puts and 2n waits per hop; every wait under a host-side
-    timeout; the CUDA-event median of one hop step at a 128 MiB chunk
-    per rank beside its bound, its plain twin and eight ``copy_`` calls,
-    and a 1 GiB allreduce on each layout in turns.  With
+    source and destination element offsets (0, 0), (1, 1) and (1, 0),
+    f32, f64, bf16, i32, u64, u8 and complex64 (every body word width,
+    printed); a ring whose counters start three hops below 2^64, its hop
+    and three shard rings bit-equal to the plain form; the three
+    ``cuda_ring`` schedules through ``Comm`` at 8 B, 1 MiB, 32 MiB and
+    1 GiB per rank (f32 SUM) and at 32 MiB f64 MAX and bf16 SUM, each
+    bit-equal to the rows layout's same call and taking exactly one put
+    launch and two wait launches per card per hop; every wait under a
+    host-side timeout; the median of one hop step at a 128 MiB chunk per
+    rank beside its bound, its host µs, its plain twin and eight
+    ``copy_`` calls; a hop step's wait launches against the same waits
+    one launch each; card 0's puts alone and together; and a 1 GiB
+    allreduce on each layout in turns.  With
     ``--cross-device-only`` the script runs phases 1 and 24 alone, for a
     machine of four cards: rank r on card
     ``r // 2``, four of the eight hops across NVLink, timed on the host
@@ -343,6 +348,7 @@ JAX package.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import re
@@ -860,6 +866,9 @@ CROSS_CASES = ((8, "float32", "MPI_SUM"), (1 << 20, "float32", "MPI_SUM"),
                (32 << 20, "float64", "MPI_MAX"), (32 << 20, "bfloat16", "MPI_SUM"))
 #: seconds the host gives a ring on the card before it calls it hung
 CROSS_TIMEOUT_S = 60.0
+#: hop steps (and their yardsticks) timed back to back per sample: the
+#: per-step time a ring sees, with the host's enqueue off the clock
+CROSS_REPS = 10
 #: where the reference's hop kernel is
 REMOTE_HOP = "ompi_tpu/coll/pallas_kernels.py:95"
 
@@ -922,18 +931,21 @@ def cross_ring_input(coll: str, nbytes: int, dtype, gen):
     return torch.randn(shape, generator=gen, device="cuda", dtype=gen_dtype).to(dtype)
 
 
-def cross_kernel_cases(ck, mesh_of, gen) -> tuple[int, list]:
+def cross_kernel_cases(ck, mesh_of, gen) -> tuple[int, list, list]:
     """``ring_hop_peer`` against its plain twin, bit for bit: n in {2, 3,
-    8}, chunk lengths 1, 7, 1003 and 4096, element offsets 0 and 1, seven
-    dtypes (random bits)."""
+    8}, chunk lengths 1, 7, 1003 and 4096, source and destination element
+    offsets (0, 0) and (1, 1) (the ends agree modulo 16: the body moves in
+    16-byte words) and (1, 0) (narrower words), seven dtypes (random
+    bits).  Returns the cases, the failures and the body word widths
+    the cases covered."""
     import torch
 
-    cases, failures = 0, []
+    cases, failures, widths = 0, [], set()
     for n in (2, 3, N):
         mesh = mesh_of(n)
         ring = ck.peer_ring(mesh)
         for length in (1, 7, 1003, 4096):
-            for off in (0, 1):
+            for so, do in ((0, 0), (1, 1), (1, 0)):
                 for dtype in (torch.float32, torch.float64, torch.bfloat16, torch.int32,
                               torch.uint64, torch.uint8, torch.complex64):
                     def buf(d):
@@ -943,16 +955,59 @@ def cross_kernel_cases(ck, mesh_of, gen) -> tuple[int, list]:
                     srcs = [buf(d) for d in mesh.devices]
                     dsts = [buf(d) for d in mesh.devices]
                     want = [t.clone() for t in dsts]
-                    offs = [off] * n
-                    ck.ring_hop_peer_plain(srcs, offs, want, offs, length)
-                    ck.ring_hop_peer(srcs, offs, dsts, offs, length, ring)
+                    ck.ring_hop_peer_plain(srcs, [so] * n, want, [do] * n, length)
+                    ck.ring_hop_peer(srcs, [so] * n, dsts, [do] * n, length, ring)
                     synced_within(mesh.devices, CROSS_TIMEOUT_S, f"hop n={n} m={length}")
                     cases += 1
+                    es = dtype.itemsize
+                    widths.update(ck.put_word_bytes(a.data_ptr() + so * es,
+                                                    b.data_ptr() + do * es)
+                                  for a, b in zip(srcs, dsts))
                     if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
                                for a, b in zip(dsts, want)):
-                        failures.append(("ring_hop_peer", n, length, off, str(dtype)))
+                        failures.append(("ring_hop_peer", n, length, so, do, str(dtype)))
         ring.check()
-    return cases, failures
+    return cases, failures, sorted(widths)
+
+
+#: where the wrap case's counters start: three hops below 2^64
+WRAP_EPOCH = (1 << 64) - 3
+
+
+def cross_wrap_case(ck, mesh, gen) -> dict:
+    """A ring whose counter pages start at :data:`WRAP_EPOCH` (written once
+    before its first hop): a hop at 1003 f32 elements and the three shard
+    rings at a padded size, each bit-equal to the plain form, so the
+    epochs and the arrival counters cross 2^64 on the card."""
+    import torch
+
+    from ompi_tpu_torch.op import SUM
+
+    ring = ck.PeerRing(mesh.devices, epoch=WRAP_EPOCH)
+    n, m, size = N, 1003, N * 1021 + 3
+    srcs = [torch.randn(m + 1, generator=gen, device="cuda").to(d) for d in mesh.devices]
+    dsts = [torch.randn(m + 1, generator=gen, device="cuda").to(d) for d in mesh.devices]
+    want = [t.clone() for t in dsts]
+    ck.ring_hop_peer_plain(srcs, [1] * n, want, [1] * n, m)
+    ck.ring_hop_peer(srcs, [1] * n, dsts, [1] * n, m, ring)
+    synced_within(mesh.devices, CROSS_TIMEOUT_S, "the wrap case's hop")
+    equal = {"hop": all(torch.equal(bits(a), bits(b)) for a, b in zip(dsts, want))}
+    xs = [torch.randn(size, generator=gen, device="cuda").to(d) for d in mesh.devices]
+    xss = [torch.randn((n, size), generator=gen, device="cuda").to(d) for d in mesh.devices]
+    for name, fn, args in (("allreduce", ck.ring_allreduce_shards, (xs, SUM)),
+                           ("allgather", ck.ring_allgather_shards, (xs,)),
+                           ("reduce_scatter", ck.ring_reduce_scatter_shards, (xss, SUM))):
+        got = fn(*args, ring=ring, _mode="cuda")
+        plain = fn(*args, _mode="plain")
+        synced_within(mesh.devices, CROSS_TIMEOUT_S, f"the wrap case's {name}")
+        equal[name] = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, plain))
+    ring.check()
+    return {"epoch": WRAP_EPOCH, "hops": ring.hops - WRAP_EPOCH,
+            "hops_wrapped": ring.hops >= 1 << 64,
+            "arrivals_wrapped": all(e < WRAP_EPOCH for e in ring.expected),
+            "bitwise": equal, "timeouts": int(ring.timed_out.sum()),
+            "ok": all(equal.values()) and ring.hops >= 1 << 64
+            and all(e < WRAP_EPOCH for e in ring.expected)}
 
 
 def phase_cross_device(ck, smi):
@@ -992,13 +1047,14 @@ def phase_cross_device(ck, smi):
     print(f"cross_device: {note}", flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(19)
-    kernel_cases, failures = cross_kernel_cases(
+    kernel_cases, failures, put_widths = cross_kernel_cases(
         ck, lambda n: mesh if n == N else CommMesh("cuda", n, layout="devices"), gen)
+    wrap = cross_wrap_case(ck, mesh, gen)
+    cards = sorted({d.index for d in mesh.devices})
     # the three rings through Comm, against the rows layout's cuda_ring
     rows_comm = Comm(Group(range(N)), CommMesh("cuda", N), name="rows")
     ops = {"MPI_SUM": SUM, "MPI_MAX": MAX}
-    want_launches = {"allreduce": 2 * (N - 1), "allgather": N - 1,
-                     "reduce_scatter_block": N - 1}
+    hops_of = {"allreduce": 2 * (N - 1), "allgather": N - 1, "reduce_scatter_block": N - 1}
     rings, launches = [], dict.fromkeys(ck.LAUNCHES, 0)
     for i, (nbytes, dname, opname) in enumerate(CROSS_CASES):
         dtype = getattr(torch, dname)
@@ -1019,15 +1075,17 @@ def phase_cross_device(ck, smi):
             per_call = launched(ck, before)
             for k in launches:
                 launches[k] += per_call[k]
-            hops = want_launches[coll]
+            hops = hops_of[coll]
             equal = isinstance(got, RankShards) and all(
                 torch.equal(bits(got[r].to(want.device)), bits(want[r])) for r in range(N))
+            # per hop and card: one put launch and two wait launches (eight
+            # ranks on a card fit one launch's entries)
             rings.append({"coll": coll, "bytes_per_rank": nbytes, "dtype": dname,
                           "op": opname if coll != "allgather" else None,
                           "bitwise_vs_rows": equal, "launches": per_call,
                           "launches_ok": per_call == {**dict.fromkeys(ck.LAUNCHES, 0),
-                                                      "ring_hop_peer": hops * N,
-                                                      "ring_hop_wait": 2 * hops * N}})
+                                                      "ring_hop_peer": hops * len(cards),
+                                                      "ring_hop_wait": 2 * hops * len(cards)}})
             del shards, want, got
     ck.peer_ring(mesh).check()
     torch.cuda.empty_cache()
@@ -1042,7 +1100,6 @@ def phase_cross_device(ck, smi):
     ck.ring_hop_peer_plain(srcs, zero, dp, zero, m)
     synced_within(mesh.devices, CROSS_TIMEOUT_S, "the 128 MiB hop")
     hop_err = max((a - b).abs().max().item() for a, b in zip(dk, dp))
-    cards = sorted({d.index for d in mesh.devices})
     # the least time of a hop step: every card's HBM traffic, or the
     # NVLink bytes a card sends, whichever is longer
     hbm = max(sum(2 * m * 4 for r in range(N) if mesh.devices[r].index == c) for c in cards)
@@ -1057,22 +1114,80 @@ def phase_cross_device(ck, smi):
 
     lib = ck._load_peer()
     flags = ring.timed_out.data_ptr()
+    streams = {c: torch.cuda.current_stream(c).cuda_stream for c in cards}
 
-    def waits():  # a hop step's 2N waits, every one already satisfied
+    def wait_entries(ranks):  # waits on `consumed` >= 0: already satisfied
+        vals = []
+        for r in ranks:
+            vals += (0, 0, ring.pages[r] + 8, 0, flags + 8 * r)
+        return (ctypes.c_ulonglong * len(vals))(*vals), len(ranks)
+
+    by_card = {c: [r for r in range(N) if mesh.devices[r].index == c] for c in cards}
+    batched = [(c, *wait_entries(rs)) for c, rs in by_card.items()]
+    single = [(mesh.devices[r].index, *wait_entries([r])) for r in range(N)]
+
+    def waits(launches):  # a hop step's: a credit and an arrival wait
         for _ in range(2):
-            for r, d in enumerate(mesh.devices):
-                lib.ompi_peer_wait(d.index, None, 0, ring.pages[r] + 8, 0, flags + 8 * r,
-                                   ck.PEER_WAIT_TIMEOUT_NS,
-                                   torch.cuda.current_stream(d).cuda_stream)
+            for c, arr, k in launches:
+                rc = lib.ompi_peer_wait(c, arr, k, ck.PEER_WAIT_TIMEOUT_NS, streams[c])
+                if rc:
+                    raise SystemExit(f"cross_device: ring_hop_wait launch: cudaError {rc}")
+
+    # card 0's puts alone, each and together, signalling a scratch page
+    scratch = ctypes.c_void_p()
+    if lib.ompi_peer_page_alloc(cards[0], 0, ctypes.byref(scratch)):
+        raise SystemExit("cross_device: the timing's scratch page")
+
+    def put_ms(ranks, blocks=None):
+        k = len(ranks)
+        if blocks is None:  # the plan's: one wave per put
+            plan, _ = ck._peer_plan([cards[0]] * k, 0, [0] * k, m * 4, ring.grid)
+            blocks = next(launch for launch in plan if launch.phase == "put").entries[0].blocks
+        vals = []
+        for r in ranks:
+            vals += (srcs[r].data_ptr(), dk[(r + 1) % N].data_ptr(), m * 4, scratch.value)
+        desc = (ctypes.c_longlong * len(vals))(*vals)
+
+        def put():
+            rc = lib.ompi_peer_put(cards[0], desc, k, blocks, streams[cards[0]])
+            if rc:
+                raise SystemExit(f"cross_device: ring_hop_peer launch: cudaError {rc}")
+        with torch.cuda.device(cards[0]):
+            return event_ms(put, 10)
+
+    host_us = []
+
+    def timed_hop():
+        t = time.perf_counter()
+        ck.ring_hop_peer(srcs, zero, dk, zero, m, ring)
+        host_us.append((time.perf_counter() - t) * 1e6)
 
     devs = mesh.devices
-    hop_ms = mesh_ms(lambda: ck.ring_hop_peer(srcs, zero, dk, zero, m, ring), devs, 10)
-    plain_ms = mesh_ms(lambda: ck.ring_hop_peer_plain(srcs, zero, dp, zero, m), devs, 10)
-    library_ms = mesh_ms(copies, devs, 10)
-    hop_ms2 = mesh_ms(lambda: ck.ring_hop_peer(srcs, zero, dk, zero, m, ring), devs, 10)
-    wait_ms = mesh_ms(waits, devs, 10)
+
+    def per_step(fn):  # CROSS_REPS steps back to back, as a ring issues them
+        def steps():
+            for _ in range(CROSS_REPS):
+                fn()
+        return mesh_ms(steps, devs, 5) / CROSS_REPS
+
+    hop_single_ms = mesh_ms(timed_hop, devs, 10)  # one call: its enqueue is on the clock
+    hop_ms = per_step(timed_hop)
+    plain_ms = per_step(lambda: ck.ring_hop_peer_plain(srcs, zero, dp, zero, m))
+    library_ms = per_step(copies)
+    hop_ms2 = per_step(timed_hop)
+    wait_ms = per_step(lambda: waits(batched))
+    wait_single_ms = per_step(lambda: waits(single))
     empty_ms = mesh_ms(lambda: None, devs, 10)
+    card0 = by_card[cards[0]]
+    put_split = {"card": cards[0], "ranks": card0,
+                 "links": [pairs[r]["link"] for r in card0],
+                 "together_ms": put_ms(card0),
+                 # one wave shared by the card's puts: a persistent grid
+                 "one_wave_ms": put_ms(card0, max(1, ring.grid // len(card0)))}
+    if len(card0) > 1:
+        put_split["alone_ms"] = [put_ms([r]) for r in card0]
     synced_within(mesh.devices, CROSS_TIMEOUT_S, "the timed hops")
+    lib.ompi_peer_page_free(cards[0], scratch)
     ring.check()
     del srcs, dk, dp
     torch.cuda.empty_cache()
@@ -1096,28 +1211,39 @@ def phase_cross_device(ck, smi):
          "ms": statistics.median([hop_ms, hop_ms2]), "plain_ms": plain_ms,
          "bound_ms": hop_bound_ms, "bound_by": "bytes",
          "library_ms": library_ms, "shape": [N, m], "dtype": "float32",
-         "unit": "one hop step: 8 puts and their 16 waits"},
+         "unit": f"one hop step: 8 puts and their 16 waits in {3 * len(cards)} launches "
+                 "(per card a credit wait, one batched put, an arrival wait), per step of "
+                 f"{CROSS_REPS} back to back; plain_ms and library_ms likewise"},
         {"name": "ring_hop_wait", "route": "cuda",
          "source": "ompi_tpu_torch/csrc/ring_hop_peer.cu", "replaces": REMOTE_HOP,
          "launches": launches["ring_hop_wait"], "max_abs_err": hop_err,
          "ms": wait_ms, "plain_ms": empty_ms,
          "bound_ms": 2 * N * 16 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": None, "shape": [2 * N], "dtype": "uint64",
-         "unit": "a hop step's 16 waits, already satisfied; the plain twin has none "
-                 "(stream order), so plain_ms is an empty event interval"}]
+         "unit": f"a hop step's 16 waits, already satisfied, in {2 * len(cards)} launches, "
+                 f"per step of {CROSS_REPS} back to back; the plain twin has none (stream "
+                 "order), so plain_ms is an empty event interval",
+         "one_entry_launches_ms": wait_single_ms}]
     row = {"phase": "cross_device", "nvidia_smi": smi, "cards": count, "note": note,
            "rank_devices": [str(d) for d in mesh.devices], "pairs": pairs,
            "kernel_cases": kernel_cases, "kernel_failures": failures[:20],
-           "rings": rings, "hop_step_ms": [hop_ms, hop_ms2], "hop_plain_ms": plain_ms,
+           "put_word_bytes": put_widths, "wrap_case": wrap,
+           "rings": rings, "hop_step_ms": [hop_ms, hop_ms2],
+           "hop_step_single_call_ms": hop_single_ms, "hop_plain_ms": plain_ms,
            "hop_library_copy_ms": library_ms,
            "hop_bound_ms": hop_bound_ms, "hop_bound_link": hop_bound_link,
-           "waits_ms": wait_ms, "allreduce_1GiB_ms": p50,
+           "hop_host_us": statistics.median(host_us), "put_grid": ring.grid,
+           "put_split_ms": put_split,
+           "waits_ms": wait_ms, "waits_one_entry_launches_ms": wait_single_ms,
+           "allreduce_1GiB_ms": p50,
            "timeouts": int(ring.timed_out.sum()), "launches": launches,
            "wall_s": time.perf_counter() - t0}
     emit(row)
     bad = [r for r in rings if not (r["bitwise_vs_rows"] and r["launches_ok"])]
-    if failures or bad or row["timeouts"] or min(launches[k] for k in ck.PEER_KERNELS) == 0:
-        raise SystemExit(f"cross_device checks failed: kernel {failures[:5]}, rings {bad[:5]}")
+    if failures or bad or row["timeouts"] or not wrap["ok"] or wrap["timeouts"] \
+            or min(launches[k] for k in ck.PEER_KERNELS) == 0:
+        raise SystemExit(f"cross_device checks failed: kernel {failures[:5]}, rings {bad[:5]}, "
+                         f"wrap {wrap}")
     return {**row, "kernel_rows": kernel_rows}
 
 
@@ -3905,7 +4031,7 @@ def phase_analysis(smi) -> dict:
         children.append(memcheck_row["child"])
     for child in children:
         if not child["bitwise"] or child["widths"] != [1, 2, 4, 8, 16] \
-                or child["fold_pairs"] != 32:
+                or child["fold_pairs"] != 32 or not child["peer_launches"]["ok"]:
             raise SystemExit(f"memcheck child: {child}")
     launches = {k: sum(c["launches"][k] for c in children) + lock["launches"][k]
                 for k in lock["launches"]}

@@ -17,13 +17,15 @@ launches ``ring_hop`` and ``ring_hop_fold`` (``csrc/ring_hop.cu``) on
   chunks (the padded path);
 * ``ring_hop_peer`` and ``ring_hop_wait`` (``csrc/ring_hop_peer.cu``)
   over 8 ranks that each own a buffer, all on this card: one hop at each
-  of the hop cases' sizes and offsets, then the three shard rings at the
-  padded size.
+  of the hop cases' sizes and offsets, with the destination at the same
+  offset and at offset 0, then the three shard rings at the padded size;
+  the launches are held to one put and two waits per hop.
 
 Every result is held bit for bit against the plain twins
 (``ring_hop_plain``, ``ring_hop_fold_plain``, the rings' interpret
 rung).  It prints one ``MEMCHECK {json}`` line (cases, widths, launches,
-``bitwise``) and exits 1 on any mismatch.
+``bitwise``, ``peer_launches``) and exits 1 on any mismatch or a wrong
+peer launch count.
 
 :func:`run_leg` is the ``cuda-memcheck`` leg of the sanitize pass: the
 child under ``compute-sanitizer --tool memcheck --kernel-name
@@ -181,17 +183,22 @@ def _peer_cases(ck, gen, dev) -> list:
     ring = ck.PeerRing([dev] * N)
     zero = [0] * N
     rows = []
+    before = dict(ck.LAUNCHES)
+    hops = 0
     for nbytes, off in HOP_CASES:
-        srcs = [_view(nbytes, off, dev)[0, 0] for _ in range(N)]
-        dsts = [_view(nbytes, off, dev)[0, 0] for _ in range(N)]
-        for t in srcs + dsts:
-            _fill(t, gen)
-        want = [d.clone() for d in dsts]
-        ck.ring_hop_peer_plain(srcs, zero, want, zero, nbytes)
-        ck.ring_hop_peer(srcs, zero, dsts, zero, nbytes, ring)
-        torch.cuda.synchronize()
-        rows.append({"kernel": "ring_hop_peer", "chunk_bytes": nbytes, "offset": off,
-                     "bitwise": all(torch.equal(a, b) for a, b in zip(dsts, want))})
+        for dst_off in (off, 0):  # the ends agree, or disagree, modulo 16
+            srcs = [_view(nbytes, off, dev)[0, 0] for _ in range(N)]
+            dsts = [_view(nbytes, dst_off, dev)[0, 0] for _ in range(N)]
+            for t in srcs + dsts:
+                _fill(t, gen)
+            want = [d.clone() for d in dsts]
+            ck.ring_hop_peer_plain(srcs, zero, want, zero, nbytes)
+            ck.ring_hop_peer(srcs, zero, dsts, zero, nbytes, ring)
+            torch.cuda.synchronize()
+            hops += 1
+            rows.append({"kernel": "ring_hop_peer", "chunk_bytes": nbytes, "offset": off,
+                         "dst_offset": dst_off,
+                         "bitwise": all(torch.equal(a, b) for a, b in zip(dsts, want))})
     xs = [_fold_input((RING_SIZE,), torch.float32, gen, dev) for _ in range(N)]
     xss = [_fold_input((N, RING_SIZE), torch.float32, gen, dev) for _ in range(N)]
     for name, fn, args in (
@@ -201,11 +208,15 @@ def _peer_cases(ck, gen, dev) -> list:
         got = fn(*args, ring=ring, _mode="cuda")
         want = fn(*args, _mode="plain")
         torch.cuda.synchronize()
+        hops += (2 if name == "ring_allreduce_shards" else 1) * (N - 1)
         rows.append({"kernel": name, "size": RING_SIZE,
                      "bitwise": all(torch.equal(_bits(a), _bits(b))
                                     for a, b in zip(got, want))})
     ring.check()
-    return rows
+    # every rank on this card: per hop one put launch and two wait launches
+    launches = {k: ck.LAUNCHES[k] - before[k] for k in ck.PEER_KERNELS}
+    return rows, {"hops": hops, "launches": launches,
+                  "ok": launches == {"ring_hop_peer": hops, "ring_hop_wait": 2 * hops}}
 
 
 def drive() -> dict:
@@ -221,13 +232,14 @@ def drive() -> dict:
     hops, widths = _hop_cases(ck, tbl, gen, dev)
     folds = _fold_cases(ck, tbl, gen, dev)
     rings = _ring_cases(ck, gen, dev)
-    peers = _peer_cases(ck, gen, dev)
+    peers, peer_launches = _peer_cases(ck, gen, dev)
     cases = hops + folds + rings + peers
     return {"cases": len(cases), "widths": sorted(widths),
             "fold_pairs": len({(r["dtype"], r["op"]) for r in folds}),
             "launches": dict(ck.LAUNCHES),
             "bitwise": all(r["bitwise"] for r in cases),
             "mismatches": [r for r in cases if not r["bitwise"]][:8],
+            "peer_launches": peer_launches,
             "device": torch.cuda.get_device_name(0)}
 
 
@@ -239,7 +251,8 @@ def main(argv: list[str] | None = None) -> int:
     if args.json:
         Path(args.json).write_text(json.dumps(summary))
     print("MEMCHECK " + json.dumps(summary), flush=True)
-    return 0 if summary["bitwise"] and summary["widths"] == [1, 2, 4, 8, 16] else 1
+    return 0 if (summary["bitwise"] and summary["widths"] == [1, 2, 4, 8, 16]
+                 and summary["peer_launches"]["ok"]) else 1
 
 
 def sanitizer() -> str | None:

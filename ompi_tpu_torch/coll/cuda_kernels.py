@@ -46,9 +46,12 @@ On the mesh's ``devices`` layout every rank owns a buffer of its own
 * :func:`ring_hop_peer` — rank r's chunk is pushed into the buffer that
   rank (r+1)%n owns, through that buffer's pointer (a peer pointer when
   the two ranks are on different cards), and device-side semaphores
-  order it: the ``ring_hop_wait`` kernel waits for the receiver's
-  arrival counter and, before a put, for the receiver's credit on the
-  double-buffered landing zone (:class:`PeerRing`, one per mesh);
+  order it.  A hop is three launches per card (:func:`_peer_plan`): a
+  ``ring_hop_wait`` launch for the receivers' credit on their
+  double-buffered landing zones, one batched put of every sender on the
+  card (counted as ``ring_hop_peer``), and a ``ring_hop_wait`` launch
+  for the arrivals of the card's receivers (:class:`PeerRing`, one per
+  mesh, holds the counters);
 * :func:`ring_allreduce_shards`, :func:`ring_allgather_shards` and
   :func:`ring_reduce_scatter_shards` — the reference's three schedules
   line for line over shards: ``_pad_chunks`` per rank, the same
@@ -67,10 +70,11 @@ The libraries are compiled with ``nvcc`` at first use into
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 import weakref
 from pathlib import Path
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -100,6 +104,12 @@ PEER_KERNELS = ("ring_hop_peer", "ring_hop_wait")
 
 #: how long a device-side wait of the peer hop spins before it gives up
 PEER_WAIT_TIMEOUT_NS = 20_000_000_000
+#: entries one put or wait launch of the peer hop takes by value
+#: (``kMaxEntries`` in ``ring_hop_peer.cu``)
+PEER_MAX_ENTRIES = 16
+#: bytes one block of the put moves in one unrolled pass (256 threads x
+#: 8 words of 16 bytes): a put gets no more blocks than it has such passes
+PEER_BLOCK_BYTES = 256 * 8 * 16
 _U64 = (1 << 64) - 1
 
 _FOLD_DTYPES = {
@@ -204,11 +214,13 @@ def _load_peer():
         if _peer_lib is None:
             lib = ctypes.CDLL(str(build_peer()))
             p, ll, ull, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int
-            lib.ompi_peer_put.argtypes = [i, p, p, ll, p, p, ctypes.POINTER(ll)]
+            lib.ompi_peer_put.argtypes = [i, ctypes.POINTER(ll), i, ll, p]
             lib.ompi_peer_put.restype = i
-            lib.ompi_peer_wait.argtypes = [i, p, ull, p, ull, p, ll, p]
+            lib.ompi_peer_wait.argtypes = [i, ctypes.POINTER(ull), i, ll, p]
             lib.ompi_peer_wait.restype = i
-            lib.ompi_peer_page_alloc.argtypes = [i, ctypes.POINTER(p)]
+            lib.ompi_peer_grid.argtypes = [i, ctypes.POINTER(i)]
+            lib.ompi_peer_grid.restype = i
+            lib.ompi_peer_page_alloc.argtypes = [i, ull, ctypes.POINTER(p)]
             lib.ompi_peer_page_alloc.restype = i
             lib.ompi_peer_page_free.argtypes = [i, p]
             lib.ompi_peer_page_free.restype = i
@@ -522,22 +534,25 @@ def _free_pages(lib, pages) -> None:
 
 class PeerRing:
     """The cross-device hop's state for one mesh: per rank a counter page
-    (``recv`` at byte 0, ``consumed`` at byte 8; cudaMalloc'd and zeroed
-    once), two landing zones, and the host's epoch numbers: ``hops`` (hop
-    h of the mesh's life uses zone h % 2) and ``expected`` (the arrivals
-    each rank's ``recv`` reaches once every put so far has landed).  A
-    pinned host flag per rank says whether one of its waits timed out.
-    On CPU devices it keeps only the zones and ``hops`` (the hops there
-    are the plain twin's copies)."""
+    (``recv`` at byte 0, ``consumed`` at byte 8; cudaMalloc'd once and set
+    to ``epoch``), two landing zones, and the host's epoch numbers:
+    ``hops`` (hop h of the mesh's life uses zone h % 2) and ``expected``
+    (the arrivals each rank's ``recv`` reaches once every put so far has
+    landed).  ``epoch`` is where both start (the tests start near 2^64 to
+    cross the wrap).  A pinned host flag per rank says whether one of its
+    waits timed out.  ``cards`` is each rank's card index and ``grid`` one
+    wave of the put kernel's blocks (SMs x resident blocks, the smallest
+    of the cards').  On CPU devices it keeps only the zones and ``hops``
+    (the hops there are the plain twin's copies)."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device], epoch: int = 0):
         self.devices = tuple(torch.device(d) for d in devices)
         kinds = {d.type for d in self.devices}
         if kinds not in ({"cuda"}, {"cpu"}):
             raise MPIArgError(f"a PeerRing is all CPU or all CUDA, got {sorted(kinds)}")
         self.n = len(self.devices)
-        self.hops = 0
-        self.expected = [0] * self.n
+        self.hops = epoch & _U64
+        self.expected = [epoch & _U64] * self.n
         self.broken = False
         self._zones: list[tuple[torch.Tensor, torch.Tensor]] = []
         self._zone_bytes = 0
@@ -547,17 +562,24 @@ class PeerRing:
             return
         _require_kernel()
         lib = _load_peer()
-        for r, d in enumerate(self.devices):
-            to = self.devices[(r + 1) % self.n]
-            if to.index != d.index:  # the sender's card reaches the receiver's
-                _check_rc(lib.ompi_peer_enable(d.index, to.index), "ompi_peer_enable")
-        for d in self.devices:
+        self.cards = tuple(d.index for d in self.devices)
+        self.card_order = tuple(dict.fromkeys(self.cards))
+        for r, c in enumerate(self.cards):
+            to = self.cards[(r + 1) % self.n]
+            if to != c:  # the sender's card reaches the receiver's
+                _check_rc(lib.ompi_peer_enable(c, to), "ompi_peer_enable")
+        grids = []
+        for c in self.card_order:
+            blocks = ctypes.c_int()
+            _check_rc(lib.ompi_peer_grid(c, ctypes.byref(blocks)), "ompi_peer_grid")
+            grids.append(blocks.value)
+        self.grid = min(grids)
+        for c in self.cards:
             ptr = ctypes.c_void_p()
-            _check_rc(lib.ompi_peer_page_alloc(d.index, ctypes.byref(ptr)),
+            _check_rc(lib.ompi_peer_page_alloc(c, epoch & _U64, ctypes.byref(ptr)),
                       "ompi_peer_page_alloc")
             self.pages.append(ptr.value)
-        weakref.finalize(self, _free_pages, lib,
-                         [(d.index, ptr) for d, ptr in zip(self.devices, self.pages)])
+        weakref.finalize(self, _free_pages, lib, list(zip(self.cards, self.pages)))
         self.timed_out = torch.zeros(self.n, dtype=torch.int64, pin_memory=True)
 
     def landing(self, nbytes: int) -> list[torch.Tensor]:
@@ -634,10 +656,11 @@ def ring_hop_peer(srcs: Sequence[torch.Tensor], src_offsets: Sequence[int],
 
     ``srcs[r]`` lies on rank r's device and ``dsts[r]`` on rank r's too
     (contiguous, one dtype, all CPU or all CUDA).  CPU buffers take the
-    plain twin; CUDA buffers launch, for every rank, the credit wait and
-    the put on the sender's stream, then every receiver's arrival wait
-    (``ring`` holds the counters), and the hop has landed on each
-    receiver's stream when this returns; or it raises."""
+    plain twin; CUDA buffers launch :func:`_peer_plan`'s three launches
+    per card on the card's current stream: every card's credit wait and
+    batched put, then every card's arrival wait (``ring`` holds the
+    counters).  The hop has landed on each receiver's stream when this
+    returns; or it raises."""
     _check_peer_args(srcs, src_offsets, dsts, dst_offsets, length)
     if srcs[0].device.type == "cpu":
         ring_hop_peer_plain(srcs, src_offsets, dsts, dst_offsets, length)
@@ -647,51 +670,152 @@ def ring_hop_peer(srcs: Sequence[torch.Tensor], src_offsets: Sequence[int],
     _launch_peer(ring, srcs, src_offsets, dsts, dst_offsets, length)
 
 
+class PeerPut(NamedTuple):
+    """One entry of a put launch: ``sender``'s chunk into ``receiver``'s
+    buffer, by ``blocks`` blocks, each adding one to ``receiver``'s
+    ``recv`` counter."""
+    sender: int
+    receiver: int
+    blocks: int
+
+
+class PeerWait(NamedTuple):
+    """One lane of a wait launch: store ``post_val`` into the ``consumed``
+    counter of rank ``post`` (none when ``post`` is None), then wait until
+    the ``counter`` (``"recv"`` or ``"consumed"``) of rank ``rank``
+    reaches ``target`` (a signed 64-bit difference); a wait that gives up
+    flags rank ``flag``."""
+    post: int | None
+    post_val: int
+    rank: int
+    counter: str
+    target: int
+    flag: int
+
+
+class PeerLaunch(NamedTuple):
+    """One launch of a hop on ``card``'s stream: ``phase`` is ``credit``
+    or ``arrival`` (a ``ring_hop_wait`` launch of :class:`PeerWait`
+    entries) or ``put`` (a ``ring_hop_peer`` launch of :class:`PeerPut`
+    entries)."""
+    card: int
+    phase: str
+    entries: tuple
+
+
+#: byte offset of each counter in a rank's page
+_COUNTER_OFFSET = {"recv": 0, "consumed": 8}
+
+
+def put_word_bytes(src_addr: int, dst_addr: int) -> int:
+    """The word width of a put's body (``ring_hop_put_kernel``'s rule):
+    16 when the two addresses agree modulo 16, else the widest power of
+    two they agree modulo; the head and tail are peeled byte by byte."""
+    mis = src_addr ^ dst_addr
+    return next(w for w in (16, 8, 4, 2, 1) if mis % w == 0)
+
+
+def _peer_plan(cards: Sequence[int], hop: int, expected: Sequence[int], nbytes: int,
+               grid: int) -> tuple[list[PeerLaunch], list[int]]:
+    """The launches of hop ``hop`` over ranks on ``cards`` (rank r's card
+    index), in the order the host enqueues them, and the ``expected``
+    arrival targets after it.
+
+    Ranks are grouped by card, at most :data:`PEER_MAX_ENTRIES` a launch.
+    For each group, in card order: the credit wait (each sender waits for
+    its receiver's ``consumed`` to reach ``hop - 1``: the zone it writes
+    was last read before that receiver's arrival wait of ``hop - 1``),
+    then the batched put, in which each put (all move ``nbytes``) gets
+    one wave of blocks, ``grid``, but at most one block per
+    :data:`PEER_BLOCK_BYTES` and at least one; the kernel interleaves the
+    puts' blocks, so every wave works on every put.  Then, for every
+    group, the arrival wait: each receiver posts ``consumed := hop`` and
+    waits for its ``recv`` to reach the blocks of every put into it so
+    far.  Every receiver's sender is the rank before it, so each card's
+    receivers are its own ranks.  Pure: the CPU tests run it without a
+    card."""
+    groups = _peer_groups(tuple(cards), nbytes, grid)
+    new = list(expected)
+    launches = []
+    credit_target = (hop - 1) & _U64
+    for card, puts in groups:
+        for p in puts:
+            new[p.receiver] = (new[p.receiver] + p.blocks) & _U64
+        launches.append(PeerLaunch(card, "credit", tuple(
+            PeerWait(None, 0, p.receiver, "consumed", credit_target, p.sender)
+            for p in puts)))
+        launches.append(PeerLaunch(card, "put", puts))
+    post = hop & _U64
+    for card, puts in groups:
+        launches.append(PeerLaunch(card, "arrival", tuple(
+            PeerWait(p.sender, post, p.sender, "recv", new[p.sender], p.sender)
+            for p in puts)))
+    return launches, new
+
+
+@functools.lru_cache(maxsize=256)
+def _peer_groups(cards: tuple, nbytes: int, grid: int) -> tuple:
+    """The hop-independent part of :func:`_peer_plan`: per launch group,
+    its card and its puts (at most :data:`PEER_MAX_ENTRIES`)."""
+    n = len(cards)
+    blocks = max(1, min(-(-nbytes // PEER_BLOCK_BYTES), grid))
+    groups = []
+    for card in dict.fromkeys(cards):
+        ranks = [r for r in range(n) if cards[r] == card]
+        for i in range(0, len(ranks), PEER_MAX_ENTRIES):
+            groups.append((card, tuple(PeerPut(r, (r + 1) % n, blocks)
+                                       for r in ranks[i:i + PEER_MAX_ENTRIES])))
+    return tuple(groups)
+
+
 def _launch_peer(ring, srcs, src_offsets, dsts, dst_offsets, length) -> None:
-    _require_kernel(*srcs, *dsts)
     if ring is None:
+        _require_kernel(*srcs, *dsts)
         raise MPIArgError("ring_hop_peer: CUDA buffers need the mesh's PeerRing")
     n = ring.n
     if len(srcs) != n:
         raise MPIArgError(f"ring_hop_peer: {len(srcs)} buffers for a ring of {n}")
-    for r in range(n):
-        if srcs[r].device != ring.devices[r] or dsts[r].device != ring.devices[r]:
+    if not ring.pages:  # a CUDA ring checked the card when it was built
+        raise KernelUnavailable("ring_hop_peer: a CPU ring cannot launch the kernels")
+    for r, c in enumerate(ring.cards):
+        if srcs[r].get_device() != c or dsts[r].get_device() != c:
             raise MPIArgError(f"ring_hop_peer: rank {r}'s buffers are not on "
                               f"{ring.devices[r]}")
     ring.check()
     lib = _load_peer()
     es = srcs[0].element_size()
-    h = ring.hops
-    flags = ring.timed_out.data_ptr()
-    blocks = ctypes.c_longlong()
+    nbytes = length * es
+    plan, expected = _peer_plan(ring.cards, ring.hops, ring.expected, nbytes, ring.grid)
+    pages, flags = ring.pages, ring.timed_out.data_ptr()
+    consumed = _COUNTER_OFFSET["consumed"]
+    # every launch's entries first, so the launches go in back to back
+    calls = []
+    for launch in plan:
+        vals = []
+        if launch.phase == "put":
+            for p in launch.entries:
+                vals += (srcs[p.sender].data_ptr() + src_offsets[p.sender] * es,
+                         dsts[p.receiver].data_ptr() + dst_offsets[p.receiver] * es,
+                         nbytes, pages[p.receiver])
+            calls.append((lib.ompi_peer_put, "ring_hop_peer", launch.card,
+                          (ctypes.c_longlong * len(vals))(*vals), len(launch.entries),
+                          launch.entries[0].blocks))
+        else:
+            for w in launch.entries:
+                vals += (0 if w.post is None else pages[w.post] + consumed, w.post_val,
+                         pages[w.rank] + _COUNTER_OFFSET[w.counter], w.target,
+                         flags + 8 * w.flag)
+            calls.append((lib.ompi_peer_wait, "ring_hop_wait", launch.card,
+                          (ctypes.c_ulonglong * len(vals))(*vals), len(launch.entries),
+                          PEER_WAIT_TIMEOUT_NS))
+    streams = {c: torch.cuda.current_stream(c).cuda_stream for c in ring.card_order}
     ring.broken = True  # until every launch of the hop went in
-    # every put of the hop before any wait of it (the waits of ranks that
-    # share a card share its stream)
-    for r in range(n):
-        to = (r + 1) % n
-        dev = ring.devices[r]
-        st = torch.cuda.current_stream(dev).cuda_stream
-        # credit: the receiver's zone h % 2 was last read before its wait of h-1
-        _check_rc(lib.ompi_peer_wait(dev.index, None, 0, ring.pages[to] + 8,
-                                     (h - 1) & _U64, flags + 8 * r,
-                                     PEER_WAIT_TIMEOUT_NS, st), "ring_hop_wait launch")
-        LAUNCHES["ring_hop_wait"] += 1
-        _check_rc(lib.ompi_peer_put(
-            dev.index, srcs[r].data_ptr() + src_offsets[r] * es,
-            dsts[to].data_ptr() + dst_offsets[to] * es, length * es,
-            ring.pages[to], st, ctypes.byref(blocks)), "ring_hop_peer launch")
-        LAUNCHES["ring_hop_peer"] += 1
-        ring.expected[to] = (ring.expected[to] + blocks.value) & _U64
-    for r in range(n):
-        dev = ring.devices[r]
-        st = torch.cuda.current_stream(dev).cuda_stream
-        # consumed := h (every reader of hop h-1's zone is done), then
-        # wait for the arrivals of every put into rank r so far
-        _check_rc(lib.ompi_peer_wait(dev.index, ring.pages[r] + 8, h & _U64,
-                                     ring.pages[r], ring.expected[r], flags + 8 * r,
-                                     PEER_WAIT_TIMEOUT_NS, st), "ring_hop_wait launch")
-        LAUNCHES["ring_hop_wait"] += 1
-    ring.hops = h + 1
+    for fn, kernel, card, arr, k, arg in calls:
+        rc = fn(card, arr, k, arg, streams[card])
+        _check_rc(rc, f"{kernel} launch")
+        LAUNCHES[kernel] += 1
+    ring.expected = expected
+    ring.hops += 1
     ring.broken = False
 
 

@@ -96,28 +96,33 @@ def test_cuda_ring_allreduce_counts_its_launches(dev):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("epoch", [0, (1 << 64) - 3])
 @pytest.mark.parametrize("n", [2, 3, 8])
-def test_ring_hop_peer_matches_plain(dev, n):
+def test_ring_hop_peer_matches_plain(dev, n, epoch):
     """The cross-device hop over ranks that each own a buffer (on one
-    card all of them on ``dev``), at element offsets 0 and 1."""
+    card all of them on ``dev``), at source and destination element
+    offsets that agree (0 and 1: the body moves in 16-byte words) and
+    disagree (narrower words), with counters from 0 and from near 2^64
+    (the signed compare across the wrap)."""
     from ompi_tpu_torch.mesh import CommMesh
 
     mesh = CommMesh(dev, n, layout="devices")
-    ring = ck.peer_ring(mesh)
+    ring = ck.PeerRing(mesh.devices, epoch=epoch)
     g = torch.Generator(device=dev).manual_seed(n)
     for m in (1, 1003):
-        for off in (0, 1):
+        for so, do in ((0, 0), (1, 1), (1, 0), (0, 1)):
             for dtype in (torch.float32, torch.bfloat16, torch.uint8, torch.complex64):
                 raw = [torch.randint(0, 256, ((m + 1) * dtype.itemsize,), generator=g,
                                      device=d, dtype=torch.uint8).view(dtype)
                        for d in mesh.devices * 2]
                 srcs, got = raw[:n], raw[n:]
                 want = [t.clone() for t in got]
-                ck.ring_hop_peer_plain(srcs, [off] * n, want, [off] * n, m)
-                ck.ring_hop_peer(srcs, [off] * n, got, [off] * n, m, ring)
+                ck.ring_hop_peer_plain(srcs, [so] * n, want, [do] * n, m)
+                ck.ring_hop_peer(srcs, [so] * n, got, [do] * n, m, ring)
                 torch.cuda.synchronize()
                 assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
     ring.check()
+    assert ring.hops == epoch + 2 * 4 * 4
 
 
 def test_devices_layout_allreduce_matches_the_rows_layout(dev):
@@ -140,9 +145,10 @@ def test_devices_layout_allreduce_matches_the_rows_layout(dev):
         torch.cuda.synchronize()
     finally:
         store.set("coll_cuda_allreduce_algorithm", 0)
+    hops, cards = 2 * (n - 1), 1  # every rank on ``dev``: per hop one put, two waits
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
-        "ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": 2 * (n - 1) * n,
-        "ring_hop_wait": 4 * (n - 1) * n}
+        "ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": hops * cards,
+        "ring_hop_wait": 2 * hops * cards}
     assert all(torch.equal(got[r], want[r]) for r in range(n))
     ck.peer_ring(devs.mesh).check()
 

@@ -21,6 +21,7 @@
   order can change).  The reference's short deadlines are kept.
 """
 
+import glob
 import json
 import os
 import subprocess
@@ -273,6 +274,55 @@ def _send_by_proc(engine, proc: int, cid: str, x: np.ndarray) -> int:
                          x.ctypes.data_as(ctypes.c_void_p), x.nbytes)
 
 
+def process_start_epoch() -> float:
+    """This process's start, in seconds since the epoch (``/proc/self/stat``
+    field 22 over the boot time).  Both parts are rounded down, so it is
+    never later than the true start."""
+    with open("/proc/self/stat") as f:
+        start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(ln.split()[1]) for ln in f if ln.startswith("btime "))
+    return btime + start_ticks / os.sysconf("SC_CLK_TCK")
+
+
+def remove_stale_doorbells(shm: str = "/dev/shm", start: float | None = None) -> list:
+    """Unlink the doorbells ``tdcn-db-<this pid>-*`` in ``shm`` whose change
+    time is older than this process's start (or ``start``): a dead
+    process with the same pid left them, and the reference's
+    ``NativeDcnEngine``, unlike the port's, crashes on such a name.
+    Returns the paths it removed."""
+    start = process_start_epoch() if start is None else start
+    removed = []
+    for path in sorted(glob.glob(os.path.join(shm, f"tdcn-db-{os.getpid()}-*"))):
+        try:
+            if os.stat(path).st_ctime < start:
+                os.unlink(path)
+                removed.append(path)
+        except FileNotFoundError:
+            pass
+    return removed
+
+
+def test_remove_stale_doorbells_takes_only_a_dead_processes_names(tmp_path):
+    """A name planted before the cut goes; one planted after it, and
+    another pid's, stay.  This process's own start is never after a name
+    it made."""
+    pid = os.getpid()
+    stale, fresh = tmp_path / f"tdcn-db-{pid}-0", tmp_path / f"tdcn-db-{pid}-1"
+    other = tmp_path / f"tdcn-db-{pid + 1}-0"
+    for path in (stale, other):
+        path.write_bytes(b"left by a dead process")
+    time.sleep(0.05)
+    cut = time.time()
+    time.sleep(0.05)
+    fresh.write_bytes(b"this process's")
+    assert remove_stale_doorbells(str(tmp_path), start=cut) == [str(stale)]
+    assert not stale.exists() and fresh.exists() and other.exists()
+    assert process_start_epoch() <= os.stat(fresh).st_ctime
+    assert remove_stale_doorbells(str(tmp_path)) == []
+    assert fresh.exists()
+
+
 @pytest.mark.parametrize("pkg", ["ref", "port"])
 def test_native_update_address_routes_to_the_reborn_endpoint(pkg):
     """Proc 1's first engine dies (destroyed: the corpse) and a reborn
@@ -281,6 +331,11 @@ def test_native_update_address_routes_to_the_reborn_endpoint(pkg):
     table reaches the reborn engine, bit for bit, and the reborn engine
     reaches proc 0 back; the install is counted (``addr_installs``)."""
     mod = {"ref": rnative, "port": pnative}[pkg]
+    if pkg == "ref":  # the reference's engine crashes on a dead same-pid doorbell
+        remove_stale_doorbells()
+        start = process_start_epoch()
+        assert not [p for p in glob.glob(f"/dev/shm/tdcn-db-{os.getpid()}-*")
+                    if os.stat(p).st_ctime < start]
     a, corpse = mod.NativeDcnEngine(0, 2), mod.NativeDcnEngine(1, 2)
     reborn = None
     try:
