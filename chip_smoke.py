@@ -318,8 +318,19 @@ exits non-zero:
     host-side timeout; the median of one hop step at a 128 MiB chunk per
     rank beside its bound, its host µs, its plain twin and eight
     ``copy_`` calls; a hop step's wait launches against the same waits
-    one launch each; card 0's puts alone and together; and a 1 GiB
-    allreduce on each layout in turns.  With
+    one launch each; card 0's puts alone and together; every collective
+    × algorithm of ``coll/cuda`` on the devices layout (allreduce, bcast,
+    reduce, allgather, gather, scatter, reduce_scatter_block, alltoall,
+    scan, exscan) at 8 B, 1 MiB and 32 MiB per rank in f32 SUM and at 1
+    MiB in f32 MAX and bf16 SUM, each against the same call on the rows
+    layout (bit for bit; ``psum`` and ``direct`` within rtol 1e-5 f32,
+    1e-2 bf16) with its peer launches counted (allgather capped at 16
+    MiB in, 128 MiB out per rank; the caps printed); the three barriers
+    in every form; an ``iallreduce``, an ``allreduce_init`` started
+    twice and an ``ibcast`` against their blocking twins; a 1 GiB
+    allreduce on each layout in turns, pinned to ``cuda_ring`` and
+    unpinned (tuned's ``psum``); and a 1 GiB ``iallreduce``'s host return
+    beside its ``wait()``.  With
     ``--cross-device-only`` the script runs phases 1 and 24 alone, for a
     machine of four cards: rank r on card
     ``r // 2``, four of the eight hops across NVLink, timed on the host
@@ -338,8 +349,9 @@ phase's jobs (each job prints its own), the C ranks of the capi
 phase (none: a C rank holds one row), the bench phase's three legs, the
 bench_np2 phase's workers and C ranks, the tools phase's workers and
 the analysis phase's two children (for ``ring_hop`` and
-``ring_hop_fold``), and the cross_device phase's ``Comm`` rings (for
-``ring_hop_peer`` and ``ring_hop_wait``); the last
+``ring_hop_fold``), and the cross_device phase's ``Comm`` rings and its
+checked collectives on the devices layout (for ``ring_hop_peer`` and
+``ring_hop_wait``); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -860,6 +872,9 @@ def phase_golden(ck, smi):
 
 # -- cross_device -----------------------------------------------------------
 
+#: ``coll_cuda_allreduce_algorithm``'s ``cuda_ring`` (the phase's world pins it)
+ALLREDUCE_CUDA_RING = 7
+
 #: per-rank bytes, dtype and op of the cross_device phase's rings
 CROSS_CASES = ((8, "float32", "MPI_SUM"), (1 << 20, "float32", "MPI_SUM"),
                (32 << 20, "float32", "MPI_SUM"), (1 << 30, "float32", "MPI_SUM"),
@@ -1010,17 +1025,233 @@ def cross_wrap_case(ck, mesh, gen) -> dict:
             and all(e < WRAP_EPOCH for e in ring.expected)}
 
 
+#: per-rank bytes of every collective × algorithm on the devices layout
+#: (f32 SUM), and the size of its f32 MAX and bf16 SUM cases
+SHARD_SIZES = (8, 1 << 20, 32 << 20)
+SHARD_EXTRA_BYTES = 1 << 20
+#: per rank, the most a collective that holds n× its input may hold: an
+#: allgather's input is cut to this over n, an alltoall's to this
+SHARD_HOLD_CAP = 128 << 20
+#: rtol of the reductions whose order the reference leaves to XLA (psum,
+#: reduce_scatter direct), by dtype; atol is rtol × n × max |input|
+SHARD_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: per-rank bytes of the i/init checks and of the timed auto allreduce
+SHARD_FORM_BYTES = 32 << 20
+AUTO_BYTES = 1 << 30
+
+
+def shard_input(coll: str, nbytes: int, dtype, gen):
+    """The rows-layout input of one collective at ``nbytes`` per rank
+    (``SHARD_HOLD_CAP`` applied) and the bytes per rank it holds."""
+    import torch
+
+    es = torch.empty((), dtype=dtype).element_size()
+    if coll == "allgather":
+        nbytes = min(nbytes, SHARD_HOLD_CAP // N)
+    if coll == "alltoall":
+        nbytes = min(nbytes, SHARD_HOLD_CAP)
+    if coll in ("reduce_scatter_block", "alltoall"):
+        shape = (N, N, max(1, nbytes // (N * es)))
+    else:
+        shape = (N, max(1, nbytes // es))
+    gen_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    x = torch.randn(shape, generator=gen, device="cuda", dtype=gen_dtype).to(dtype)
+    return x, x[0].numel() * es
+
+
+def shard_call(comm, coll: str, x, op, form: str = "blocking"):
+    """One collective through ``comm`` (root 1 where it has one); ``form``
+    blocking, ``i`` (waited) or ``init`` (started twice: both results)."""
+    if coll in ("allreduce", "reduce_scatter_block", "scan", "exscan"):
+        args = (x, op)
+    elif coll == "reduce":
+        args = (x, op, 1)
+    elif coll in ("bcast", "gather", "scatter"):
+        args = (x, 1)
+    else:
+        args = (x,)
+    if form == "blocking":
+        return getattr(comm, coll)(*args)
+    if form == "i":
+        return getattr(comm, "i" + coll)(*args).wait()
+    req = getattr(comm, coll + "_init")(*args)
+    outs = []
+    for _ in range(2):
+        req.start()
+        outs.append(req.wait())
+    return outs
+
+
+def shard_agrees(got, want, exact: bool, rtol: float, atol: float) -> tuple[bool, float]:
+    """Whether a devices-layout result (``RankShards``, or one tensor for a
+    gather or a reduce's root) matches the rows layout's: bit for bit, or
+    within ``rtol``/``atol``; and the largest absolute difference."""
+    import torch
+
+    from ompi_tpu_torch.mesh.shards import RankShards
+
+    pairs = list(zip(got.shards, want)) if isinstance(got, RankShards) else [(got, want)]
+    ok, err = True, 0.0
+    for a, b in pairs:
+        a = a.to(b.device)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False, float("inf")
+        if b.is_floating_point():
+            err = max(err, (a.float() - b.float()).abs().max().item())
+        ok = ok and (torch.equal(bits(a), bits(b)) if exact
+                     else torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol))
+    return ok, err
+
+
+def cross_collectives(ck, world, rows_comm, mesh, store, gen) -> tuple[list, dict, dict]:
+    """Every collective × algorithm of ``coll/cuda`` through ``world`` (the
+    devices layout) at :data:`SHARD_SIZES` in f32 SUM, and at
+    :data:`SHARD_EXTRA_BYTES` in f32 MAX and bf16 SUM, each against the same
+    call on the rows layout; the three barriers; an ``iallreduce``, an
+    ``allreduce_init`` started twice and an ``ibcast`` against their
+    blocking twins.  Returns the rows, the peer launches of the checked
+    calls and the caps applied."""
+    import torch
+
+    from ompi_tpu_torch.coll import cuda as cc
+    from ompi_tpu_torch.mesh.shards import RankShards
+    from ompi_tpu_torch.op import MAX, SUM
+
+    enums = {"allreduce": ("allreduce_algorithm", cc.ALLREDUCE_ALGOS),
+             "bcast": ("bcast_algorithm", cc.BCAST_ALGOS),
+             "reduce": ("reduce_algorithm", cc.REDUCE_ALGOS),
+             "allgather": ("allgather_algorithm", cc.ALLGATHER_ALGOS),
+             "reduce_scatter_block": ("reduce_scatter_algorithm", cc.REDUCE_SCATTER_ALGOS),
+             "alltoall": ("alltoall_algorithm", cc.ALLTOALL_ALGOS),
+             "gather": (None, {"copy": 0}), "scatter": (None, {"copy": 0}),
+             "scan": (None, {"ordered": 0}), "exscan": (None, {"ordered": 0})}
+    has_op = ("allreduce", "reduce", "reduce_scatter_block", "scan", "exscan")
+    cases = [(nbytes, "float32", "MPI_SUM") for nbytes in SHARD_SIZES] + [
+        (SHARD_EXTRA_BYTES, "float32", "MPI_MAX"), (SHARD_EXTRA_BYTES, "bfloat16", "MPI_SUM")]
+    ops = {"MPI_SUM": SUM, "MPI_MAX": MAX}
+    cards = len({d.index for d in mesh.devices})
+    launches = dict.fromkeys(ck.PEER_KERNELS, 0)
+
+    def ring_hops(coll: str, algo: str, opname: str) -> tuple[int, bool]:
+        """The hops of the ring over the peer kernels that ``algo``
+        resolves to (0: it runs on torch copies), and whether the result
+        is held bit for bit (not for psum and direct, XLA's order)."""
+        if coll == "allreduce" and algo in ("auto", "psum"):
+            return 2 * (N - 1), False  # SUM and MAX have a fused reduction
+        if coll == "reduce_scatter_block" and algo in ("auto", "direct") \
+                and opname == "MPI_SUM":
+            return N - 1, False
+        if algo == "cuda_ring":
+            return (2 * (N - 1) if coll == "allreduce" else N - 1), True
+        return 0, True
+
+    def pinned(values: dict, fn):
+        prev = {k: store.get(k) for k in values}
+        for k, v in values.items():
+            store.set(k, v)
+        try:
+            return fn()
+        finally:
+            for k, v in prev.items():
+                store.set(k, v)
+
+    def devices_call(fn):
+        before = dict(ck.LAUNCHES)
+        out = fn()
+        synced_within(mesh.devices, CROSS_TIMEOUT_S, "a devices-layout collective")
+        per_call = launched(ck, before)
+        for k in launches:
+            launches[k] += per_call[k]
+        return out, per_call
+
+    rows = []
+    for coll, (var, enum) in enums.items():
+        for algo in enum:
+            for i, (nbytes, dname, opname) in enumerate(cases):
+                if opname == "MPI_MAX" and coll not in has_op:
+                    continue  # the f32 case already moved these bytes
+                dtype = getattr(torch, dname)
+                op = ops[opname] if coll in has_op else None
+                gen.manual_seed(3000 + i)
+                x, held = shard_input(coll, nbytes, dtype, gen)
+                shards = RankShards([x[r].to(d, copy=True) for r, d in enumerate(mesh.devices)])
+                pin = {} if var is None else {f"coll_cuda_{var}": enum[algo]}
+                want = pinned(pin, lambda: shard_call(rows_comm, coll, x, op))
+                got, per_call = devices_call(
+                    lambda: pinned(pin, lambda: shard_call(world, coll, shards, op)))
+                nhops, exact = ring_hops(coll, algo, opname)
+                rtol = SHARD_RTOL[dname]
+                atol = rtol * N * x.float().abs().max().item()
+                ok, err = shard_agrees(got, want, exact, rtol, atol)
+                want_launch = {"ring_hop_peer": nhops * cards,
+                               "ring_hop_wait": 2 * nhops * cards}
+                rows.append({"coll": coll, "algorithm": algo, "bytes_per_rank": held,
+                             "dtype": dname, "op": opname if op is not None else None,
+                             "compare": "bitwise" if exact else f"allclose rtol {rtol:g}",
+                             "vs_rows": ok, "max_abs_err": err, "launches": {
+                                 k: per_call[k] for k in ck.PEER_KERNELS},
+                             "launches_ok": all(per_call[k] == want_launch[k]
+                                                for k in ck.PEER_KERNELS)})
+                del x, shards, want, got
+    # the three barriers in every form, their tokens against the rows layout's
+    for algo, num in cc.BARRIER_ALGOS.items():
+        pin = {"coll_cuda_barrier_algorithm": num}
+        want = pinned(pin, lambda: rows_comm.ibarrier().wait())
+
+        def barriers():
+            world.barrier()
+            tok = world.ibarrier().wait()
+            req = world.barrier_init()
+            req.start()
+            return tok, req.wait()
+
+        (tok, again), per_call = devices_call(lambda: pinned(pin, barriers))
+        ok = all(shard_agrees(t, want, True, 0, 0)[0] for t in (tok, again))
+        rows.append({"coll": "barrier", "algorithm": algo, "bytes_per_rank": 4,
+                     "dtype": "int32", "op": None, "compare": "bitwise", "vs_rows": ok,
+                     "max_abs_err": 0.0, "launches": {k: per_call[k] for k in ck.PEER_KERNELS},
+                     "launches_ok": not any(per_call.values())})
+    # the i and init forms against their blocking twins (auto: psum, direct)
+    gen.manual_seed(4000)
+    x, held = shard_input("allreduce", SHARD_FORM_BYTES, torch.float32, gen)
+    shards = RankShards([x[r].to(d, copy=True) for r, d in enumerate(mesh.devices)])
+    for coll, form in (("allreduce", "i"), ("allreduce", "init"), ("bcast", "i")):
+        op = SUM if coll == "allreduce" else None
+        pin = {f"coll_cuda_{coll}_algorithm": 0}
+        want, _ = devices_call(lambda: pinned(pin, lambda: shard_call(world, coll, shards, op)))
+        got, per_call = devices_call(
+            lambda: pinned(pin, lambda: shard_call(world, coll, shards, op, form)))
+        outs = got if form == "init" else [got]
+        ok = all(shard_agrees(o, want.shards, True, 0, 0)[0] for o in outs)
+        nhops = 2 * (N - 1) * len(outs) if coll == "allreduce" else 0
+        rows.append({"coll": ("i" if form == "i" else "") + coll
+                     + ("_init" if form == "init" else ""), "algorithm": "auto",
+                     "bytes_per_rank": held, "dtype": "float32", "op": "MPI_SUM" if op else None,
+                     "compare": "bitwise vs the blocking call", "vs_rows": ok,
+                     "max_abs_err": 0.0, "launches": {k: per_call[k] for k in ck.PEER_KERNELS},
+                     "launches_ok": per_call["ring_hop_peer"] == nhops * cards
+                     and per_call["ring_hop_wait"] == 2 * nhops * cards})
+    caps = {"allgather_input_bytes_per_rank": SHARD_HOLD_CAP // N,
+            "allgather_output_bytes_per_rank": SHARD_HOLD_CAP,
+            "alltoall_bytes_per_rank": SHARD_HOLD_CAP}
+    return rows, launches, caps
+
+
 def phase_cross_device(ck, smi):
     """The reference's one-rank-per-device layout on the card: every rank
     a buffer of its own, the cross-device hop (``ring_hop_peer`` and
     ``ring_hop_wait``) against its plain twin, then the three
     ``cuda_ring`` schedules through ``init()`` with
     ``accelerator_cuda_layout devices``, each bit-equal to the same call
-    on the rows layout; the hop step and a 1 GiB allreduce timed."""
+    on the rows layout, then every collective × algorithm and the i and
+    init forms (:func:`cross_collectives`); the hop step, a 1 GiB
+    allreduce (``cuda_ring`` and ``auto``) per layout and a 1 GiB
+    ``iallreduce``'s host return timed."""
     import torch
 
     import ompi_tpu_torch.api as api
     from ompi_tpu_torch.api import Comm, Group
+    from ompi_tpu_torch.core import mca
     from ompi_tpu_torch.mesh import CommMesh
     from ompi_tpu_torch.mesh.shards import RankShards
     from ompi_tpu_torch.op import MAX, SUM
@@ -1087,6 +1318,16 @@ def phase_cross_device(ck, smi):
                                                       "ring_hop_peer": hops * len(cards),
                                                       "ring_hop_wait": 2 * hops * len(cards)}})
             del shards, want, got
+    ck.peer_ring(mesh).check()
+    torch.cuda.empty_cache()
+    t_colls = time.perf_counter()
+    store = mca.default_context().store
+    colls, coll_launches, caps = cross_collectives(ck, world, rows_comm, mesh, store, gen)
+    for k in ck.PEER_KERNELS:
+        launches[k] += coll_launches[k]
+    colls_s = time.perf_counter() - t_colls
+    print(f"cross_device: {len(colls)} collective cases in {colls_s:.1f} s; caps {caps}",
+          flush=True)
     ck.peer_ring(mesh).check()
     torch.cuda.empty_cache()
     # one hop step at the 1 GiB ring's chunk shape: 128 MiB per rank
@@ -1200,6 +1441,34 @@ def phase_cross_device(ck, smi):
         p50[layout].append(mesh_ms(
             (lambda: rows_comm.allreduce(x, SUM)) if layout == "rows"
             else (lambda: world.allreduce(shards, SUM)), devs, 3, warmup=1))
+    # the same with the algorithm unpinned: tuned's psum (on shards the
+    # ring over the peer kernels), then a 1 GiB iallreduce's host return
+    auto = {"rows": [], "devices": []}
+    store.set("coll_cuda_allreduce_algorithm", 0)
+    try:
+        got = world.allreduce(shards, SUM)
+        want = rows_comm.allreduce(x, SUM)
+        auto_ok, auto_err = shard_agrees(got, want, False, SHARD_RTOL["float32"],
+                                         SHARD_RTOL["float32"] * N * x.abs().max().item())
+        del got, want
+        for layout in ("rows", "devices", "devices", "rows"):
+            auto[layout].append(mesh_ms(
+                (lambda: rows_comm.allreduce(x, SUM)) if layout == "rows"
+                else (lambda: world.allreduce(shards, SUM)), devs, 3, warmup=1))
+        returns_ms, waits_ms = [], []
+        for _ in range(3):
+            for c in cards:
+                torch.cuda.synchronize(c)
+            t = time.perf_counter()
+            req = world.iallreduce(shards, SUM)
+            t_ret = time.perf_counter()
+            req.wait()
+            t_done = time.perf_counter()
+            returns_ms.append((t_ret - t) * 1e3)
+            waits_ms.append((t_done - t_ret) * 1e3)
+            del req
+    finally:
+        store.set("coll_cuda_allreduce_algorithm", ALLREDUCE_CUDA_RING)
     ring.check()
     del x, shards
     torch.cuda.empty_cache()
@@ -1235,15 +1504,20 @@ def phase_cross_device(ck, smi):
            "hop_host_us": statistics.median(host_us), "put_grid": ring.grid,
            "put_split_ms": put_split,
            "waits_ms": wait_ms, "waits_one_entry_launches_ms": wait_single_ms,
-           "allreduce_1GiB_ms": p50,
+           "allreduce_1GiB_ms": p50, "allreduce_auto_1GiB_ms": auto,
+           "allreduce_auto_1GiB_vs_rows": auto_ok, "allreduce_auto_1GiB_max_abs_err": auto_err,
+           "iallreduce_1GiB_host_return_ms": returns_ms, "iallreduce_1GiB_wait_ms": waits_ms,
+           "collectives": colls, "collectives_s": colls_s, "hold_caps": caps,
            "timeouts": int(ring.timed_out.sum()), "launches": launches,
            "wall_s": time.perf_counter() - t0}
     emit(row)
     bad = [r for r in rings if not (r["bitwise_vs_rows"] and r["launches_ok"])]
-    if failures or bad or row["timeouts"] or not wrap["ok"] or wrap["timeouts"] \
-            or min(launches[k] for k in ck.PEER_KERNELS) == 0:
+    bad_colls = [(c["coll"], c["algorithm"], c["bytes_per_rank"], c["dtype"]) for c in colls
+                 if not (c["vs_rows"] and c["launches_ok"])]
+    if failures or bad or bad_colls or not auto_ok or row["timeouts"] or not wrap["ok"] \
+            or wrap["timeouts"] or min(launches[k] for k in ck.PEER_KERNELS) == 0:
         raise SystemExit(f"cross_device checks failed: kernel {failures[:5]}, rings {bad[:5]}, "
-                         f"wrap {wrap}")
+                         f"collectives {bad_colls[:10]}, auto 1 GiB {auto_ok}, wrap {wrap}")
     return {**row, "kernel_rows": kernel_rows}
 
 

@@ -12,9 +12,10 @@ out (staged onto the mesh device and back), tensor in → tensor out
 (stays on the device).  On a mesh with the ``devices`` layout (one
 buffer per rank) a comm takes numpy (staged into
 :class:`~ompi_tpu_torch.mesh.shards.RankShards`, row r on rank r's
-device, and back) or ``RankShards`` (returned as ``RankShards``); only
-the blocking ``cuda_ring`` allreduce, allgather and reduce_scatter_block
-run there yet, and everything else raises
+device, and back) or ``RankShards`` (returned as ``RankShards``; a root
+gather returns root's one tensor).  Every collective runs there in its
+blocking, i and init forms; point-to-point, windows and the typed
+(``*_ddt``) entry points raise
 :class:`~ompi_tpu_torch.coll.cuda.DevicesLayoutUnsupported`.
 
 Dispatch: an entry point checks its arguments once per call signature,
@@ -24,7 +25,7 @@ are one dict hit plus the kernels.  The winner of the device slots is
 ``coll/tuned``, whose resolver bakes its algorithm decision into the
 callable.  Persistent ``*_init`` plans come from the process-wide
 schedule cache (:mod:`ompi_tpu_torch.coll.sched`), keyed by the comm's
-shape so that a ``dup`` hits.  Entries with no resolver (barrier, the
+shape (layout, every rank's device) so that a ``dup`` hits.  Entries with no resolver (barrier, the
 jagged variants, ``reduce_scatter``) take the table path.
 
 Observability hooks, each one flag test when off: SPC counts every
@@ -170,8 +171,11 @@ class Comm(PersistentP2PMixin):
 
     @property
     def pml(self):
-        """The comm's matching engine, from the selected pml component."""
+        """The comm's matching engine, from the selected pml component
+        (none on the devices layout yet)."""
         self._check()
+        if self.mesh.layout == "devices":
+            unsupported_on_devices("point-to-point")
         if self._pml is None:
             comp = mca.default_context().framework("pml").select_one()
             self._pml = comp.make_engine(self.size, self.name)
@@ -296,6 +300,8 @@ class Comm(PersistentP2PMixin):
     # -- one-sided windows (osc) and MPI-IO ----------------------------------
 
     def _osc(self):
+        if self.mesh.layout == "devices":
+            unsupported_on_devices("a window (osc)")
         return mca.default_context().framework("osc").select_one()
 
     def win_create(self, bases, name: str = ""):
@@ -448,8 +454,6 @@ class Comm(PersistentP2PMixin):
     def _icall(self, base: str, x, depth: int, op: Op | None = None,
                root: int | None = None) -> Request:
         slot = "i" + base
-        if self.mesh.layout == "devices":
-            unsupported_on_devices(slot)
         xd, host, args, key = self._prepare(base, x, depth, op, root)
         t0 = _trace.now() if _trace._enabled else 0
         fn = self._resolved(slot, base, args, key)
@@ -466,8 +470,6 @@ class Comm(PersistentP2PMixin):
         """Persistent collective: staged once, its plan taken from the
         process-wide schedule cache, each ``start()`` re-dispatching on
         the same buffer."""
-        if self.mesh.layout == "devices":
-            unsupported_on_devices(base + "_init")
         xd, host, args, _ = self._prepare(base, x, depth, op, root)
         fn = self._sched_fn(base, args, op, root)
         if fn is None:
@@ -477,15 +479,16 @@ class Comm(PersistentP2PMixin):
 
     def _sched_fn(self, base: str, args: tuple, op: Op | None, root: int | None):
         """The persistent plan from :mod:`~ompi_tpu_torch.coll.sched`,
-        keyed by the comm's shape (device, rank count) and never its
-        identity, so a fresh comm of the same shape replays the plan;
-        None when the owner exposes no resolver."""
+        keyed by the comm's shape (layout, every rank's device) and never
+        its identity, so a fresh comm over the same devices replays the
+        plan and one over other devices does not; None when the owner
+        exposes no resolver."""
         resolve = getattr(self.coll.owners.get(base), "resolve", None)
         if resolve is None:
             return None
         xd = args[0]
-        key = ("pers", base, str(self.mesh.device), self.size, op, root,
-               tuple(xd.shape), str(xd.dtype), mca.default_context().store.version)
+        key = ("pers", base, self.mesh.layout, tuple(str(d) for d in self.mesh.devices),
+               op, root, tuple(xd.shape), str(xd.dtype), mca.default_context().store.version)
         return sched.lookup(key, lambda: resolve(base, *args))
 
     def _lookup(self, slot: str):
@@ -574,20 +577,19 @@ class Comm(PersistentP2PMixin):
         (n, n*c, …) sendbufs reduced as blocks, returning (n, c, …);
         counts=None → x is (n, n, *s)."""
         self._check()
-        if self.mesh.layout == "devices":
-            unsupported_on_devices("reduce_scatter")
         self._check_op(op, x)
         if counts is not None:
             if len(counts) != self.size:
                 raise MPIArgError("reduce_scatter counts length != comm size")
             if len(set(counts)) > 1:
-                host = x if isinstance(x, torch.Tensor) else np.asarray(x)
+                # the host path: a devices-layout buffer's shards copied in
+                host = x if isinstance(x, (torch.Tensor, RankShards)) else np.asarray(x)
                 return self._lookup("reduce_scatter")(host, op, list(counts))
             c = counts[0]
             if x.shape[1] != self.size * c:
                 raise MPIArgError(
                     f"reduce_scatter sendbuf dim1 {x.shape[1]} != n*count {self.size * c}")
-            blocks = x.reshape((self.size, self.size, c) + tuple(x.shape[2:]))
+            blocks = _blocked(x, (self.size, c))
             xd, host = self._stage(blocks, 2)
             return self._unstage(self._lookup("reduce_scatter_block")(xd, op), host)
         xd, host = self._stage(x, 2)
@@ -707,6 +709,8 @@ class Comm(PersistentP2PMixin):
         Tensors are packed and stacked on their own device, so nothing
         crosses to the host; numpy buffers stay numpy, as in the
         reference."""
+        if self.mesh.layout == "devices":
+            unsupported_on_devices("allreduce_ddt")
         op.check(datatype)
         if len(sendbufs) != self.size:
             raise MPIArgError("one send buffer per rank required")
@@ -731,6 +735,8 @@ class Comm(PersistentP2PMixin):
     def bcast_ddt(self, buf, count: int, datatype: Datatype, root: int = 0):
         """Typed bcast: packs root's buffer, broadcasts it and returns each
         rank's unpacked byte buffer (on the buffer's device)."""
+        if self.mesh.layout == "devices":
+            unsupported_on_devices("bcast_ddt")
         self._check_root(root)
         packed = ddt_pack(buf, datatype, count)
         nbytes = datatype.lb + datatype.span(count)
@@ -775,6 +781,15 @@ class _Unstage(_Chained):
 def _wrap_unstage(req: Request, comm: Comm, host: bool) -> Request:
     """Chain the D2H copy onto a device request for host callers."""
     return _Unstage(req, lambda out: comm._unstage(out, True)) if host else req
+
+
+def _blocked(x, lead: tuple):
+    """An equal-count reduce_scatter's sendbufs ``(n, n*c, …)`` as the
+    ``(n, n, c, …)`` blocks of reduce_scatter_block, shard by shard on
+    the devices layout."""
+    if isinstance(x, RankShards):
+        return RankShards([s.reshape(lead + tuple(s.shape[1:])) for s in x.shards])
+    return x.reshape((x.shape[0],) + lead + tuple(x.shape[2:]))
 
 
 def _select(req: Request, root: int) -> Request:

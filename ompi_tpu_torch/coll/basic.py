@@ -2,9 +2,9 @@
 
 Port of ``ompi_tpu/coll/basic.py``: rank-sequential numpy folds on the
 host, the lowest-priority fallback (jagged v-variants, jagged
-``reduce_scatter``) and the in-tree golden order.  Tensor inputs are
-copied to the host; results are numpy arrays.  i-variants complete
-eagerly.
+``reduce_scatter``) and the in-tree golden order.  Tensor inputs (and a
+devices-layout buffer's shards) are copied to the host; results are
+numpy arrays.  i-variants complete eagerly.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 from ompi_tpu_torch.core.errors import MPIArgError
 from ompi_tpu_torch.core.registry import Component, register_component
 from ompi_tpu_torch.ddt.datatype import to_numpy
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op.op import Op, ordered_reduce_np
 from ompi_tpu_torch.request import CompletedRequest, PersistentRequest, Request
 
@@ -28,6 +29,8 @@ def _host(x):
         return x
     if isinstance(x, torch.Tensor):
         return to_numpy(x)
+    if isinstance(x, RankShards):  # the devices layout: the shards' host copy
+        return x.to_host()
     if isinstance(x, (list, tuple)):
         return [_host(e) for e in x]
     return np.asarray(x)

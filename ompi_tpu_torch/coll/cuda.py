@@ -23,15 +23,18 @@ is one dict hit.
 * ``--mca coll_cuda_reproducible 1`` forces the bit-exact rank-ordered
   paths.
 * i-variants return :class:`ArrayRequest` (a CUDA event on the current
-  stream); ``*_init`` variants return :class:`PersistentRequest`.
+  stream of every card the result lies on); ``*_init`` variants return
+  :class:`PersistentRequest`.
 * On a communicator whose mesh has the ``devices`` layout (one buffer
-  per rank, :class:`~ompi_tpu_torch.mesh.shards.RankShards`), only the
-  blocking ``allreduce``, ``allgather`` and ``reduce_scatter_block`` run
-  yet, and only as ``cuda_ring``: the shard schedules of
-  :mod:`.cuda_kernels` over the cross-device hop.  Every other
-  algorithm (``auto`` and the fallbacks' targets included) and every
-  other collective raises :class:`DevicesLayoutUnsupported`; nothing is
-  gathered onto one device instead.
+  per rank, :class:`~ompi_tpu_torch.mesh.shards.RankShards`), every
+  collective runs in its blocking, i and init forms with every algorithm
+  of its enum, chosen by the same rules: the algorithm runs over the
+  ranks' own buffers (:mod:`.base_shards`, the reference's per-device
+  functions run per rank), ``cuda_ring``, ``psum`` and reduce_scatter
+  ``direct`` as the shard ring schedules of :mod:`.cuda_kernels` over
+  the cross-device hop.  Each rank's result is made on its own device;
+  nothing is gathered onto one device instead (only a root gather puts
+  every block on root's, as MPI_Gather does).
 """
 
 from __future__ import annotations
@@ -54,8 +57,9 @@ from ompi_tpu_torch.request import (
 )
 
 from . import base as algos
+from . import base_shards as shard_algos
 from . import cuda_kernels as ck
-from .module import CollModule, all_slots
+from .module import CollModule
 
 ALLREDUCE_ALGOS = {
     "auto": 0,
@@ -82,20 +86,16 @@ def _named(coll: str, enum: dict[str, int], algo: int) -> str:
 
 
 class DevicesLayoutUnsupported(MPIInternalError):
-    """A collective or an algorithm that does not run on the ``devices``
-    layout yet (only the blocking ``cuda_ring`` allreduce, allgather and
-    reduce_scatter_block do)."""
-
-
-#: the blocking collectives that run on the devices layout
-SHARD_COLLECTIVES = ("allreduce", "allgather", "reduce_scatter_block")
+    """A call that does not run on the ``devices`` layout yet:
+    point-to-point, windows, the typed (``*_ddt``) entry points and a
+    job of several processes (every collective does)."""
 
 
 def unsupported_on_devices(what: str):
     raise DevicesLayoutUnsupported(
-        f"{what} does not run on the devices layout yet: only the blocking "
-        f"{', '.join(SHARD_COLLECTIVES)} with the cuda_ring algorithm "
-        "(--mca coll_cuda_<coll>_algorithm cuda_ring) do")
+        f"{what} does not run on the devices layout yet (point-to-point, windows, "
+        "the typed *_ddt entry points and jobs of several processes do not; every "
+        "collective does)")
 
 
 class CudaCollModule(CollModule):
@@ -108,6 +108,8 @@ class CudaCollModule(CollModule):
         #: per-call var overrides installed by a decision layer (the
         #: coll/tuned module forces its chosen algorithm through here)
         self._forced: dict[str, int] = {}
+        #: the devices layout's barrier token (see :meth:`_token`)
+        self._shard_token: RankShards | None = None
 
     @contextmanager
     def forced(self, **overrides):
@@ -137,30 +139,28 @@ class CudaCollModule(CollModule):
     def _on_devices(self) -> bool:
         return self.comm.mesh.layout == "devices"
 
-    def provided(self):
-        """On the devices layout every slot but the shard collectives'
-        blocking ones raises :class:`DevicesLayoutUnsupported`."""
-        out = super().provided()
-        if self._on_devices():
-            for slot in all_slots():
-                if slot not in SHARD_COLLECTIVES:
-                    out[slot] = _raiser(slot)
-        return out
+    def _on_shards(self, key: tuple, name: str, build: Callable[[], Callable]):
+        """The devices layout's cached callable: ``build()`` gives the
+        function that maps the ranks' tensors to one result per rank (a
+        ``RankShards``), or to root's one tensor."""
 
-    def _on_shards(self, key: tuple, coll: str, enum: dict[str, int], algo: int, run):
-        """The devices layout's cached callable: ``run(shards, ring)`` for
-        ``cuda_ring``, else the named error."""
-        name = _named(coll, enum, algo)
-        if algo != enum["cuda_ring"]:
-            unsupported_on_devices(f"{name} (the algorithm the var, reproducible "
-                                   "mode or a fallback rule chose)")
+        def make():
+            run = build()
+
+            def fn(v):
+                out = run(list(v.shards))
+                return RankShards(out) if isinstance(out, list) else out
+
+            return fn
+
+        return self._compiled(key, make, name)
+
+    def _ring(self):
+        """The mesh's :class:`~.cuda_kernels.PeerRing` where the shard
+        rings launch the peer kernels (CUDA shards), else None (their
+        plain form: CPU shards, or ``dcn_device_interpret``)."""
         mesh = self.comm.mesh
-
-        def fn(v):
-            kernel = ck._shard_mode(mesh.device, None) == "cuda"
-            return RankShards(run(v, ck.peer_ring(mesh) if kernel else None))
-
-        return self._compiled(key, lambda: fn, name)
+        return ck.peer_ring(mesh) if ck._shard_mode(mesh.device, None) == "cuda" else None
 
     def _algo(self, var: str, enum: dict[str, int]) -> int:
         if var in self._forced:
@@ -180,8 +180,6 @@ class CudaCollModule(CollModule):
     def resolve(self, base: str, *args):
         """The cached tensor → tensor callable for a call signature (the
         same positional arguments the blocking entry point takes)."""
-        if self._on_devices() and base not in SHARD_COLLECTIVES:
-            unsupported_on_devices(base)
         if base == "allreduce":
             return self._allreduce_fn(args[0], args[1])
         if base == "bcast":
@@ -191,9 +189,9 @@ class CudaCollModule(CollModule):
         if base == "allgather":
             return self._allgather_fn(args[0])
         if base == "gather":
-            return self._copy_fn(args[0], "gather")
+            return self._copy_fn(args[0], "gather", args[1] if len(args) > 1 else 0)
         if base == "scatter":
-            return self._copy_fn(args[0], "scatter")
+            return self._copy_fn(args[0], "scatter", args[1] if len(args) > 1 else 0)
         if base == "reduce_scatter_block":
             return self._reduce_scatter_block_fn(args[0], args[1])
         if base == "alltoall":
@@ -228,9 +226,22 @@ class CudaCollModule(CollModule):
         seg = self._segcount()
         # op keyed by identity: two user ops may share a name
         key = ("allreduce", algo, tuple(x.shape), x.dtype, op, seg)
+        name = _named("allreduce", ALLREDUCE_ALGOS, algo)
         if self._on_devices():
-            return self._on_shards(key, "allreduce", ALLREDUCE_ALGOS, algo,
-                                   lambda v, ring: ck.ring_allreduce_shards(v, op, ring))
+            sa = shard_algos
+            return self._on_shards(key, name, lambda: {
+                ALLREDUCE_ALGOS["psum"]: lambda xs: sa.allreduce_psum(xs, op, self._ring()),
+                ALLREDUCE_ALGOS["ring"]: lambda xs: sa.allreduce_ring(xs, op),
+                ALLREDUCE_ALGOS["ring_segmented"]:
+                    lambda xs: sa.allreduce_ring_segmented(xs, op, seg),
+                ALLREDUCE_ALGOS["recursive_doubling"]:
+                    lambda xs: sa.allreduce_recursive_doubling(xs, op),
+                ALLREDUCE_ALGOS["rabenseifner"]: lambda xs: sa.allreduce_rabenseifner(xs, op),
+                ALLREDUCE_ALGOS["ordered_linear"]:
+                    lambda xs: sa.allreduce_ordered_linear(xs, op),
+                ALLREDUCE_ALGOS["cuda_ring"]:
+                    lambda xs: ck.ring_allreduce_shards(xs, op, self._ring()),
+            }[algo])
 
         def build():
             return {
@@ -247,7 +258,7 @@ class CudaCollModule(CollModule):
                 ALLREDUCE_ALGOS["cuda_ring"]: lambda v: ck.ring_allreduce(v, op),
             }[algo]
 
-        return self._compiled(key, build, _named("allreduce", ALLREDUCE_ALGOS, algo))
+        return self._compiled(key, build, name)
 
     def allreduce(self, x, op: Op):
         return self._allreduce_fn(x, op)(x)
@@ -269,6 +280,13 @@ class CudaCollModule(CollModule):
             algo = BCAST_ALGOS["direct"]
         seg = self._segcount()
         key = ("bcast", algo, tuple(x.shape), x.dtype, root, seg)
+        if self._on_devices():
+            return self._on_shards(key, _named("bcast", BCAST_ALGOS, algo), lambda: {
+                BCAST_ALGOS["direct"]: lambda xs: shard_algos.bcast_direct(xs, root),
+                BCAST_ALGOS["binomial"]: lambda xs: shard_algos.bcast_binomial(xs, root),
+                BCAST_ALGOS["pipeline"]:
+                    lambda xs: shard_algos.bcast_pipeline(xs, root, seg),
+            }[algo])
 
         def build():
             return {
@@ -298,6 +316,11 @@ class CudaCollModule(CollModule):
             algo = (REDUCE_ALGOS["binomial"] if op.commutative
                     else REDUCE_ALGOS["ordered"])
         key = ("reduce", algo, tuple(x.shape), x.dtype, op, root)
+        if self._on_devices():
+            return self._on_shards(key, _named("reduce", REDUCE_ALGOS, algo), lambda: {
+                REDUCE_ALGOS["binomial"]: lambda xs: shard_algos.reduce_binomial(xs, op, root),
+                REDUCE_ALGOS["ordered"]: lambda xs: shard_algos.reduce_ordered(xs, op, root),
+            }[algo])
 
         def build():
             return {
@@ -327,8 +350,13 @@ class CudaCollModule(CollModule):
             algo = ALLGATHER_ALGOS["direct"]
         key = ("allgather", algo, tuple(x.shape), x.dtype)
         if self._on_devices():
-            return self._on_shards(key, "allgather", ALLGATHER_ALGOS, algo,
-                                   ck.ring_allgather_shards)
+            return self._on_shards(key, _named("allgather", ALLGATHER_ALGOS, algo), lambda: {
+                ALLGATHER_ALGOS["direct"]: shard_algos.allgather_direct,
+                ALLGATHER_ALGOS["ring"]: shard_algos.allgather_ring,
+                ALLGATHER_ALGOS["bruck"]: shard_algos.allgather_bruck,
+                ALLGATHER_ALGOS["cuda_ring"]:
+                    lambda xs: ck.ring_allgather_shards(xs, self._ring()),
+            }[algo])
 
         def build():
             return {
@@ -351,32 +379,40 @@ class CudaCollModule(CollModule):
         fn = self._allgather_fn(x)
         return PersistentRequest(lambda: ArrayRequest(fn(x)))
 
-    def _copy_fn(self, x, kind: str):
-        """Root gather and scatter: with every rank a row of one tensor on
+    def _copy_fn(self, x, kind: str, root: int):
+        """Root gather and scatter.  With every rank a row of one tensor on
         one device, the rank-major buffer already IS root's gathered
         recvbuf (gather) and every rank's row (scatter) — the collective
-        is a copy into a fresh buffer (MPI keeps sendbuf and recvbuf apart)."""
+        is a copy into a fresh buffer (MPI keeps sendbuf and recvbuf
+        apart).  On the devices layout a gather moves every rank's block
+        onto root's device, and a scatter gives each rank its row as a
+        buffer of its own on its device."""
+        if self._on_devices():
+            return self._on_shards(
+                (kind, tuple(x.shape), x.dtype, root), f"{kind}_copy",
+                lambda: ((lambda xs: shard_algos.gather(xs, root)) if kind == "gather"
+                         else shard_algos.scatter))
         return self._compiled((kind, tuple(x.shape), x.dtype),
                               lambda: torch.clone, f"{kind}_copy")
 
     def gather(self, x, root: int = 0):
-        return self._copy_fn(x, "gather")(x)
+        return self._copy_fn(x, "gather", root)(x)
 
     def igather(self, x, root: int = 0) -> Request:
         return ArrayRequest(self.gather(x, root))
 
     def gather_init(self, x, root: int = 0) -> PersistentRequest:
-        fn = self._copy_fn(x, "gather")
+        fn = self._copy_fn(x, "gather", root)
         return PersistentRequest(lambda: ArrayRequest(fn(x)))
 
     def scatter(self, x, root: int = 0):
-        return self._copy_fn(x, "scatter")(x)
+        return self._copy_fn(x, "scatter", root)(x)
 
     def iscatter(self, x, root: int = 0) -> Request:
         return ArrayRequest(self.scatter(x, root))
 
     def scatter_init(self, x, root: int = 0) -> PersistentRequest:
-        fn = self._copy_fn(x, "scatter")
+        fn = self._copy_fn(x, "scatter", root)
         return PersistentRequest(lambda: ArrayRequest(fn(x)))
 
     # ==================================================================
@@ -402,9 +438,17 @@ class CudaCollModule(CollModule):
             # non-commutative ops; promote to the rank-ordered path
             algo = REDUCE_SCATTER_ALGOS["ordered"]
         key = ("reduce_scatter_block", algo, tuple(x.shape), x.dtype, op)
+        name = _named("reduce_scatter", REDUCE_SCATTER_ALGOS, algo)
         if self._on_devices():
-            return self._on_shards(key, "reduce_scatter", REDUCE_SCATTER_ALGOS, algo,
-                                   lambda v, ring: ck.ring_reduce_scatter_shards(v, op, ring))
+            sa = shard_algos
+            return self._on_shards(key, name, lambda: {
+                REDUCE_SCATTER_ALGOS["direct"]:
+                    lambda xs: sa.reduce_scatter_direct(xs, op, self._ring()),
+                REDUCE_SCATTER_ALGOS["ring"]: lambda xs: sa.reduce_scatter_ring(xs, op),
+                REDUCE_SCATTER_ALGOS["ordered"]: lambda xs: sa.reduce_scatter_ordered(xs, op),
+                REDUCE_SCATTER_ALGOS["cuda_ring"]:
+                    lambda xs: ck.ring_reduce_scatter_shards(xs, op, self._ring()),
+            }[algo])
 
         def build():
             return {
@@ -417,8 +461,7 @@ class CudaCollModule(CollModule):
                     lambda v: ck.ring_reduce_scatter(v, op),
             }[algo]
 
-        return self._compiled(key, build, _named(
-            "reduce_scatter", REDUCE_SCATTER_ALGOS, algo))
+        return self._compiled(key, build, name)
 
     def reduce_scatter_block(self, x, op: Op):
         """x: (n, n, *s), x[r, j] rank r's part for rank j → (n, *s)."""
@@ -466,6 +509,11 @@ class CudaCollModule(CollModule):
         if algo == ALLTOALL_ALGOS["auto"]:
             algo = ALLTOALL_ALGOS["direct"]
         key = ("alltoall", algo, tuple(x.shape), x.dtype)
+        if self._on_devices():
+            return self._on_shards(key, _named("alltoall", ALLTOALL_ALGOS, algo), lambda: {
+                ALLTOALL_ALGOS["direct"]: shard_algos.alltoall_direct,
+                ALLTOALL_ALGOS["pairwise"]: shard_algos.alltoall_pairwise,
+            }[algo])
         return self._compiled(key, lambda: {
             ALLTOALL_ALGOS["direct"]: algos.alltoall_direct,
             ALLTOALL_ALGOS["pairwise"]: algos.alltoall_pairwise,
@@ -491,39 +539,53 @@ class CudaCollModule(CollModule):
         algo = self._algo("barrier_algorithm", BARRIER_ALGOS)
         if algo == BARRIER_ALGOS["auto"]:
             algo = BARRIER_ALGOS["allreduce"]
+        name = _named("barrier", BARRIER_ALGOS, algo)
+        if self._on_devices():
+            return self._on_shards(("barrier", algo), name,
+                                   lambda: shard_algos.barrier_allreduce
+                                   if algo == BARRIER_ALGOS["allreduce"]
+                                   else shard_algos.barrier_dissemination)
         impl = (algos.barrier_allreduce if algo == BARRIER_ALGOS["allreduce"]
                 else algos.barrier_dissemination)
         # the program reads the token, so its completion orders after it
         return self._compiled(("barrier", algo),
-                              lambda: lambda tok: impl(n, tok.device) + 0 * tok,
-                              _named("barrier", BARRIER_ALGOS, algo))
+                              lambda: lambda tok: impl(n, tok.device) + 0 * tok, name)
 
     def _token(self):
-        """Pooled barrier token from the mesh arena (a pool hit after the
-        first barrier on a comm)."""
+        """The barrier's token: on the rows layout pooled from the mesh
+        arena (a pool hit after the first barrier on a comm); on the
+        devices layout one ``int32`` per rank on its own device, made once
+        per comm (the barrier only reads it).  Returns (token, its
+        release)."""
         mesh = self.comm.mesh
-        return mesh.arena.acquire((self._n(),), torch.int32, mesh.device)
+        if self._on_devices():
+            if self._shard_token is None:
+                self._shard_token = RankShards.full(mesh.devices, 0)
+            return self._shard_token, lambda: None
+        tok = mesh.arena.acquire((self._n(),), torch.int32, mesh.device)
+        return tok, lambda: mesh.arena.release(tok)
 
     def barrier(self):
-        tok = self._token()
+        tok, release = self._token()
         try:
             block_until_ready(self._barrier_fn()(tok))
         finally:
-            self.comm.mesh.arena.release(tok)
+            release()
 
     def ibarrier(self) -> Request:
-        tok = self._token()
-        arena = self.comm.mesh.arena
+        tok, release = self._token()
 
         def _done(out):
-            arena.release(tok)
+            release()
             return out
 
         return ArrayRequest(self._barrier_fn()(tok), finalize=_done)
 
     def barrier_init(self) -> PersistentRequest:
         fn = self._barrier_fn()
-        tok = torch.zeros(self._n(), dtype=torch.int32, device=self.comm.mesh.device)
+        mesh = self.comm.mesh
+        tok = (RankShards.full(mesh.devices, 0) if self._on_devices()
+               else torch.zeros(self._n(), dtype=torch.int32, device=mesh.device))
         return PersistentRequest(lambda: ArrayRequest(fn(tok)))
 
     # ==================================================================
@@ -532,9 +594,12 @@ class CudaCollModule(CollModule):
 
     def _scan_fn(self, x, op: Op, exclusive: bool):
         key = ("scan", exclusive, tuple(x.shape), x.dtype, op)
+        name = "exscan_ordered" if exclusive else "scan_ordered"
+        if self._on_devices():
+            return self._on_shards(key, name, lambda: lambda xs: shard_algos.scan_ordered(
+                xs, op, exclusive))
         return self._compiled(
-            key, lambda: lambda v: algos.scan_ordered(v, op, exclusive),
-            "exscan_ordered" if exclusive else "scan_ordered")
+            key, lambda: lambda v: algos.scan_ordered(v, op, exclusive), name)
 
     def scan(self, x, op: Op):
         return self._scan_fn(x, op, False)(x)
@@ -555,14 +620,6 @@ class CudaCollModule(CollModule):
     def exscan_init(self, x, op: Op) -> PersistentRequest:
         fn = self._scan_fn(x, op, True)
         return PersistentRequest(lambda: ArrayRequest(fn(x)))
-
-
-def _raiser(slot: str):
-    def unsupported(*_args, **_kwargs):
-        unsupported_on_devices(slot)
-
-    unsupported.__name__ = slot
-    return unsupported
 
 
 @register_component

@@ -5,8 +5,9 @@ persistent collective's plan — tuned's algorithm choice baked into the
 resolved callable — is built once at ``*_init`` and replayed by every
 ``start()``.  This module owns the process-wide store:
 
-* keys are the communicator's shape (device, rank count), never its
-  identity, so a ``dup`` of the same shape hits;
+* keys are the communicator's shape (layout and every rank's device,
+  which gives the rank count), never its identity, so a ``dup`` of the
+  same shape hits and a comm over other devices does not;
 * hit/miss counters register with the metrics core as a provider under
   the reference's names ``sched_cache_hits``/``sched_cache_misses``;
 * capacity is bounded (``coll_sched_cache_max``) with FIFO eviction;

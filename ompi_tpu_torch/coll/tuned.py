@@ -21,7 +21,9 @@ Two sources, as in the reference:
   slots).
 
 An explicitly pinned ``coll_cuda_<coll>_algorithm`` bypasses the
-decision.  PRIORITY 95 stacks tuned above coll/cuda (90), so tuned wins
+decision.  A ``devices``-layout comm gets the reference's decision for
+the same (collective, size, bytes per rank, op); the kernel leg is read
+for every card of its mesh.  PRIORITY 95 stacks tuned above coll/cuda (90), so tuned wins
 every slot coll/cuda serves.  :meth:`TunedCollModule.resolve` bakes the
 decision into the callable that ``Comm`` caches under the var store's
 version, so the hot loop stays one dict hit.
@@ -169,9 +171,13 @@ def parse_rules_file(text: str) -> RuleSet:
 
 
 def kernel_leg(device) -> bool:
-    """Whether the ``cuda_ring`` kernels can run for a mesh on ``device``:
-    a CUDA device on a machine with an sm_90 card."""
-    return device is not None and torch.device(device).type == "cuda" \
+    """Whether the ``cuda_ring`` kernels can run for a mesh on ``device``
+    (one device, or every rank's device of a ``devices``-layout mesh):
+    CUDA devices only, on a machine with an sm_90 card."""
+    if device is None:
+        return False
+    devices = device if isinstance(device, (tuple, list)) else (device,)
+    return bool(devices) and all(torch.device(d).type == "cuda" for d in devices) \
         and ck.kernel_available()
 
 
@@ -182,8 +188,9 @@ def fixed_decision(coll: str, comm_size: int, msg_bytes: int, op: Op | None,
     Returns (algorithm id or None for the module default, segcount or
     None).  ``large``/``huge`` are ``coll_tuned_large_msg`` /
     ``coll_tuned_huge_msg``; ``device`` is the communicator's mesh
-    device, which decides whether the huge software-op allreduce can
-    take the ``cuda_ring`` kernels."""
+    device (every rank's device on the ``devices`` layout), which decides
+    whether the huge software-op allreduce can take the ``cuda_ring``
+    kernels."""
     if coll == "allreduce":
         if op is None:
             raise MPIArgError("the allreduce decision needs an op")
@@ -300,8 +307,9 @@ class TunedCollModule(CollModule):
         if int(store.get(f"coll_cuda_{var}", 0)) != 0:
             return {}
         n = self.comm.size
-        # per-rank bytes of the staged rank-major buffer (a tensor here,
-        # a jax array in the reference: both report the same nbytes)
+        # per-rank bytes of the staged rank-major buffer (a tensor or a
+        # RankShards here, a jax array in the reference: all report the
+        # same nbytes, so both layouts decide as the reference does)
         msg_bytes = payload_nbytes(args[0]) // max(n, 1) if args else 0
         op = None
         if coll in _HAS_OP:
@@ -320,28 +328,34 @@ class TunedCollModule(CollModule):
                     # files assume a datatype, as the reference's do)
                     out["segcount"] = max(1, segsize // 4)
                 if _trace._enabled:
-                    self._trace_decision(coll, n, msg_bytes, enum, alg, "dynamic")
+                    self._trace_decision(coll, n, msg_bytes, enum, alg, "dynamic",
+                                         self.comm.mesh.layout)
                 return out
         large = int(store.get("coll_tuned_large_msg", 1 << 20))
         huge = int(store.get("coll_tuned_huge_msg", 64 << 20))
+        mesh = self.comm.mesh
         alg, seg = fixed_decision(coll, n, msg_bytes, op, large, huge,
-                                  device=self.comm.device)
+                                  device=mesh.devices if mesh.layout == "devices"
+                                  else mesh.device)
         out: dict[str, int] = {}
         if alg is not None:
             out[var] = alg
         if seg is not None:
             out["segcount"] = seg
         if _trace._enabled and alg is not None:
-            self._trace_decision(coll, n, msg_bytes, enum, alg, "fixed")
+            self._trace_decision(coll, n, msg_bytes, enum, alg, "fixed", mesh.layout)
         return out
 
     @staticmethod
     def _trace_decision(coll: str, n: int, msg_bytes: int, enum, alg: int,
-                        source: str) -> None:
-        """Timeline record of which algorithm this decision picked."""
+                        source: str, layout: str) -> None:
+        """Timeline record of which algorithm this decision picked; on the
+        devices layout it names the layout (the rows layout's record is
+        the reference's, key for key)."""
         name = next((k for k, v in enum.items() if v == alg), str(alg))
+        extra = {"layout": layout} if layout == "devices" else {}
         _trace.instant("coll", "tuned_decision", coll=coll, comm_size=n,
-                       msg_bytes=msg_bytes, algorithm=name, source=source)
+                       msg_bytes=msg_bytes, algorithm=name, source=source, **extra)
 
 
 @register_component

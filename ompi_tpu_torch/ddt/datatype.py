@@ -90,13 +90,17 @@ def numpy_dtype(t: torch.dtype) -> np.dtype:
         raise MPITypeError(f"no numpy dtype for torch dtype {t}") from None
 
 
+def host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a contiguous numpy array's own memory (no copy;
+    bfloat16 via uint16)."""
+    if _is_bfloat16(a.dtype):
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def from_numpy(a: np.ndarray, device: torch.device | str = "cpu") -> torch.Tensor:
     """numpy array → tensor on ``device`` (a copy; bfloat16 via uint16)."""
-    a = np.ascontiguousarray(a)
-    if _is_bfloat16(a.dtype):
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
-            device, copy=True)
-    return torch.from_numpy(a).to(device, copy=True)
+    return host_tensor(np.ascontiguousarray(a)).to(device, copy=True)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -11,8 +11,11 @@ allocation.  Contents are unspecified on a hit.
 :meth:`stats` has the reference's eight keys.  ``stage_calls`` and
 ``stage_bytes`` count every staging; ``addr_reuse``/``addr_new`` say
 whether the allocator handed a staged tensor an address it had handed
-that signature before (``data_ptr()``, sampled as the reference samples
-its buffer pointers: the first 8 calls, then 1 in 8).  The SPC counters
+that signature recently (``data_ptr()``, sampled as the reference samples
+its buffer pointers: the first 8 calls, then 1 in 8; the last 64 sampled
+addresses of a signature are remembered).  On the CPU a staged tensor is
+a numpy-owned copy, whose block numpy recycles for the next copy of the
+same size.  The SPC counters
 ``arena_stage_in``/``arena_stage_bytes``/``arena_pool_alloc`` are the
 reference's; the port has no donating programs, so ``donate_signatures``
 and ``arena_donations`` stay 0.
@@ -21,17 +24,19 @@ and ``arena_donations`` stay 0.
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from ompi_tpu_torch.ddt.datatype import from_numpy
+from ompi_tpu_torch.ddt.datatype import from_numpy, host_tensor
 from ompi_tpu_torch.tool import spc
 
 #: free-list depth per (shape, dtype, device) signature
 _POOL_CAP = 4
 
-#: per-signature cap on remembered addresses (bounds ``_addrs``)
+#: per-signature cap on remembered addresses (bounds ``_addrs``): the
+#: most recently sampled ones are kept
 _ADDR_CAP = 64
 
 
@@ -47,33 +52,47 @@ class DeviceArena:
         self.addr_new = 0
         self._lock = threading.Lock()
         self._free: dict[tuple, list[torch.Tensor]] = {}
-        #: (shape, dtype str) → addresses staged to before
-        self._addrs: dict[tuple, set] = {}
-        #: a signature overflowed _ADDR_CAP — reuse counts undercount
+        #: (shape, dtype str) → the addresses staged to most recently,
+        #: oldest first
+        self._addrs: dict[tuple, OrderedDict] = {}
+        #: a signature forgot an address past _ADDR_CAP — reuse counts
+        #: undercount
         self._addr_overflow = False
 
     def _note_addr(self, ptr: int, key: tuple) -> None:
         """Count whether the allocator recycled an address this
-        signature was staged to before (``_lock`` held)."""
+        signature was staged to recently (``_lock`` held).  The most
+        recent ``_ADDR_CAP`` addresses are remembered, not the first:
+        torch's CPU allocator drifts over hundreds of addresses, so a set
+        frozen at the first ones may never be hit again."""
         if len(self._addrs) > 512:  # unbounded-signature backstop
             self._addrs.clear()
-        seen = self._addrs.setdefault(key, set())
+        seen = self._addrs.setdefault(key, OrderedDict())
         if ptr in seen:
+            seen.move_to_end(ptr)
             self.addr_reuse += 1
-        else:
-            if len(seen) < _ADDR_CAP:
-                seen.add(ptr)
-            else:
-                # recycled and fresh can no longer be told apart
-                self._addr_overflow = True
-            self.addr_new += 1
+            return
+        seen[ptr] = None
+        if len(seen) > _ADDR_CAP:
+            # the oldest is forgotten: recycled and fresh can no longer
+            # be told apart for it
+            seen.popitem(last=False)
+            self._addr_overflow = True
+        self.addr_new += 1
 
     def stage_in(self, host_array: np.ndarray, device: torch.device) -> torch.Tensor:
         """A host buffer as a tensor on ``device`` (counted here and in SPC)."""
         if spc.attached():
             spc.inc("arena_stage_in")
             spc.inc("arena_stage_bytes", host_array.nbytes)
-        t = from_numpy(host_array, device)
+        if torch.device(device).type == "cpu":
+            # a numpy-owned copy: numpy hands the block a freed copy of one
+            # size held back to the next copy of that size, as the
+            # reference's BFC allocator does, where torch's CPU allocator
+            # drifts over hundreds of addresses
+            t = host_tensor(np.array(host_array, copy=True, order="C"))
+        else:
+            t = from_numpy(host_array, device)
         with self._lock:
             self.stage_calls += 1
             self.stage_bytes += host_array.nbytes

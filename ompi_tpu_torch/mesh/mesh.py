@@ -225,8 +225,8 @@ class CudaAcceleratorComponent(Component):
             "accelerator", "cuda", "layout", "rows",
             help="COMM_WORLD's layout: 'rows' (every rank a row of one "
             "tensor on one device) or 'devices' (one buffer per rank, rank "
-            "r on card r*count//n; only the cuda_ring allreduce, allgather "
-            "and reduce_scatter run there yet)",
+            "r on card r*count//n; every collective runs there, "
+            "point-to-point, windows and the typed entry points not yet)",
         )
         store.register(
             "accelerator", "cuda", "device_order", "default",

@@ -6,7 +6,9 @@ on rank r's device.  On the ``devices`` layout of
 :class:`~ompi_tpu_torch.mesh.mesh.CommMesh` a communicator's buffers
 are :class:`RankShards`; ``stage_in`` builds one from a host rank-major
 array and ``stage_out`` concatenates it back.  It only holds the
-tensors: there is no arithmetic on it.
+tensors (and makes fresh ones, :meth:`RankShards.full`): there is no
+arithmetic on it; the algorithms over shards are
+:mod:`ompi_tpu_torch.coll.base_shards`.
 """
 
 from __future__ import annotations
@@ -49,6 +51,13 @@ class RankShards:
                 f"comm size {len(devices)}")
         return cls([from_numpy(np.ascontiguousarray(host_array[r]), d)
                     for r, d in enumerate(devices)])
+
+    @classmethod
+    def full(cls, devices: Sequence[torch.device], value, shape: tuple = (),
+             dtype: torch.dtype = torch.int32) -> "RankShards":
+        """A fresh ``shape`` tensor of ``value`` on each of ``devices``
+        (one per rank: a barrier's token, a zero buffer)."""
+        return cls([torch.full(shape, value, dtype=dtype, device=d) for d in devices])
 
     def to_host(self) -> np.ndarray:
         """The rank-major numpy ``(n, ...)`` value."""

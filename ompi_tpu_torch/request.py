@@ -7,8 +7,10 @@ current CUDA stream, and
 * ``wait``  ≈ ``MPI_Wait``  → ``torch.cuda.Event.synchronize()``
 * ``test``  ≈ ``MPI_Test``  → ``torch.cuda.Event.query()``
 
-The event is recorded on the current stream when the request is made.
-A request over CPU tensors is complete at once (CPU ops run eagerly).
+One event is recorded on the current stream of every card the tensors
+lie on (the shards of a ``RankShards`` included) when the request is
+made; the request is complete when every one of them is.  A request
+over CPU tensors is complete at once (CPU ops run eagerly).
 Persistent requests (``MPI_*_init``/``MPI_Start``) hold the resolved
 callable and re-dispatch on ``start()``.  A :class:`FutureRequest`
 completes when work on a background thread does (the asynchronous
@@ -23,6 +25,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from ompi_tpu_torch.core.errors import MPIRequestError
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.metrics import core as _metrics
 from ompi_tpu_torch.trace import core as _trace
 
@@ -101,6 +104,8 @@ class CompletedRequest(Request):
 def _tensors(x) -> list[torch.Tensor]:
     if isinstance(x, torch.Tensor):
         return [x]
+    if isinstance(x, RankShards):
+        return list(x.shards)
     if isinstance(x, (list, tuple)):
         return [t for e in x for t in _tensors(e)]
     return []
@@ -116,18 +121,19 @@ class ArrayRequest(Request):
         super().__init__()
         self._arrays = arrays
         self._user_finalize = finalize
-        self._event = None
-        devices = {t.device for t in _tensors(arrays) if t.device.type == "cuda"}
-        if devices:
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(next(iter(devices))))
+        self._events = []
+        cards = sorted({t.device.index for t in _tensors(arrays) if t.device.type == "cuda"})
+        for card in cards:  # one event per card, on that card's current stream
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(card))
+            self._events.append(ev)
 
     def _poll(self) -> bool:
-        return self._event is None or self._event.query()
+        return all(ev.query() for ev in self._events)
 
     def _block(self) -> None:
-        if self._event is not None:
-            self._event.synchronize()
+        for ev in self._events:
+            ev.synchronize()
 
     def _finalize(self) -> Any:
         if self._user_finalize is not None:

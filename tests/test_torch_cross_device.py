@@ -15,9 +15,11 @@ inputs go through:
   through the wrapper, which on CPU buffers copies with the plain twin),
   and the rows layout's ``cuda_ring``;
 * ``Comm`` with ``cuda_ring`` pinned on a devices-layout mesh, against the
-  reference's ``Comm`` with ``pallas_ring`` pinned.
+  reference's ``Comm`` with ``pallas_ring`` pinned (every other algorithm
+  of every collective: ``tests/test_torch_shard_colls.py``).
 
-Tolerance: none — bit for bit on byte views.  The kernels themselves
+Tolerance: none — bit for bit on byte views (``psum`` and ``direct``,
+whose order XLA chooses: ``allclose`` at rtol 1e-5).  The kernels themselves
 run on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``'s
 ``cross_device`` phase).
 """
@@ -369,46 +371,71 @@ def test_rows_and_devices_layouts_give_the_same_bits(coll):
     same_bits(b, a)
 
 
-@pytest.mark.parametrize("coll,algo", [
+OTHER_ALGORITHMS = [
     ("allreduce", "auto"), ("allreduce", "ring"), ("allreduce", "psum"),
     ("allgather", "auto"), ("allgather", "direct"),
-    ("reduce_scatter_block", "auto"), ("reduce_scatter_block", "ring")])
-def test_other_algorithms_raise_the_named_error(coll, algo):
+    ("reduce_scatter_block", "auto"), ("reduce_scatter_block", "ring")]
+
+
+@pytest.mark.parametrize("coll,algo", OTHER_ALGORITHMS)
+def test_other_algorithms_raise_the_named_error(ref_world, coll, algo):
+    """The algorithms besides ``cuda_ring`` run on the devices layout:
+    each equals the reference's ``Comm`` with the same algorithm pinned
+    and the rows layout's, bit for bit, except ``psum`` (and ``auto``,
+    which is ``psum`` for SUM) and reduce_scatter ``auto`` (``direct``):
+    XLA orders those reductions, so ``allclose`` at rtol 1e-5.  No
+    ``DevicesLayoutUnsupported`` is raised."""
     enum = {"allreduce": ALLREDUCE_ALGOS, "allgather": ALLGATHER_ALGOS,
             "reduce_scatter_block": REDUCE_SCATTER_ALGOS}[coll]
-    x = rank_data(N, (N, 2) if coll == "reduce_scatter_block" else (4,), np.float32)
-    store = tmca.default_context().store
-    with pinned(store, {f"coll_cuda_{RING_VARS[coll]}": enum[algo]}):
-        with pytest.raises(DevicesLayoutUnsupported, match="cuda_ring"):
-            comm_call(devices_comm(), coll, x, top.SUM)
+    x = rank_data(N, (N, 2) if coll == "reduce_scatter_block" else (41,), np.float32, seed=3)
+    var = RING_VARS[coll]
+    rows = Comm(Group(range(N)), CommMesh("cpu", N), name="rows")
+    devs = devices_comm()
+    assert devs.coll and rows.coll  # the coll framework's vars are registered
+    jo, to = (_jax_op("MPI_SUM"), top.SUM) if coll != "allgather" else (None, None)
+    with pinned(jmca.default_context().store, {f"coll_xla_{var}": enum[algo]}), \
+            pinned(tmca.default_context().store, {f"coll_cuda_{var}": enum[algo]}):
+        want = np.asarray(comm_call(ref_world, coll, x, jo))
+        got = comm_call(devs, coll, x, to)
+        flat = comm_call(rows, coll, x, to)
+    if algo in ("auto", "psum") and coll != "allgather":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * N * np.abs(x).max())
+        np.testing.assert_allclose(got, flat, rtol=1e-5, atol=1e-5 * N * np.abs(x).max())
+    else:
+        same_bits(got, want)
+        same_bits(got, flat)
 
 
-def test_everything_else_raises_the_named_error():
-    """No other collective, no non-blocking or persistent form, no
-    reproducible or non-commutative fallback runs on the devices layout,
-    and nothing is gathered onto one device instead."""
+def test_everything_else_raises_the_named_error(monkeypatch):
+    """What does not run on the devices layout yet raises the named
+    error: point-to-point, windows, the typed (``*_ddt``) entry points and
+    a devices world under ``tpurun``; and a devices comm still refuses one
+    plain tensor (nothing is moved implicitly)."""
+    from ompi_tpu_torch.boot.proc import ENV_PROC
+    from ompi_tpu_torch.ddt.datatype import FLOAT
+
     comm = devices_comm()
     x = rank_data(N, (4,), np.float32)
-    xx = rank_data(N, (N, 2), np.float32)
-    store = tmca.default_context().store
-    calls = [lambda: comm.bcast(x), lambda: comm.reduce(x), lambda: comm.gather(x),
-             lambda: comm.scatter(x), lambda: comm.alltoall(xx), lambda: comm.scan(x),
-             lambda: comm.exscan(x), lambda: comm.barrier(),
-             lambda: comm.reduce_scatter(xx), lambda: comm.allgatherv(list(x)),
-             lambda: comm.iallreduce(x), lambda: comm.allreduce_init(x),
-             lambda: comm.iallgather(x), lambda: comm.reduce_scatter_block_init(xx)]
+    calls = [lambda: comm.send(x[0], 0, 1), lambda: comm.recv(1, 0),
+             lambda: comm.isend(x[0], 0, 1), lambda: comm.irecv(1),
+             lambda: comm.iprobe(1), lambda: comm.send_init(x[0], 0, 1).start(),
+             lambda: comm.win_create([np.zeros(4, np.float32)] * N),
+             lambda: comm.win_allocate(4),
+             lambda: comm.allreduce_ddt(list(x), 4, FLOAT),
+             lambda: comm.bcast_ddt(x[0], 4, FLOAT)]
     for call in calls:
-        with pytest.raises(DevicesLayoutUnsupported):
+        with pytest.raises(DevicesLayoutUnsupported, match="devices layout"):
             call()
-    with pinned(store, {"coll_cuda_allreduce_algorithm": 7}):
-        with pinned(store, {"coll_cuda_reproducible": True}):
-            with pytest.raises(DevicesLayoutUnsupported, match="ordered_linear"):
-                comm.allreduce(x)
-        affine = top.create_op(lambda a, b: a * 3 + b, commute=False, name="affine")
-        with pytest.raises(DevicesLayoutUnsupported, match="ordered_linear"):
-            comm.allreduce(rank_data(N, (4,), np.int64), affine)
     with pytest.raises(MPIArgError, match="numpy or RankShards"):
         comm.allreduce(torch.zeros(N, 4))
+    tapi.finalize()
+    monkeypatch.setenv(ENV_PROC, "0")
+    try:
+        with pytest.raises(DevicesLayoutUnsupported, match="tpurun"):
+            tapi.init({"accelerator_cuda_layout": "devices"}, device="cpu", nranks=N)
+    finally:
+        monkeypatch.delenv(ENV_PROC)
+        tapi.finalize()
 
 
 def test_split_dup_and_submesh_keep_the_layout():

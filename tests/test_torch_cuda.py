@@ -153,6 +153,98 @@ def test_devices_layout_allreduce_matches_the_rows_layout(dev):
     ck.peer_ring(devs.mesh).check()
 
 
+def _layouts(dev, n=8):
+    from ompi_tpu_torch.api.comm import Comm
+    from ompi_tpu_torch.api.group import Group
+    from ompi_tpu_torch.mesh import CommMesh
+
+    rows = Comm(Group(range(n)), CommMesh(dev, n))
+    devs = Comm(Group(range(n)), CommMesh(dev, n, layout="devices"))
+    return rows, devs
+
+
+def _shards_of(x, mesh):
+    from ompi_tpu_torch.mesh.shards import RankShards
+
+    return RankShards([x[r].to(d, copy=True) for r, d in enumerate(mesh.devices)])
+
+
+def test_request_over_shards_waits_on_every_card(dev):
+    """An ``iallreduce`` over shards on every card of the machine records
+    one event per card; its wait leaves every card's stream past the
+    collective, and the result equals the blocking call's."""
+    rows, devs = _layouts(dev)
+    x = torch.randn((8, 1 << 20), device=dev)
+    shards = _shards_of(x, devs.mesh)
+    want = devs.allreduce(shards, SUM)
+    req = devs.iallreduce(shards, SUM)
+    assert len(req._events) == len({d.index for d in devs.mesh.devices})
+    got = req.wait()
+    assert all(ev.query() for ev in req._events)
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.shards, want.shards))
+    torch.testing.assert_close(got[0].to(dev), rows.allreduce(x, SUM)[0], rtol=1e-5,
+                               atol=1e-5 * 8 * x.abs().max().item())
+    ck.peer_ring(devs.mesh).check()
+
+
+@pytest.mark.parametrize("algo", ["psum", "cuda_ring"])
+def test_outstanding_iallreduce_then_allreduce_on_one_ring(dev, algo):
+    """An ``iallreduce`` left outstanding while a blocking ``allreduce``
+    runs on the same peer ring: the second call's puts must not land in a
+    zone the first still reads (the epochs and the ``consumed`` credit).
+    Both results are bit-equal to the same calls made one at a time."""
+    from ompi_tpu_torch.coll.cuda import ALLREDUCE_ALGOS
+    from ompi_tpu_torch.core import mca
+
+    _, devs = _layouts(dev)
+    a = _shards_of(torch.randn((8, 3 << 20), device=dev), devs.mesh)
+    b = _shards_of(torch.randn((8, 3 << 20), device=dev), devs.mesh)
+    store = mca.default_context().store
+    try:
+        store.set("coll_cuda_allreduce_algorithm", ALLREDUCE_ALGOS[algo])
+        want_a, want_b = devs.allreduce(a, SUM), devs.allreduce(b, SUM)
+        torch.cuda.synchronize()
+        req = devs.iallreduce(a, SUM)
+        got_b = devs.allreduce(b, SUM)
+        got_a = req.wait()
+        torch.cuda.synchronize()
+    finally:
+        store.set("coll_cuda_allreduce_algorithm", 0)
+    for got, want in ((got_a, want_a), (got_b, want_b)):
+        assert all(torch.equal(_bits(g), _bits(w)) for g, w in zip(got.shards, want.shards))
+    ck.peer_ring(devs.mesh).check()
+
+
+def test_psum_on_cuda_shards_launches_the_peer_kernels(dev, monkeypatch):
+    """``auto`` (tuned's ``psum`` for SUM at every size) and reduce_scatter
+    ``auto`` (``direct``) on CUDA shards run the ring over the hop: one
+    put and two wait launches per card per hop, never the plain twin."""
+    rows, devs = _layouts(dev)
+    n, cards = 8, len({d.index for d in devs.mesh.devices})
+
+    def no_plain(*_a, **_k):
+        raise AssertionError("the plain twin ran on CUDA shards")
+
+    monkeypatch.setattr(ck, "ring_hop_peer_plain", no_plain)
+    x = torch.randn((n, 100003), device=dev)
+    xx = torch.randn((n, n, 4099), device=dev)
+    for call, hops, want in (
+            (lambda: devs.allreduce(_shards_of(x, devs.mesh), SUM), 2 * (n - 1),
+             rows.allreduce(x, SUM)),
+            (lambda: devs.reduce_scatter_block(_shards_of(xx, devs.mesh), SUM), n - 1,
+             rows.reduce_scatter_block(xx, SUM))):
+        before = dict(ck.LAUNCHES)
+        got = call()
+        torch.cuda.synchronize()
+        assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
+            "ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": hops * cards,
+            "ring_hop_wait": 2 * hops * cards}
+        for r in range(n):
+            torch.testing.assert_close(got[r].to(dev), want[r], rtol=1e-5,
+                                       atol=1e-5 * n * 8)
+    ck.peer_ring(devs.mesh).check()
+
+
 def test_p2p_payload_is_a_clone_on_the_card_that_wait_fences(dev):
     from ompi_tpu_torch.api.comm import Comm
     from ompi_tpu_torch.api.group import Group
