@@ -329,8 +329,20 @@ exits non-zero:
     in every form; an ``iallreduce``, an ``allreduce_init`` started
     twice and an ``ibcast`` against their blocking twins; a 1 GiB
     allreduce on each layout in turns, pinned to ``cuda_ring`` and
-    unpinned (tuned's ``psum``); and a 1 GiB ``iallreduce``'s host return
-    beside its ``wait()``.  With
+    unpinned (tuned's ``psum``); a 1 GiB ``iallreduce``'s host return
+    beside its ``wait()``; and the ``surfaces`` leg, at the rows-layout
+    phases' sizes, each call bit for bit against the same call on the
+    rows layout with every payload, region and restored shard on its
+    rank's card: a 32 MiB bf16 send from each rank to rank r+1 in
+    blocking (the senders zeroing their buffers at once), persistent and
+    4-partition forms; a 64 MiB f32 window per rank with a fence epoch of
+    puts, SUM accumulates and gets, a PSCW epoch, a lock/flush epoch,
+    ``fetch_and_op``, ``compare_and_swap`` and ``device_view``; a 64 MiB
+    packed PROD ``allreduce_ddt`` under ``auto`` (tuned's ``cuda_ring``:
+    the shard ring, its peer launches counted) and a ``bcast_ddt``; a 64
+    MiB-per-rank checkpoint ``save``/``restore`` of ``RankShards`` under
+    ``build/``; the p2p round and the fence epoch timed (median of 20)
+    beside their copy bounds.  With
     ``--cross-device-only`` the script runs phases 1 and 24 alone, for a
     machine of four cards: rank r on card
     ``r // 2``, four of the eight hops across NVLink, timed on the host
@@ -349,9 +361,9 @@ phase's jobs (each job prints its own), the C ranks of the capi
 phase (none: a C rank holds one row), the bench phase's three legs, the
 bench_np2 phase's workers and C ranks, the tools phase's workers and
 the analysis phase's two children (for ``ring_hop`` and
-``ring_hop_fold``), and the cross_device phase's ``Comm`` rings and its
-checked collectives on the devices layout (for ``ring_hop_peer`` and
-``ring_hop_wait``); the last
+``ring_hop_fold``), and the cross_device phase's ``Comm`` rings, its
+checked collectives and its ``surfaces`` leg's typed allreduce on the
+devices layout (for ``ring_hop_peer`` and ``ring_hop_wait``); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -1237,6 +1249,295 @@ def cross_collectives(ck, world, rows_comm, mesh, store, gen) -> tuple[list, dic
     return rows, launches, caps
 
 
+#: the surfaces leg's sizes are the rows-layout phases': p2p's 32 MiB bf16
+#: activation (``ACT_ROWS`` × ``ACT_COLS``), osc's 64 MiB f32 window
+#: (``WIN_ELEMS``), ddt's 64 MiB packed vector, and a checkpoint of 64 MiB
+#: f32 per rank
+SURF_CKPT_ELEMS = 16 * 1024 * 1024
+SURF_TYPED_BYTES = 64 << 20
+#: medians of the timed p2p round and fence epoch are over this many
+SURF_ITERS = 20
+#: fetch_and_op calls on the shared counter
+SURF_FOPS = 64
+
+
+def copies_bound_ms(touches, links) -> float:
+    """The least time of a set of copies: the most HBM bytes one card
+    moves (``touches``: (card, bytes) pairs) over its rate, or the most
+    NVLink bytes one card sends (``links``: (from card, to card, bytes);
+    a copy within a card sends none) over the link's, whichever is
+    longer."""
+    hbm, link = {}, {}
+    for card, nbytes in touches:
+        hbm[card] = hbm.get(card, 0) + nbytes
+    for src, dst, nbytes in links:
+        if src != dst:
+            link[src] = link.get(src, 0) + nbytes
+    return max(max(hbm.values()) / HBM_BYTES_PER_S,
+               max(link.values(), default=0) / NVLINK_BYTES_PER_S) * 1e3
+
+
+def cross_surfaces(ck, world, rows_comm, mesh, store, gen) -> dict:
+    """The ``surfaces`` leg: point-to-point (blocking, persistent and
+    4-partition, each rank to rank r+1, the senders overwriting their
+    buffers at once), a window (a fence epoch of puts, SUM accumulates and
+    gets, a PSCW epoch, a lock/flush epoch, ``fetch_and_op``,
+    ``compare_and_swap``, ``device_view``), the typed entry points (a
+    packed PROD ``allreduce_ddt`` under ``auto`` and a ``bcast_ddt``) and a
+    checkpoint ``save``/``restore`` of ``RankShards`` through ``world`` (the
+    devices layout), each bit for bit against the same calls on the rows
+    layout, with every payload, region and restored shard on its rank's
+    card; the p2p round and the fence epoch timed beside their copy
+    bounds; the peer launches of the typed allreduce counted."""
+    import filecmp
+
+    import torch
+
+    from ompi_tpu_torch.ddt import FLOAT
+    from ompi_tpu_torch.io import checkpoint
+    from ompi_tpu_torch.mesh.shards import RankShards
+    from ompi_tpu_torch.op import PROD, SUM
+    from ompi_tpu_torch.osc import LOCK_EXCLUSIVE, MODE_NOSUCCEED
+
+    t0 = time.perf_counter()
+    devs = mesh.devices
+    card = [d.index for d in devs]
+    right = [(r + 1) % N for r in range(N)]
+    left = [(r - 1) % N for r in range(N)]
+    before_leg = dict(ck.LAUNCHES)
+
+    def same(a, b) -> bool:
+        return a.shape == b.shape and torch.equal(bits(a.to(b.device)), bits(b))
+
+    def on_ranks(x) -> list:
+        return [x[r].to(d, copy=True) for r, d in enumerate(devs)]
+
+    # -- point-to-point: each rank to rank r+1 --------------------------------
+    acts = torch.randn((N, ACT_ROWS, ACT_COLS), generator=gen, device="cuda").to(torch.bfloat16)
+    shards = on_ranks(acts)
+    nbytes = ACT_ROWS * ACT_COLS * 2
+
+    def p2p_round(comm, bufs, overwrite: bool = False) -> list:
+        srcs = [b.clone() for b in bufs] if overwrite else bufs
+        for r in range(N):
+            comm.send(srcs[r], r, right[r], tag=3)
+        if overwrite:  # the senders reuse their buffers at once
+            for s in srcs:
+                s.zero_()
+        return [comm.recv(right[r], r, 3) for r in range(N)]
+
+    want = [p for p, _ in p2p_round(rows_comm, list(acts))]
+
+    def delivered(outs) -> bool:
+        return all(p.device == devs[right[r]] and same(p, want[r]) for r, p in enumerate(outs))
+
+    got = p2p_round(world, shards, overwrite=True)
+    blocking_ok = delivered([p for p, _ in got]) and all(
+        st.source == r and st.nbytes == nbytes for r, (_, st) in enumerate(got))
+    sends = [world.send_init(shards[r], r, right[r], tag=4) for r in range(N)]
+    recvs = [world.recv_init(right[r], r, 4) for r in range(N)]
+    persistent_ok = True
+    for _ in range(2):
+        for q in sends:
+            q.start().wait()
+        persistent_ok = persistent_ok and delivered([q.start().wait() for q in recvs])
+    parts = []
+    for r in range(N):
+        ps = world.psend_init(shards[r], 4, r, right[r], tag=5)
+        pr = world.precv_init(4, right[r], r, tag=5)
+        pr.start()
+        ps.start()
+        for p in (2, 0, 3, 1):
+            ps.pready(p)
+        parts.append(pr.wait())
+    partitioned_ok = delivered(parts)
+    del got, parts, want
+    p2p_ms = mesh_ms(lambda: p2p_round(world, shards), devs, SURF_ITERS)
+    p2p_bound = copies_bound_ms(
+        [(card[r], nbytes) for r in range(N)] + [(card[right[r]], nbytes) for r in range(N)],
+        [(card[r], card[right[r]], nbytes) for r in range(N)])
+    del acts, shards
+
+    # -- a window of 64 MiB f32 per rank ----------------------------------------
+    m = WIN_ELEMS
+    win = world.win_allocate(m, torch.float32)
+    rwin = rows_comm.win_allocate(m, torch.float32)
+    init = torch.randn((N, m), generator=gen, device="cuda")
+    data = torch.randn((N, m), generator=gen, device="cuda")
+    dshards = on_ranks(data)
+    for r in range(N):
+        win.memory(r).copy_(init[r])
+    rwin.device_view().copy_(init)
+    del init
+    regions_ok = all(win.memory(r).device == devs[r] for r in range(N))
+
+    def fence_epoch(w, d) -> list:
+        w.fence()
+        gets = []
+        for r in range(N):
+            w.put(r, right[r], d[r][: m // 2])
+            w.accumulate(r, right[r], d[r], op=SUM)
+            gets.append(w.get(r, left[r], m))
+        w.fence()
+        return [g.wait() for g in gets]
+
+    def fetched_ok(values, wants) -> bool:  # each value on its origin's card
+        return all(v.device == devs[r] and same(v, w)
+                   for r, (v, w) in enumerate(zip(values, wants)))
+
+    def memory_ok() -> bool:
+        return all(same(win.memory(r), rwin.memory(r)) for r in range(N))
+
+    fence_ok = fetched_ok(fence_epoch(win, dshards), fence_epoch(rwin, list(data))) \
+        and memory_ok()
+
+    def pscw(w, d):  # origins 0-3 into targets 4-7
+        for t in range(N // 2, N):
+            w.post(t, [t - N // 2])
+        for o in range(N // 2):
+            w.start(o, [o + N // 2])
+            w.accumulate(o, o + N // 2, d[o], op=SUM)
+        for o in range(N // 2):
+            w.complete(o)
+        for t in range(N // 2, N):
+            w.wait(t)
+
+    def locked(w, d):
+        w.lock(1, 6, LOCK_EXCLUSIVE)
+        w.put(1, 6, d[1][:4096], target_disp=5)
+        w.flush(1, 6)
+        g = w.get(1, 6, 8192)
+        w.unlock(1, 6)
+        return g.wait()
+
+    def counter(w) -> list:
+        w.memory(0)[0] = 0.0
+        for r in range(N):
+            w.lock_all(r)
+        reqs = [w.fetch_and_op(i % N, 0, 1.0, 0, SUM) for i in range(SURF_FOPS)]
+        for r in range(N):
+            w.unlock_all(r)
+        w.lock(2, 0)
+        hit = w.compare_and_swap(2, 0, -5.0, float(SURF_FOPS))
+        miss = w.compare_and_swap(2, 0, 7.0, 123.0)
+        w.unlock(2, 0)
+        return [q.wait() for q in reqs] + [hit.wait(), miss.wait()]
+
+    for w in (win, rwin):
+        w.fence(MODE_NOSUCCEED)
+    pscw(win, dshards)
+    pscw(rwin, list(data))
+    pscw_ok = memory_ok()
+    lock_got, lock_want = locked(win, dshards), locked(rwin, list(data))
+    lock_ok = lock_got.device == devs[1] and same(lock_got, lock_want) and memory_ok()
+    atomics, atomics_want = counter(win), counter(rwin)
+    origins = [i % N for i in range(SURF_FOPS)] + [2, 2]
+    atomics_ok = all(v.device == devs[o] and same(v, w)
+                     for o, v, w in zip(origins, atomics, atomics_want)) and memory_ok() \
+        and float(win.memory(0)[0]) == -5.0 and float(atomics[-2]) == SURF_FOPS
+    view, rview = win.device_view(), rwin.device_view()
+    view_ok = isinstance(view, RankShards) and all(
+        view[r].device == devs[r] and view[r].data_ptr() == win.memory(r).data_ptr()
+        and same(view[r], rview[r]) for r in range(N))
+    del view, rview, atomics, atomics_want, lock_got, lock_want
+    rwin.free()
+    del rwin
+    epoch_ms = mesh_ms(lambda: fence_epoch(win, dshards), devs, SURF_ITERS)
+    win.fence(MODE_NOSUCCEED)
+    win.free()
+    wb = m * 4  # a region's bytes
+    touches, links = [], []
+    for r in range(N):
+        t, s = card[right[r]], card[left[r]]
+        touches += [(card[r], wb // 2), (t, wb // 2)]  # the put of half a region
+        touches += [(card[r], wb), (t, 2 * wb)]  # the accumulate: data, region read and write
+        touches += [(s, wb), (card[r], wb)]  # the get
+        links += [(card[r], t, wb // 2 + wb), (s, card[r], wb)]
+    epoch_bound = copies_bound_ms(touches, links)
+    del win, dshards, data
+
+    # -- the typed entry points: 64 MiB packed per rank ------------------------
+    vec = FLOAT.create_vector(1024, 4, 5).commit()
+    count = SURF_TYPED_BYTES // vec.size
+    nfloat = (vec.lb + vec.span(count)) // 4
+    bufs = 1 + 1e-3 * torch.randn((N, nfloat), generator=gen, device="cuda")
+    tbufs = on_ranks(bufs)
+    prev = store.get("coll_cuda_allreduce_algorithm")
+    store.set("coll_cuda_allreduce_algorithm", 0)  # auto: tuned's decision
+    try:
+        want = rows_comm.allreduce_ddt(list(bufs), count, vec, PROD)
+        torch.cuda.synchronize()
+        before = dict(ck.LAUNCHES)
+        got = world.allreduce_ddt(tbufs, count, vec, PROD)
+        synced_within(devs, CROSS_TIMEOUT_S, "the typed allreduce")
+        typed_launches = launched(ck, before)
+    finally:
+        store.set("coll_cuda_allreduce_algorithm", prev)
+    hops, ncards = 2 * (N - 1), len(set(card))
+    typed_ok = isinstance(got, RankShards) and all(
+        got[r].device == devs[r] and same(got[r], want[r]) for r in range(N))
+    typed_launches_ok = typed_launches == {**dict.fromkeys(ck.LAUNCHES, 0),
+                                           "ring_hop_peer": hops * ncards,
+                                           "ring_hop_wait": 2 * hops * ncards}
+    del got, want
+    root = 3
+    got = world.bcast_ddt(tbufs[root], count, vec, root=root)
+    want = rows_comm.bcast_ddt(bufs[root], count, vec, root=root)
+    bcast_ok = all(got[r].device == devs[r] and same(got[r], want[r]) for r in range(N))
+    del got, want, bufs, tbufs
+
+    # -- a checkpoint of 64 MiB f32 per rank -------------------------------------
+    x = torch.randn((N, SURF_CKPT_ELEMS), generator=gen, device="cuda")
+    workdir = REPO / "build" / "chip_smoke_surfaces"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        path, rpath = str(workdir / "shards.bin"), str(workdir / "rows.bin")
+        xs = RankShards(on_ranks(x))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        checkpoint.save(world, path, xs, {"step": 2})
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back, manifest = checkpoint.restore(world, path)
+        synced_within(devs, CROSS_TIMEOUT_S, "the restore")
+        restore_s = time.perf_counter() - t
+        checkpoint.save(rows_comm, rpath, x, {"step": 2})
+        rows_back, _ = checkpoint.restore(rows_comm, rpath)
+        ckpt_ok = isinstance(back, RankShards) and manifest["step"] == 2 and all(
+            back[r].device == devs[r] and same(back[r], rows_back[r]) for r in range(N)) \
+            and filecmp.cmp(path, rpath, shallow=False)
+        del xs, back, rows_back
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    del x
+    torch.cuda.empty_cache()
+    leg_launches = launched(ck, before_leg)  # the typed allreduce's peer launches only
+    row = {"p2p_bytes_per_rank": nbytes, "p2p_blocking_ok": blocking_ok,
+           "p2p_persistent_ok": persistent_ok, "p2p_partitioned_ok": partitioned_ok,
+           "p2p_round_ms": p2p_ms, "p2p_round_bound_ms": p2p_bound,
+           "window_bytes_per_rank": wb, "window_regions_on_their_cards": regions_ok,
+           "fence_epoch_ok": fence_ok, "pscw_ok": pscw_ok, "lock_flush_ok": lock_ok,
+           "fetch_and_op_cas_ok": atomics_ok, "device_view_ok": view_ok,
+           "fence_epoch_ms": epoch_ms, "fence_epoch_bound_ms": epoch_bound,
+           "typed_packed_bytes_per_rank": count * vec.size, "allreduce_ddt_ok": typed_ok,
+           "allreduce_ddt_launches": typed_launches,
+           "allreduce_ddt_launches_ok": typed_launches_ok, "bcast_ddt_ok": bcast_ok,
+           "checkpoint_bytes_per_rank": SURF_CKPT_ELEMS * 4, "checkpoint_ok": ckpt_ok,
+           "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+           "timing": "medians of %d on one card's CUDA events, or on the host clock between "
+                     "synchronises of every card" % SURF_ITERS,
+           "launches": {k: leg_launches[k] for k in ck.PEER_KERNELS},
+           "wall_s": time.perf_counter() - t0}
+    row["ok"] = all(row[k] for k in (
+        "p2p_blocking_ok", "p2p_persistent_ok", "p2p_partitioned_ok",
+        "window_regions_on_their_cards", "fence_epoch_ok", "pscw_ok", "lock_flush_ok",
+        "fetch_and_op_cas_ok", "device_view_ok", "allreduce_ddt_ok",
+        "allreduce_ddt_launches_ok", "bcast_ddt_ok", "checkpoint_ok")) and all(
+        leg_launches[k] == typed_launches[k] for k in ck.PEER_KERNELS)
+    return row
+
+
 def phase_cross_device(ck, smi):
     """The reference's one-rank-per-device layout on the card: every rank
     a buffer of its own, the cross-device hop (``ring_hop_peer`` and
@@ -1244,9 +1545,10 @@ def phase_cross_device(ck, smi):
     ``cuda_ring`` schedules through ``init()`` with
     ``accelerator_cuda_layout devices``, each bit-equal to the same call
     on the rows layout, then every collective × algorithm and the i and
-    init forms (:func:`cross_collectives`); the hop step, a 1 GiB
-    allreduce (``cuda_ring`` and ``auto``) per layout and a 1 GiB
-    ``iallreduce``'s host return timed."""
+    init forms (:func:`cross_collectives`), then point-to-point, a window,
+    the typed entry points and a checkpoint (:func:`cross_surfaces`); the
+    hop step, a 1 GiB allreduce (``cuda_ring`` and ``auto``) per layout
+    and a 1 GiB ``iallreduce``'s host return timed."""
     import torch
 
     import ompi_tpu_torch.api as api
@@ -1330,6 +1632,13 @@ def phase_cross_device(ck, smi):
           flush=True)
     ck.peer_ring(mesh).check()
     torch.cuda.empty_cache()
+    t_surf = time.perf_counter()
+    surfaces = cross_surfaces(ck, world, rows_comm, mesh, store, gen)
+    for k in ck.PEER_KERNELS:
+        launches[k] += surfaces["launches"][k]
+    print(f"cross_device: surfaces in {time.perf_counter() - t_surf:.1f} s, ok "
+          f"{surfaces['ok']}", flush=True)
+    ck.peer_ring(mesh).check()
     # one hop step at the 1 GiB ring's chunk shape: 128 MiB per rank
     m = (1 << 30) // 4 // N
     ring = ck.peer_ring(mesh)
@@ -1508,6 +1817,7 @@ def phase_cross_device(ck, smi):
            "allreduce_auto_1GiB_vs_rows": auto_ok, "allreduce_auto_1GiB_max_abs_err": auto_err,
            "iallreduce_1GiB_host_return_ms": returns_ms, "iallreduce_1GiB_wait_ms": waits_ms,
            "collectives": colls, "collectives_s": colls_s, "hold_caps": caps,
+           "surfaces": surfaces,
            "timeouts": int(ring.timed_out.sum()), "launches": launches,
            "wall_s": time.perf_counter() - t0}
     emit(row)
@@ -1515,9 +1825,11 @@ def phase_cross_device(ck, smi):
     bad_colls = [(c["coll"], c["algorithm"], c["bytes_per_rank"], c["dtype"]) for c in colls
                  if not (c["vs_rows"] and c["launches_ok"])]
     if failures or bad or bad_colls or not auto_ok or row["timeouts"] or not wrap["ok"] \
-            or wrap["timeouts"] or min(launches[k] for k in ck.PEER_KERNELS) == 0:
+            or wrap["timeouts"] or min(launches[k] for k in ck.PEER_KERNELS) == 0 \
+            or not surfaces["ok"]:
         raise SystemExit(f"cross_device checks failed: kernel {failures[:5]}, rings {bad[:5]}, "
-                         f"collectives {bad_colls[:10]}, auto 1 GiB {auto_ok}, wrap {wrap}")
+                         f"collectives {bad_colls[:10]}, auto 1 GiB {auto_ok}, wrap {wrap}, "
+                         f"surfaces {surfaces}")
     return {**row, "kernel_rows": kernel_rows}
 
 

@@ -13,9 +13,12 @@ out (staged onto the mesh device and back), tensor in → tensor out
 buffer per rank) a comm takes numpy (staged into
 :class:`~ompi_tpu_torch.mesh.shards.RankShards`, row r on rank r's
 device, and back) or ``RankShards`` (returned as ``RankShards``; a root
-gather returns root's one tensor).  Every collective runs there in its
-blocking, i and init forms; point-to-point, windows and the typed
-(``*_ddt``) entry points raise
+gather returns root's one tensor).  Everything runs there: every
+collective in its blocking, i and init forms; point-to-point, whose
+tensor payloads land on the receiver's device; windows, whose region r
+lies on rank r's device; the typed (``*_ddt``) entry points, whose
+tensor buffers are packed on each rank's own device; and checkpoints.
+Only a job of several processes raises
 :class:`~ompi_tpu_torch.coll.cuda.DevicesLayoutUnsupported`.
 
 Dispatch: an entry point checks its arguments once per call signature,
@@ -56,7 +59,6 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.coll import sched
-from ompi_tpu_torch.coll.cuda import unsupported_on_devices
 from ompi_tpu_torch.coll.module import CollTable, select_coll_modules
 from ompi_tpu_torch.core import mca
 from ompi_tpu_torch.core import errors as _errors
@@ -171,11 +173,8 @@ class Comm(PersistentP2PMixin):
 
     @property
     def pml(self):
-        """The comm's matching engine, from the selected pml component
-        (none on the devices layout yet)."""
+        """The comm's matching engine, from the selected pml component."""
         self._check()
-        if self.mesh.layout == "devices":
-            unsupported_on_devices("point-to-point")
         if self._pml is None:
             comp = mca.default_context().framework("pml").select_one()
             self._pml = comp.make_engine(self.size, self.name)
@@ -300,8 +299,6 @@ class Comm(PersistentP2PMixin):
     # -- one-sided windows (osc) and MPI-IO ----------------------------------
 
     def _osc(self):
-        if self.mesh.layout == "devices":
-            unsupported_on_devices("a window (osc)")
         return mca.default_context().framework("osc").select_one()
 
     def win_create(self, bases, name: str = ""):
@@ -654,10 +651,14 @@ class Comm(PersistentP2PMixin):
 
     def send(self, buf, source: int, dest: int, tag: int = 0) -> None:
         """MPI_Send from rank ``source`` to ``dest``.  Eager-buffered:
-        returns at once, the sender's buffer reusable."""
+        returns at once, the sender's buffer reusable.  On the devices
+        layout a tensor payload is copied onto ``dest``'s device."""
         if self._ft is not None:
             ulfm.check(self, peer=dest)
-        self.pml.send(source, dest, buf, tag)
+        dest_dev = (self.mesh.devices[dest]
+                    if self.mesh.layout == "devices" and isinstance(buf, torch.Tensor)
+                    and 0 <= dest < self.size else None)
+        self.pml.send(source, dest, buf, tag, dest_dev)
 
     def isend(self, buf, source: int, dest: int, tag: int = 0) -> Request:
         self.send(buf, source, dest, tag)
@@ -706,47 +707,59 @@ class Comm(PersistentP2PMixin):
         """MPI_Allreduce over typed byte buffers: each rank's buffer is
         packed by the convertor, the packed rows are reduced in the leaf
         dtype, and unpacked into ``recvbufs`` (or returned packed).
-        Tensors are packed and stacked on their own device, so nothing
-        crosses to the host; numpy buffers stay numpy, as in the
-        reference."""
-        if self.mesh.layout == "devices":
-            unsupported_on_devices("allreduce_ddt")
+        Tensors are packed on their own device and reduced there, so
+        nothing crosses to the host: stacked into one tensor on the rows
+        layout, into ``RankShards`` on the devices layout, where rank r's
+        tensors must lie on rank r's device.  Numpy buffers stay numpy, as
+        in the reference."""
         op.check(datatype)
         if len(sendbufs) != self.size:
             raise MPIArgError("one send buffer per rank required")
         if datatype.uniform_leaf is None:
             raise MPITypeError("reductions need a uniform-leaf datatype")
+        for r, b in enumerate(sendbufs):
+            self.mesh.check_placed(r, b, "send buffer")
         packed = [packed_to_typed(ddt_pack(b, datatype, count), datatype, count)
                   for b in sendbufs]
-        if all(isinstance(p, torch.Tensor) for p in packed):
-            stacked = torch.stack(packed)  # (n, count*leaves) on the device
-        else:
+        if not all(isinstance(p, torch.Tensor) for p in packed):
             stacked = np.stack([to_numpy(p) if isinstance(p, torch.Tensor) else p
                                 for p in packed])
+        elif self.mesh.layout == "devices":
+            stacked = RankShards(packed)  # (n, count*leaves), row r on rank r's device
+        else:
+            stacked = torch.stack(packed)  # (n, count*leaves) on the device
         red = self.allreduce(stacked, op)
         if recvbufs is None:
             return red
         if len(recvbufs) != self.size:
             raise MPIArgError("one recv buffer per rank required")
+        for r, b in enumerate(recvbufs):
+            self.mesh.check_placed(r, b, "recv buffer")
         for r in range(self.size):
             ddt_unpack(recvbufs[r], datatype, count, typed_to_packed(red[r]))
         return recvbufs
 
     def bcast_ddt(self, buf, count: int, datatype: Datatype, root: int = 0):
         """Typed bcast: packs root's buffer, broadcasts it and returns each
-        rank's unpacked byte buffer (on the buffer's device)."""
-        if self.mesh.layout == "devices":
-            unsupported_on_devices("bcast_ddt")
+        rank's unpacked byte buffer: numpy for numpy, a tensor on the
+        buffer's device (rows layout) or on each rank's own device
+        (devices layout, where root's tensor must lie on root's)."""
         self._check_root(root)
+        self.mesh.check_placed(root, buf, "bcast buffer")
         packed = ddt_pack(buf, datatype, count)
         nbytes = datatype.lb + datatype.span(count)
-        if isinstance(packed, torch.Tensor):
+        if not isinstance(packed, torch.Tensor):
+            out = np.asarray(self.bcast(np.stack([packed] * self.size), root))
+            dsts = [np.zeros(nbytes, np.uint8) for _ in range(self.size)]
+        elif self.mesh.layout == "devices":
+            rows = [packed if r == root else torch.zeros_like(packed, device=d)
+                    for r, d in enumerate(self.mesh.devices)]
+            out = self.bcast(RankShards(rows), root)
+            dsts = [torch.zeros(nbytes, dtype=torch.uint8, device=d) for d in self.mesh.devices]
+        else:
             out = self.bcast(torch.stack([packed] * self.size), root)
             dsts = [torch.zeros(nbytes, dtype=torch.uint8, device=packed.device)
                     for _ in range(self.size)]
-        else:
-            out = np.asarray(self.bcast(np.stack([packed] * self.size), root))
-            dsts = [np.zeros(nbytes, np.uint8) for _ in range(self.size)]
         for r, dst in enumerate(dsts):
             ddt_unpack(dst, datatype, count, typed_to_packed(out[r]))
         return dsts

@@ -52,6 +52,17 @@ def _shape(x) -> tuple:
     return tuple(x.shape) if isinstance(x, torch.Tensor) else np.shape(x)
 
 
+def _union_mesh(parent: Comm, first: Comm, second: Comm) -> CommMesh:
+    """The mesh over ``first``'s ranks then ``second``'s, as the
+    reference's union of their devices: one row per rank on the parent's
+    device (rows layout), or every rank on its own device (devices
+    layout)."""
+    if parent.mesh.layout == "devices":
+        return CommMesh(layout="devices",
+                        devices=list(first.mesh.devices) + list(second.mesh.devices))
+    return CommMesh(parent.device, first.size + second.size)
+
+
 def create_intercomm(parent: Comm, local_ranks, remote_ranks,
                      name: str = "") -> "Intercomm":
     """MPI_Intercomm_create, single-controller form: both leaders are
@@ -82,7 +93,7 @@ class Intercomm:
         # matching engine isolates intercomm traffic completely
         self._chan = Comm(
             Group(list(comm_a.group.ranks) + list(comm_b.group.ranks)),
-            CommMesh(parent.device, comm_a.size + comm_b.size),
+            _union_mesh(parent, comm_a, comm_b),
             name=f"{self.name}.chan",
         )
 
@@ -178,7 +189,7 @@ class Intercomm:
         first, second = ((self.remote, self.local) if high_group_local
                          else (self.local, self.remote))
         ranks = list(first.group.ranks) + list(second.group.ranks)
-        return Comm(Group(ranks), CommMesh(self.parent.device, len(ranks)),
+        return Comm(Group(ranks), _union_mesh(self.parent, first, second),
                     name=f"{self.name}.merged")
 
     def free(self) -> None:

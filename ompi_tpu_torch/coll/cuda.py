@@ -86,16 +86,16 @@ def _named(coll: str, enum: dict[str, int], algo: int) -> str:
 
 
 class DevicesLayoutUnsupported(MPIInternalError):
-    """A call that does not run on the ``devices`` layout yet:
-    point-to-point, windows, the typed (``*_ddt``) entry points and a
-    job of several processes (every collective does)."""
+    """A call that does not run on the ``devices`` layout yet: a job of
+    several processes (``tpurun``), and what rides on one (han, the DCN
+    windows, shmem's heap, the C ABI).  Every single-process call does."""
 
 
 def unsupported_on_devices(what: str):
     raise DevicesLayoutUnsupported(
-        f"{what} does not run on the devices layout yet (point-to-point, windows, "
-        "the typed *_ddt entry points and jobs of several processes do not; every "
-        "collective does)")
+        f"{what} does not run on the devices layout yet: jobs of several processes "
+        "(tpurun) and what rides on them (han, the DCN windows, shmem, the C ABI) do "
+        "not; every call of a single-process comm does")
 
 
 class CudaCollModule(CollModule):

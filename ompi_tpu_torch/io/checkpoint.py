@@ -1,18 +1,22 @@
 """Checkpoint/resume over MPI-IO collective writes.
 
-Port of ``ompi_tpu/io/checkpoint.py``.  A rank-major ``(n, ...)`` tensor
-or array checkpoints through ``write_at_all`` — each rank owns a
-contiguous shard region and the fcoll strategy coalesces the shards
-into large writes — plus a JSON manifest, and restores through
-``read_at_all`` and ``stage_in`` onto the comm's device.
+Port of ``ompi_tpu/io/checkpoint.py``.  A rank-major ``(n, ...)``
+tensor, :class:`~ompi_tpu_torch.mesh.shards.RankShards` or array
+checkpoints through ``write_at_all`` — each rank owns a contiguous
+shard region and the fcoll strategy coalesces the shards into large
+writes — plus a JSON manifest, and restores through ``read_at_all`` and
+``stage_in`` onto the comm's mesh: one tensor on the rows layout,
+``RankShards`` with shard r on ``devices[r]`` on the devices layout (the
+reference's value sharded one row per device).
 
 The on-disk format is the reference's, byte for byte: the shards' raw
 bytes at ``r * shard_bytes`` and the manifest ``{"shape", "dtype",
 "ranks", "shard_bytes", ...}`` with numpy's dtype name (``float32``,
 ``bfloat16``), never torch's, so a checkpoint written by either package
 restores in the other.  A tensor leaves the card in one device-to-host
-copy of its bytes; :func:`save_async` takes that copy before it
-returns, so the caller may overwrite the tensor at once.
+copy of its bytes (``RankShards`` in one per shard); :func:`save_async`
+takes that copy before it returns, so the caller may overwrite the
+tensor at once.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.core.errors import MPIFileError
-from ompi_tpu_torch.ddt.datatype import numpy_dtype, numpy_name, torch_dtype
+from ompi_tpu_torch.ddt.datatype import numpy_dtype, numpy_name, to_numpy, torch_dtype
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.request import Request
 
 from .file import MODE_CREATE, MODE_RDONLY, MODE_WRONLY
@@ -52,15 +57,25 @@ class CheckpointRequest(Request):
         return None
 
 
-def _snapshot(comm, array) -> tuple[np.ndarray, list[int], str]:
-    """(host bytes as (n, shard_bytes) uint8, shape, numpy dtype name):
-    one D2H copy for a tensor, none for a host array."""
+def _raw(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes, flat (``view(uint8)`` needs a contiguous 1-D tensor)."""
+    return t.detach().contiguous().view(-1).view(torch.uint8)
+
+
+def _snapshot(comm, array) -> tuple[np.ndarray, list[int], str, bool]:
+    """(host bytes as (n, shard_bytes) uint8, shape, numpy dtype name,
+    whether those bytes may be the caller's memory): one D2H copy for a
+    tensor, one per shard for ``RankShards``, none for a host array."""
+    if isinstance(array, RankShards):
+        raw = np.stack([to_numpy(_raw(s)) for s in array.shards])
+        return raw, list(array.shape), numpy_name(array.dtype), False
     if isinstance(array, torch.Tensor):
-        t = array.detach().contiguous()
-        raw = comm.mesh.stage_out(t.view(-1).view(torch.uint8))
-        return raw.reshape(t.shape[0], -1), list(t.shape), numpy_name(t.dtype)
+        raw = comm.mesh.stage_out(_raw(array))
+        return (raw.reshape(array.shape[0], -1), list(array.shape), numpy_name(array.dtype),
+                array.device.type == "cpu")
     host = np.ascontiguousarray(np.asarray(array))
-    return host.reshape(host.shape[0], -1).view(np.uint8), list(host.shape), str(host.dtype)
+    return (host.reshape(host.shape[0], -1).view(np.uint8), list(host.shape), str(host.dtype),
+            True)
 
 
 def _save_bytes(comm, path: str, shards: np.ndarray, shape: list[int], dtype: str,
@@ -93,10 +108,10 @@ def _save_bytes(comm, path: str, shards: np.ndarray, shape: list[int], dtype: st
 
 
 def save(comm, path: str, array, manifest_extra: dict | None = None) -> None:
-    """Collective checkpoint of a rank-major (n, ...) tensor or array:
-    rank r's row is shard r, all written by one aggregated collective
-    write."""
-    shards, shape, dtype = _snapshot(comm, array)
+    """Collective checkpoint of a rank-major (n, ...) tensor,
+    ``RankShards`` or array: rank r's row is shard r, all written by one
+    aggregated collective write."""
+    shards, shape, dtype, _ = _snapshot(comm, array)
     _save_bytes(comm, path, shards, shape, dtype, manifest_extra)
 
 
@@ -104,8 +119,8 @@ def save_async(comm, path: str, array, manifest_extra: dict | None = None) -> Ch
     """Asynchronous checkpoint: the snapshot is taken to the host now
     (the tensor is reusable on return), the write runs on a background
     thread and completes through the request."""
-    shards, shape, dtype = _snapshot(comm, array)
-    if not isinstance(array, torch.Tensor) or array.device.type == "cpu":
+    shards, shape, dtype, callers = _snapshot(comm, array)
+    if callers:
         shards = shards.copy()  # host memory is the caller's: copy it
     errbox: list = []
 
@@ -122,8 +137,10 @@ def save_async(comm, path: str, array, manifest_extra: dict | None = None) -> Ch
 
 def restore(comm, path: str, stage: bool = True):
     """Collective restore: one aggregated read of every shard; returns
-    the (n, ...) tensor staged onto the comm's device (a host array when
-    ``stage=False``) and the manifest."""
+    the (n, ...) value staged onto the comm's mesh — one tensor on the
+    rows layout, ``RankShards`` with shard r on ``devices[r]`` on the
+    devices layout; a host array when ``stage=False`` — and the
+    manifest."""
     try:
         with open(path + ".json") as f:
             manifest = json.load(f)
@@ -149,5 +166,8 @@ def restore(comm, path: str, stage: bool = True):
     shape = tuple(manifest["shape"])
     flat = np.stack(raws)  # (n, shard_bytes) uint8
     if stage:
-        return comm.mesh.stage_in(flat).view(tdt).reshape(shape), manifest
+        staged = comm.mesh.stage_in(flat)
+        if isinstance(staged, RankShards):
+            return RankShards([s.view(tdt).reshape(shape[1:]) for s in staged.shards]), manifest
+        return staged.view(tdt).reshape(shape), manifest
     return flat.view(numpy_dtype(tdt)).reshape(shape), manifest

@@ -178,6 +178,16 @@ class CommMesh:
             return RankShards.from_host(host_array, self.devices)
         return self.arena.stage_in(host_array, self.device)
 
+    def check_placed(self, rank: int, buf, what: str) -> None:
+        """On the ``devices`` layout a tensor of rank r must lie on
+        ``devices[r]``: nothing is moved implicitly (numpy buffers and the
+        rows layout pass)."""
+        if self.layout == "devices" and isinstance(buf, torch.Tensor) \
+                and buf.device != self.devices[rank]:
+            raise MPIArgError(
+                f"rank {rank}'s {what} lies on {buf.device}, the rank on "
+                f"{self.devices[rank]}: nothing is moved implicitly")
+
     def stage_out(self, t: torch.Tensor | RankShards) -> np.ndarray:
         if isinstance(t, RankShards):
             return t.to_host()
@@ -225,8 +235,8 @@ class CudaAcceleratorComponent(Component):
             "accelerator", "cuda", "layout", "rows",
             help="COMM_WORLD's layout: 'rows' (every rank a row of one "
             "tensor on one device) or 'devices' (one buffer per rank, rank "
-            "r on card r*count//n; every collective runs there, "
-            "point-to-point, windows and the typed entry points not yet)",
+            "r on card r*count//n; every call of a single-process comm "
+            "runs there, jobs of several processes not yet)",
         )
         store.register(
             "accelerator", "cuda", "device_order", "default",

@@ -8,18 +8,29 @@ batch is applied to window memory, in global issue order — one
 deterministic serialization (stronger than, and conforming to, the
 standard's default accumulate ordering).
 
-Window memory lives where the comm runs.  ``allocate`` and
-``allocate_shared`` hold one ``(n, size)`` rank-major tensor on the
-comm's device whose rows are the ranks' regions (the shared segment's
-layout), so :meth:`Win.device_view` hands it back with no staging.
-``create`` and ``attach`` alias the caller's tensors or numpy arrays and
-never copy them.  Descriptors apply with the ops' ``torch_fn`` on the
-memory's device, with no host sync: ``cas`` selects with
-``torch.where``, ``get``/``get_acc``/``fop``/``cas`` deliver clones, and
-the unsigned types fold through the op layer's signed carriers.  Origin
+Window memory lives where the comm runs.  On the rows layout
+``allocate`` and ``allocate_shared`` hold one ``(n, size)`` rank-major
+tensor on the comm's device whose rows are the ranks' regions (the
+shared segment's layout), so :meth:`Win.device_view` hands it back with
+no staging.  On the devices layout rank r's region lies on rank r's
+device (``allocate``, ``allocate_shared``: one region per device, since
+one tensor cannot span cards; ``create``/``attach``: a tensor must
+already lie there), and :meth:`Win.device_view` returns
+:class:`~ompi_tpu_torch.mesh.shards.RankShards`, the reference's value
+sharded one row per device.  ``create`` and ``attach`` alias the
+caller's tensors or numpy arrays and never copy them.  Descriptors apply
+with the ops' ``torch_fn`` on the memory's device, with no host sync:
+``cas`` selects with ``torch.where``, ``get``/``get_acc``/``fop``/``cas``
+deliver copies (on the origin's device on the devices layout), and the
+unsigned types fold through the op layer's signed carriers.  Origin
 data is copied when the descriptor is queued (the origin buffer is
-reusable at once); a numpy origin is converted to the window's dtype on
-the host, as the reference converts it, then moved to the memory.
+reusable at once) onto the target memory's device; a numpy origin is
+converted to the window's dtype on the host, as the reference converts
+it, then moved to the memory.  An epoch's close records one CUDA event
+per card it touched and makes each of those cards' current streams wait
+on the others', so what a batch wrote on card B is ordered before work
+issued afterwards on card C; a fetched value's request completes with
+its card's event.
 
 Synchronization (MPI-3 complete): collective ``fence``; PSCW
 ``start/complete/post/wait/test``; passive target ``lock/lock_all/
@@ -50,6 +61,7 @@ from ompi_tpu_torch.core.errors import (
     MPIWinError,
 )
 from ompi_tpu_torch.ddt.datatype import _is_bfloat16, from_numpy, numpy_dtype, torch_dtype
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op.op import NO_OP, REPLACE, SUM, Op
 from ompi_tpu_torch.request import Request
 from ompi_tpu_torch.tool import spc
@@ -87,13 +99,17 @@ class RMARequest(Request):
         super().__init__()
         self._event = threading.Event()
         self._value: Any = None
+        #: the CUDA event of the value's card at the epoch's close (None
+        #: for a value off the card)
+        self._landed = None
 
-    def _deliver(self, value: Any) -> None:
+    def _deliver(self, value: Any, landed=None) -> None:
         self._value = value
+        self._landed = landed
         self._event.set()
 
     def _poll(self) -> bool:
-        return self._event.is_set()
+        return self._event.is_set() and (self._landed is None or self._landed.query())
 
     def _block(self) -> None:
         # descriptors are applied by the controlling thread at epoch
@@ -102,6 +118,8 @@ class RMARequest(Request):
             raise MPIRMASyncError(
                 "RMA request waited on before its epoch was completed "
                 "(call fence/flush/unlock/complete first)")
+        if self._landed is not None:
+            self._landed.synchronize()
 
     def _finalize(self) -> Any:
         return self._value
@@ -141,6 +159,25 @@ def _window_dtype(dtype) -> torch.dtype:
     return dtype if isinstance(dtype, torch.dtype) else torch_dtype(dtype)
 
 
+def _order_cards(cards) -> dict:
+    """One CUDA event per card of ``cards`` on its current stream; with
+    several cards, each card's current stream then waits on the other
+    cards' events, so work issued on any of them afterwards is ordered
+    after what every one of them had queued."""
+    events = {}
+    for c in sorted(cards):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(c))
+        events[c] = ev
+    if len(events) > 1:
+        for c in events:
+            stream = torch.cuda.current_stream(c)
+            for other, ev in events.items():
+                if other != c:
+                    stream.wait_event(ev)
+    return events
+
+
 def _alias(base, dtype: torch.dtype) -> torch.Tensor:
     """A 1-D window base as a tensor sharing its memory (a numpy array
     is wrapped with ``torch.from_numpy``, never copied)."""
@@ -174,22 +211,27 @@ class Win:
         self.model = MODEL_UNIFIED
         self.name = name or f"win#{next(Win._name_counter)}"
         self._block: torch.Tensor | None = None
+        #: one region per rank on its own device (the devices layout)
+        self._sharded = comm.mesh.layout == "devices"
+        devices = comm.mesh.devices
         if bases is not None:
             if len(bases) != n:
                 raise MPIWinError("bases/sizes length mismatch")
-            for b, s in zip(bases, sizes):
+            for r, (b, s) in enumerate(zip(bases, sizes)):
                 if b.ndim != 1 or b.shape[0] != s or _window_dtype(b.dtype) != self.dtype:
                     raise MPIWinError("window base must be 1-D of the declared size/dtype")
+                comm.mesh.check_placed(r, b, "window memory")
             self._user = [b if isinstance(b, torch.Tensor) else np.ascontiguousarray(b)
                           for b in bases]
             self._mem = [_alias(b, self.dtype) for b in self._user]
-        elif flavor in (FLAVOR_ALLOCATE, FLAVOR_SHARED):
+        elif flavor in (FLAVOR_ALLOCATE, FLAVOR_SHARED) and not self._sharded:
             # one rank-major block on the comm's device, rows = regions
             self._block = torch.zeros((n, sizes[0]), dtype=self.dtype, device=comm.device)
             self._mem = list(self._block.unbind(0))
             self._user = self._mem
         else:
-            self._mem = [torch.zeros(s, dtype=self.dtype, device=comm.device) for s in sizes]
+            self._mem = [torch.zeros(s, dtype=self.dtype, device=d)
+                         for s, d in zip(sizes, devices)]
             self._user = self._mem
         self.sizes = tuple(int(s) for s in sizes)
         self._attrs: dict[int, Any] = {}
@@ -223,7 +265,8 @@ class Win:
     @classmethod
     def allocate_shared(cls, comm, size: int, dtype: Any = torch.float32,
                         name: str = "") -> "Win":
-        """MPI_Win_allocate_shared: one contiguous rank-major block,
+        """MPI_Win_allocate_shared: one contiguous rank-major block (one
+        region per device on the devices layout, whose cards are peers),
         load/store access through ``shared_query``."""
         return cls(comm, [size] * comm.size, dtype, flavor=FLAVOR_SHARED, name=name)
 
@@ -245,6 +288,7 @@ class Win:
                 f"attachment must be 1-D {self.dtype} (got {array.dtype} "
                 f"ndim={array.ndim}); a dtype-converting copy would detach "
                 "RMA from the caller's memory")
+        self.comm.mesh.check_placed(rank, array, "window memory")
         if addr in self._dynamic[rank]:
             raise MPIRMAAttachError(f"address {addr} already attached on rank {rank}")
         length = array.shape[0]
@@ -296,16 +340,24 @@ class Win:
         self._check_rank(rank)
         return self._user[rank]
 
-    def device_view(self) -> torch.Tensor:
-        """The window rank-major on the comm's device, ``(n, maxsize)``
-        (short regions zero-padded).  Allocated windows are that tensor
-        already and are returned as they are, with no staging."""
+    def device_view(self) -> torch.Tensor | RankShards:
+        """The window rank-major, ``(n, maxsize)`` (short regions
+        zero-padded): one tensor on the comm's device (rows layout) or
+        ``RankShards`` with row r on rank r's device (devices layout).
+        Allocated windows are that value already and are returned as
+        they are, with no staging."""
         if self._block is not None and self._block.device == self.comm.device:
             return self._block
+        if self._sharded and self.flavor in (FLAVOR_ALLOCATE, FLAVOR_SHARED):
+            return RankShards(self._mem)
         width = max(self.sizes) if self.sizes else 0
-        out = torch.zeros((self.comm.size, width), dtype=self.dtype, device=self.comm.device)
+        if self._sharded:
+            out = RankShards([torch.zeros(width, dtype=self.dtype, device=d)
+                              for d in self.comm.mesh.devices])
+        else:
+            out = torch.zeros((self.comm.size, width), dtype=self.dtype, device=self.comm.device)
         for r, mem in enumerate(self._mem):
-            out[r, : self.sizes[r]].copy_(mem)
+            out[r][: self.sizes[r]].copy_(mem)
         return out
 
     def free(self) -> None:
@@ -479,33 +531,53 @@ class Win:
 
     # -- descriptor application (the epoch program) ------------------------------
 
-    def _apply(self, descs: list[_Descriptor]) -> None:
-        """Apply descriptors in global issue order, on the memory's device."""
+    def _fetched(self, value: torch.Tensor, origin: int) -> torch.Tensor:
+        """A fetched value where the origin holds it: on the devices
+        layout the origin's device, else where the memory is."""
+        if self._sharded and value.device != self.comm.mesh.devices[origin]:
+            return value.to(self.comm.mesh.devices[origin])
+        return value
+
+    def _apply(self, descs: list[_Descriptor], parties: Sequence[int] = ()) -> None:
+        """Apply descriptors in global issue order, on the memory's device;
+        then order the cards the batch touched and those of the ranks
+        ``parties`` (see the module docstring) and complete the requests."""
+        done, cards = [], set()
         for d in sorted(descs, key=lambda d: d.seq):
             r = self._region(d.target, d.disp, d.count)
+            value = None
             if d.kind == "put":
                 r.copy_(d.data)
             elif d.kind == "get":
-                d.request._deliver(r.clone())
+                value = r.clone()
             elif d.kind == "acc":
                 r.copy_(d.data if d.op is REPLACE else d.op.torch_fn(r, d.data))
             elif d.kind == "get_acc":
-                old = r.clone()
+                value = r.clone()
                 if d.op is not NO_OP:
-                    r.copy_(d.data if d.op is REPLACE else d.op.torch_fn(old, d.data))
-                d.request._deliver(old)
+                    r.copy_(d.data if d.op is REPLACE else d.op.torch_fn(value, d.data))
             elif d.kind == "cas":
                 old = r.clone()
                 r.copy_(torch.where(old == d.compare, d.data, old))
-                d.request._deliver(old[0])
-            if d.request is not None and not d.request._event.is_set():
-                d.request._deliver(None)
+                value = old[0]
+            if value is not None:
+                value = self._fetched(value, d.origin)
+            cards.update(t.device.index for t in (r, value)
+                         if t is not None and t.device.type == "cuda")
+            if d.request is not None:
+                done.append((d.request, value))
+        cards.update(self.comm.mesh.devices[p].index for p in parties
+                     if self.comm.mesh.devices[p].type == "cuda")
+        events = _order_cards(cards) if cards else {}
+        for req, value in done:
+            on_card = value is not None and value.device.type == "cuda"
+            req._deliver(value, events.get(value.device.index) if on_card else None)
 
-    def _drain(self, pred) -> None:
+    def _drain(self, pred, parties: Sequence[int] = ()) -> None:
         hit = [d for d in self._pending if pred(d)]
         if hit:
             self._pending = [d for d in self._pending if not pred(d)]
-            self._apply(hit)
+            self._apply(hit, parties)
 
     # -- synchronization: fence --------------------------------------------------
 
@@ -516,7 +588,7 @@ class Win:
         e = self._epoch
         if e.access or any(e.locks[r] for r in e.locks) or e.lock_all:
             raise MPIRMASyncError("fence while PSCW/lock epoch active")
-        self._drain(lambda d: True)
+        self._drain(lambda d: True, range(self.comm.size))
         self.comm.barrier()
         e.fence_active = not (assertion & MODE_NOSUCCEED)
 
@@ -551,7 +623,7 @@ class Win:
             raise MPIRMASyncError(f"rank {origin} has no access epoch")
         targets = self._epoch.access.pop(origin)
         self._epoch.access_nocheck.discard(origin)
-        self._drain(lambda d: d.origin == origin and d.target in targets)
+        self._drain(lambda d: d.origin == origin and d.target in targets, (origin,))
 
     def wait(self, target: int) -> None:
         """MPI_Win_wait: close target's exposure epoch; every origin of its
@@ -606,7 +678,7 @@ class Win:
         self._check_rank(target)
         if origin not in self._epoch.locks[target]:
             raise MPIRMASyncError(f"rank {origin} holds no lock on {target}")
-        self._drain(lambda d: d.origin == origin and d.target == target)
+        self._drain(lambda d: d.origin == origin and d.target == target, (origin,))
         del self._epoch.locks[target][origin]
 
     def lock_all(self, origin: int, assertion: int = 0) -> None:
@@ -624,7 +696,7 @@ class Win:
         self._check()
         if origin not in self._epoch.lock_all:
             raise MPIRMASyncError(f"rank {origin} holds no lock_all")
-        self._drain(lambda d: d.origin == origin)
+        self._drain(lambda d: d.origin == origin, (origin,))
         self._epoch.lock_all.discard(origin)
 
     def flush(self, origin: int, target: int) -> None:
@@ -634,14 +706,14 @@ class Win:
         self._check_rank(target)
         if origin not in self._epoch.locks[target] and origin not in self._epoch.lock_all:
             raise MPIRMASyncError("flush outside a passive-target epoch")
-        self._drain(lambda d: d.origin == origin and d.target == target)
+        self._drain(lambda d: d.origin == origin and d.target == target, (origin,))
 
     def flush_all(self, origin: int) -> None:
         self._check()
         if origin not in self._epoch.lock_all and not any(
                 origin in self._epoch.locks[t] for t in self._epoch.locks):
             raise MPIRMASyncError("flush_all outside a passive-target epoch")
-        self._drain(lambda d: d.origin == origin)
+        self._drain(lambda d: d.origin == origin, (origin,))
 
     def flush_local(self, origin: int, target: int) -> None:
         """Origin-local completion: the origin data is copied when queued,

@@ -7,7 +7,9 @@ send buffer is filled in partitions, each marked ready with
 when the LAST partition is ready, so a partly ready start never
 publishes stale bytes.  ``parrived(i)`` reports arrival, which with
 aggregation is all partitions at once (late, never early).  A tensor
-buffer is sent as a tensor (the pml clones it on its device).
+buffer is sent as a tensor: the pml copies it onto the receiver's
+device (on the devices layout, the destination rank's card), and the
+partitions are views of it on the sender's device.
 """
 
 from __future__ import annotations

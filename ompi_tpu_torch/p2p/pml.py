@@ -11,14 +11,20 @@ matching**:
 * ``Status`` carrying (source, tag, count, nbytes); probe/iprobe.
 
 Send is **buffered eager**: the payload is copied at send time, so the
-sender's buffer is reusable at once.  Every virtual rank shares the
-card, so a tensor's copy is a ``clone()`` on the tensor's own device,
-queued on the current stream; a numpy payload stays numpy, and no
-tensor is moved to the host.  The clone's completion rides with the
-payload as a CUDA event (as ``ArrayRequest`` carries one for the
-collectives): a receive completes on the host when the match happens,
-and its ``wait()`` returns only once the clone has landed, so a
-consumer on another stream or a host read never sees it in flight.
+sender's buffer is reusable at once.  A tensor's copy lands on the
+receiver's device, as the reference's ``jax.device_put`` does: a
+``clone()`` where the sender's tensor already lies there (every rank of
+the rows layout shares one device), else ``.to(dest_device,
+copy=True)``, which PyTorch queues on the sending card's current stream
+behind a barrier with the receiving card's, so a sender that overwrites
+its tensor right after ``send`` still hands over the old bytes.  A numpy
+payload stays numpy, and no tensor is moved to the host.  The copy's
+completion rides with the payload as a CUDA event recorded on the
+receiving card's current stream, which the copy's barrier orders after
+it (as ``ArrayRequest`` carries one per card for the collectives): a
+receive completes on the host when the match happens, and its
+``wait()`` returns only once the copy has landed, so a consumer on
+another stream or a host read never sees it in flight.
 """
 
 from __future__ import annotations
@@ -57,10 +63,16 @@ class Status:
         return cls(PROC_NULL, ANY_TAG, 0, 0)
 
 
-def _copy_payload(buf):
-    """The eager copy: (payload, CUDA event of its clone or None)."""
+def _copy_payload(buf, dest_device=None):
+    """The eager copy: (payload, CUDA event of its copy or None).  A
+    tensor lands on ``dest_device`` (the receiver's; its own device when
+    None)."""
     if isinstance(buf, torch.Tensor):
-        data = buf.detach().clone()
+        src = buf.detach()
+        if dest_device is None or torch.device(dest_device) == src.device:
+            data = src.clone()
+        else:
+            data = src.to(dest_device, copy=True)
         if data.device.type != "cuda":
             return data, None
         ev = torch.cuda.Event()
@@ -115,7 +127,7 @@ class RecvRequest(Request):
         self._event = threading.Event()
         self.status: Status | None = None
         self._payload: Any = None
-        #: the CUDA event of the payload's clone (None for host payloads)
+        #: the CUDA event of the payload's copy (None for host payloads)
         self._copied = None
         #: cross-process receives: (timeout_s, check, escalate) armed by
         #: the comm layer — see :meth:`arm_remote_guard`
@@ -201,10 +213,10 @@ class MatchingEngine:
 
     def send(self, source: int, dest: int, payload: Any, tag: int,
              dest_device=None, _account: bool = True) -> None:
-        """``dest_device`` is the reference's receiver device; every
-        virtual rank shares the card here, so it is unused.
-        ``_account=False`` marks a relayed delivery that the sending
-        process already counted."""
+        """``dest_device`` is the receiver's device: a tensor payload is
+        copied onto it (None keeps the tensor's own device, as every rank
+        of the rows layout shares it).  ``_account=False`` marks a
+        relayed delivery that the sending process already counted."""
         self._check_rank(source)
         self._check_rank(dest)
         if dest == PROC_NULL:
@@ -217,7 +229,7 @@ class MatchingEngine:
         if _account and _metrics._enabled:
             _metrics.observe_size("p2p_send", spc.payload_nbytes(payload))
         t0 = _trace.now() if _trace._enabled else 0
-        data, copied = _copy_payload(payload)
+        data, copied = _copy_payload(payload, dest_device)
         with self._lock:
             seq = self._next_seq()
             posted = self._posted[dest]

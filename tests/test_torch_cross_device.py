@@ -407,25 +407,34 @@ def test_other_algorithms_raise_the_named_error(ref_world, coll, algo):
 
 
 def test_everything_else_raises_the_named_error(monkeypatch):
-    """What does not run on the devices layout yet raises the named
-    error: point-to-point, windows, the typed (``*_ddt``) entry points and
-    a devices world under ``tpurun``; and a devices comm still refuses one
-    plain tensor (nothing is moved implicitly)."""
+    """Only a devices world under ``tpurun`` raises the named error now:
+    point-to-point, windows and the typed (``*_ddt``) entry points run on
+    a devices comm (each send posted before its receive: one controller
+    drives every rank, so a receive with nothing sent would block), and a
+    devices comm still refuses one plain tensor (nothing is moved
+    implicitly)."""
     from ompi_tpu_torch.boot.proc import ENV_PROC
     from ompi_tpu_torch.ddt.datatype import FLOAT
 
     comm = devices_comm()
     x = rank_data(N, (4,), np.float32)
-    calls = [lambda: comm.send(x[0], 0, 1), lambda: comm.recv(1, 0),
-             lambda: comm.isend(x[0], 0, 1), lambda: comm.irecv(1),
-             lambda: comm.iprobe(1), lambda: comm.send_init(x[0], 0, 1).start(),
-             lambda: comm.win_create([np.zeros(4, np.float32)] * N),
-             lambda: comm.win_allocate(4),
-             lambda: comm.allreduce_ddt(list(x), 4, FLOAT),
-             lambda: comm.bcast_ddt(x[0], 4, FLOAT)]
-    for call in calls:
-        with pytest.raises(DevicesLayoutUnsupported, match="devices layout"):
-            call()
+    comm.send(x[0], 0, 1)
+    got, st = comm.recv(1, 0)
+    assert got.tobytes() == x[0].tobytes() and (st.source, st.nbytes) == (0, 16)
+    comm.isend(x[2], 2, 1).wait()
+    assert comm.iprobe(1).source == 2
+    assert comm.irecv(1).wait().tobytes() == x[2].tobytes()
+    comm.send_init(x[3], 3, 1).start()
+    assert comm.recv(1, 3)[0].tobytes() == x[3].tobytes()
+    bases = [np.zeros(4, np.float32) for _ in range(N)]
+    win = comm.win_create(bases)
+    win.fence()
+    win.put(0, 5, x[0])
+    win.fence()
+    assert bases[5].tobytes() == x[0].tobytes()
+    assert isinstance(comm.win_allocate(4).device_view(), RankShards)
+    same_bits(comm.allreduce_ddt(list(x), 4, FLOAT, top.MAX), x.max(0, keepdims=True).repeat(N, 0))
+    assert [b.tobytes() for b in comm.bcast_ddt(x[6], 4, FLOAT, root=6)] == [x[6].tobytes()] * N
     with pytest.raises(MPIArgError, match="numpy or RankShards"):
         comm.allreduce(torch.zeros(N, 4))
     tapi.finalize()

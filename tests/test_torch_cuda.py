@@ -307,3 +307,81 @@ def test_iallreduce_waits_for_the_callers_write(dev, tmp_path):
     rows = [json.loads(ln.split("MPJSON ", 1)[1]) for ln in res.stdout.splitlines()
             if "MPJSON " in ln]
     assert sum(r["kind"] == "stream" and r["ok"] for r in rows) == 2, rows
+
+
+def test_cross_card_send_hands_over_the_old_bytes(dev):
+    """A devices-layout send from the first rank's card to the last's:
+    the payload lands on the receiver's card, and a sender that zeroes
+    its tensor right after ``send`` still hands over the old bytes."""
+    _, devs = _layouts(dev)
+    src, dst = 0, 7
+    x = torch.randn(1 << 24, device=devs.mesh.devices[src])
+    want = x.clone()
+    devs.send(x, src, dst)
+    x.zero_()
+    got, st = devs.recv(dst, src)
+    assert got.device == devs.mesh.devices[dst] and st.nbytes == want.nbytes
+    assert torch.equal(_bits(got.to(want.device)), _bits(want))
+
+
+def test_get_after_a_fence_sees_another_cards_puts(dev):
+    """Rank 0 puts and accumulates into rank 3's region (another card
+    where there are several); after the fence rank 7 gets it onto its own
+    card and sees both."""
+    from ompi_tpu_torch.mesh.shards import RankShards
+
+    _, devs = _layouts(dev)
+    m = 1 << 22
+    win = devs.win_allocate(m)
+    data = torch.randn(m, device=devs.mesh.devices[0])
+    win.fence()
+    win.put(0, 3, data)
+    win.accumulate(0, 3, data, op=SUM)
+    win.fence()
+    g = win.get(7, 3, m)
+    win.fence()
+    got = g.wait()
+    assert got.device == devs.mesh.devices[7] and win.memory(3).device == devs.mesh.devices[3]
+    assert torch.equal(_bits(got.to(data.device)), _bits(data + data))
+    view = win.device_view()
+    assert isinstance(view, RankShards) and view.devices == devs.mesh.devices
+
+
+def test_restore_puts_shard_r_on_rank_rs_card(dev, tmp_path):
+    from ompi_tpu_torch.io import checkpoint
+    from ompi_tpu_torch.mesh.shards import RankShards
+
+    _, devs = _layouts(dev)
+    x = torch.randn((8, 1 << 20), device=dev)
+    checkpoint.save(devs, str(tmp_path / "c"), _shards_of(x, devs.mesh))
+    got, manifest = checkpoint.restore(devs, str(tmp_path / "c"))
+    assert isinstance(got, RankShards) and got.devices == devs.mesh.devices
+    assert manifest["shape"] == [8, 1 << 20]
+    assert all(torch.equal(_bits(got[r].to(dev)), _bits(x[r])) for r in range(8))
+
+
+def test_typed_allreduce_on_shards_launches_the_peer_kernels(dev):
+    """A packed PROD ``allreduce_ddt`` over tensors on each rank's card
+    under ``auto`` (tuned's ``cuda_ring`` at 64 MiB) runs the shard ring:
+    one put and two wait launches per card per hop, bit-equal to the rows
+    layout's same call."""
+    from ompi_tpu_torch.ddt import FLOAT
+
+    rows, devs = _layouts(dev)
+    n, cards = 8, len({d.index for d in devs.mesh.devices})
+    vec = FLOAT.create_vector(1024, 4, 5).commit()
+    count = (64 << 20) // vec.size
+    bufs = 1 + 1e-3 * torch.randn((n, (vec.lb + vec.span(count)) // 4), device=dev)
+    want = rows.allreduce_ddt(list(bufs), count, vec, PROD)
+    torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)
+    got = devs.allreduce_ddt([bufs[r].to(d) for r, d in enumerate(devs.mesh.devices)],
+                             count, vec, PROD)
+    torch.cuda.synchronize()
+    hops = 2 * (n - 1)
+    assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
+        "ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": hops * cards,
+        "ring_hop_wait": 2 * hops * cards}
+    assert got.devices == devs.mesh.devices
+    assert all(torch.equal(_bits(got[r].to(dev)), _bits(want[r])) for r in range(n))
+    ck.peer_ring(devs.mesh).check()
