@@ -70,7 +70,7 @@ exits non-zero:
     the DCN, pinned to the Python ``btl/tcp`` host plane with the device
     plane off): an
     ``iallreduce`` stream-ordering check; every collective on tensors
-    bit-equal to the numpy call; osu_allreduce f32 SUM 8 B … 256 MiB
+    bit-equal to the numpy call; osu_allreduce f32 SUM 8 B … 64 MiB
     per rank (p50 of the slower process's host clock, busbw over 8
     ranks); a 64 MiB PROD with ``cuda_ring`` forced, 3 + 3 launches per
     process, bit-equal to the plain ring and to the numpy model of its
@@ -92,7 +92,18 @@ exits non-zero:
     ``TDCN_HOST_ID``s (the C engine's framed TCP leg, rendezvous; the
     device plane off).  Every worker must run ``NativeDcnEngine`` and
     none may print the fallback line.  Output: ``chiprun_out/native.log``
-    and ``chiprun_out/native_tcp_leg.log``;
+    and ``chiprun_out/native_tcp_leg.log``.  Last, its ``mp_devices`` leg:
+    the same 2 × 4 job with ``accelerator_cuda_layout devices`` (each
+    rank a buffer of its own on its card, ``RankShards`` in and out; han's
+    local leg the shard ring over ``ring_hop_peer``/``ring_hop_wait``, the
+    DCN leg local rank 0's shard through the device plane): the osu sweep
+    to 64 MiB under the defaults beside the rows job's p50s, the
+    ``cuda_ring`` 64 MiB PROD with one put and two waits per card per hop
+    and its digest bit-equal to the rows job's, the 64 MiB split (local,
+    DCN, fill) beside the rows job's, the 32 MiB bf16 hand-off from rank
+    3's card to rank 4's, a fence and a lock epoch of a window across the
+    processes, a shmem ``sum_to_all``, every result on its rank's card
+    (``chiprun_out/native_devices.log``);
 13. device_plane — the native job above runs with the DCN device plane
     on (the default): han hands the DCN leg its row on the card and the
     ring's chunks move between the processes through CUDA IPC windows
@@ -142,9 +153,9 @@ exits non-zero:
     no ``/dev/nvidia*`` file open in its ``/proc/<pid>/fd`` (where each
     worker's are);
     ``warm_cold`` — submit→``FIRSTCOLL`` of
-    ``ompi_tpu_torch/examples/serve_firstcoll.py``, two fresh ``run -np
-    2 --nranks 4`` jobs and two submissions to the daemon (median and
-    range); ``jobs`` — two submissions of the f32 SUM sweep at 8 B,
+    ``ompi_tpu_torch/examples/serve_firstcoll.py``, one fresh ``run -np
+    2 --nranks 4`` job and one submission to the daemon
+    (``FIRSTCOLL_RUNS`` each); ``jobs`` — two submissions of the f32 SUM sweep at 8 B,
     2 MiB, 64 MiB and 256 MiB per rank with ``cuda_ring`` forced: each
     size bit-equal to the plain ring, the same SHA-256 in both jobs, job
     2 with zero new dials, 3 + 3 launches per call from 2 MiB, the p50
@@ -343,10 +354,12 @@ exits non-zero:
     MiB-per-rank checkpoint ``save``/``restore`` of ``RankShards`` under
     ``build/``; the p2p round and the fence epoch timed (median of 20)
     beside their copy bounds.  With
-    ``--cross-device-only`` the script runs phases 1 and 24 alone, for a
-    machine of four cards: rank r on card
-    ``r // 2``, four of the eight hops across NVLink, timed on the host
-    clock over every card; its row goes to
+    ``--cross-device-only`` the script runs phases 1 and 24 and the
+    ``mp_devices`` job of phase 12 alone, for a machine of four cards:
+    rank r on card ``r // 2``, four of the eight hops across NVLink,
+    timed on the host clock over every card, and the job's ranks on
+    cards 0, 0, 1, 1 | 2, 2, 3, 3 (the device plane's CUDA IPC windows
+    between cards); its rows go to
     ``chiprun_out/chip_smoke_cross_device.json``.
 
 Every phase's wall time goes into ``chiprun_out/chip_smoke.json``
@@ -363,7 +376,8 @@ bench_np2 phase's workers and C ranks, the tools phase's workers and
 the analysis phase's two children (for ``ring_hop`` and
 ``ring_hop_fold``), and the cross_device phase's ``Comm`` rings, its
 checked collectives and its ``surfaces`` leg's typed allreduce on the
-devices layout (for ``ring_hop_peer`` and ``ring_hop_wait``); the last
+devices layout and the ``mp_devices`` job's processes (for
+``ring_hop_peer`` and ``ring_hop_wait``); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -2422,6 +2436,12 @@ def phase_io(smi):
 
 #: the multi-process job: P processes of K virtual ranks on the one card
 MP_PROCS, MP_RANKS = 2, 4
+#: the devices leg's largest per-rank osu size
+MP_DEVICES_MAX_BYTES = 64 << 20
+#: the largest per-rank size of the tcp, native and plane-off jobs' osu
+#: sweeps (256 MiB until the devices leg was added: part of the depth cut
+#: that pays for it)
+MP_MAX_BYTES = 64 << 20
 
 
 def pkg_env() -> dict:
@@ -2455,17 +2475,19 @@ def port_cli(log_name: str, args, timeout: float = 600, env: dict | None = None)
 
 
 def run_job(log_name: str, worker_args, btl: str | None = None, timeout: float = 600,
-            plane: bool = True):
+            plane: bool = True, layout: str | None = None):
     """One tpurun job of P processes × K ranks of the
     ``multiproc_smoke.py`` worker (``plane=False``: with the DCN device
-    plane off): its output goes to ``chiprun_out/<log_name>.log``;
-    returns the workers' JSON rows by kind and process, the wall time
-    and the job's stderr."""
+    plane off; ``layout``: the world's ``accelerator_cuda_layout``): its
+    output goes to ``chiprun_out/<log_name>.log``; returns the workers'
+    JSON rows by kind and process, the wall time and the job's stderr."""
     args = ["run", "-np", MP_PROCS, "--nranks", MP_RANKS]
     if btl:
         args += ["--mca", "btl", btl]
     if not plane:
         args += ["--mca", "dcn_device_enable", "0"]
+    if layout:
+        args += ["--mca", "accelerator_cuda_layout", layout]
     args += [REPO / "ompi_tpu_torch" / "examples" / "multiproc_smoke.py", *worker_args]
     out, err, wall_s = port_cli(log_name, args, timeout)
     by: dict[str, dict[int, list]] = {}
@@ -2538,7 +2560,8 @@ def phase_multiproc(smi, ddp_losses):
     collected and checked (see its docstring for what each measures)."""
     import numpy as np
 
-    by, wall_s, _err = run_job("multiproc", [], btl="tcp", plane=False)
+    by, wall_s, _err = run_job("multiproc", ["--max-bytes", MP_MAX_BYTES], btl="tcp",
+                               plane=False)
     require(by, "multiproc", ("modules", "stream", "colls", "osu", "prod", "split", "p2p",
                               "ddp", "launches"))
     procs = range(MP_PROCS)
@@ -2583,12 +2606,14 @@ def phase_native(smi, tcp):
     t0 = time.perf_counter()
     native_lib.build()  # g++ at first use; the workers then load it
     build_s = time.perf_counter() - t0
-    by, wall_s, err = run_job("native", ["--native"])
+    by, wall_s, err = run_job("native", ["--native", "--max-bytes", MP_MAX_BYTES])
     require(by, "native", ("modules", "osu", "prod", "split", "p2p", "win", "causal",
                            "engine", "device", "launches"))
     tby, twall_s, terr = run_job("native_tcp_leg", ["--only", "tcp-leg"], plane=False)
     require(tby, "native_tcp_leg", ("modules", "split", "engine", "launches"))
-    oby, owall_s, oerr = run_job("native_plane_off", ["--only", "plane-off"], plane=False)
+    oby, owall_s, oerr = run_job("native_plane_off",
+                                 ["--only", "plane-off", "--max-bytes", MP_MAX_BYTES],
+                                 plane=False)
     require(oby, "native_plane_off", ("modules", "osu", "prod", "split", "engine", "device",
                                       "launches"))
     procs = range(MP_PROCS)
@@ -2645,6 +2670,92 @@ def phase_native(smi, tcp):
         raise SystemExit(f"native checks failed: {row}")
     if not plane["ok"]:
         raise SystemExit(f"device_plane checks failed: {plane}")
+    row["mp_devices"] = mp_devices_leg(smi, by)
+    return row
+
+
+def mp_devices_leg(smi, rows_by=None) -> dict:
+    """The same 2 × 4 job on the one-rank-per-device layout (default
+    ``btl/native``, device plane on): ``multiproc_smoke.py --only devices``
+    — each rank a buffer of its own on card ``g * C // 8`` (all on
+    ``cuda:0`` with one card), han's local leg the shard ring over
+    ``ring_hop_peer``/``ring_hop_wait``, the DCN leg local rank 0's shard
+    through the device plane.  Checks: the osu sweep to
+    ``MP_DEVICES_MAX_BYTES`` under the defaults (every rank equal, within
+    rtol of float64 sums to 16 MiB), its p50s beside the rows job's
+    (``rows_by``); the 64 MiB ``cuda_ring`` PROD with one put and two waits
+    per card per hop and its digest bit-equal to the rows job's; the 64 MiB
+    split (local, DCN, fill) beside the rows job's; the 32 MiB bf16
+    hand-off from rank 3 to rank 4; a fence and a lock epoch of a window
+    across the processes; a shmem ``sum_to_all``; every result on its
+    rank's card; the peer kernels' launches per process."""
+    import torch
+
+    from ompi_tpu_torch.coll import cuda_kernels as ck
+    from ompi_tpu_torch.mesh.mesh import block_devices
+
+    by, wall_s, err = run_job("native_devices",
+                              ["--only", "devices", "--max-bytes", MP_DEVICES_MAX_BYTES],
+                              layout="devices")
+    require(by, "native_devices", ("modules", "osu", "prod", "split", "p2p", "win", "shmem",
+                                   "engine", "device", "placement", "launches"))
+    procs, count = range(MP_PROCS), torch.cuda.device_count()
+    want_devices = [[f"cuda:{c}" for c in block_devices(list(range(count)), MP_RANKS, p,
+                                                         MP_PROCS)] for p in procs]
+    placement = [by["placement"][p][0] for p in procs]
+    hops = 2 * (MP_RANKS - 1)
+    prod = [by["prod"][p][0] for p in procs]
+    want_launches = [{"ring_hop": 0, "ring_hop_fold": 0,
+                      "ring_hop_peer": hops * len(set(d)), "ring_hop_wait": 2 * hops * len(set(d))}
+                     for d in want_devices]
+    sweep, split, p2p = sweep_rows(by), split_rows(by), p2p_row(by)
+    win = [by["win"][p][0] for p in procs]
+    wt = sorted(max(win[p]["times_ms"][j] for p in procs) for j in range(len(win[0]["times_ms"])))
+    counters = [by["device"][p][0] for p in procs]
+    engines = [by["engine"][p][0] for p in procs]
+    launches = {k: sum(by["launches"][p][0][k] for p in procs) for k in want_launches[0]}
+    row = {"phase": "mp_devices", "nvidia_smi": smi, "btl": "native", "procs": MP_PROCS,
+           "ranks_per_proc": MP_RANKS, "layout": "devices", "wall_s": wall_s,
+           "rank_devices": [r["devices"] for r in placement],
+           "rank_devices_ok": [r["devices"] for r in placement] == want_devices,
+           "placement": {p: placement[p]["results"] for p in procs},
+           "placement_ok": all(r["ok"] for r in placement),
+           "engines_native": all(e["native"] for e in engines),
+           "fallback_printed": FALLBACK_LINE in err,
+           "osu_allreduce": sweep,
+           "prod_64MiB": {"launches_per_call": [r["per_call"] for r in prod],
+                          "launches_ok": [r["per_call"] for r in prod] == want_launches,
+                          "bitwise_vs_plain": all(r["bitwise_vs_plain"] for r in prod),
+                          "bitwise_vs_numpy": all(r["bitwise_vs_numpy"] for r in prod),
+                          "digest": prod[0]["digest"]},
+           "split_ms": split, "p2p": p2p,
+           "win": {"bytes_per_rank": win[0]["bytes"], "fence_epoch_ms": wt[len(wt) // 2],
+                   "lock_epoch_ms": max(w["lock_ms"] for w in win),
+                   "bitwise": all(w["bitwise"] for w in win),
+                   "on_device": all(w["on_device"] for w in win)},
+           "shmem_ok": all(by["shmem"][p][0]["ok"] for p in procs),
+           "counters": [c["stats"] for c in counters],
+           "forbidden_modules": sorted({m for p in procs for m in by["modules"][p][0]["forbidden"]}),
+           "launches": launches}
+    if rows_by is not None:  # the rows job of phase native, plane on
+        rows_sweep = {r["bytes"]: r["p50_ms"] for r in sweep_rows(rows_by)}
+        row["vs_rows_p50_ms"] = [[r["bytes"], r["p50_ms"], rows_sweep.get(r["bytes"])]
+                                 for r in sweep]
+        row["split_64MiB_rows_ms"] = split_rows(rows_by)[-1]
+        row["prod_64MiB"]["bitwise_vs_rows_job"] = (
+            rows_by["prod"][0][0]["digest"] == prod[0]["digest"])
+    emit(row)
+    pr = row["prod_64MiB"]
+    if not (all(r["ok"] for r in sweep) and row["rank_devices_ok"] and row["placement_ok"]
+            and row["engines_native"] and not row["fallback_printed"]
+            and pr["launches_ok"] and pr["bitwise_vs_plain"] and pr["bitwise_vs_numpy"]
+            and pr.get("bitwise_vs_rows_job", True) and p2p["bitwise"]
+            and row["win"]["bitwise"] and row["win"]["on_device"] and row["shmem_ok"]
+            and all(c["armed"] and c["stats"]["device_sends"] > 0
+                    and c["stats"]["device_fallbacks"] == 0 for c in counters)
+            and not row["forbidden_modules"]
+            and min(launches[k] for k in ck.PEER_KERNELS) > 0):
+        raise SystemExit(f"mp_devices checks failed: {row}")
     return row
 
 
@@ -3035,13 +3146,14 @@ def phase_recovery(smi, ck) -> dict:
 # -- phase 15 ---------------------------------------------------------------
 
 #: per-rank sizes of the tpud jobs' sweep (``BASELINE.json``'s osu_allreduce
-#: at 8 global ranks, cut to 256 MiB per rank as in the multiproc cell)
+#: at 8 global ranks, cut to 256 MiB per rank)
 SERVE_SIZES = [8, 2 << 20, 64 << 20, 256 << 20]
 SERVE_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_job.py"
 FIRSTCOLL_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_firstcoll.py"
 #: cold and warm launch→first-collective samples per leg: each cold
-#: ``run`` boot costs 14–20 s of the script's time
-FIRSTCOLL_RUNS = 2
+#: ``run`` boot costs 14–20 s of the script's time (3 → 2 paid for the
+#: bench_np2 phase, 2 → 1 for phase native's mp_devices leg)
+FIRSTCOLL_RUNS = 1
 
 
 def sjson_rows(lines, job_id: str | None = None) -> list:
@@ -4645,9 +4757,9 @@ def main() -> int:
     ap.add_argument("--lockdep-worker", action="store_true",
                     help="one process of the analysis phase's lockdep job (internal)")
     ap.add_argument("--cross-device-only", action="store_true",
-                    help="run only the environment and cross_device phases: the "
-                    "devices layout on every card of the machine (a cell of several "
-                    "cards, where hops cross NVLink)")
+                    help="run only the environment and cross_device phases and the "
+                    "devices layout's 2 x 4 job: the devices layout on every card of the "
+                    "machine (a cell of several cards, where hops cross NVLink)")
     args = ap.parse_args()
     if not (REPO / "ompi_tpu_torch" / "csrc" / "ring_hop.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -4681,12 +4793,22 @@ def main() -> int:
 
     smi = phase("env", phase_env, ck)
     if args.cross_device_only:
+        from ompi_tpu_torch import native as native_lib
+
         cross = phase("cross_device", phase_cross_device, ck, smi)
+        native_lib.build()
+        # the multi-process job on the devices layout: ranks on cards
+        # 0, 0, 1, 1 | 2, 2, 3, 3 of four, the device plane's IPC across cards
+        mp = phase("mp_devices", mp_devices_leg, smi)
+        kernels = cross.pop("kernel_rows")
+        for r in kernels:
+            r["launches"] += mp["launches"][r["name"]]
         (outdir / "chip_smoke_cross_device.json").write_text(json.dumps(
-            {"nvidia_smi": smi, "cross_device": cross, "phase_wall_s": walls}, indent=1))
+            {"nvidia_smi": smi, "cross_device": cross, "mp_devices": mp,
+             "phase_wall_s": walls}, indent=1))
         print(smi, flush=True)
         emit({"phase_wall_s": walls})
-        emit({"kernels": cross.pop("kernel_rows")})
+        emit({"kernels": kernels})
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})
@@ -4723,8 +4845,13 @@ def main() -> int:
         ph["launches"].get(k, 0) for ph in (golden, tuned, ddt, multiproc, native, shmem,
                                             recovery, serve, capi, bench, bench_np2, tools,
                                             analysis)) for k in ROWS}
-    launches.update({k: cross["launches"][k] for k in ck.PEER_KERNELS})
-    kernels = phase("kernel_rows", kernel_rows, ck, launches) + cross.pop("kernel_rows")
+    # the peer kernels: cross_device's, then the devices leg of phase native
+    launches.update({k: cross["launches"][k] + native["mp_devices"]["launches"][k]
+                     for k in ck.PEER_KERNELS})
+    peer_rows = cross.pop("kernel_rows")
+    for r in peer_rows:
+        r["launches"] = launches[r["name"]]
+    kernels = phase("kernel_rows", kernel_rows, ck, launches) + peer_rows
     walls["script"] = time.perf_counter() - t_script  # analysis overlaps recovery
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,

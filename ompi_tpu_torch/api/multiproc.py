@@ -22,6 +22,15 @@ out=tensor)`` lands it in a posted tensor of the receiver's dtype (the
 one place a bfloat16 payload, which rides the wire as raw two-byte
 words, is reinterpreted).
 
+On the ``devices`` layout (``--mca accelerator_cuda_layout devices``)
+the local mesh gives each local rank a buffer on its own card, so
+``local`` is a devices :class:`Comm`, han takes and returns
+:class:`~ompi_tpu_torch.mesh.shards.RankShards`, a window's base r lies
+on local rank r's card, a message to a rank of this process is copied
+onto its card and a posted receive buffer must lie on the receiving
+rank's card.  ULFM recovery (``shrink``, ``replace``, ``replace_partial``)
+raises :class:`~ompi_tpu_torch.coll.cuda.DevicesLayoutUnsupported` there.
+
 Windows across processes (``win_*``) are :class:`~ompi_tpu_torch.osc.
 dcn.MultiProcWin`.  ULFM over the DCN: ``revoke``/``agree``, and the two
 recovery legs — ``shrink`` (the survivors agree the failed set and a new
@@ -164,18 +173,21 @@ class MultiProcComm(PersistentP2PMixin):
     def win_create(self, bases, name: str = ""):
         """MPI_Win_create over the DCN: one 1-D base per local rank,
         numpy or a tensor (a tensor on the card keeps its memory there;
-        RMA payloads cross the DCN through the host)."""
+        RMA payloads cross the DCN through the host).  On the devices
+        layout a tensor base must lie on its rank's card."""
         from ompi_tpu_torch.osc.dcn import MultiProcWin
 
+        for li, b in enumerate(bases):
+            self.local_mesh.check_placed(li, b, "window base")
         return MultiProcWin(self, bases, name)
 
     def win_allocate(self, size: int, dtype=np.float32, name: str = ""):
         """MPI_Win_allocate: the window owns its memory, one buffer of
-        ``size`` elements per local rank on the comm's device (numpy
+        ``size`` elements per local rank on that rank's device (numpy
         ``dtype`` or a torch dtype)."""
         tdt = torch_dtype(dtype)
-        bases = [torch.zeros(max(int(size), 1), dtype=tdt, device=self.device)
-                 for _ in range(self.local_size)]
+        bases = [torch.zeros(max(int(size), 1), dtype=tdt, device=d)
+                 for d in self.local_mesh.devices]
         return self.win_create(bases, name)
 
     def win_allocate_shared(self, size: int, dtype=np.float32,
@@ -190,11 +202,11 @@ class MultiProcComm(PersistentP2PMixin):
         publishes a local region as the rank's window memory."""
         tdt = torch_dtype(dtype)
         w = self.win_create(
-            [torch.zeros(0, dtype=tdt, device=self.device)
-             for _ in range(self.local_size)], name)
+            [torch.zeros(0, dtype=tdt, device=d) for d in self.local_mesh.devices], name)
         w._dynamic_regions = {}
 
         def attach(rank_local, addr, array):
+            self.local_mesh.check_placed(rank_local, array, "attachment")
             w._dynamic_regions[addr] = array
             w._user[rank_local] = array
             w._mem[rank_local] = w._as_base(array)
@@ -242,7 +254,16 @@ class MultiProcComm(PersistentP2PMixin):
 
     @property
     def device(self) -> torch.device:
+        """The local mesh's first device (local rank 0's; every rank's
+        on the rows layout)."""
         return self.local_mesh.device
+
+    def _rows_only(self, what: str) -> None:
+        """ULFM recovery does not run on the devices layout yet."""
+        if self.local_mesh.layout == "devices":
+            from ompi_tpu_torch.coll.cuda import unsupported_on_devices
+
+            unsupported_on_devices(f"ULFM recovery ({what})")
 
     # -- coll table ------------------------------------------------------
 
@@ -430,9 +451,13 @@ class MultiProcComm(PersistentP2PMixin):
         if sproc != self.proc:
             raise MPIRankError(
                 f"rank {source} is owned by process {sproc}, not {self.proc}")
-        dproc, _ = self.locate(dest)
+        dproc, dlocal = self.locate(dest)
         if dproc == self.proc:
-            self.pml.send(source, dest, buf, tag)
+            # on the devices layout a tensor lands on the receiver's card
+            dest_dev = (self.local_mesh.devices[dlocal]
+                        if self.local_mesh.layout == "devices"
+                        and isinstance(buf, torch.Tensor) else None)
+            self.pml.send(source, dest, buf, tag, dest_dev)
             return
         # sender-side accounting (the local pml never sees this send)
         from ompi_tpu_torch.coll.han import to_host
@@ -573,7 +598,12 @@ class MultiProcComm(PersistentP2PMixin):
         which arrives as raw two-byte words, is reinterpreted here); the
         returned payload is then ``out`` itself.  On the native plane a
         CPU ``out`` is handed to the C engine as the ``recv_into``
-        buffer, so the payload is placed in it without a Python copy."""
+        buffer, so the payload is placed in it without a Python copy.
+        On the devices layout ``out`` must lie on ``dest``'s card."""
+        if out is not None:
+            dproc, dlocal = self.locate(dest)
+            if dproc == self.proc:
+                self.local_mesh.check_placed(dlocal, out, "receive buffer")
         if self._pml_native:
             payload, st = self._recv_native(dest, source, tag, out)
         else:
@@ -757,6 +787,7 @@ class MultiProcComm(PersistentP2PMixin):
         survivor must already know the same failed set — heartbeat
         gossip converges within one period, so call shrink after
         ``get_failed`` reflects the failure on every survivor."""
+        self._rows_only("shrink")
         live = self._live_procs()
         eng = self.dcn.sub(live) if len(live) < self.nprocs else self.dcn
         k = self._next_shrink()
@@ -805,6 +836,7 @@ class MultiProcComm(PersistentP2PMixin):
         comm, or any derived comm) repairs through the PARTIAL leg
         (:meth:`_replace_partial`): only the member procs participate,
         on comm-scoped beacon/agreement streams."""
+        self._rows_only("replace")
         ctx = self.procctx
         timeout = self._respawn_timeout()
         world_shaped = (
@@ -977,6 +1009,7 @@ class MultiProcComm(PersistentP2PMixin):
             raise MPICommError(
                 "replace_partial: not a reborn incarnation (survivors "
                 "repair a partial communicator with replace() on it)")
+        self._rows_only("replace_partial")
         timeout = self._respawn_timeout()
         inc = ctx.incarnation
         info, beacon_key = self._next_partial_recipe(cid, timeout)

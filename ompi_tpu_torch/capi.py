@@ -35,6 +35,7 @@ import torch
 
 from ompi_tpu_torch.core import errors as err
 from ompi_tpu_torch.ddt.datatype import from_numpy, to_numpy
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op import op as opmod
 from ompi_tpu_torch.request import CompletedRequest, Request
 
@@ -207,16 +208,25 @@ def _view(ptr: int, count: int, dtcode: int) -> np.ndarray:
 
 
 def _row(c, x: np.ndarray):
-    """A collective's host input as a tensor on the communicator's
-    device: the same memory on the CPU, one H2D copy on the card."""
+    """A collective's host input (one row per local rank: one, since a C
+    rank holds one virtual rank) as a tensor on the communicator's
+    device — the same memory on the CPU, one H2D copy on the card — or,
+    on the devices layout, ``RankShards`` with the row on its rank's
+    card.  A scatter root's rows of every rank stay one tensor (on the
+    rank's card)."""
+    mesh = getattr(c, "mesh", None)
+    if mesh is not None and mesh.layout == "devices" and x.shape[0] == mesh.size:
+        return RankShards.from_host(np.ascontiguousarray(x), mesh.devices)
     return torch.from_numpy(np.ascontiguousarray(x)).to(c.device)
 
 
 def _host(out):
     """A collective's result as a host array (one D2H copy for a tensor
-    on the card; None stays None off the root)."""
+    or each shard on the card; None stays None off the root)."""
     if out is None:
         return None
+    if isinstance(out, RankShards):
+        return out.to_host()
     return to_numpy(out) if isinstance(out, torch.Tensor) else np.asarray(out)
 
 

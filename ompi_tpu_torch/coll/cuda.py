@@ -86,16 +86,18 @@ def _named(coll: str, enum: dict[str, int], algo: int) -> str:
 
 
 class DevicesLayoutUnsupported(MPIInternalError):
-    """A call that does not run on the ``devices`` layout yet: a job of
-    several processes (``tpurun``), and what rides on one (han, the DCN
-    windows, shmem's heap, the C ABI).  Every single-process call does."""
+    """A call that does not run on the ``devices`` layout yet: tpud
+    serving (a resident worker's job re-arm) and ULFM recovery
+    (``replace``, ``replace_partial``, ``shrink``, a respawned process).
+    Every single-process call, and every other call of a job of several
+    processes, does."""
 
 
 def unsupported_on_devices(what: str):
     raise DevicesLayoutUnsupported(
-        f"{what} does not run on the devices layout yet: jobs of several processes "
-        "(tpurun) and what rides on them (han, the DCN windows, shmem, the C ABI) do "
-        "not; every call of a single-process comm does")
+        f"{what} does not run on the devices layout yet: tpud serving and ULFM "
+        "recovery do not; every other call, in one process or in a job of "
+        "several, does")
 
 
 class CudaCollModule(CollModule):

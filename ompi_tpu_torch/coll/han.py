@@ -31,6 +31,16 @@ does, and moves to the host only what the DCN must carry:
   recvbuf is significant only at the root), as in the reference;
 * barrier: local barrier + DCN token.
 
+On the ``devices`` layout (one buffer per local rank, on its own card)
+the local leg is the devices ``Comm``'s (for allreduce the shard ring
+over the peer kernels), the DCN leg carries local rank 0's shard (the
+device plane exports its window from that card and lands the received
+row there), and every result is ``RankShards`` in and out with shard l
+on local rank l's card: one copy of the DCN row onto each card, not an
+``expand`` of one tensor.  A root ``gather`` returns one tensor on
+root's card; a jagged variant's block for local rank l lands on its
+card.
+
 numpy in → numpy out (staged through the card like ``Comm``).
 bfloat16 rides the DCN as its raw two-byte words (the transports' host
 form of bfloat16, ``dcn.tcp.BF16_HOST``) and is reinterpreted on the
@@ -52,12 +62,13 @@ import torch
 
 from ompi_tpu_torch.core.errors import MPIArgError
 from ompi_tpu_torch.core.registry import Component, register_component
-from ompi_tpu_torch.dcn.device import as_tensor
 from ompi_tpu_torch.dcn.device import host_array as to_host
 from ompi_tpu_torch.dcn.tcp import BF16_HOST, BF16_WIRE
 from ompi_tpu_torch.ddt.datatype import numpy_dtype
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op.op import Op
-from ompi_tpu_torch.request import FutureRequest, PersistentRequest, Request
+from ompi_tpu_torch.request import (FutureRequest, PersistentRequest, Request, _tensors,
+                                    card_events)
 
 from .module import COLL_OPS, CollModule
 
@@ -111,19 +122,20 @@ def _meta(a: np.ndarray) -> dict:
     return {"shape": list(a.shape), "dtype": dt}
 
 
-def _unpack(data: np.ndarray, metas, device) -> list:
+def _unpack(data: np.ndarray, metas, devices) -> list:
     """Split one uint8 byte stream into its blocks by their envelope
-    metadata: numpy arrays, or tensors on ``device`` when given."""
+    metadata: numpy arrays, or when ``devices`` is given (one per block)
+    tensors, block i on ``devices[i]``."""
     out, off = [], 0
     data = data.view(np.uint8)
-    for m in metas:
+    for i, m in enumerate(metas):
         dt = np.dtype(m["dtype"])
         nbytes = dt.itemsize * int(np.prod(m["shape"], dtype=np.int64))
         a = data[off: off + nbytes].view(dt).reshape(m["shape"]).copy()
         off += nbytes
-        if device is not None:
+        if devices is not None:
             tdt = torch.bfloat16 if m["dtype"] == BF16_WIRE else torch.from_numpy(a[:0]).dtype
-            a = to_device(a, tdt, device)
+            a = to_device(a, tdt, devices[i])
         out.append(a)
     return out
 
@@ -135,29 +147,33 @@ def _pack(arrs: list[np.ndarray]) -> np.ndarray:
 
 class _NbcRequest(FutureRequest):
     """An i-collective's request: the result was produced on a worker
-    thread's stream, so ``wait()`` orders the caller's current stream
-    after the event the worker recorded there (and marks a tensor result
-    as in use on the caller's stream, for the caching allocator)."""
+    thread's streams, so ``wait()`` orders the caller's current stream on
+    every card the call touched after the event the worker recorded
+    there (and marks each result tensor as in use on its card's caller
+    stream, for the caching allocator)."""
 
     def _finalize(self):
         result, done = self._future.result()
-        if done is not None:
-            stream = torch.cuda.current_stream(done[1])
-            stream.wait_event(done[0])
-            if isinstance(result, torch.Tensor) and result.is_cuda:
-                result.record_stream(stream)
+        for card, ev in done:
+            torch.cuda.current_stream(card).wait_event(ev)
+        for t in _tensors(result):
+            if t.is_cuda:
+                t.record_stream(torch.cuda.current_stream(t.device))
         return result
 
 
-def _cuda_device(args) -> torch.device | None:
-    for a in args:
-        if isinstance(a, torch.Tensor) and a.device.type == "cuda":
-            return a.device
-        if isinstance(a, (list, tuple)):
-            d = _cuda_device(a)
-            if d is not None:
-                return d
-    return None
+def _any_tensor(blocks) -> bool:
+    """Whether a jagged variant's blocks are tensors (tensors out, else
+    numpy out)."""
+    return any(isinstance(b, torch.Tensor) for b in (blocks or ()))
+
+
+def _host_rows(t) -> np.ndarray:
+    """A staged rank-major value (one tensor, or ``RankShards``) as one
+    host array ``(ln, ...)``: one D2H per card."""
+    if isinstance(t, RankShards):
+        return np.stack([to_host(s) for s in t.shards])
+    return to_host(t)
 
 
 class HanCollModule(CollModule):
@@ -168,11 +184,12 @@ class HanCollModule(CollModule):
         self.component = component
 
     # comm contract: comm.local (intra-process Comm over this process's
-    # mesh), comm.dcn (DcnCollEngine), comm.cid, comm.local_size,
-    # comm.nprocs, comm.proc, comm.locate, comm.proc_range
+    # mesh), comm.local_mesh, comm.dcn (DcnCollEngine), comm.cid,
+    # comm.local_size, comm.nprocs, comm.proc, comm.locate, comm.proc_range
 
     def _stage(self, x):
-        """(rank-major tensor on the local device, was numpy)."""
+        """(rank-major value on the local mesh — one tensor, or
+        ``RankShards`` on the devices layout — was numpy)."""
         return self.comm.local._stage(x, 1)
 
     def _unstage(self, t, host: bool):
@@ -181,10 +198,26 @@ class HanCollModule(CollModule):
     def _cid(self, _cid):
         return self.comm.cid if _cid is None else _cid
 
-    def _fill(self, row, t: torch.Tensor) -> torch.Tensor:
-        """One DCN row (an array, or a tensor off the device plane) →
-        every local rank's row of a tensor like ``t``."""
-        return as_tensor(row, t[0]).expand(t.shape).clone()
+    def _fill(self, value, dtype: torch.dtype, shape) -> torch.Tensor | RankShards:
+        """One value (an array off a host plane, or a tensor off the
+        device plane) → every local rank's copy: one tensor ``(ln,
+        *shape)`` on the local device, or on the devices layout
+        ``RankShards`` with one copy on each rank's card."""
+        mesh = self.comm.local_mesh
+        src = (value.to(mesh.device) if isinstance(value, torch.Tensor)
+               else to_device(value, dtype, mesh.device)).reshape(shape)
+        if mesh.layout == "devices":
+            return RankShards([torch.empty_like(src, device=d).copy_(src)
+                               for d in mesh.devices])
+        return src.expand((self.comm.local_size,) + tuple(src.shape)).clone()
+
+    def _place(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor | RankShards:
+        """Host rank-major ``a`` (row l: local rank l's) → one tensor on
+        the local device, or ``RankShards`` with row l on rank l's card."""
+        mesh = self.comm.local_mesh
+        if mesh.layout == "devices":
+            return RankShards([to_device(a[i], dtype, d) for i, d in enumerate(mesh.devices)])
+        return to_device(a, dtype, mesh.device)
 
     def _rows_on_plane(self, op: Op | None = None) -> bool:
         """Whether the DCN leg takes the row as a tensor: the root
@@ -197,12 +230,12 @@ class HanCollModule(CollModule):
     # -- single-rank local comms skip the local op entirely -------------
     # (ln == 1 makes every intra-process collective an identity)
 
-    def _local_allreduce(self, t: torch.Tensor, op: Op) -> torch.Tensor:
+    def _local_allreduce(self, t, op: Op):
         if self.comm.local_size == 1:
             return t
         return self.comm.local.allreduce(t, op)
 
-    def _local_scan(self, t: torch.Tensor, op: Op) -> torch.Tensor:
+    def _local_scan(self, t, op: Op):
         if self.comm.local_size == 1:
             return t
         return self.comm.local.scan(t, op)
@@ -216,10 +249,11 @@ class HanCollModule(CollModule):
     # -- allreduce / reduce ----------------------------------------------
 
     def allreduce(self, x, op: Op, _cid=None):
-        """Two-level fold: local fold on the card, then the
-        process-ordered DCN fold.  Deterministic bracketing
-        ((proc0)(proc1)…); pin the local order with the forced ordered
-        or plain ring for run-to-run bit equality.
+        """Two-level fold: local fold on the card (the shard ring on the
+        devices layout), then the process-ordered DCN fold of local rank
+        0's row.  Deterministic bracketing ((proc0)(proc1)…); pin the
+        local order with the forced ordered or plain ring for run-to-run
+        bit equality.
 
         ``_cid``: private DCN stream for a non-blocking instance (every
         i-collective gets its own, so background execution order can't
@@ -233,7 +267,7 @@ class HanCollModule(CollModule):
             row, dcn_op = to_host(local[0]), host_op(op, t.dtype)
         combined = comm.dcn.allreduce(row, dcn_op, self._cid(_cid),
                                       ordered=self._ordered())
-        return self._unstage(self._fill(combined, t), host)
+        return self._unstage(self._fill(combined, t.dtype, t.shape[1:]), host)
 
     def reduce(self, x, op: Op, root: int = 0, _cid=None):
         """Fan-in to the root process: local fold, then each process
@@ -251,30 +285,37 @@ class HanCollModule(CollModule):
         acc = np.asarray(slices[0][0])
         for p in range(1, comm.nprocs):
             acc = fold(acc, slices[p][0])
-        return self._unstage(self._fill(acc, t), host)
+        return self._unstage(self._fill(acc, t.dtype, t.shape[1:]), host)
+
+    def _fold_rows(self, x, op: Op, _cid):
+        """(ln, global_n, *s) → the host (global_n, *s) fold over every
+        rank, the staged input, and whether it was numpy."""
+        t, host = self._stage(x)
+        local = to_host(self._local_allreduce(t, op)[0])
+        red = self.comm.dcn.allreduce(local, host_op(op, t.dtype), self._cid(_cid),
+                                      ordered=self._ordered())
+        return np.asarray(red), t, host
 
     def allreduce_rows(self, x, op: Op, _cid=None):
-        """(ln, global_n, *s) → the (global_n, *s) fold over every rank
-        (tensor on the local device), the reduce_scatter body."""
-        comm = self.comm
-        t, _ = self._stage(x)
-        local = to_host(self._local_allreduce(t, op)[0])
-        red = comm.dcn.allreduce(local, host_op(op, t.dtype), self._cid(_cid),
-                                 ordered=self._ordered())
-        return to_device(red, t.dtype, t.device).reshape(t.shape[1:])
+        """(ln, global_n, *s) → the (global_n, *s) fold over every rank:
+        a tensor on the local device, or on the devices layout one copy
+        per local rank on its card (the reduce_scatter body)."""
+        red, t, _ = self._fold_rows(x, op, _cid)
+        if self.comm.local_mesh.layout == "devices":
+            return self._fill(red, t.dtype, red.shape)
+        return to_device(red, t.dtype, self.comm.local_mesh.device)
 
     def reduce_scatter_block(self, x, op: Op, _cid=None):
         comm = self.comm
-        red = self.allreduce_rows(x, op, _cid=_cid)
+        red, t, host = self._fold_rows(x, op, _cid)
         lo = comm.local_offset
-        out = red[lo: lo + comm.local_size].clone()
-        return self._unstage(out, not isinstance(x, torch.Tensor))
+        return self._unstage(self._place(red[lo: lo + comm.local_size], t.dtype), host)
 
     def reduce_scatter(self, x, op: Op, counts=None, _cid=None):
         """Equal counts → block path; jagged counts: every rank
         contributes a flat (sum(counts), *tail) buffer, rank j receives
         its counts[j] reduced segment — this process returns its local
-        ranks' segments as a list."""
+        ranks' segments as a list, each on its rank's device."""
         if counts is None or len(set(counts)) == 1:
             return self.reduce_scatter_block(x, op, _cid=_cid)
         comm = self.comm
@@ -282,12 +323,13 @@ class HanCollModule(CollModule):
             raise MPIArgError(
                 f"reduce_scatter counts length {len(counts)} != comm "
                 f"size {comm.size}")
-        red = self.allreduce_rows(x, op, _cid=_cid)
+        red, t, host = self._fold_rows(x, op, _cid)
         offs = np.cumsum([0] + list(counts)).tolist()
         lo = comm.local_offset
-        host = not isinstance(x, torch.Tensor)
-        return [self._unstage(red[offs[lo + i]: offs[lo + i + 1]].clone(), host)
-                for i in range(comm.local_size)]
+        segs = [red[offs[lo + i]: offs[lo + i + 1]] for i in range(comm.local_size)]
+        if host:
+            return [np.array(s) for s in segs]
+        return [to_device(s, t.dtype, d) for s, d in zip(segs, comm.local_mesh.devices)]
 
     # -- bcast / gathers / scatter / alltoall ---------------------------
 
@@ -303,53 +345,58 @@ class HanCollModule(CollModule):
         else:
             row = np.zeros(t.shape[1:], _host_dtype(t.dtype))
         row = comm.dcn.bcast(row, root_proc, self._cid(_cid))
-        return self._unstage(self._fill(row, t), host)
+        return self._unstage(self._fill(row, t.dtype, t.shape[1:]), host)
 
     def allgather(self, x, _cid=None):
         comm = self.comm
         t, host = self._stage(x)  # (ln, *s): this process's ranks' rows
-        slices = comm.dcn.allgather(to_host(t), self._cid(_cid))
-        full = to_device(np.concatenate(slices, axis=0), t.dtype, t.device)
-        out = full[None].expand((t.shape[0],) + tuple(full.shape)).clone()
-        return self._unstage(out, host)
+        slices = comm.dcn.allgather(_host_rows(t), self._cid(_cid))
+        full = np.concatenate(slices, axis=0)
+        return self._unstage(self._fill(full, t.dtype, full.shape), host)
 
     def gather(self, x, root: int = 0, _cid=None):
-        """Root's recvbuf (global_n, *s) on root's process: each
-        process sends its slice to root once.  None elsewhere."""
+        """Root's recvbuf (global_n, *s) on root's process — on root's
+        card on the devices layout: each process sends its slice to root
+        once.  None elsewhere."""
         comm = self.comm
         t, host = self._stage(x)
-        root_proc, _ = comm.locate(root)
-        slices = comm.dcn.gather(to_host(t), root_proc, self._cid(_cid))
+        root_proc, root_local = comm.locate(root)
+        slices = comm.dcn.gather(_host_rows(t), root_proc, self._cid(_cid))
         if slices is None:
             return None
-        out = to_device(np.concatenate(slices, axis=0), t.dtype, t.device)
+        out = to_device(np.concatenate(slices, axis=0), t.dtype,
+                        comm.local_mesh.devices[root_local])
         return self._unstage(out, host)
 
     def scatter(self, x, root: int = 0, _cid=None):
         """Root's (global_n, *s) rows → each process its slice (O(global
-        bytes) on the DCN).  ``x`` is meaningful on root's process; the
-        others pass any buffer of the same dtype."""
+        bytes) on the DCN).  ``x`` is meaningful on root's process: numpy,
+        a tensor, or on the devices layout ``RankShards`` whose root shard
+        holds the rows; the others pass any buffer of the same dtype."""
         comm = self.comm
-        root_proc, _ = comm.locate(root)
-        host = not isinstance(x, torch.Tensor)
+        root_proc, root_local = comm.locate(root)
+        if isinstance(x, RankShards):
+            self._stage(x)  # its shards must lie on the local ranks' devices
+        host = not isinstance(x, (torch.Tensor, RankShards))
         blocks = None
         if comm.proc == root_proc:
-            blocks = [_block_to_host(x[comm.offsets[p]: comm.offsets[p + 1]])
+            src = x[root_local] if isinstance(x, RankShards) else x
+            blocks = [_block_to_host(src[comm.offsets[p]: comm.offsets[p + 1]])
                       for p in range(comm.nprocs)]
         mine = comm.dcn.scatter(blocks, root_proc, self._cid(_cid))
         if host:
             return np.array(mine)
-        return to_device(mine, x.dtype, comm.local.device)
+        return self._place(np.asarray(mine), x.dtype)
 
     def alltoall(self, x, _cid=None):
         comm = self.comm
         t, host = self._stage(x)  # (ln, global_n, *s): row r → global dest j
-        blocks = [to_host(t[:, slice(*comm.proc_range(p))])
+        rows = _host_rows(t)
+        blocks = [rows[:, slice(*comm.proc_range(p))]
                   for p in range(comm.nprocs)]  # (ln, ln_p, *s) per p
         got = comm.dcn.alltoall(blocks, self._cid(_cid))  # got[p]: (ln_p, ln, *s)
         cols = [np.moveaxis(np.asarray(g), 0, 1) for g in got]
-        out = to_device(np.concatenate(cols, axis=1), t.dtype, t.device)
-        return self._unstage(out, host)
+        return self._unstage(self._place(np.concatenate(cols, axis=1), t.dtype), host)
 
     # -- barrier / scan --------------------------------------------------
 
@@ -361,9 +408,11 @@ class HanCollModule(CollModule):
     # scan/exscan: the DCN moves ONE row per process (the rank-ordered
     # fold of its local ranks); the cross-process prefix folds in
     # process order on the host and is applied to the local rows on
-    # the card
+    # the card (on each rank's card on the devices layout)
 
-    def _proc_prefix(self, incl: torch.Tensor, op: Op, cid):
+    def _proc_prefix(self, incl, op: Op, cid):
+        """The host fold of every earlier process's last inclusive row
+        (None on process 0)."""
         comm = self.comm
         hop = host_op(op, incl.dtype)
         sums = comm.dcn.allgather(to_host(incl[-1])[None], cid)
@@ -372,45 +421,58 @@ class HanCollModule(CollModule):
         acc = np.asarray(sums[0][0])
         for p in range(1, comm.proc):
             acc = hop.np_fn(acc, sums[p][0])
-        return to_device(acc, incl.dtype, incl.device).reshape(incl.shape[1:])
+        return acc
 
     def scan(self, x, op: Op, _cid=None):
         t, host = self._stage(x)
         incl = self._local_scan(t, op)  # (ln, *s)
         acc = self._proc_prefix(incl, op, self._cid(_cid))
-        if acc is None:
-            return self._unstage(incl.clone(), host)
-        out = op.torch_fn(acc.expand(incl.shape), incl)
+        if isinstance(incl, RankShards):
+            out = RankShards([
+                s.clone() if acc is None
+                else op.torch_fn(to_device(acc, s.dtype, s.device).reshape(s.shape), s)
+                for s in incl.shards])
+        elif acc is None:
+            out = incl.clone()
+        else:
+            a = to_device(acc, incl.dtype, incl.device).reshape(incl.shape[1:])
+            out = op.torch_fn(a.expand(incl.shape), incl)
         return self._unstage(out, host)
 
     def exscan(self, x, op: Op, _cid=None):
-        comm = self.comm
+        """Local rank l's exclusive prefix: the earlier processes' fold
+        (``acc``) folded with local ranks 0..l-1.  Global rank 0's is
+        undefined (zeros, matching the single-controller path)."""
         t, host = self._stage(x)
         incl = self._local_scan(t, op)
         acc = self._proc_prefix(incl, op, self._cid(_cid))
+        if isinstance(incl, RankShards):
+            sh = incl.shards
+            first = (torch.zeros_like(sh[0]) if acc is None
+                     else to_device(acc, sh[0].dtype, sh[0].device).reshape(sh[0].shape))
+            rest = [s if acc is None else op.torch_fn(
+                        to_device(acc, s.dtype, s.device).reshape(s.shape), s)
+                    for s in sh[:-1]]
+            out = RankShards([first] + [torch.empty_like(r, device=d).copy_(r)
+                                        for r, d in zip(rest, incl.devices[1:])])
+            return self._unstage(out, host)
         out = torch.zeros_like(incl)
         if acc is None:
-            # global rank 0's exscan is undefined (zeros, matching the
-            # single-controller path); local rank l>0 gets the prefix of
-            # the preceding local ranks
-            if comm.local_size > 1:
+            if self.comm.local_size > 1:
                 out[1:] = incl[:-1]
             return self._unstage(out, host)
-        out[0] = acc
-        if comm.local_size > 1:
-            out[1:] = op.torch_fn(acc.expand(incl[:-1].shape), incl[:-1])
+        a = to_device(acc, incl.dtype, incl.device).reshape(incl.shape[1:])
+        out[0] = a
+        if self.comm.local_size > 1:
+            out[1:] = op.torch_fn(a.expand(incl[:-1].shape), incl[:-1])
         return self._unstage(out, host)
 
     # -- jagged variants -------------------------------------------------
     #
     # Per-process payload is one uint8 byte stream; shapes/dtypes ride
-    # the envelope metadata.  Tensor blocks in → tensors on the local
-    # device out; numpy in → numpy out.
-
-    def _out_device(self, blocks):
-        if any(isinstance(b, torch.Tensor) for b in (blocks or ())):
-            return self.comm.local.device
-        return None
+    # the envelope metadata.  Tensor blocks in → tensors out; numpy in →
+    # numpy out.  A block meant for local rank l lands on its device;
+    # the gathered list (every rank's block) on local rank 0's.
 
     def allgatherv(self, blocks, _cid=None):
         comm = self.comm
@@ -418,10 +480,10 @@ class HanCollModule(CollModule):
         arrs = [_block_to_host(b) for b in blocks]
         datas = comm.dcn.allgather(_pack(arrs), cid)
         metas = comm.dcn.allgather_obj([_meta(a) for a in arrs], cid)
-        dev = self._out_device(blocks)
+        tensors = _any_tensor(blocks)
         out = []
         for data, ms in zip(datas, metas):
-            out += _unpack(data, ms, dev)
+            out += _unpack(data, ms, [comm.local_mesh.device] * len(ms) if tensors else None)
         return out
 
     def gatherv(self, blocks, root: int = 0, _cid=None):
@@ -449,7 +511,8 @@ class HanCollModule(CollModule):
                 payloads.append(_pack(chunk))
         metas = comm.dcn.allgather_obj(meta, cid)[root_proc]
         data = comm.dcn.scatter(payloads, root_proc, cid)
-        return _unpack(data, metas[comm.proc], self._out_device(blocks))
+        return _unpack(data, metas[comm.proc],
+                       comm.local_mesh.devices if _any_tensor(blocks) else None)
 
     def alltoallv(self, matrix, _cid=None):
         """Jagged all-to-all: ``matrix[l][j]`` = block from this
@@ -471,12 +534,13 @@ class HanCollModule(CollModule):
             payloads.append(_pack(chunk))
         metas = comm.dcn.allgather_obj(meta, cid)  # [src proc][dst proc]
         datas = comm.dcn.alltoall(payloads, cid)   # [src proc] bytes for us
-        dev = self._out_device([b for row in matrix for b in row])
+        tensors = _any_tensor(b for row in matrix for b in row)
         out = [[None] * comm.size for _ in range(ln)]
         for q in range(comm.nprocs):
             qlo, qhi = comm.proc_range(q)
-            got = iter(_unpack(datas[q], metas[q][comm.proc], dev))
             # sender q packed in (its local rank, our local rank) order
+            devs = list(comm.local_mesh.devices) * (qhi - qlo) if tensors else None
+            got = iter(_unpack(datas[q], metas[q][comm.proc], devs))
             for sl in range(qhi - qlo):
                 for dl in range(ln):
                     out[dl][qlo + sl] = next(got)
@@ -492,11 +556,13 @@ class HanCollModule(CollModule):
     # comm's NBC issue counter, identical across processes by MPI's
     # same-issue-order rule).
     #
-    # Streams: the worker thread's current CUDA stream is not the
-    # caller's.  An event recorded on the caller's stream at issue makes
-    # the worker wait for the caller's writes to the input before the
-    # local leg reads it; an event recorded on the worker's stream after
-    # the result orders the caller's stream at wait().
+    # Streams: the worker thread's current CUDA streams are not the
+    # caller's.  One event per card recorded on the caller's stream at
+    # issue (request.card_events: every card the inputs touch, each shard
+    # of a RankShards included) makes the worker wait for the caller's
+    # writes to the input before the local leg reads it; one event per
+    # card recorded on the worker's streams after the result orders the
+    # caller's stream on every card at wait().
 
     def _issue(self, fn, *a, **k) -> Request:
         from concurrent.futures import Future
@@ -507,29 +573,27 @@ class HanCollModule(CollModule):
         comm = self.comm
         k["_cid"] = f"{comm.cid}#nbc{comm._next_nbc()}"
         fut: Future = Future()
-        # memchecker-lite: the DCN i-path reads the user's host buffers
-        # until completion — guard them so a mutation in the in-flight
-        # window raises instead of corrupting
-        guards = [
-            g for g in (memchecker.guard(x, fn.__name__) for x in a)
-            if g is not None
-        ] if memchecker.attached() else []
-        dev = _cuda_device(a)
-        issued = None
-        if dev is not None:
-            issued = torch.cuda.Event()
-            issued.record(torch.cuda.current_stream(dev))
+        # memchecker-lite: the DCN i-path reads the user's buffers until
+        # completion — guard them (host buffers write-protected, every
+        # shard of a RankShards checksummed) so a mutation in the
+        # in-flight window raises instead of corrupting
+        guards = []
+        if memchecker.attached():
+            for x in a:
+                if isinstance(x, RankShards):
+                    guards += memchecker.guard_shards(x, fn.__name__)
+                else:
+                    g = memchecker.guard(x, fn.__name__)
+                    if g is not None:
+                        guards.append(g)
+        issued = card_events(a)
 
         def run():
             try:
-                if issued is not None:
-                    torch.cuda.current_stream(dev).wait_event(issued)
+                for card, ev in issued:
+                    torch.cuda.current_stream(card).wait_event(ev)
                 result = fn(*a, **k)
-                done = None
-                if dev is not None:
-                    ev = torch.cuda.Event()
-                    ev.record(torch.cuda.current_stream(dev))
-                    done = (ev, dev)
+                done = card_events((a, result))
             except BaseException as e:
                 for g in guards:
                     g.abandon()  # restore writeability; fn's error wins

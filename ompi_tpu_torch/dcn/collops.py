@@ -559,8 +559,10 @@ class DcnCollEngine:
         """``into``: optional destination — an ndarray posted on the
         transport (recv_into-style delivery) so a matching inbound
         payload lands straight in it, or a tensor, which only a device
-        window lands in; the caller detects placement by identity (the
-        returned payload IS ``into``) and skips its copy.  Best-effort:
+        window lands in, or a ``torch.device``, the card a CUDA window's
+        bytes land on (the receiving rank's); the caller detects
+        placement by identity (the returned payload IS ``into``) and
+        skips its copy.  Best-effort:
         a frame that raced ahead of the posting simply delivers the
         copy-path array."""
         from ompi_tpu_torch.core.var import Deadline, dcn_timeout
@@ -727,17 +729,18 @@ class DcnCollEngine:
             return self._allreduce_ring(x, op, cid)
         seq_gather = self._next_seq(cid)
         seq_bcast = self._next_seq(cid)
+        land = x.device if tensor else None  # a CUDA window lands on x's card
         if self.proc == 0:
             acc = x
             for p in range(1, self.nprocs):
-                got = self._recv(p, cid, seq_gather)
+                got = self._recv(p, cid, seq_gather, into=land)
                 acc = (op.torch_fn(acc, _device.as_tensor(got, x)) if tensor
                        else op.np_fn(acc, got))
             for p in range(1, self.nprocs):
                 self._send(p, cid, seq_bcast, acc)
             return acc if tensor else np.asarray(acc)
         self._send(0, cid, seq_gather, x)
-        got = self._recv(0, cid, seq_bcast)
+        got = self._recv(0, cid, seq_bcast, into=land)
         return _device.as_tensor(got, x) if tensor else got
 
     def _allreduce_ring(self, x: np.ndarray, op: Op, cid: int) -> np.ndarray:
@@ -768,7 +771,7 @@ class DcnCollEngine:
             send_i = (me - s) % P
             recv_i = (me - s - 1) % P
             self._send(right, cid, seqs[s], acc[chunk(send_i)])
-            got = self._recv(left, cid, seqs[s])
+            got = self._recv(left, cid, seqs[s], into=acc.device if tensor else None)
             dst = acc[chunk(recv_i)]
             if tensor:
                 dst.copy_(op.torch_fn(_device.as_tensor(got, dst), dst))
@@ -803,8 +806,9 @@ class DcnCollEngine:
                 if p != root:
                     self._send(p, cid, seq, x)
             return x
-        got = self._recv(root, cid, seq)
-        return _device.as_tensor(got, x) if isinstance(x, torch.Tensor) else got
+        if isinstance(x, torch.Tensor):
+            return _device.as_tensor(self._recv(root, cid, seq, into=x.device), x)
+        return self._recv(root, cid, seq)
 
     def allgather(self, x: np.ndarray, cid: int) -> list[np.ndarray]:
         """Returns [proc 0's x, proc 1's x, …] on every process."""

@@ -384,11 +384,22 @@ class CudaWindow:
         self.hdr.close(unlink=unlink)
 
 
+def landing_device(into) -> torch.device:
+    """The card a CUDA window's bytes land on: ``into``'s (a posted
+    tensor, or a ``torch.device`` naming the receiving rank's card) when
+    it is on CUDA, else the current card."""
+    dev = into.device if isinstance(into, torch.Tensor) else into
+    if isinstance(dev, torch.device) and dev.type == "cuda":
+        return dev
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def _cuda_read(desc: dict, into, shape, dtype: torch.dtype, nbytes: int):
     """The receiver's half of a CUDA window: map the sender's window, copy
-    it into the posted tensor (or a new one on the current card), wait,
-    and unmap — all before the caller signals consumed.  The exporter
-    must be alive before the mapping opens and after the copy ends."""
+    it into the posted tensor (or a new one on the receiving rank's card,
+    :func:`landing_device`), wait, and unmap — all before the caller
+    signals consumed.  The exporter must be alive before the mapping
+    opens and after the copy ends."""
     pid = desc.get(PID_KEY)
     if pid is not None and not exporter_alive(pid):
         raise ExporterGone(f"device window {desc['w']}: exporter {pid} is gone")
@@ -397,8 +408,7 @@ def _cuda_read(desc: dict, into, shape, dtype: torch.dtype, nbytes: int):
             and into.dtype == dtype and tuple(into.shape) == shape):
         out = into
     else:
-        out = torch.empty(shape, dtype=dtype,
-                          device=torch.device("cuda", torch.cuda.current_device()))
+        out = torch.empty(shape, dtype=dtype, device=landing_device(into))
     dev = out.device.index
     ptr = ctypes.c_void_p()
     _cuda_check(lib, lib.ompi_dw_ipc_open(dev, bytes.fromhex(desc[IPC_KEY]),
@@ -977,7 +987,9 @@ def receive(desc: dict, into=None, stats: dict | None = None,
     the bytes (straight into a matching posted buffer — a numpy array or
     a tensor — when given: identity tells the caller nothing is left to
     copy), signal consumed, detach.  An shm window yields a numpy array
-    (or the posted buffer); a CUDA window a tensor on the card."""
+    (or the posted buffer); a CUDA window a tensor on the card ``into``
+    names (a posted tensor's, or a ``torch.device``: the receiving
+    rank's), else the current one."""
     from ompi_tpu_torch.core.var import Deadline
 
     name, nbytes = str(desc["w"]), int(desc["n"])

@@ -64,6 +64,18 @@ split, ``engine`` and ``device``.
 puts same-host peers on the C engine's framed TCP leg (eager and RTS/CTS
 rendezvous) in place of its shared-memory rings, and runs ``engine`` and
 the ``--prod-bytes`` split only.
+
+``--only devices`` is the job on the one-rank-per-device layout (run
+with ``--mca accelerator_cuda_layout devices``: each rank a buffer of its
+own on its card, ``RankShards`` in and out): ``osu``, ``prod`` (its
+launches are the peer kernels' — one put and two waits per card per hop
+of the shard ring — and its digest matches the rows job's), the
+``--prod-bytes`` split, ``p2p`` (the activation from rank K-1's card to
+rank K's), ``win`` (one fence epoch, then a lock epoch with an
+accumulate and a ``fetch_and_op`` per rank whose old value lands on the
+origin rank's card), ``shmem`` (a 1 MiB ``sum_to_all``), ``engine``,
+``device`` and ``placement`` (each result's devices, every shard on its
+rank's card).  Every section works on either layout.
 """
 
 from __future__ import annotations
@@ -77,6 +89,8 @@ import time
 
 import numpy as np
 import torch
+
+from ompi_tpu_torch.mesh.shards import RankShards
 
 SEED = 11
 P2P_ROUNDS = 20
@@ -105,6 +119,41 @@ def device_plane(w):
 def sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
+
+
+#: section → the devices its result lay on (local rank order), and
+#: whether each lay on its rank's device
+PLACEMENT: dict[str, dict] = {}
+
+
+def on_ranks(w, x: torch.Tensor):
+    """A rank-major tensor on ``w.device`` as ``w`` takes it: itself on
+    the rows layout, on the devices layout ``RankShards`` with row l
+    copied onto local rank l's device."""
+    if w.local_mesh.layout != "devices":
+        return x
+    return RankShards([x[i].to(d, copy=True) for i, d in enumerate(w.local_mesh.devices)])
+
+
+def place(w, name: str, out, ranks=None) -> bool:
+    """Record where a result lies: ``out[i]`` (a shard, a row or a list
+    entry) on the device of local rank ``ranks[i]`` (every local rank by
+    default)."""
+    ranks = list(range(w.local_size)) if ranks is None else ranks
+    got = [str(out[i].device) for i in range(len(ranks))]
+    want = [str(w.local_mesh.devices[r]) for r in ranks]
+    ok = got == want and (w.local_mesh.layout != "devices" or isinstance(out, (RankShards, list)))
+    PLACEMENT[name] = {"devices": got, "ok": ok}
+    return ok
+
+
+def all_equal(out, k: int) -> bool:
+    """Every local rank's result equals local rank 0's."""
+    return all(torch.equal(out[i].to(out[0].device), out[0]) for i in range(k))
+
+
+def same_bits(a, b, k: int) -> bool:
+    return all(torch.equal(bits(a[i]), bits(b[i].to(a[i].device))) for i in range(k))
 
 
 def rank_rows(ranks, count: int, dev: torch.device) -> torch.Tensor:
@@ -187,10 +236,10 @@ def osu(w, max_bytes: int) -> None:
         sizes.append(max_bytes)
     for nbytes in sizes:
         count = max(1, nbytes // 4)
-        x = rank_rows(range(lo, lo + k), count, dev)
+        x = on_ranks(w, rank_rows(range(lo, lo + k), count, dev))
         out = w.allreduce(x, SUM)
         sync(dev)
-        ok = bool(torch.equal(out, out[:1].expand_as(out)))
+        ok = all_equal(out, k) and place(w, f"osu_{nbytes}", out)
         if nbytes <= 16 << 20:
             want = rank_rows(range(n), count, dev).double().sum(0)
             ok = ok and bool(torch.allclose(out[0].double(), want, rtol=1e-5, atol=1e-5))
@@ -217,7 +266,7 @@ def prod_check(w, ck, prod_bytes: int) -> None:
     k, lo, n, dev = w.local_size, w.local_offset, w.size, w.device
     count = prod_bytes // 4
     # scaled near 1 so eight-way products neither overflow nor underflow
-    x = 1 + 0.1 * rank_rows(range(lo, lo + k), count, dev)
+    x = on_ranks(w, 1 + 0.1 * rank_rows(range(lo, lo + k), count, dev))
     store.set("coll_cuda_allreduce_algorithm", 7)
     before = dict(ck.LAUNCHES)
     got = w.allreduce(x, PROD)
@@ -226,7 +275,7 @@ def prod_check(w, ck, prod_bytes: int) -> None:
     store.set("coll_cuda_allreduce_algorithm", 2)
     plain = w.allreduce(x, PROD)
     store.set("coll_cuda_allreduce_algorithm", 0)
-    vs_plain = bool(torch.equal(bits(got), bits(plain)))
+    vs_plain = same_bits(got, plain, k) and place(w, "prod", got)
     del plain
     # the numpy model: ring chunk c of every process folds local ranks
     # c, c+1, ... (cyclically); then the processes fold (two factors:
@@ -251,21 +300,38 @@ def prod_check(w, ck, prod_bytes: int) -> None:
                                    model.view(np.uint32)))
     emit("prod", bytes=prod_bytes, per_call=per_call, bitwise_vs_plain=vs_plain,
          bitwise_vs_numpy=vs_numpy, digest=digest(got[0]))
-    want = k - 1 if dev.type == "cuda" else 0  # the CPU runs the plain twins
-    if per_call != {**dict.fromkeys(ck.LAUNCHES, 0), "ring_hop": want, "ring_hop_fold": want} \
-            or not (vs_plain and vs_numpy):
+    want = dict.fromkeys(ck.LAUNCHES, 0)
+    if dev.type == "cuda":  # the CPU runs the plain twins
+        if w.local_mesh.layout == "devices":  # the shard ring: per card per hop
+            hops, cards = 2 * (k - 1), len(set(w.local_mesh.devices))
+            want.update(ring_hop_peer=hops * cards, ring_hop_wait=2 * hops * cards)
+        else:
+            want.update(ring_hop=k - 1, ring_hop_fold=k - 1)
+    if per_call != want or not (vs_plain and vs_numpy):
         raise SystemExit(f"64 MiB PROD check failed: {per_call} {vs_plain} {vs_numpy}")
+
+
+def fill(w, value, x):
+    """han's fill: one DCN row (an array, or a tensor off the device
+    plane) → every local rank's copy, one per card on the devices
+    layout."""
+    from ompi_tpu_torch.dcn.device import as_tensor
+
+    src = as_tensor(value, x[0])
+    if w.local_mesh.layout == "devices":
+        return RankShards([torch.empty_like(src, device=d).copy_(src)
+                           for d in w.local_mesh.devices])
+    return src.expand(x.shape).clone()
 
 
 def split_call(w, nbytes: int) -> None:
     """han's allreduce, replayed leg by leg with its own steps: with the
     device plane armed the DCN leg takes the card's row (no D2H, no H2D)."""
-    from ompi_tpu_torch.coll.han import host_op, to_device, to_host
-    from ompi_tpu_torch.dcn.device import as_tensor
+    from ompi_tpu_torch.coll.han import host_op, to_host
     from ompi_tpu_torch.op import SUM
 
     k, lo, dev = w.local_size, w.local_offset, w.device
-    x = rank_rows(range(lo, lo + k), nbytes // 4, dev)
+    x = on_ranks(w, rank_rows(range(lo, lo + k), nbytes // 4, dev))
     plane = device_plane(w) is not None
     keys = (("local_ms", "dcn_ms", "fill_ms", "call_ms") if plane else
             ("local_ms", "d2h_ms", "dcn_ms", "h2d_bcast_ms", "call_ms"))
@@ -280,13 +346,13 @@ def split_call(w, nbytes: int) -> None:
             red = w.dcn.allreduce(local[0].contiguous(), SUM, w.cid)  # han's own stream
             sync(dev)
             stamps.append(time.perf_counter())
-            out = as_tensor(red, x[0]).expand(x.shape).clone()
+            out = fill(w, red, x)
         else:
             row = to_host(local[0])
             stamps.append(time.perf_counter())
             red = w.dcn.allreduce(row, host_op(SUM, x.dtype), w.cid)
             stamps.append(time.perf_counter())
-            out = to_device(red, x.dtype, x.device).expand(x.shape).clone()
+            out = fill(w, red, x)
         sync(dev)
         stamps.append(time.perf_counter())
         w.allreduce(x, SUM)
@@ -314,9 +380,12 @@ def p2p(w, side: int) -> None:
     and the receiver's H2D."""
     k, lo, dev = w.local_size, w.local_offset, w.device
     src, dst = k - 1, k  # the last rank of process 0 → the first of process 1
+    # each end on its rank's card (every rank's on the rows layout)
+    src_dev = w.local_mesh.devices[src - lo] if lo <= src < lo + k else dev
+    dst_dev = w.local_mesh.devices[dst - lo] if lo <= dst < lo + k else dev
     g = torch.Generator(device=dev).manual_seed(SEED)
-    act = torch.randn((side, side), generator=g, device=dev).to(torch.bfloat16)
-    buf = torch.empty((side, side), device=dev, dtype=torch.bfloat16)
+    act = torch.randn((side, side), generator=g, device=dev).to(torch.bfloat16).to(src_dev)
+    buf = torch.empty((side, side), device=dst_dev, dtype=torch.bfloat16)
     times, exact = [], True
     for i in range(P2P_ROUNDS):
         buf.zero_()
@@ -329,9 +398,11 @@ def p2p(w, side: int) -> None:
             got, st = w.recv(dst, src, tag=100 + i, out=buf)
             sync(dev)
             times.append((time.perf_counter() - t0) * 1e3)
-            exact = exact and got is buf and got.device == dev and st.source == src \
-                and bool(torch.equal(bits(got), bits(act)))
+            exact = exact and got is buf and got.device == dst_dev and st.source == src \
+                and bool(torch.equal(bits(got), bits(act.to(dst_dev))))
     w.barrier()
+    if lo <= dst < lo + k:
+        place(w, "p2p", [buf], ranks=[dst - lo])
     emit("p2p", dtype="bfloat16", bytes=side * side * 2, role="recv" if times else "send",
          times_ms=times, bitwise=exact)
     if not exact:
@@ -354,16 +425,20 @@ def engine_check(w, want_native: bool, stats0: dict | None) -> None:
         raise SystemExit(f"not on the native plane: {eng}/{pml}")
 
 
-def win_epoch(w, nbytes: int, rounds: int = 3) -> None:
+def win_epoch(w, nbytes: int, rounds: int = 3, lock: bool = False) -> None:
     """Fence epochs in a window on the device across the processes: each
-    rank accumulates its own data into r+1 and gets r-1; memory and gets
-    are held bit for bit against float32 sums in numpy."""
+    rank accumulates its own data into r+1 and gets r-1 (the value on its
+    own card); memory and gets are held bit for bit against float32 sums
+    in numpy.  ``lock``: then one lock epoch in which each rank
+    accumulates into r+1 again and adds 1 to the last word of rank 0's
+    memory with ``fetch_and_op``, whose old value lands on its card."""
     from ompi_tpu_torch.op import SUM
 
     k, lo, n, dev = w.local_size, w.local_offset, w.size, w.device
+    devs = w.local_mesh.devices
     count = nbytes // 4
     init = rank_rows(range(lo, lo + k), count, dev)
-    win = w.win_create([init[l].clone() for l in range(k)])
+    win = w.win_create([init[l].to(devs[l], copy=True) for l in range(k)])
     data = rank_rows(range(n + lo, n + lo + k), count, dev)  # seeds n.. : not the inits
     times, exact = [], True
     mine = init.cpu().numpy()
@@ -377,21 +452,65 @@ def win_epoch(w, nbytes: int, rounds: int = 3) -> None:
         for l in range(k):
             win.accumulate((lo + l + 1) % n, data[l], 0, SUM)
         win.fence()
-        got = [win.get((lo + l - 1) % n, count) for l in range(k)]
+        got = [win.get((lo + l - 1) % n, count, origin=lo + l) for l in range(k)]
         win.fence()
         times.append((time.perf_counter() - t0) * 1e3)
         mine = mine + add_mine     # what rank r holds: init_r + data_{r-1} per epoch
         left = left + add_left     # what rank r-1 holds
-        exact = exact and all(np.array_equal(got[l].view(np.uint32), left[l].view(np.uint32))
-                              for l in range(k))
+        exact = exact and all(np.array_equal(got[l].cpu().numpy().view(np.uint32),
+                                             left[l].view(np.uint32)) for l in range(k))
+    place(w, "win_get", got)
+    lock_ms = None
+    if lock:
+        w.barrier()
+        t0 = time.perf_counter()
+        olds = []
+        for l in range(k):
+            t = (lo + l + 1) % n
+            win.lock(t)
+            win.accumulate(t, data[l], 0, SUM)
+            win.unlock(t)
+            win.lock(0)
+            olds.append(win.fetch_and_op(0, 1.0, count - 1, SUM, origin=lo + l))
+            win.unlock(0)
+        w.barrier()
+        win.fence()
+        lock_ms = (time.perf_counter() - t0) * 1e3
+        mine = mine + add_mine
+        if lo == 0:  # n additions of 1 to rank 0's last word, in any order
+            last = mine[0, -1]
+            for _ in range(n):
+                last = np.float32(last + np.float32(1))
+            mine[0, -1] = last
+        place(w, "win_fetch_and_op", [o.reshape(1) for o in olds])
     sync(dev)
     held = np.stack([win.memory(lo + l).cpu().numpy() for l in range(k)])
     exact = exact and np.array_equal(held.view(np.uint32), mine.view(np.uint32))
+    on_device = place(w, "win_memory", [win.memory(lo + l) for l in range(k)])
     win.free()
-    emit("win", bytes=nbytes, rounds=rounds, times_ms=times, bitwise=bool(exact),
-         on_device=win.memory(lo).device.type == dev.type)
+    emit("win", bytes=nbytes, rounds=rounds, times_ms=times, lock_ms=lock_ms,
+         bitwise=bool(exact), on_device=on_device)
     if not exact:
         raise SystemExit("window epoch differs from the numpy sums")
+
+
+def shmem_check(w, nbytes: int = 1 << 20) -> None:
+    """A ``sum_to_all`` over the world's PEs (this process's ranks each
+    one), held to float64 sums, every result on its PE's card."""
+    from ompi_tpu_torch import shmem
+
+    k, lo, n, dev = w.local_size, w.local_offset, w.size, w.device
+    count = nbytes // 4
+    shmem.init(1 << 16)
+    got = shmem.sum_to_all(on_ranks(w, rank_rows(range(lo, lo + k), count, dev)))
+    sync(dev)
+    want = rank_rows(range(n), count, dev).double().sum(0)
+    ok = (all_equal(got, k) and place(w, "shmem_sum_to_all", got)
+          and bool(torch.allclose(got[0].double(), want.to(got[0].device), rtol=1e-5, atol=1e-5)))
+    shmem.finalize()
+    emit("shmem", bytes=nbytes, ok=ok)
+    if not ok:
+        raise SystemExit("shmem sum_to_all wrong or off its cards")
 
 
 def causal_check(w) -> None:
@@ -446,7 +565,8 @@ def main() -> int:
     ap.add_argument("--prod-bytes", type=int, default=64 << 20,
                     help="per-rank bytes of the PROD check and the split call")
     ap.add_argument("--act", type=int, default=4096, help="activation rows = columns")
-    ap.add_argument("--only", choices=["stream", "tcp-leg", "plane-off"], default=None)
+    ap.add_argument("--only", choices=["stream", "tcp-leg", "plane-off", "devices"],
+                    default=None)
     ap.add_argument("--native", action="store_true",
                     help="the native phase's sections (see the module docstring)")
     args = ap.parse_args()
@@ -467,6 +587,22 @@ def main() -> int:
     if args.only == "tcp-leg":
         split_call(w, args.prod_bytes)
         engine_check(w, True, stats0)
+    elif args.only == "devices":
+        if w.local_mesh.layout != "devices":
+            raise SystemExit("--only devices needs --mca accelerator_cuda_layout devices")
+        osu(w, args.max_bytes)
+        prod_check(w, ck, args.prod_bytes)
+        split_call(w, args.prod_bytes)
+        p2p(w, args.act)
+        win_epoch(w, args.prod_bytes, rounds=1, lock=True)
+        shmem_check(w)
+        engine_check(w, True, stats0)
+        device_stats(w)
+        ok = all(v["ok"] for v in PLACEMENT.values())
+        emit("placement", layout=w.local_mesh.layout,
+             devices=[str(d) for d in w.local_mesh.devices], results=PLACEMENT, ok=ok)
+        if not ok:
+            raise SystemExit(f"results off their ranks' devices: {PLACEMENT}")
     elif args.only == "plane-off":
         osu(w, args.max_bytes)
         prod_check(w, ck, args.prod_bytes)

@@ -15,7 +15,11 @@ port has two layouts (``--mca accelerator_cuda_layout``):
   counterpart of ``rank_sharding``).  Rank r goes to card
   ``r * count // n`` of the ``count`` cards (blocks, so most ring
   neighbours share a card), so devices repeat when there are fewer
-  cards than ranks; on one card every rank is on ``cuda:0``.  Two cards
+  cards than ranks; on one card every rank is on ``cuda:0``.  In a job
+  of P processes of K ranks each (``run -np P --nranks K``) the blocks
+  are job-wide: global rank ``g = proc * K + r`` goes to card
+  ``g * count // (P * K)``, so each process owns its own cards, as the
+  reference's processes own their devices.  Two cards
   of one mesh that cannot reach each other's memory
   (``torch.cuda.can_device_access_peer``) make building the mesh
   raise: nothing is staged through the host instead.
@@ -31,6 +35,7 @@ for CUDA on a machine without it raises instead of carrying on on the CPU.
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Sequence
 
@@ -70,12 +75,19 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     return dev
 
 
-def block_devices(ids: Sequence, nranks: int) -> list:
-    """Rank r → ``ids[r * len(ids) // nranks]``: contiguous blocks of
-    ranks per device, so that most ring neighbours share one."""
+def block_devices(ids: Sequence, nranks: int, proc: int = 0, nprocs: int = 1) -> list:
+    """The devices of process ``proc``'s ``nranks`` ranks in a job of
+    ``nprocs`` processes of ``nranks`` ranks each: its rank r is global
+    rank ``g = proc * nranks + r`` and goes to ``ids[g * len(ids) // N]``,
+    ``N = nprocs * nranks`` — contiguous blocks of ranks per device, so
+    that most ring neighbours share one and no two processes share a
+    device unless there are fewer devices than processes."""
     if not ids:
         raise MPIArgError("no device to place ranks on")
-    return [ids[r * len(ids) // nranks] for r in range(nranks)]
+    if not 0 <= proc < nprocs:
+        raise MPIArgError(f"process {proc} outside a job of {nprocs}")
+    total = nprocs * nranks
+    return [ids[(proc * nranks + r) * len(ids) // total] for r in range(nranks)]
 
 
 def order_device_ids(keys: Sequence, order: str) -> list[int]:
@@ -96,17 +108,20 @@ def _pci_key(i: int) -> tuple:
 
 
 def rank_devices(device=None, nranks: int = DEFAULT_NRANKS,
-                 order: str = "default") -> tuple:
+                 order: str = "default", proc: int = 0, nprocs: int = 1) -> tuple:
     """The ``devices`` layout's device per rank: on CUDA, ranks in blocks
-    over every card in ``order``; on another device, that device for
-    every rank.  Raises where CUDA is asked for and there is none."""
+    over every card in ``order`` (job-wide blocks for process ``proc`` of
+    ``nprocs``, see :func:`block_devices`); on another device, that
+    device for every rank.  Raises where CUDA is asked for and there is
+    none."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         order_device_ids([], order)  # validates the name
         return (dev,) * nranks
     count = torch.cuda.device_count()
     ids = order_device_ids([_pci_key(i) for i in range(count)], order)
-    return tuple(torch.device("cuda", i) for i in block_devices(ids, nranks))
+    return tuple(torch.device("cuda", i)
+                 for i in block_devices(ids, nranks, proc, nprocs))
 
 
 def check_devices(devices: Sequence[torch.device]) -> None:
@@ -234,9 +249,9 @@ class CudaAcceleratorComponent(Component):
         store.register(
             "accelerator", "cuda", "layout", "rows",
             help="COMM_WORLD's layout: 'rows' (every rank a row of one "
-            "tensor on one device) or 'devices' (one buffer per rank, rank "
-            "r on card r*count//n; every call of a single-process comm "
-            "runs there, jobs of several processes not yet)",
+            "tensor on one device) or 'devices' (one buffer per rank, global "
+            "rank g on card g*count//n; jobs of several processes run there "
+            "too, except tpud serving and ULFM recovery)",
         )
         store.register(
             "accelerator", "cuda", "device_order", "default",
@@ -256,10 +271,23 @@ class CudaAcceleratorComponent(Component):
                 if layout == "rows":
                     order_device_ids([], order)  # validates the name
                     self._world = CommMesh(device, nranks)
+                elif layout == "devices":
+                    proc, nprocs = _job_position()
+                    self._world = CommMesh(layout=layout, devices=rank_devices(
+                        device, nranks, order, proc, nprocs))
                 else:
-                    self._world = CommMesh(device, nranks, layout=layout,
-                                           device_order=order)
+                    self._world = CommMesh(device, nranks, layout=layout)
             return self._world
+
+
+def _job_position() -> tuple[int, int]:
+    """(process index, process count) under the launcher, else (0, 1):
+    the launcher's environment, known before the modex."""
+    from ompi_tpu_torch.boot.proc import ENV_NPROCS, ENV_PROC, launched_by_tpurun
+
+    if not launched_by_tpurun():
+        return 0, 1
+    return int(os.environ[ENV_PROC]), int(os.environ[ENV_NPROCS])
 
 
 def world_mesh(device=None, nranks: int | None = None) -> CommMesh:

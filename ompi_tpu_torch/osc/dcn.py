@@ -9,11 +9,13 @@ model needs).
 
 Window memory stays where the caller put it: a numpy base is aliased by
 ``torch.from_numpy``, a tensor on the card keeps its memory there (as
-:mod:`ompi_tpu_torch.osc.win` does in one process), and the ops apply
-with the op's ``torch_fn`` on the memory's device.  RMA payloads cross
-the DCN as host bytes (one D2H at the origin, one H2D at the target for
-a window on the card); ``get``/``fetch_and_op``/``compare_and_swap``
-return numpy arrays, bfloat16 as its raw two-byte words.
+:mod:`ompi_tpu_torch.osc.win` does in one process; on the devices
+layout base r lies on local rank r's card), and the ops apply with the
+op's ``torch_fn`` on the memory's device.  RMA payloads cross the DCN as
+host bytes (one D2H at the origin, one H2D at the target for a window
+on the card); ``get``/``fetch_and_op``/``compare_and_swap`` return numpy
+arrays, bfloat16 as its raw two-byte words — or, given ``origin`` (a
+rank of this process), a tensor on that rank's device.
 
 Completion model (the osc "sync" machinery):
 
@@ -30,6 +32,17 @@ Completion model (the osc "sync" machinery):
   LOCK_SHARED epoch a no-op bracket; unlock = flush.  LOCK_EXCLUSIVE is
   serviced with the same per-op atomicity (multi-op critical sections
   should use fetch_and_op/CAS).
+* **post/start/complete/wait (PSCW)**, per process: ``post`` sends a
+  ``post`` frame to every other process owning one of the origin ranks,
+  ``start`` waits for one from every other process owning a target,
+  ``complete`` sends a ``complete`` frame behind its ops to each of
+  those (frames are FIFO, so the ops are applied before it), and
+  ``wait`` waits for one from each origin process.
+
+Epoch closes (fence, flush, unlock, ``wait``) order the caller's
+current stream on every card an applied op touched after the stream
+that applied it (the delivery thread's), so memory read after the close
+sees the epoch's writes.
 
 Window ids ride the comm's CID namespace (``w<cid>#<k>``, k = the comm's
 SPMD window counter), so streams never collide across windows or comms.
@@ -93,6 +106,13 @@ class MultiProcWin:
         self._replies: dict[int, tuple[threading.Event, list]] = {}
         self._next_req = 0
         self._req_lock = threading.Lock()
+        #: (card, stream) → the event after the last op applied there
+        self._touched: dict[tuple[int, int], torch.cuda.Event] = {}
+        #: PSCW: post / complete frames received per process
+        self._pscw = {"post": [0] * comm.nprocs, "complete": [0] * comm.nprocs}
+        self._pscw_cv = threading.Condition()
+        self._access: list[int] = []    # target procs of the open access epoch
+        self._exposure: list[int] = []  # origin procs of the open exposure epoch
         comm.dcn.register_p2p(self.win_id, self._on_frame)
         # window geometry: exchange per-rank sizes and dtypes (collective)
         sizes = [int(m.shape[0]) for m in self._mem]
@@ -128,6 +148,11 @@ class MultiProcWin:
     # -- inbound application (delivery thread) --------------------------
 
     def _on_frame(self, env: dict, payload: np.ndarray) -> None:
+        if env["rma"] in self._pscw:
+            with self._pscw_cv:
+                self._pscw[env["rma"]][env["origin_proc"]] += 1
+                self._pscw_cv.notify_all()
+            return
         if env["rma"] == "reply":
             with self._req_lock:
                 ent = self._replies.get(env["req"])
@@ -192,6 +217,11 @@ class MultiProcWin:
                 cell.copy_(torch.where(cell == pair[1:2], pair[0:1], cell))
             elif kind == "sync":
                 reply = np.zeros(0, np.uint8)
+            if mem.is_cuda and kind != "sync":
+                stream = torch.cuda.current_stream(mem.device)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                self._touched[(mem.device.index, stream.cuda_stream)] = ev
             if inbound:
                 # fence counts REMOTE inbound only; locally-applied ops
                 # are complete by construction
@@ -278,10 +308,23 @@ class MultiProcWin:
         env = self._env({"rma": "put", "disp": int(disp)}, dt)
         self._issue(target, env, self._bytes(target, data, dt))
 
-    def get(self, target: int, count: int, disp: int = 0, dt=None) -> np.ndarray:
+    def _fetched(self, out, target: int, dt, origin: int | None):
+        """A reply's bytes as the target's (or ``dt``'s) elements: numpy,
+        or with ``origin`` a tensor on that local rank's device."""
+        a = np.asarray(out).view(self._elem(target, dt))
+        if origin is None:
+            return a
+        li, _p = self._local_index(origin)
+        if li is None:
+            raise MPIWinError(f"origin rank {origin} is not local to this process")
+        tdt = torch.bfloat16 if a.dtype == BF16_HOST else torch_dtype(a.dtype)
+        return to_device(a, tdt, self.comm.local_mesh.devices[li])
+
+    def get(self, target: int, count: int, disp: int = 0, dt=None,
+            origin: int | None = None):
         env = self._env({"rma": "get", "disp": int(disp), "count": int(count)}, dt)
         out = self._issue(target, env, np.zeros(0, np.uint8), reply=True)
-        return np.asarray(out).view(self._elem(target, dt))
+        return self._fetched(out, target, dt, origin)
 
     def accumulate(self, target: int, data, disp: int = 0,
                    op: opmod.Op = opmod.SUM, dt=None) -> None:
@@ -289,17 +332,17 @@ class MultiProcWin:
         self._issue(target, env, self._bytes(target, data, dt))
 
     def fetch_and_op(self, target: int, value, disp: int = 0,
-                     op: opmod.Op = opmod.SUM, dt=None):
+                     op: opmod.Op = opmod.SUM, dt=None, origin: int | None = None):
         env = self._env({"rma": "fao", "disp": int(disp), "op": op.name}, dt)
         out = self._issue(target, env, self._bytes(target, [value], dt), reply=True)
-        return np.asarray(out).view(self._elem(target, dt))[0]
+        return self._fetched(out, target, dt, origin)[0]
 
     def compare_and_swap(self, target: int, value, compare, disp: int = 0,
-                         dt=None):
+                         dt=None, origin: int | None = None):
         env = self._env({"rma": "cas", "disp": int(disp)}, dt)
         out = self._issue(target, env, self._bytes(target, [value, compare], dt),
                           reply=True)
-        return np.asarray(out).view(self._elem(target, dt))[0]
+        return self._fetched(out, target, dt, origin)[0]
 
     # -- synchronization -------------------------------------------------
 
@@ -327,14 +370,82 @@ class MultiProcWin:
         with self._lock:
             self._applied -= expected
         comm.dcn.barrier(f"{self.win_id}#fencebar")
+        self._order_cards()
+
+    def _order_cards(self) -> None:
+        """Epoch close: the caller's current stream on every card an op
+        was applied on waits for the stream that applied it."""
+        with self._lock:
+            touched, self._touched = self._touched, {}
+        for (card, _stream), ev in touched.items():
+            torch.cuda.current_stream(card).wait_event(ev)
 
     def flush(self, target: int) -> None:
         """All previously issued ops to ``target``'s process are applied
         (FIFO per connection + a sync round-trip)."""
         li, _ = self._local_index(target)
-        if li is not None:
-            return
-        self._issue(target, {"rma": "sync"}, np.zeros(0, np.uint8), reply=True)
+        if li is None:
+            self._issue(target, {"rma": "sync"}, np.zeros(0, np.uint8), reply=True)
+        self._order_cards()
+
+    # -- post/start/complete/wait (generalized active target) ------------
+
+    def _procs_of(self, ranks) -> list[int]:
+        """The other processes owning any of ``ranks``."""
+        return sorted({self.comm.locate(int(r))[0] for r in ranks} - {self.comm.proc})
+
+    def _send_pscw(self, kind: str, procs) -> None:
+        for p in procs:
+            self.comm.dcn.send_p2p(
+                p, {"cid": self.win_id, "rma": kind, "origin_proc": self.comm.proc},
+                np.zeros(0, np.uint8))
+
+    def _await_pscw(self, kind: str, procs, timeout: float = 120.0) -> None:
+        deadline = time.monotonic() + timeout
+        with self._pscw_cv:
+            while not all(self._pscw[kind][p] > 0 for p in procs):
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise MPIWinError(
+                        f"{kind} timeout on {self.name}: waiting for processes "
+                        f"{[p for p in procs if not self._pscw[kind][p]]}")
+                self._pscw_cv.wait(min(left, 0.25))
+            for p in procs:
+                self._pscw[kind][p] -= 1
+
+    def post(self, origins) -> None:
+        """MPI_Win_post: expose this process's ranks' memory to the
+        ``origins`` (global ranks) until :meth:`wait`."""
+        self._check()
+        if self._exposure:
+            raise MPIWinError(f"post on {self.name}: an exposure epoch is open")
+        self._exposure = self._procs_of(origins)
+        self._send_pscw("post", self._exposure)
+
+    def start(self, targets) -> None:
+        """MPI_Win_start: an access epoch to the ``targets`` (global
+        ranks); returns once every other process owning one has posted."""
+        self._check()
+        if self._access:
+            raise MPIWinError(f"start on {self.name}: an access epoch is open")
+        self._access = self._procs_of(targets)
+        self._await_pscw("post", self._access)
+
+    def complete(self) -> None:
+        """MPI_Win_complete: close the access epoch; each target process
+        is told behind this process's ops to it."""
+        self._check()
+        procs, self._access = self._access, []
+        self._send_pscw("complete", procs)
+        self._order_cards()
+
+    def wait(self) -> None:
+        """MPI_Win_wait: close the exposure epoch once every origin
+        process has completed (its ops are then applied here)."""
+        self._check()
+        procs, self._exposure = self._exposure, []
+        self._await_pscw("complete", procs)
+        self._order_cards()
 
     def lock(self, target: int, lock_type: int = 0) -> None:
         """Passive epoch open (per-op atomicity services both lock kinds

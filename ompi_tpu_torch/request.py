@@ -111,6 +111,18 @@ def _tensors(x) -> list[torch.Tensor]:
     return []
 
 
+def card_events(x) -> list[tuple[int, torch.cuda.Event]]:
+    """``(card, event)`` for every card the tensors of ``x`` lie on (the
+    shards of a ``RankShards`` included), each event recorded on that
+    card's current stream; none for CPU tensors."""
+    out = []
+    for card in sorted({t.device.index for t in _tensors(x) if t.device.type == "cuda"}):
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(card))
+        out.append((card, ev))
+    return out
+
+
 class ArrayRequest(Request):
     """Request over tensors whose producing kernels may still be running.
 
@@ -121,12 +133,7 @@ class ArrayRequest(Request):
         super().__init__()
         self._arrays = arrays
         self._user_finalize = finalize
-        self._events = []
-        cards = sorted({t.device.index for t in _tensors(arrays) if t.device.type == "cuda"})
-        for card in cards:  # one event per card, on that card's current stream
-            ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(card))
-            self._events.append(ev)
+        self._events = [ev for _card, ev in card_events(arrays)]
 
     def _poll(self) -> bool:
         return all(ev.query() for ev in self._events)

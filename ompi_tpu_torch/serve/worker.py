@@ -628,6 +628,10 @@ def main() -> int:
     # CUDA unless the daemon was asked for the CPU (``--cpu``); the
     # boot raises where there is no card — never a quiet CPU fallback
     world = api.init(device=os.environ.get(ENV_DEVICE) or "cuda")
+    if world.local_mesh.layout == "devices":
+        from ompi_tpu_torch.coll.cuda import unsupported_on_devices
+
+        unsupported_on_devices("tpud serving (the resident worker's job re-arm)")
     ctx = world.procctx
     # warm compiled-schedule cache: the
     # process-wide plan store (ompi_tpu_torch/coll/sched.CACHE) lives exactly

@@ -20,7 +20,10 @@ heap bytes as any dtype.
 
 Where the reference returns numpy or JAX arrays, ``get`` and the
 collectives return tensors on the heap's device, and ``SymmArray.view``
-is a tensor view of the heap.  An atomic returns a Python scalar
+is a tensor view of the heap.  On the ``devices`` layout each PE's heap
+region lies on its own card: ``put`` stages from the calling PE's card,
+``get`` lands there, and the collectives hand the world ``RankShards``
+(row l on local PE l's card) and return ``RankShards``.  An atomic returns a Python scalar
 (``.item()``, its one host sync).  Unsigned words are updated through
 their same-width signed carrier, since torch has no arithmetic for
 ``uint16``/``uint32``/``uint64``.
@@ -199,11 +202,31 @@ def _tensor(x, dtype: torch.dtype | None, device) -> torch.Tensor:
     return from_numpy(a, device)
 
 
+def _my_device(st) -> torch.device:
+    """The calling PE's device (its heap region's)."""
+    return st.heap(st.local_pes[0]).device
+
+
+def _coll_input(comm, x):
+    """A rank-major collective input for ``comm``: one tensor on its
+    device, or on the devices layout ``RankShards`` with row l on local
+    rank l's card."""
+    from ompi_tpu_torch.mesh.shards import RankShards
+
+    mesh = comm.mesh
+    if mesh.layout != "devices":
+        return _tensor(x, None, comm.device)
+    if isinstance(x, RankShards):
+        return x
+    rows = x if isinstance(x, torch.Tensor) else np.asarray(x)
+    return RankShards([_tensor(rows[i], None, d) for i, d in enumerate(mesh.devices)])
+
+
 def put(dest: SymmArray, source, pe: int) -> None:
     """shmem_put: write ``source`` into ``dest``'s slice on ``pe``;
     remotely complete at return (quiet-per-op, the strong contract)."""
     st = _st()
-    src = _tensor(source, dest.dtype, st.world.device)
+    src = _tensor(source, dest.dtype, _my_device(st))
     if src.numel() * dest.dtype.itemsize > dest.nbytes:
         raise MPIArgError(
             f"put of {src.numel() * dest.dtype.itemsize} B into {dest.nbytes} B")
@@ -219,12 +242,11 @@ def put(dest: SymmArray, source, pe: int) -> None:
 
 def get(source: SymmArray, pe: int, count: int | None = None) -> torch.Tensor:
     """shmem_get: fetch ``source``'s slice from ``pe``, a tensor on the
-    heap's device."""
+    calling PE's heap device."""
     st = _st()
     nbytes = source.nbytes if count is None else int(count) * source.dtype.itemsize
     if st.multi:
-        raw = from_numpy(st.win.get(pe, nbytes, disp=source.offset),
-                         st.world.device)
+        raw = st.win.get(pe, nbytes, disp=source.offset, origin=st.local_pes[0])
     else:
         me = st.local_pes[0]
         req = st.win.get(me, pe, nbytes, target_disp=source.offset)
@@ -286,9 +308,9 @@ def atomic_compare_swap(dest: SymmArray, cond, value, pe: int):
             pe, value, cond, disp=dest.offset // dest.dtype.itemsize,
             dt=numpy_dtype(dest.dtype)).item()
     carrier = SIGNED_TWIN.get(dest.dtype, dest.dtype)
-    cond_t = _tensor([cond], dest.dtype, st.world.device).view(carrier)
     return _local_atomic(
-        dest, pe, value, lambda old, v: torch.where(old == cond_t, v, old))
+        dest, pe, value, lambda old, v: torch.where(
+            old == _tensor([cond], dest.dtype, old.device).view(carrier), v, old))
 
 
 # -- ordering / collectives --------------------------------------------
@@ -310,23 +332,24 @@ def barrier_all() -> None:
     st.world.barrier()
 
 
-def broadcast(x, root: int = 0) -> torch.Tensor:
+def broadcast(x, root: int = 0):
     """World broadcast of a rank-major value (the framework's coll
-    table), returned as a tensor on the world's device."""
+    table), returned as a tensor on the world's device (``RankShards``
+    on the devices layout)."""
     world = _st().world
-    return world.bcast(_tensor(x, None, world.device), root)
+    return world.bcast(_coll_input(world, x), root)
 
 
-def fcollect(x) -> torch.Tensor:
+def fcollect(x):
     world = _st().world
-    return world.allgather(_tensor(x, None, world.device))
+    return world.allgather(_coll_input(world, x))
 
 
-def sum_to_all(x) -> torch.Tensor:
+def sum_to_all(x):
     from ompi_tpu_torch.op import SUM
 
     world = _st().world
-    return world.allreduce(_tensor(x, None, world.device), SUM)
+    return world.allreduce(_coll_input(world, x), SUM)
 
 
 # -- point synchronization (1.4/1.5 wait/test) --------------------------
@@ -450,18 +473,18 @@ class Team:
     def sync(self) -> None:
         self._comm.barrier()
 
-    def sum_reduce(self, x) -> torch.Tensor:
+    def sum_reduce(self, x):
         from ompi_tpu_torch.op import SUM
 
-        return self._comm.allreduce(_tensor(x, None, self._comm.device), SUM)
+        return self._comm.allreduce(_coll_input(self._comm, x), SUM)
 
-    def max_reduce(self, x) -> torch.Tensor:
+    def max_reduce(self, x):
         from ompi_tpu_torch.op import MAX
 
-        return self._comm.allreduce(_tensor(x, None, self._comm.device), MAX)
+        return self._comm.allreduce(_coll_input(self._comm, x), MAX)
 
-    def broadcast(self, x, root: int = 0) -> torch.Tensor:
-        return self._comm.bcast(_tensor(x, None, self._comm.device), root)
+    def broadcast(self, x, root: int = 0):
+        return self._comm.bcast(_coll_input(self._comm, x), root)
 
     def destroy(self) -> None:
         if self._comm is not None and self._comm is not _st().world:

@@ -6,7 +6,8 @@ read them over a window of time — the partitioned send here:
 
 * **write-protect** — a numpy buffer's ``writeable`` flag is cleared for
   the in-flight window, so a mutation raises ``ValueError`` where it
-  happens; restored on completion (only if the guard cleared it);
+  happens; restored on completion (only if the guard cleared it); the
+  shards of a ``RankShards`` (device memory) get the checksum alone;
 * **checksum** — an adler32 snapshot at issue, re-verified at
   completion, raising :class:`MPIBufferError` with the operation's name.
 
@@ -74,7 +75,7 @@ class Guard:
         self.opname = opname
         self.checksum = checksum(buf)
         self._cleared_flag = False
-        if buf.flags.writeable:
+        if isinstance(buf, np.ndarray) and buf.flags.writeable:
             try:
                 buf.flags.writeable = False
                 self._cleared_flag = True
@@ -105,3 +106,12 @@ def guard(buf, opname: str) -> Guard | None:
     if not _attached or not isinstance(buf, np.ndarray):
         return None
     return Guard(buf, opname)
+
+
+def guard_shards(shards, opname: str) -> list[Guard]:
+    """Checksum guards on every shard of a ``RankShards`` (none when
+    detached): device memory cannot be write-protected, so the checksum
+    alone catches a mutation in the in-flight window."""
+    if not _attached:
+        return []
+    return [Guard(s, opname) for s in shards.shards]

@@ -407,13 +407,15 @@ def test_other_algorithms_raise_the_named_error(ref_world, coll, algo):
 
 
 def test_everything_else_raises_the_named_error(monkeypatch):
-    """Only a devices world under ``tpurun`` raises the named error now:
-    point-to-point, windows and the typed (``*_ddt``) entry points run on
-    a devices comm (each send posted before its receive: one controller
-    drives every rank, so a receive with nothing sent would block), and a
-    devices comm still refuses one plain tensor (nothing is moved
-    implicitly)."""
-    from ompi_tpu_torch.boot.proc import ENV_PROC
+    """Only ULFM recovery and tpud serving raise the named error now (a
+    respawned process's ``init()`` here; ``tests/test_torch_mp_devices.py``
+    runs jobs of several processes and checks the other recovery calls
+    and the tpud worker): point-to-point, windows and the typed
+    (``*_ddt``) entry points run on a devices comm (each send posted
+    before its receive: one controller drives every rank, so a receive
+    with nothing sent would block), and a devices comm still refuses one
+    plain tensor (nothing is moved implicitly)."""
+    from ompi_tpu_torch.boot.proc import ENV_INCARNATION, ENV_NPROCS, ENV_PROC
     from ompi_tpu_torch.ddt.datatype import FLOAT
 
     comm = devices_comm()
@@ -439,11 +441,14 @@ def test_everything_else_raises_the_named_error(monkeypatch):
         comm.allreduce(torch.zeros(N, 4))
     tapi.finalize()
     monkeypatch.setenv(ENV_PROC, "0")
+    monkeypatch.setenv(ENV_NPROCS, "1")
+    monkeypatch.setenv(ENV_INCARNATION, "1")
     try:
-        with pytest.raises(DevicesLayoutUnsupported, match="tpurun"):
+        with pytest.raises(DevicesLayoutUnsupported, match="respawned process"):
             tapi.init({"accelerator_cuda_layout": "devices"}, device="cpu", nranks=N)
     finally:
-        monkeypatch.delenv(ENV_PROC)
+        for var in (ENV_PROC, ENV_NPROCS, ENV_INCARNATION):
+            monkeypatch.delenv(var)
         tapi.finalize()
 
 

@@ -141,15 +141,17 @@ def test_devices_layout_allreduce_matches_the_rows_layout(dev):
         store.set("coll_cuda_allreduce_algorithm", 7)
         want = rows.allreduce(x, SUM)
         before = dict(ck.LAUNCHES)
-        got = devs.allreduce(RankShards([x[r].clone() for r in range(n)]), SUM)
+        got = devs.allreduce(RankShards([x[r].to(d, copy=True)
+                                         for r, d in enumerate(devs.mesh.devices)]), SUM)
         torch.cuda.synchronize()
     finally:
         store.set("coll_cuda_allreduce_algorithm", 0)
-    hops, cards = 2 * (n - 1), 1  # every rank on ``dev``: per hop one put, two waits
+    # per hop one put and two waits on each card the ranks lie on
+    hops, cards = 2 * (n - 1), len({d.index for d in devs.mesh.devices})
     assert {k: ck.LAUNCHES[k] - before[k] for k in before} == {
         "ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": hops * cards,
         "ring_hop_wait": 2 * hops * cards}
-    assert all(torch.equal(got[r], want[r]) for r in range(n))
+    assert all(torch.equal(got[r].to(dev), want[r]) for r in range(n))
     ck.peer_ring(devs.mesh).check()
 
 
@@ -385,3 +387,106 @@ def test_typed_allreduce_on_shards_launches_the_peer_kernels(dev):
     assert got.devices == devs.mesh.devices
     assert all(torch.equal(_bits(got[r].to(dev)), _bits(want[r])) for r in range(n))
     ck.peer_ring(devs.mesh).check()
+
+
+#: one process of a 2 × 4 job on the devices layout: each rank writes its
+#: shard late on a side stream of its card, then an ``iallreduce`` is
+#: issued on those streams; every ``_cuda_read`` of the device plane is
+#: recorded with the card it landed on
+DEVICES_JOB = r'''
+import contextlib
+import json
+
+import torch
+
+import ompi_tpu_torch.api as api
+from ompi_tpu_torch.dcn import device as plane
+from ompi_tpu_torch.mesh.shards import RankShards
+from ompi_tpu_torch.op import SUM
+
+landed = []
+_read = plane._cuda_read
+
+
+def recording_read(*a, **k):
+    out = _read(*a, **k)
+    landed.append(str(out.device))
+    return out
+
+
+plane._cuda_read = recording_read
+w = api.init()
+k, lo, n = w.local_size, w.local_offset, w.size
+devs = w.local_mesh.devices
+sides = {d.index: torch.cuda.Stream(d) for d in devs}
+with contextlib.ExitStack() as es:
+    for s in sides.values():
+        es.enter_context(torch.cuda.stream(s))
+    xs = []
+    for r, d in enumerate(devs):
+        with torch.cuda.device(d):  # _sleep runs on the current card
+            x = torch.zeros(1 << 20, device=d)
+            torch.cuda._sleep(50_000_000)  # the write lands late on the caller's stream
+            x += float(lo + r + 1)
+        xs.append(x)
+    got = w.iallreduce(RankShards(xs), SUM).wait()
+    got = RankShards([s.clone() for s in got.shards])  # ordered on the side streams
+for d in devs:
+    torch.cuda.synchronize(d)
+dp = w.dcn._root_engine()._device_plane
+print("DEVJOB " + json.dumps({
+    "proc": w.proc, "devices": [str(d) for d in devs], "current": torch.cuda.current_device(),
+    "result_devices": [str(s.device) for s in got.shards],
+    "ok": all(bool((s == n * (n + 1) / 2).all()) for s in got.shards),
+    "landed": sorted(set(landed)), "device_recvs": dp.stats["device_recvs"]}), flush=True)
+api.finalize()
+'''
+
+
+def _devices_job(tmp_path):
+    """The 2 × 4 devices-layout job above on this machine's cards (plane
+    on from 4 KiB, so the 4 MiB DCN leg rides CUDA IPC windows); each
+    process's JSON row."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    script = tmp_path / "devjob.py"
+    script.write_text(DEVICES_JOB)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", "2", "--nranks", "4"]
+    for k, v in {"accelerator_cuda_layout": "devices", "dcn_device_min_size": "4096"}.items():
+        cmd += ["--mca", k, v]
+    res = subprocess.run(cmd + [str(script)], capture_output=True, text=True, timeout=300,
+                         env=env, cwd=str(repo))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    rows = [json.loads(ln.split("DEVJOB ", 1)[1]) for ln in res.stdout.splitlines()
+            if "DEVJOB " in ln]
+    assert len(rows) == 2, res.stdout[-3000:]
+    return sorted(rows, key=lambda r: r["proc"])
+
+
+def test_han_iallreduce_on_shards_waits_on_every_card(dev, tmp_path):
+    """han's ``iallreduce`` over ``RankShards`` issued on a side stream of
+    every card right after a delayed write to each shard: the worker
+    thread waits on an event of each card's caller stream, and ``wait()``
+    orders each card's stream after the result, so every shard holds the
+    sum of the written values, on its rank's card."""
+    for r in _devices_job(tmp_path):
+        assert r["ok"] and r["result_devices"] == r["devices"], r
+
+
+def test_cuda_window_lands_on_the_receiving_ranks_card(dev, tmp_path):
+    """With ranks on cards 0, 0, 1, 1 | 2, 2, 3, 3 (or the two halves of
+    two cards) the second process's DCN leg receives on its first rank's
+    card, not the current card (``cuda:0``): every CUDA window read lands
+    there."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: one card is every rank's and the current one")
+    second = _devices_job(tmp_path)[1]
+    assert second["device_recvs"] > 0, second
+    assert second["landed"] == [second["devices"][0]] != [f"cuda:{second['current']}"], second
