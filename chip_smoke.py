@@ -138,10 +138,20 @@ exits non-zero:
     run 1 MiB and 64 MiB calls, bit-equal to a fresh 2 × 4 job;
     (d) a 2 × 4 job spawns 2 children; the merged 4-process comm's 1 MiB
     SUM on ``cuda_ring`` is bit-equal to the plain ring's;
+    (f) leg ``recovery_devices``: (b) again on the one-rank-per-device
+    layout (``--mca accelerator_cuda_layout devices``): its digests
+    before and after the failure equal each other and (b)'s, sizes
+    [8, 8] and incarnations [0, 1], every result shard on its rank's
+    card for the survivor and the reborn process, one put and two waits
+    per card per hop in each call after recovery, ``device_sends`` > 0
+    and ``device_fallbacks`` 0, ``heal_ms`` on both processes, no shm
+    name left; then (c) on that layout (``recovery_devices_shrink``),
+    bit-equal to a fresh devices 2 × 4 job and to (c);
     and a probe of a CUDA IPC mapping whose exporter was killed (read
-    through it, then a fresh open).  After (b), (c) and (d) plus the
-    probe run in two lanes side by side (each is a pass/fail check), and
-    the analysis phase runs beside the whole phase.  It prints the time to heal and the
+    through it, then a fresh open).  After (b) and (f)'s respawn, (c)
+    and (f)'s shrink in one lane and (d) plus the probe in another run
+    side by side (each is a pass/fail check), and the analysis phase
+    runs beside the whole phase.  It prints the time to heal and the
     64 MiB p50 before and after recovery beside the card's name and
     power limit.  Output: ``chiprun_out/recovery_*.log``.
 15. serve (last) — ``python -m ompi_tpu_torch tpud -np 2 --nranks 4``
@@ -173,8 +183,18 @@ exits non-zero:
     telemetry_enable 1`` (scraped, ``/metrics`` and ``/critical``, while
     it runs), with the daemon's worker settings (telemetry and the
     failure detector) and with neither; every size's p50 and quartiles
-    beside the tpud jobs'.  Output: ``chiprun_out/serve_tpud.log``,
-    ``chiprun_out/serve_plain_*.log``.
+    beside the tpud jobs'; ``devices`` — a second daemon with ``--mca
+    accelerator_cuda_layout devices``: two sweep jobs at 8 B, 2 MiB and
+    64 MiB per rank, each size bit-equal to the plain ring with every
+    result shard on its rank's card, the same SHA-256 in both jobs and
+    at 64 MiB as the rows daemon's, one put and two waits per card per
+    hop from 2 MiB, job 2 with zero new dials, each card's
+    ``cuda_allocated`` not growing, every window released; a job whose
+    process 1 SIGKILLs itself mid-job, the respawn and repair with
+    ``heal_ms`` of both processes, and a next 64 MiB job bit-equal to the
+    rows daemon's, the reborn process's ranks on its predecessor's
+    cards.  Output: ``chiprun_out/serve_tpud.log``,
+    ``chiprun_out/serve_devices.log``, ``chiprun_out/serve_plain_*.log``.
 16. capi (after serve) — the MPI C ABI: the port's ``libtpumpi`` built
     from ``ompi_tpu_torch/csrc/capi/shim.c`` (gcc, embedding the running
     interpreter), ``native/examples/c_suite.c``, ``devsum.c``,
@@ -359,7 +379,8 @@ exits non-zero:
     rank r on card ``r // 2``, four of the eight hops across NVLink,
     timed on the host clock over every card, and the job's ranks on
     cards 0, 0, 1, 1 | 2, 2, 3, 3 (the device plane's CUDA IPC windows
-    between cards); its rows go to
+    between cards), then the respawn leg of phase 14 (f) once, the reborn
+    process's ranks back on cards 2, 2, 3, 3; its rows go to
     ``chiprun_out/chip_smoke_cross_device.json``.
 
 Every phase's wall time goes into ``chiprun_out/chip_smoke.json``
@@ -376,8 +397,9 @@ bench_np2 phase's workers and C ranks, the tools phase's workers and
 the analysis phase's two children (for ``ring_hop`` and
 ``ring_hop_fold``), and the cross_device phase's ``Comm`` rings, its
 checked collectives and its ``surfaces`` leg's typed allreduce on the
-devices layout and the ``mp_devices`` job's processes (for
-``ring_hop_peer`` and ``ring_hop_wait``); the last
+devices layout, the ``mp_devices`` job's processes, the
+``recovery_devices`` job's calls after recovery and the ``serve_devices``
+daemon's jobs (for ``ring_hop_peer`` and ``ring_hop_wait``); the last
 line is ``{"ok": true, "device": {...}}``.  The sweep's rows also go to
 ``chiprun_out/chip_smoke.json``.  It imports nothing of JAX or of the
 JAX package.
@@ -421,6 +443,8 @@ def launched(ck, before) -> dict:
 #: the rows layout's ring kernels: every phase but cross_device launches
 #: these and no other
 ROWS = ("ring_hop", "ring_hop_fold")
+#: every kernel's launch counter: the rows kernels, then the peer kernels
+KERNEL_NAMES = ROWS + ("ring_hop_peer", "ring_hop_wait")
 
 
 def rows_of(launches: dict) -> dict:
@@ -2922,15 +2946,52 @@ def p50(times) -> float:
     return t[len(t) // 2]
 
 
-def recovery_respawn(smi) -> dict:
+def layout_flags(layout: str) -> list:
+    """The launcher's MCA option for ``layout`` (none for ``rows``)."""
+    return [] if layout == "rows" else ["--mca", "accelerator_cuda_layout", layout]
+
+
+def want_rank_devices(nprocs: int) -> list:
+    """Each process's rank devices on the devices layout (job-wide blocks
+    over every card of the machine)."""
+    import torch
+
+    from ompi_tpu_torch.mesh.mesh import block_devices
+
+    count = torch.cuda.device_count()
+    return [[f"cuda:{c}" for c in block_devices(list(range(count)), MP_RANKS, p, nprocs)]
+            for p in range(nprocs)]
+
+
+def peer_launches_per_call(devices) -> dict:
+    """The shard ring's launches per han allreduce with ``cuda_ring``
+    forced on a process whose ranks lie on ``devices``: one put and two
+    waits per card per hop, 2(K-1) hops; no rows kernel."""
+    hops, cards = 2 * (len(devices) - 1), len(set(devices))
+    return {"ring_hop": 0, "ring_hop_fold": 0, "ring_hop_peer": hops * cards,
+            "ring_hop_wait": 2 * hops * cards}
+
+
+#: calls before and after the failure in the respawn legs (ft_smoke.py's
+#: ``--calls`` default)
+RESPAWN_CALLS = 5
+
+
+def recovery_respawn(smi, layout: str = "rows", rows: dict | None = None) -> dict:
     """(b) ``-np 2 --nranks 4 --ft --respawn``: five 64 MiB f32 SUM calls,
     process 1 SIGKILLs itself inside the sixth, revoke + ``replace()`` on
     the survivor, ``replace()`` on the reborn incarnation, the five calls
     again: bit-equal to the pre-failure results at size 8, ring launches
-    after recovery, no device fallbacks, no shm names left."""
-    by, out, wall_s = ft_job("recovery_respawn", 2, ["--ft", "--respawn",
-                                                     "--mca", "metrics_enable", "1"],
-                             ["--mode", "respawn"])
+    after recovery, no device fallbacks, no shm names left.  With
+    ``layout="devices"`` (leg ``recovery_devices``) the same job runs on
+    the one-rank-per-device layout and must also give the rows leg's
+    (``rows``) digests, every result shard on its rank's card (the reborn
+    process's ranks on its predecessor's cards) and one put and two waits
+    per card per hop in each call after recovery."""
+    log = "recovery_respawn" if layout == "rows" else f"recovery_respawn_{layout}"
+    by, out, wall_s = ft_job(log, 2, ["--ft", "--respawn", "--mca", "metrics_enable", "1",
+                                      *layout_flags(layout)],
+                             ["--mode", "respawn", "--calls", RESPAWN_CALLS])
     pre = {r["proc"]: r for r in by.get("pre", [])}
     post = {r["proc"]: r for r in by.get("post", [])}
     rec = {r["proc"]: r for r in by.get("recovered", [])}
@@ -2951,33 +3012,66 @@ def recovery_respawn(smi) -> dict:
            "sizes": [rec[p]["size"] for p in (0, 1)],
            "respawns": sum(rec[p]["respawns"] for p in (0, 1)),
            "device": [rec[p]["device"] for p in (0, 1)],
-           "bitwise_vs_pre_failure": bitwise, "shm_leftovers": left}
+           "bitwise_vs_pre_failure": bitwise, "shm_leftovers": left, "layout": layout,
+           "digest": want}
+    if layout == "rows":
+        launches_ok = all(min(rows_of(lc).values()) > 0 for lc in row["post_launches"])
+    else:
+        want_devices = want_rank_devices(2)
+        per_call = [peer_launches_per_call(d) for d in want_devices]
+        row.update({
+            "rank_devices": [rec[p]["rank_devices"] for p in (0, 1)],
+            "rank_devices_ok": [rec[p]["rank_devices"] for p in (0, 1)] == want_devices,
+            "placement": {p: [pre[p].get("placement"), post[p]["placement"]] for p in (0, 1)},
+            "placement_ok": all(pl is not None and pl["ok"] for p in (0, 1)
+                                for pl in (pre[p].get("placement"), post[p]["placement"])),
+            "want_launches_per_call": per_call})
+        launches_ok = all(post[p]["launches"] == {k: RESPAWN_CALLS * v
+                                                  for k, v in per_call[p].items()}
+                          for p in (0, 1))
+        if rows is not None:
+            row["bitwise_vs_rows_job"] = want == rows["digest"]
+    row["launches_ok"] = launches_ok
     row["ok"] = (row["respawned"] and bitwise and row["sizes"] == [8, 8]
-                 and row["incarnations"] == [0, 1] and row["respawns"] >= 1
-                 and all(min(rows_of(lc).values()) > 0 for lc in row["post_launches"])
+                 and row["incarnations"] == [0, 1] and row["respawns"] >= 1 and launches_ok
                  and all(d is not None and d["device_sends"] > 0 and d["device_fallbacks"] == 0
                          for d in row["device"])
-                 and all(h is not None for h in row["heal_ms"]) and not left)
+                 and all(h is not None for h in row["heal_ms"]) and not left
+                 and row.get("rank_devices_ok", True) and row.get("placement_ok", True)
+                 and row.get("bitwise_vs_rows_job", True))
     return row
 
 
-def recovery_shrink() -> dict:
+def recovery_shrink(layout: str = "rows") -> dict:
     """(c) ``-np 3 --nranks 4 --ft``: process 2 dies, the two survivors
     ``shrink()`` to 8 ranks and run 1 MiB and 64 MiB SUM calls, bit-equal
-    to a fresh 2 × 4 job on the same inputs."""
-    by, _out, wall_s = ft_job("recovery_shrink", 3, ["--ft"], ["--mode", "shrink"])
-    fby, _fout, fwall_s = ft_job("recovery_fresh", 2, [], ["--mode", "fresh"])
+    to a fresh 2 × 4 job on the same inputs.  With ``layout="devices"``
+    both jobs run on the one-rank-per-device layout, every result shard
+    on its rank's card."""
+    sfx = "" if layout == "rows" else f"_{layout}"
+    flags = layout_flags(layout)
+    by, _out, wall_s = ft_job(f"recovery_shrink{sfx}", 3, ["--ft", *flags], ["--mode", "shrink"])
+    fby, _fout, fwall_s = ft_job(f"recovery_fresh{sfx}", 2, flags, ["--mode", "fresh"])
     shrunk = {r["proc"]: r for r in by.get("calls", [])}
     fresh = {r["proc"]: r for r in fby.get("calls", [])}
     if sorted(shrunk) != [0, 1] or sorted(fresh) != [0, 1]:
-        raise SystemExit(f"recovery_shrink: missing rows: {sorted(by)} {sorted(fby)}")
-    equal = all(shrunk[p]["calls"] == fresh[p]["calls"] for p in (0, 1))
-    row = {"wall_s": wall_s, "fresh_wall_s": fwall_s,
+        raise SystemExit(f"recovery_shrink{sfx}: missing rows: {sorted(by)} {sorted(fby)}")
+
+    def digests(rows):
+        return [[c["bytes"], c["digest"]] for c in rows["calls"]]
+
+    equal = all(digests(shrunk[p]) == digests(fresh[p]) for p in (0, 1))
+    row = {"wall_s": wall_s, "fresh_wall_s": fwall_s, "layout": layout,
            "sizes": [shrunk[p]["size"] for p in (0, 1)],
            "failed": [r["failed"] for r in by.get("shrunk", [])],
            "device": [r["device"] for r in by.get("shrunk", [])],
+           "rank_devices": [shrunk[p]["rank_devices"] for p in (0, 1)],
+           "placement_ok": all(c["placement"]["ok"] for rows in (shrunk, fresh)
+                               for p in (0, 1) for c in rows[p]["calls"]),
+           "digests": digests(shrunk[0]),
            "bytes": [c["bytes"] for c in shrunk[0]["calls"]], "bitwise_vs_fresh": equal}
-    row["ok"] = equal and row["sizes"] == [8, 8] and row["bytes"] == [1 << 20, 64 << 20]
+    row["ok"] = (equal and row["placement_ok"] and row["sizes"] == [8, 8]
+                 and row["bytes"] == [1 << 20, 64 << 20])
     return row
 
 
@@ -3116,28 +3210,40 @@ def phase_recovery(smi, ck) -> dict:
     torch.cuda.empty_cache()
     respawn = recovery_respawn(smi)
     emit({"phase": "recovery_respawn", **respawn})
-    # the pass/fail jobs, in two lanes side by side
+    # leg recovery_devices: the same job on the one-rank-per-device layout
+    devices = recovery_respawn(smi, "devices", respawn)
+    emit({"phase": "recovery_devices", **devices})
+    # the pass/fail jobs, in two lanes side by side (the devices layout's
+    # shrink and fresh jobs after the rows layout's)
     with ThreadPoolExecutor(2) as pool:
-        shrink_f = pool.submit(recovery_shrink)
+        shrink_f = pool.submit(lambda: (recovery_shrink(), recovery_shrink("devices")))
         spawn_f = pool.submit(lambda: (recovery_spawn(), ipc_dead_exporter()))
-        shrink, (spawn, probe) = shrink_f.result(), spawn_f.result()
+        (shrink, dshrink), (spawn, probe) = shrink_f.result(), spawn_f.result()
+    dshrink["bitwise_vs_rows"] = dshrink["digests"] == shrink["digests"]
+    dshrink["ok"] = dshrink["ok"] and dshrink["bitwise_vs_rows"]
     emit({"phase": "recovery_shrink_procs", "nvidia_smi": smi, **shrink})
+    emit({"phase": "recovery_devices_shrink", "nvidia_smi": smi, **dshrink})
     emit({"phase": "recovery_spawn", "nvidia_smi": smi, **spawn})
     emit({"phase": "recovery_ipc_dead_exporter", "nvidia_smi": smi, **probe})
     sys.stdout.write(f"recovery: heal_ms {respawn['heal_ms']} (survivor, reborn); 64 MiB p50 "
                      f"{respawn['pre_p50_ms']} ms before the failure, "
-                     f"{respawn['post_p50_ms']} ms after ({smi})\n")
+                     f"{respawn['post_p50_ms']} ms after; devices layout heal_ms "
+                     f"{devices['heal_ms']}, p50 {devices['pre_p50_ms']} / "
+                     f"{devices['post_p50_ms']} ms ({smi})\n")
     sys.stdout.flush()
-    job_launches = [lc for lc in respawn["post_launches"] + spawn["launches"]]
+    job_launches = [lc for lc in respawn["post_launches"] + devices["post_launches"]
+                    + spawn["launches"]]
     launches = {name: single["launches"][name] + attn["launches_per_call"][name]
                 + sum(lc[name] for lc in job_launches) for name in single["launches"]}
     row = {"phase": "recovery", "nvidia_smi": smi, "wall_s": time.perf_counter() - t0,
            "shrink_single_ok": single["ok"], "ring_attention_ok": attn["ok"],
            "respawn_ok": respawn["ok"], "shrink_procs_ok": shrink["ok"],
-           "spawn_ok": spawn["ok"], "launches": launches}
+           "spawn_ok": spawn["ok"], "devices_respawn_ok": devices["ok"],
+           "devices_shrink_ok": dshrink["ok"], "launches": launches}
     emit(row)
     failed = [k for k in ("shrink_single_ok", "ring_attention_ok", "respawn_ok",
-                          "shrink_procs_ok", "spawn_ok") if not row[k]]
+                          "shrink_procs_ok", "spawn_ok", "devices_respawn_ok",
+                          "devices_shrink_ok") if not row[k]]
     if failed:
         raise SystemExit(f"recovery checks failed: {failed}")
     return row
@@ -3184,15 +3290,18 @@ def span(times) -> dict:
 
 class Tpud:
     """``python -m ompi_tpu_torch tpud -np 2 --nranks 4`` under test (in a
-    session of its own, so that a failure takes every worker with it):
-    its output lines, collected by a thread, go to
+    session of its own, so that a failure takes every worker with it),
+    with the MCA options ``mca`` (a flat list of names and values): its
+    output lines, collected by a thread, go to
     ``chiprun_out/<log_name>.log`` at close."""
 
-    def __init__(self, log_name: str):
+    def __init__(self, log_name: str, mca=()):
         import threading
 
         cmd = [sys.executable, "-m", "ompi_tpu_torch", "tpud", "-np", str(MP_PROCS),
                "--nranks", str(MP_RANKS)]
+        for k, v in zip(mca[::2], mca[1::2]):
+            cmd += ["--mca", k, str(v)]
         self.log = REPO / "chiprun_out" / f"{log_name}.log"
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -3355,6 +3464,155 @@ def size_rows(rows) -> dict:
 
 def launch_rows(rows) -> list:
     return [r for r in rows if r["kind"] == "launches"]
+
+
+def heal_lines(lines) -> dict:
+    """``heal_ms`` per process from the workers' repair and rejoin lines."""
+    heal = {}
+    for line in lines:
+        m = re.match(r"\[(\d+)\] serve: .*heal_ms=([0-9.]+)", line)
+        if m:
+            heal[int(m.group(1))] = float(m.group(2))
+    return heal
+
+
+def await_healed(d: Tpud, timeout: float = 300) -> dict:
+    """Wait until the daemon reports a healthy mesh with process 1 in its
+    incarnation 1, active; returns the status."""
+    from ompi_tpu_torch.serve import client
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st = client.status(d.url)
+        p1 = st["procs"]["1"]
+        if st["healthy"] and p1["incarnation"] == 1 and p1["status"] == "active":
+            return st
+        time.sleep(0.1)
+    raise SystemExit(f"tpud never repaired process 1: {st}")
+
+
+#: per-rank sizes of the devices tpud's sweep jobs (``SERVE_SIZES`` less
+#: its 256 MiB: the leg checks, its rows tpud measures)
+SERVE_DEVICES_SIZES = [8, 2 << 20, 64 << 20]
+
+
+def serve_devices(smi, rows_digests: dict) -> dict:
+    """Leg ``serve_devices``: ``tpud -np 2 --nranks 4`` with the devices
+    layout (each rank's buffer on its own card, han's local leg the shard
+    ring).  Two submissions of the sweep at ``SERVE_DEVICES_SIZES``: each
+    size bit-equal to the plain ring and every result shard on its rank's
+    card, the same SHA-256 in both jobs and at 64 MiB as the rows tpud's
+    (``rows_digests``), one put and two waits per card per hop from 2 MiB,
+    zero new dials in job 2, each card's ``cuda_allocated`` not growing,
+    every window released; then a job whose process 1 SIGKILLs itself
+    mid-job (``SERVE_KILL_RANK``), the daemon's respawn and repair
+    directive with ``heal_ms`` of both processes, and a next 64 MiB job
+    that schedules, bit-equal to the rows tpud's; shutdown with no worker
+    and no ``/dev/shm`` name left."""
+    from ompi_tpu_torch.serve import client
+    from ompi_tpu_torch.serve import state as sstate
+
+    t0 = time.perf_counter()
+    big = 64 << 20
+    want_devices = want_rank_devices(MP_PROCS)
+    d = Tpud("serve_devices", ["accelerator_cuda_layout", "devices"])
+    try:
+        for p in range(MP_PROCS):
+            d.wait_line(lambda l, p=p: l.startswith(f"[{p}] serve: resident worker up"), 300)
+        st = client.status(d.url)
+        pids = [int(st["procs"][str(p)]["pid"]) for p in range(MP_PROCS)]
+        args = ["--sizes", ",".join(str(b) for b in SERVE_DEVICES_SIZES)]
+        jobs = [serve_job(d, args, "ops") for _ in range(2)]
+        per = [size_rows(r) for _rec, r in jobs]
+        j1, j2 = jobs[0][0]["ranks"], jobs[1][0]["ranks"]
+        ranks = sorted(j1)
+        want = {int(p): peer_launches_per_call(want_devices[int(p)]) for p in ranks}
+        row = {
+            "worker_pids": pids,
+            "rank_devices": {p: j1[p]["rank_devices"] for p in ranks},
+            "rank_devices_ok": all(j1[p]["rank_devices"] == want_devices[int(p)] for p in ranks),
+            "p50_ms": [{b: e[b]["p50_ms"] for b in SERVE_DEVICES_SIZES} for e in per],
+            "launches_per_call": {b: per[0][b]["launches_per_call"]
+                                  for b in SERVE_DEVICES_SIZES},
+            "launches_ok": all(lc == want[int(p)] for e in per for b in SERVE_DEVICES_SIZES
+                               if b >= (2 << 20)
+                               for p, lc in e[b]["launches_per_call"].items()),
+            "bitwise_vs_plain": all(e[b]["bitwise_vs_plain"] for e in per
+                                    for b in SERVE_DEVICES_SIZES),
+            "placement_ok": all(r2["placement"]["ok"] for _rec, r in jobs for r2 in r
+                                if r2["kind"] == "size"),
+            "sha256_equal_across_jobs": all(per[0][b]["digests"] == per[1][b]["digests"]
+                                            for b in SERVE_DEVICES_SIZES),
+            "bitwise_vs_rows_tpud": per[0][big]["digests"] == rows_digests,
+            "job2_new_dials": {p: {k: j2[p]["dials_after"][k] - j2[p]["dials_before"][k]
+                                   for k in j2[p]["dials_after"]} for p in ranks},
+            "cards_allocated": [[jobs[k][0]["ranks"][p]["cards"] for p in ranks]
+                                for k in (0, 1)],
+            "cards_listed": all(
+                [c["device"] for c in rec["ranks"][p]["cards"]]
+                == list(dict.fromkeys(want_devices[int(p)])) for rec, _r in jobs for p in ranks),
+            "memory_flat": all(
+                b["cuda_allocated"] <= a["cuda_allocated"]
+                for p in ranks for a, b in zip(j1[p]["cards"], j2[p]["cards"])),
+            "windows_released": all(rec["ranks"][p].get("windows_left") == 0
+                                    for rec, _r in jobs for p in ranks)}
+        # a job whose process 1 SIGKILLs itself mid-job, then the repair
+        n0 = len(d.lines)
+        flag = REPO / "chiprun_out" / "serve_devices.kill_flag"
+        flag.unlink(missing_ok=True)
+        jk = client.submit(d.url, str(SERVE_JOB), tenant="ops",
+                           env={"SERVE_KILL_RANK": "1", "SERVE_KILL_FLAG": str(flag)})
+        rk = client.wait(d.url, jk["id"], timeout=300)
+        st = await_healed(d)
+        flag.unlink(missing_ok=True)
+        reborn = int(st["procs"]["1"]["pid"])
+        heal = heal_lines(d.lines[n0:])
+        rec3, r3 = serve_job(d, ["--sizes", str(big)], "ops")
+        after = size_rows(r3)[big]
+        row.update({
+            "killed_job_state": rk["state"],
+            "respawned": any("rank 1 died" in l and "respawning (incarnation 1)" in l
+                             for l in d.lines[n0:]),
+            "repair_complete": any("repair complete" in l for l in d.lines[n0:]),
+            "heal_ms": heal, "reborn_pid": reborn,
+            "reborn_rank_devices": rec3["ranks"]["1"]["rank_devices"],
+            "after_p50_ms": after["p50_ms"],
+            "after_launches_per_call": after["launches_per_call"],
+            "after_bitwise_vs_rows_tpud": after["digests"] == rows_digests,
+            "after_bitwise_vs_plain": after["bitwise_vs_plain"],
+            "after_placement_ok": all(r2["placement"]["ok"] for r2 in r3
+                                      if r2["kind"] == "size"),
+            "device_fallbacks": {f"{rec['id']}.{r2['proc']}":
+                                 (r2["device"] or {}).get("device_fallbacks")
+                                 for rec, rr in jobs + [(rec3, r3)]
+                                 for r2 in launch_rows(rr)}})
+        client.drain(d.url)
+        client.shutdown(d.url)
+        rc = d.proc.wait(timeout=120)
+        time.sleep(0.5)
+        all_pids = pids + [reborn]
+        row.update({"shutdown_rc": rc,
+                    "alive": [p for p in all_pids if sstate.pid_alive(p)],
+                    "shm_leftovers": shm_leftovers(all_pids + [d.proc.pid])})
+        launches = [r2 for _rec, r in jobs + [(rec3, r3)] for r2 in launch_rows(r)]
+    finally:
+        d.close()
+    row["launches"] = {k: sum(r2[k] for r2 in launches) for k in KERNEL_NAMES}
+    row["wall_s"] = time.perf_counter() - t0
+    row["ok"] = (row["rank_devices_ok"] and row["launches_ok"] and row["bitwise_vs_plain"]
+                 and row["placement_ok"] and row["sha256_equal_across_jobs"]
+                 and row["bitwise_vs_rows_tpud"] and row["cards_listed"]
+                 and row["memory_flat"] and row["windows_released"]
+                 and all(v == 0 for p in row["job2_new_dials"].values() for v in p.values())
+                 and row["killed_job_state"] == "failed" and row["respawned"]
+                 and row["repair_complete"] and sorted(row["heal_ms"]) == [0, 1]
+                 and row["reborn_rank_devices"] == want_devices[1]
+                 and row["after_bitwise_vs_rows_tpud"] and row["after_bitwise_vs_plain"]
+                 and row["after_placement_ok"]
+                 and row["after_launches_per_call"] == want
+                 and all(v == 0 for v in row["device_fallbacks"].values())
+                 and rc == 0 and not row["alive"] and not row["shm_leftovers"])
+    return row
 
 
 def scrape_loop(url: str, stop, got: list) -> None:
@@ -3565,22 +3823,10 @@ def phase_serve(smi) -> dict:
         n0 = len(d.lines)
         t_kill = time.perf_counter()
         os.kill(pids[1], signal.SIGKILL)
-        deadline = time.monotonic() + 300
-        while time.monotonic() < deadline:
-            st = client.status(d.url)
-            p1 = st["procs"]["1"]
-            if st["healthy"] and p1["incarnation"] == 1 and p1["status"] == "active":
-                break
-            time.sleep(0.1)
-        else:
-            raise SystemExit(f"tpud never repaired process 1: {st}")
+        st = await_healed(d)
         healed_s = time.perf_counter() - t_kill
         reborn = int(st["procs"]["1"]["pid"])
-        heal = {}
-        for line in d.lines[n0:]:
-            m = re.match(r"\[(\d+)\] serve: .*heal_ms=([0-9.]+)", line)
-            if m:
-                heal[int(m.group(1))] = float(m.group(2))
+        heal = heal_lines(d.lines[n0:])
         rec3, r3 = serve_job(d, ["--sizes", str(big)], "ops")
         after = size_rows(r3)[big]
         rows["repair"] = {
@@ -3613,6 +3859,9 @@ def phase_serve(smi) -> dict:
                     for r2 in launch_rows(r)]
     finally:
         d.close()
+    # leg serve_devices: a tpud on the devices layout, held to this one's
+    # 64 MiB digests
+    rows["devices"] = serve_devices(smi, per[0][big]["digests"])
     # the plain jobs: the live plane on, the daemon's worker settings,
     # off (each leg is a cold boot of ~20 s)
     legs = {name: plain_leg(name) for name in ("telemetry", "tpud_mca", "off")}
@@ -3627,7 +3876,8 @@ def phase_serve(smi) -> dict:
                  and rtl["mid_job"]["running"] and rtl["mid_job"]["device_counters"]
                  and "instances" in rtl["mid_job"]["critical"])
     launches += [r2 for leg in legs.values() for r2 in leg["launches"]]
-    total = {k: sum(r2[k] for r2 in launches) for k in ("ring_hop", "ring_hop_fold")}
+    total = {k: sum(r2[k] for r2 in launches) + rows["devices"]["launches"][k]
+             for k in KERNEL_NAMES}
     print(f"serve: cold {rows['warm_cold']['cold']['median_ms']:.1f} ms, warm "
           f"{rows['warm_cold']['warm']['median_ms']:.1f} ms submit->first collective; "
           f"heal_ms {rows['repair']['heal_ms']}; telemetry on/off p50 "
@@ -4757,9 +5007,10 @@ def main() -> int:
     ap.add_argument("--lockdep-worker", action="store_true",
                     help="one process of the analysis phase's lockdep job (internal)")
     ap.add_argument("--cross-device-only", action="store_true",
-                    help="run only the environment and cross_device phases and the "
-                    "devices layout's 2 x 4 job: the devices layout on every card of the "
-                    "machine (a cell of several cards, where hops cross NVLink)")
+                    help="run only the environment and cross_device phases, the "
+                    "devices layout's 2 x 4 job and its respawn leg: the devices layout on "
+                    "every card of the machine (a cell of several cards, where hops cross "
+                    "NVLink)")
     args = ap.parse_args()
     if not (REPO / "ompi_tpu_torch" / "csrc" / "ring_hop.cu").is_file():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -4800,12 +5051,19 @@ def main() -> int:
         # the multi-process job on the devices layout: ranks on cards
         # 0, 0, 1, 1 | 2, 2, 3, 3 of four, the device plane's IPC across cards
         mp = phase("mp_devices", mp_devices_leg, smi)
+        # the respawn leg on the devices layout once: the reborn process's
+        # ranks back on its predecessor's cards (2, 2, 3, 3 of four)
+        respawn = phase("recovery_devices", recovery_respawn, smi, "devices")
+        emit({"phase": "recovery_devices", **respawn})
+        if not respawn["ok"]:
+            raise SystemExit(f"recovery_devices checks failed: {respawn}")
         kernels = cross.pop("kernel_rows")
         for r in kernels:
-            r["launches"] += mp["launches"][r["name"]]
+            r["launches"] += mp["launches"][r["name"]] + sum(
+                lc[r["name"]] for lc in respawn["post_launches"])
         (outdir / "chip_smoke_cross_device.json").write_text(json.dumps(
             {"nvidia_smi": smi, "cross_device": cross, "mp_devices": mp,
-             "phase_wall_s": walls}, indent=1))
+             "recovery_devices": respawn, "phase_wall_s": walls}, indent=1))
         print(smi, flush=True)
         emit({"phase_wall_s": walls})
         emit({"kernels": kernels})
@@ -4847,6 +5105,7 @@ def main() -> int:
                                             analysis)) for k in ROWS}
     # the peer kernels: cross_device's, then the devices leg of phase native
     launches.update({k: cross["launches"][k] + native["mp_devices"]["launches"][k]
+                     + recovery["launches"][k] + serve["launches"][k]
                      for k in ck.PEER_KERNELS})
     peer_rows = cross.pop("kernel_rows")
     for r in peer_rows:

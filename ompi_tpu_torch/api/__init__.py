@@ -20,8 +20,9 @@ A launched worker runs on CUDA unless the launcher's ``--cpu`` switch
 set ``OMPI_TPU_DEVICE=cpu``.  With ``--mca accelerator_cuda_layout
 devices`` each of its ranks owns a buffer on its card (job-wide blocks,
 :func:`~ompi_tpu_torch.mesh.mesh.block_devices`) and han takes and
-returns ``RankShards``; a respawned process on that layout raises
-:class:`~ompi_tpu_torch.coll.cuda.DevicesLayoutUnsupported`.  With ``--mca telemetry_enable 1`` and a
+returns ``RankShards``; a respawned process's ranks go to the cards its
+predecessor held (the same rule, from the same environment).  With
+``--mca telemetry_enable 1`` and a
 launcher that hosts the aggregator, ``init()`` starts this process's
 live telemetry publisher and ``finalize()`` stops it.
 
@@ -106,17 +107,13 @@ def init(mca_params: dict[str, str] | None = None, device=None,
 
     waitgraph.sync_from_store(ctx.store)
     faultsim.sync_from_store(ctx.store)
-    from ompi_tpu_torch.boot.proc import ENV_DEVICE, ENV_INCARNATION, launched_by_tpurun
+    from ompi_tpu_torch.boot.proc import ENV_DEVICE, launched_by_tpurun
     from ompi_tpu_torch.mesh.mesh import world_mesh
 
     if device is None and launched_by_tpurun():
         device = os.environ.get(ENV_DEVICE) or None
     wm = world_mesh(device, nranks)
     if launched_by_tpurun():
-        if wm.layout == "devices" and os.environ.get(ENV_INCARNATION, "0") != "0":
-            from ompi_tpu_torch.coll.cuda import unsupported_on_devices
-
-            unsupported_on_devices("ULFM recovery (a respawned process)")
         from ompi_tpu_torch.boot.proc import ProcContext
 
         from .multiproc import MultiProcComm

@@ -17,9 +17,8 @@ gather returns root's one tensor).  Everything runs there: every
 collective in its blocking, i and init forms; point-to-point, whose
 tensor payloads land on the receiver's device; windows, whose region r
 lies on rank r's device; the typed (``*_ddt``) entry points, whose
-tensor buffers are packed on each rank's own device; and checkpoints.
-Only a job of several processes raises
-:class:`~ompi_tpu_torch.coll.cuda.DevicesLayoutUnsupported`.
+tensor buffers are packed on each rank's own device; checkpoints; and
+a ULFM shrink, whose survivors keep their devices.
 
 Dispatch: an entry point checks its arguments once per call signature,
 then asks the winning module's ``resolve()`` for the callable of that
@@ -264,9 +263,10 @@ class Comm(PersistentP2PMixin):
 
     def _shrink_to(self, live: Sequence[int], name: str = "") -> "Comm":
         """ULFM shrink substrate: a fresh communicator over the live rank
-        subset, renumbered contiguously, its mesh the live ranks' rows.
+        subset, renumbered contiguously, its mesh the live ranks' submesh.
         Unlike create_group this works on revoked comms — shrink is the
-        recovery path — so no FT guard here."""
+        recovery path — so no FT guard here.  On the devices layout
+        every survivor keeps its device."""
         self._check()
         sub = self.mesh.submesh(list(live))
         world_ranks = [self.group.ranks[r] for r in live]

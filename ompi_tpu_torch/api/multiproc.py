@@ -28,8 +28,13 @@ the local mesh gives each local rank a buffer on its own card, so
 :class:`~ompi_tpu_torch.mesh.shards.RankShards`, a window's base r lies
 on local rank r's card, a message to a rank of this process is copied
 onto its card and a posted receive buffer must lie on the receiving
-rank's card.  ULFM recovery (``shrink``, ``replace``, ``replace_partial``)
-raises :class:`~ompi_tpu_torch.coll.cuda.DevicesLayoutUnsupported` there.
+rank's card.  ULFM recovery runs there too: ``shrink``, ``replace`` and
+``replace_partial`` build the result's local mesh with
+:meth:`~ompi_tpu_torch.mesh.mesh.CommMesh.submesh` (``_make_sub``), so a
+survivor's ranks keep their cards and han's local leg is rebuilt over
+``RankShards``; a reborn process's ranks land on the cards its
+predecessor held (:func:`~ompi_tpu_torch.mesh.mesh.block_devices`, from
+the launcher's environment).
 
 Windows across processes (``win_*``) are :class:`~ompi_tpu_torch.osc.
 dcn.MultiProcWin`.  ULFM over the DCN: ``revoke``/``agree``, and the two
@@ -257,13 +262,6 @@ class MultiProcComm(PersistentP2PMixin):
         """The local mesh's first device (local rank 0's; every rank's
         on the rows layout)."""
         return self.local_mesh.device
-
-    def _rows_only(self, what: str) -> None:
-        """ULFM recovery does not run on the devices layout yet."""
-        if self.local_mesh.layout == "devices":
-            from ompi_tpu_torch.coll.cuda import unsupported_on_devices
-
-            unsupported_on_devices(f"ULFM recovery ({what})")
 
     # -- coll table ------------------------------------------------------
 
@@ -787,7 +785,6 @@ class MultiProcComm(PersistentP2PMixin):
         survivor must already know the same failed set — heartbeat
         gossip converges within one period, so call shrink after
         ``get_failed`` reflects the failure on every survivor."""
-        self._rows_only("shrink")
         live = self._live_procs()
         eng = self.dcn.sub(live) if len(live) < self.nprocs else self.dcn
         k = self._next_shrink()
@@ -836,7 +833,6 @@ class MultiProcComm(PersistentP2PMixin):
         comm, or any derived comm) repairs through the PARTIAL leg
         (:meth:`_replace_partial`): only the member procs participate,
         on comm-scoped beacon/agreement streams."""
-        self._rows_only("replace")
         ctx = self.procctx
         timeout = self._respawn_timeout()
         world_shaped = (
@@ -1009,7 +1005,6 @@ class MultiProcComm(PersistentP2PMixin):
             raise MPICommError(
                 "replace_partial: not a reborn incarnation (survivors "
                 "repair a partial communicator with replace() on it)")
-        self._rows_only("replace_partial")
         timeout = self._respawn_timeout()
         inc = ctx.incarnation
         info, beacon_key = self._next_partial_recipe(cid, timeout)

@@ -44,7 +44,6 @@ from typing import Callable
 
 import torch
 
-from ompi_tpu_torch.core.errors import MPIInternalError
 from ompi_tpu_torch.core.registry import Component, register_component
 from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op.op import Op, fused_reduce
@@ -83,21 +82,6 @@ BARRIER_ALGOS = {"auto": 0, "allreduce": 1, "dissemination": 2}
 def _named(coll: str, enum: dict[str, int], algo: int) -> str:
     """``<coll>_<algorithm name>``, the name of a compile event."""
     return coll + "_" + next(k for k, v in enum.items() if v == algo)
-
-
-class DevicesLayoutUnsupported(MPIInternalError):
-    """A call that does not run on the ``devices`` layout yet: tpud
-    serving (a resident worker's job re-arm) and ULFM recovery
-    (``replace``, ``replace_partial``, ``shrink``, a respawned process).
-    Every single-process call, and every other call of a job of several
-    processes, does."""
-
-
-def unsupported_on_devices(what: str):
-    raise DevicesLayoutUnsupported(
-        f"{what} does not run on the devices layout yet: tpud serving and ULFM "
-        "recovery do not; every other call, in one process or in a job of "
-        "several, does")
 
 
 class CudaCollModule(CollModule):

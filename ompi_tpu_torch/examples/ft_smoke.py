@@ -18,6 +18,16 @@ JSON lines prefixed ``FTJSON``.  Rank r's f32 row is drawn from its own
 seed, so every process can make any rank's data and every result is the
 same float32 sum on every rank: a SHA-256 of the result names its bits.
 
+On the one-rank-per-device layout (``--mca "accelerator_cuda_layout"
+devices``) the same rows are made on local rank 0's card and each is
+copied onto its rank's card (``RankShards`` in and out, as
+``multiproc_smoke.py --only devices`` does, with the helpers of
+``layout.py`` beside this file); every card of the local
+mesh is synchronized around a call, the digest is that of the gathered
+bytes (so a devices run and a rows run of the same inputs compare), and
+each result row reports ``placement``: the devices its shards lie on and
+whether each is its rank's.
+
 * ``respawn`` — ``--calls`` (5) SUM allreduces of ``--bytes`` per rank
   (``pre``: digests and host-clock times); process 1 then SIGKILLs
   itself inside the next call (a timer fires 2 ms into it; both
@@ -49,7 +59,6 @@ exporter died; ``chip_smoke.py`` drives them over pipes.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import signal
@@ -57,24 +66,15 @@ import sys
 import threading
 import time
 
-import numpy as np
 import torch
+
+from ompi_tpu_torch.examples.layout import digest, on_ranks, placement, sync
 
 SEED = 29
 
 
 def emit(kind: str, **obj) -> None:
     print("FTJSON " + json.dumps({"kind": kind, **obj}), flush=True)
-
-
-def digest(t) -> str:
-    a = t.detach().contiguous().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
-
-
-def sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
 
 
 def rank_rows(ranks, count: int, dev: torch.device, salt: int = 0) -> torch.Tensor:
@@ -93,19 +93,22 @@ def counters(w) -> dict:
     return {"respawns": int(snap.get("respawns", 0)), "device": dev}
 
 
-def timed_calls(comm, x, calls: int) -> tuple[list, list]:
+def timed_calls(comm, x, calls: int) -> tuple[list, list, dict]:
+    """``calls`` SUM allreduces: their digests, host-clock times and the
+    first result's placement."""
     from ompi_tpu_torch.op import SUM
 
-    digests, times = [], []
+    digests, times, where = [], [], None
     for _ in range(calls):
-        sync(x.device)
+        sync(comm)
         t0 = time.perf_counter()
         out = comm.allreduce(x, SUM)
-        sync(x.device)
+        sync(comm)
         times.append((time.perf_counter() - t0) * 1e3)
         digests.append(digest(out))
+        where = where or placement(comm, out)
         del out
-    return digests, times
+    return digests, times, where
 
 
 def run_respawn(w, ck, nbytes: int, calls: int) -> None:
@@ -114,13 +117,14 @@ def run_respawn(w, ck, nbytes: int, calls: int) -> None:
     from ompi_tpu_torch.op import SUM
 
     p, inc, k, dev = w.proc, w.procctx.incarnation, w.local_size, w.device
-    x = rank_rows(range(w.local_offset, w.local_offset + k), nbytes // 4, dev)
+    x = on_ranks(w, rank_rows(range(w.local_offset, w.local_offset + k), nbytes // 4, dev))
     comm = w
     if w.respawned:
         comm = w.replace()
     else:
-        digests, times = timed_calls(w, x, calls)
-        emit("pre", proc=p, pid=os.getpid(), digests=digests, times_ms=times)
+        digests, times, where = timed_calls(w, x, calls)
+        emit("pre", proc=p, pid=os.getpid(), digests=digests, times_ms=times,
+             placement=where)
         extra = 0
         try:
             if p == 1 and inc == 0:
@@ -129,7 +133,7 @@ def run_respawn(w, ck, nbytes: int, calls: int) -> None:
                 threading.Timer(0.002, os.kill, (os.getpid(), signal.SIGKILL)).start()
             while extra < 1000:
                 w.allreduce(x, SUM)
-                sync(dev)
+                sync(w)
                 extra += 1
             raise SystemExit("no failure seen in 1000 calls after the kill")
         except (MPIProcFailedError, MPIRevokedError) as e:
@@ -139,10 +143,12 @@ def run_respawn(w, ck, nbytes: int, calls: int) -> None:
     heal = [r["detail"]["heal_ms"] for r in flight.records()
             if r.get("reason") == "replace" and "heal_ms" in r.get("detail", {})]
     ck.reset_launches()
-    digests, times = timed_calls(comm, x, calls)
-    emit("post", proc=p, digests=digests, times_ms=times, launches=dict(ck.LAUNCHES))
+    digests, times, where = timed_calls(comm, x, calls)
+    emit("post", proc=p, digests=digests, times_ms=times, launches=dict(ck.LAUNCHES),
+         placement=where)
     emit("recovered", proc=p, pid=os.getpid(), incarnation=inc, size=comm.size, name=comm.name,
-         heal_ms=heal[-1] if heal else None, **counters(w))
+         heal_ms=heal[-1] if heal else None, layout=comm.local_mesh.layout,
+         rank_devices=[str(d) for d in comm.local_mesh.devices], **counters(w))
 
 
 def shrink_calls(comm, nbytes: int) -> None:
@@ -151,11 +157,13 @@ def shrink_calls(comm, nbytes: int) -> None:
     dev = comm.device
     rows = []
     for b in sorted({1 << 20, nbytes}):
-        x = rank_rows(range(comm.local_offset, comm.local_offset + comm.local_size),
-                      b // 4, dev, salt=1)
-        rows.append({"bytes": b, "digest": timed_calls(comm, x, 1)[0][0]})
+        x = on_ranks(comm, rank_rows(range(comm.local_offset,
+                                           comm.local_offset + comm.local_size),
+                                     b // 4, dev, salt=1))
+        digests, _times, where = timed_calls(comm, x, 1)
+        rows.append({"bytes": b, "digest": digests[0], "placement": where})
     emit("calls", proc=comm.proc, size=comm.size, nprocs=comm.nprocs, name=comm.name,
-         calls=rows)
+         rank_devices=[str(d) for d in comm.local_mesh.devices], calls=rows)
 
 
 def run_shrink(w, nbytes: int) -> None:
@@ -184,8 +192,8 @@ def merged_allreduce(m, ck) -> None:
     from ompi_tpu_torch.core import mca
 
     store = mca.default_context().store
-    x = rank_rows(range(m.local_offset, m.local_offset + m.local_size), (1 << 20) // 4,
-                  m.device, salt=2)
+    x = on_ranks(m, rank_rows(range(m.local_offset, m.local_offset + m.local_size),
+                              (1 << 20) // 4, m.device, salt=2))
     ck.reset_launches()
     ring = timed_calls(m, x, 1)[0][0]
     launches = dict(ck.LAUNCHES)

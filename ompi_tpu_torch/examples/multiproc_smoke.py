@@ -90,6 +90,7 @@ import time
 import numpy as np
 import torch
 
+from ompi_tpu_torch.examples.layout import on_ranks
 from ompi_tpu_torch.mesh.shards import RankShards
 
 SEED = 11
@@ -124,15 +125,6 @@ def sync(dev: torch.device) -> None:
 #: section → the devices its result lay on (local rank order), and
 #: whether each lay on its rank's device
 PLACEMENT: dict[str, dict] = {}
-
-
-def on_ranks(w, x: torch.Tensor):
-    """A rank-major tensor on ``w.device`` as ``w`` takes it: itself on
-    the rows layout, on the devices layout ``RankShards`` with row l
-    copied onto local rank l's device."""
-    if w.local_mesh.layout != "devices":
-        return x
-    return RankShards([x[i].to(d, copy=True) for i, d in enumerate(w.local_mesh.devices)])
 
 
 def place(w, name: str, out, ranks=None) -> bool:

@@ -33,12 +33,20 @@ it is bit-equal to the plain ring, and a last ``SJSON`` line with the
 job's launches and its DCN device plane's counters.  ``--repeat-sleep
 S`` sleeps S seconds before each timed call (untimed: tenant overlap, a
 scrape window).
+
+On the one-rank-per-device layout (a daemon started with ``--mca
+"accelerator_cuda_layout" devices``) the sweep makes the same rows on
+local rank 0's card and copies each onto its rank's card (``RankShards``
+in and out), synchronizes every card of the job world's local mesh
+around a call, and digests the gathered bytes, so a devices job and a
+rows job of the same inputs compare; each size's line adds
+``placement``, the devices its result's shards lie on and whether each
+is its rank's.
 """
 
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import os
 import signal
@@ -52,6 +60,8 @@ import ompi_tpu_torch.api as api
 from ompi_tpu_torch import serve
 from ompi_tpu_torch.coll import cuda_kernels as ck
 from ompi_tpu_torch.core import mca
+from ompi_tpu_torch.examples.layout import digest, on_ranks, placement, sync
+from ompi_tpu_torch.mesh.shards import RankShards
 from ompi_tpu_torch.op import SUM
 
 SEED = 11
@@ -61,13 +71,11 @@ def emit(kind: str, **obj) -> None:
     print("SJSON " + json.dumps({"kind": kind, **obj}), flush=True)
 
 
-def digest(t: torch.Tensor) -> str:
-    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
-
-
-def sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def same_bits(a, b) -> bool:
+    if isinstance(a, RankShards):
+        return all(torch.equal(s.view(torch.int32), t.view(torch.int32))
+                   for s, t in zip(a.shards, b.shards))
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
 
 
 def rank_rows(ranks, count: int, dev: torch.device) -> torch.Tensor:
@@ -85,26 +93,26 @@ def sweep(world, job_id: str, sizes: list[int], calls: int, pause: float) -> Non
     dev, k, lo = world.device, world.local_size, world.local_offset
     try:
         for nbytes in sizes:
-            x = rank_rows(range(lo, lo + k), max(1, nbytes // 4), dev)
+            x = on_ranks(world, rank_rows(range(lo, lo + k), max(1, nbytes // 4), dev))
             store.set("coll_cuda_allreduce_algorithm", 7)
             times, launches, got = [], [], None
             for _ in range(calls):
                 if pause:
                     time.sleep(pause)
                 before = dict(ck.LAUNCHES)
-                sync(dev)
+                sync(world)
                 t0 = time.perf_counter()
                 got = world.allreduce(x, SUM)
-                sync(dev)
+                sync(world)
                 times.append((time.perf_counter() - t0) * 1e3)
                 launches.append({n: ck.LAUNCHES[n] - before[n] for n in ck.LAUNCHES})
             store.set("coll_cuda_allreduce_algorithm", 2)
             plain = world.allreduce(x, SUM)
-            sync(dev)
-            same = bool(torch.equal(got.view(torch.int32), plain.view(torch.int32)))
+            sync(world)
             emit("size", job=job_id, proc=world.proc, bytes=nbytes, times_ms=times,
                  p50_ms=float(np.median(times)), launches_per_call=launches[-1],
-                 digest=digest(got), bitwise_vs_plain=same)
+                 digest=digest(got), bitwise_vs_plain=same_bits(got, plain),
+                 placement=placement(world, got))
             del x, got, plain
     finally:
         store.set("coll_cuda_allreduce_algorithm", 0)

@@ -250,8 +250,8 @@ class CudaAcceleratorComponent(Component):
             "accelerator", "cuda", "layout", "rows",
             help="COMM_WORLD's layout: 'rows' (every rank a row of one "
             "tensor on one device) or 'devices' (one buffer per rank, global "
-            "rank g on card g*count//n; jobs of several processes run there "
-            "too, except tpud serving and ULFM recovery)",
+            "rank g on card g*count//n; jobs of several processes, tpud "
+            "serving and ULFM recovery run there too)",
         )
         store.register(
             "accelerator", "cuda", "device_order", "default",

@@ -12,7 +12,10 @@ HTTP endpoint (printed at start):
 
 The workers run on CUDA and raise without a card; ``--cpu`` runs them on
 the CPU (the counterpart of the reference's ``--cpu-devices``, whose
-device count is ``--nranks`` here).  Equivalent to ``python -m
+device count is ``--nranks`` here).  ``--mca accelerator_cuda_layout
+devices`` gives every rank of every worker a buffer on its own card, as
+under ``run``; the daemon hands its ``--mca`` options to every worker it
+spawns or respawns.  Equivalent to ``python -m
 ompi_tpu_torch run --daemon``; knobs are the ``serve_*`` MCA vars
 (``SERVING_VARS`` in ``core/var.py``).  ``--mca serve_pidfile <path>``
 arms the crash-safe control plane: stale-lock takeover, a journaled job

@@ -10,7 +10,11 @@ finalizing — the **job re-arm** that replaces finalize-teardown.
 The worker's ranks run on CUDA and the boot raises without a card;
 they run on the CPU only when the daemon was started with ``--cpu``
 (it hands ``OMPI_TPU_DEVICE=cpu`` to its workers).  The rank count is
-the daemon's ``--nranks`` (``accelerator_cuda_nranks``).
+the daemon's ``--nranks`` (``accelerator_cuda_nranks``).  With the
+daemon's ``--mca accelerator_cuda_layout devices`` every rank owns a
+buffer on its own card (job-wide blocks, as under ``run``): a job world
+keeps each rank's card, and the worker synchronizes, reports and
+releases every card of its local mesh.
 
 Per job directive:
 
@@ -24,13 +28,15 @@ Per job directive:
   world scope (``api.push_world``): the script's ``api.init()`` returns
   the job world; its ``api.finalize()`` pops the scope and leaves the
   mesh warm;
-* when the script returns, the job world's device is synchronized (the
+* when the script returns, the job world's cards are synchronized (the
   record's end time covers kernels still in flight), the job comm is
   freed and the device plane's windows of the job are released, so no
   job pins device memory into the next one;
 * a completion record (timings, transport dial counters — the
-  warm-reuse proof — the device, the ring-kernel launches and, on the
-  card, ``torch.cuda.memory_allocated``) is published for the daemon.
+  warm-reuse proof — the first device and every local rank's, the
+  kernel launches and, on the card, ``torch.cuda.memory_allocated`` of
+  the first card and of each card, ``cards``) is published for the
+  daemon.
 
 ``repair`` directives fire the elastic plane on demand: survivors run
 ``replace()`` to restore a respawned rank; a reborn worker rejoins
@@ -405,15 +411,29 @@ def _revoke_quietly(job) -> None:
         pass
 
 
+def _cards(comm) -> list:
+    """The CUDA cards of ``comm``'s local mesh, each once, in local rank
+    order: the process's one card on the rows layout, every card its
+    ranks own on the devices layout (none on the CPU)."""
+    mesh = getattr(comm, "local_mesh", None)
+    devs = mesh.devices if mesh is not None else (getattr(comm, "device", None),)
+    cards: list = []
+    for d in devs:
+        if d is not None and d.type == "cuda" and d not in cards:
+            cards.append(d)
+    return cards
+
+
 def _sync_device(comm) -> None:
-    """Wait for the kernels a job queued on its world's card: a
+    """Wait for the kernels a job queued on its world's cards: a
     collective's launches may still be in flight when the script
     returns, and the completion record's end time must cover them."""
-    dev = getattr(comm, "device", None)
-    if dev is not None and dev.type == "cuda":
+    cards = _cards(comm)
+    if cards:
         import torch
 
-        torch.cuda.synchronize(dev)
+        for dev in cards:
+            torch.cuda.synchronize(dev)
 
 
 def _release_job_windows(world, timeout: float = 2.0) -> int:
@@ -421,8 +441,11 @@ def _release_job_windows(world, timeout: float = 2.0) -> int:
     receiver of the job has consumed its payload by now (the job's
     collectives completed), so each window's consumed signal is set or
     lands within the bound; the next job starts with no window — no
-    CUDA allocation or shm header — of this one.  Returns the windows
-    still pending after the bound (0 on a clean job)."""
+    CUDA allocation or shm header — of this one.  The plane holds every
+    card's windows (each is freed on the card it was allocated on), so
+    on the devices layout this retires them on every card of the local
+    mesh.  Returns the windows still pending after the bound (0 on a
+    clean job)."""
     try:
         plane = getattr(world.dcn._root_engine(), "_device_plane", None)
     except Exception:  # noqa: BLE001 — no engine, no windows
@@ -438,19 +461,24 @@ def _release_job_windows(world, timeout: float = 2.0) -> int:
 
 
 def _device_memory(world) -> dict:
-    """The caching allocator's view after a job on the card: allocated
-    bytes must not grow job over job (the reserved pool may stay —
-    that is the warm part)."""
-    dev = getattr(world, "device", None)
-    if dev is None or dev.type != "cuda":
+    """The caching allocator's view after a job, on every card of the
+    local mesh: allocated bytes must not grow job over job on any card
+    (the reserved pool may stay — that is the warm part).
+    ``cuda_allocated``/``cuda_reserved`` are the first card's (local
+    rank 0's), ``cards`` one entry per card."""
+    cards = _cards(world)
+    if not cards:
         return {}
     import gc
 
     import torch
 
     gc.collect()  # the script's globals may hold tensors in cycles
-    return {"cuda_allocated": int(torch.cuda.memory_allocated(dev)),
-            "cuda_reserved": int(torch.cuda.memory_reserved(dev))}
+    per = [{"device": str(d),
+            "cuda_allocated": int(torch.cuda.memory_allocated(d)),
+            "cuda_reserved": int(torch.cuda.memory_reserved(d))} for d in cards]
+    return {"cuda_allocated": per[0]["cuda_allocated"],
+            "cuda_reserved": per[0]["cuda_reserved"], "cards": per}
 
 
 def _run_job(api, world, link: DaemonLink, jd: dict, idx: int,
@@ -500,6 +528,13 @@ def _run_job(api, world, link: DaemonLink, jd: dict, idx: int,
                 job.free()
             except Exception:  # noqa: BLE001 — poisoned job comm
                 pass
+        # drop the job comm before the memory is read: its local mesh
+        # holds per-card state of the job (on the devices layout the
+        # shard ring's landing zones on every card), which must not be
+        # counted as memory the next job inherits
+        job = None
+        if inflight is not None:
+            inflight["comm"] = None
     rec["t_end_ns"] = time.time_ns()
     after = mcore.native_counters()
     rec["dials_after"] = {k: int(after.get(k, 0)) for k in _DIAL_KEYS}
@@ -508,9 +543,13 @@ def _run_job(api, world, link: DaemonLink, jd: dict, idx: int,
     rec.update(_device_memory(world))
     from ompi_tpu_torch.coll import cuda_kernels as _ck
 
-    # the worker's device and its ring-kernel launches so far (none
-    # with one rank per process)
+    # the worker's first device, every local rank's, and its kernel
+    # launches so far: none with one rank per process; the rows ring's
+    # with several on the rows layout, the shard ring's (ring_hop_peer,
+    # ring_hop_wait) on the devices layout
     rec["device"] = str(getattr(world, "device", ""))
+    mesh = getattr(world, "local_mesh", None)
+    rec["rank_devices"] = [str(d) for d in mesh.devices] if mesh is not None else []
     rec["launches"] = dict(_ck.LAUNCHES)
     link.report(idx, rec)
 
@@ -628,10 +667,6 @@ def main() -> int:
     # CUDA unless the daemon was asked for the CPU (``--cpu``); the
     # boot raises where there is no card — never a quiet CPU fallback
     world = api.init(device=os.environ.get(ENV_DEVICE) or "cuda")
-    if world.local_mesh.layout == "devices":
-        from ompi_tpu_torch.coll.cuda import unsupported_on_devices
-
-        unsupported_on_devices("tpud serving (the resident worker's job re-arm)")
     ctx = world.procctx
     # warm compiled-schedule cache: the
     # process-wide plan store (ompi_tpu_torch/coll/sched.CACHE) lives exactly

@@ -45,7 +45,6 @@ from ompi_tpu_torch.coll.cuda import (
     ALLGATHER_ALGOS,
     ALLREDUCE_ALGOS,
     REDUCE_SCATTER_ALGOS,
-    DevicesLayoutUnsupported,
 )
 from ompi_tpu_torch.core import mca as tmca
 from ompi_tpu_torch.core.errors import MPIArgError, MPIInternalError
@@ -383,8 +382,7 @@ def test_other_algorithms_raise_the_named_error(ref_world, coll, algo):
     each equals the reference's ``Comm`` with the same algorithm pinned
     and the rows layout's, bit for bit, except ``psum`` (and ``auto``,
     which is ``psum`` for SUM) and reduce_scatter ``auto`` (``direct``):
-    XLA orders those reductions, so ``allclose`` at rtol 1e-5.  No
-    ``DevicesLayoutUnsupported`` is raised."""
+    XLA orders those reductions, so ``allclose`` at rtol 1e-5."""
     enum = {"allreduce": ALLREDUCE_ALGOS, "allgather": ALLGATHER_ALGOS,
             "reduce_scatter_block": REDUCE_SCATTER_ALGOS}[coll]
     x = rank_data(N, (N, 2) if coll == "reduce_scatter_block" else (41,), np.float32, seed=3)
@@ -407,15 +405,16 @@ def test_other_algorithms_raise_the_named_error(ref_world, coll, algo):
 
 
 def test_everything_else_raises_the_named_error(monkeypatch):
-    """Only ULFM recovery and tpud serving raise the named error now (a
-    respawned process's ``init()`` here; ``tests/test_torch_mp_devices.py``
-    runs jobs of several processes and checks the other recovery calls
-    and the tpud worker): point-to-point, windows and the typed
-    (``*_ddt``) entry points run on a devices comm (each send posted
-    before its receive: one controller drives every rank, so a receive
-    with nothing sent would block), and a devices comm still refuses one
-    plain tensor (nothing is moved implicitly)."""
-    from ompi_tpu_torch.boot.proc import ENV_INCARNATION, ENV_NPROCS, ENV_PROC
+    """Point-to-point, windows and the typed (``*_ddt``) entry points run
+    on a devices comm (each send posted before its receive: one
+    controller drives every rank, so a receive with nothing sent would
+    block), a devices comm still refuses one plain tensor with the named
+    error (nothing is moved implicitly), and a respawned process's
+    ``init()`` builds a devices world on ``block_devices``' devices
+    (``tests/test_torch_devices_recovery.py`` runs the recovery jobs and
+    the same ``init()`` on four cards)."""
+    from torch_mp_common import reborn_init
+
     from ompi_tpu_torch.ddt.datatype import FLOAT
 
     comm = devices_comm()
@@ -439,17 +438,9 @@ def test_everything_else_raises_the_named_error(monkeypatch):
     assert [b.tobytes() for b in comm.bcast_ddt(x[6], 4, FLOAT, root=6)] == [x[6].tobytes()] * N
     with pytest.raises(MPIArgError, match="numpy or RankShards"):
         comm.allreduce(torch.zeros(N, 4))
-    tapi.finalize()
-    monkeypatch.setenv(ENV_PROC, "0")
-    monkeypatch.setenv(ENV_NPROCS, "1")
-    monkeypatch.setenv(ENV_INCARNATION, "1")
-    try:
-        with pytest.raises(DevicesLayoutUnsupported, match="respawned process"):
-            tapi.init({"accelerator_cuda_layout": "devices"}, device="cpu", nranks=N)
-    finally:
-        for var in (ENV_PROC, ENV_NPROCS, ENV_INCARNATION):
-            monkeypatch.delenv(var)
-        tapi.finalize()
+    mesh = reborn_init(monkeypatch, 0, 1, N, "cpu")
+    assert mesh.layout == "devices"
+    assert mesh.devices == tuple(block_devices([torch.device("cpu")], N, 0, 1))
 
 
 def test_split_dup_and_submesh_keep_the_layout():

@@ -490,3 +490,149 @@ def test_cuda_window_lands_on_the_receiving_ranks_card(dev, tmp_path):
     second = _devices_job(tmp_path)[1]
     assert second["device_recvs"] > 0, second
     assert second["landed"] == [second["devices"][0]] != [f"cuda:{second['current']}"], second
+
+
+def _port_run(args, mca: dict, timeout: float = 300):
+    """``python -m ompi_tpu_torch <args>`` with the MCA options ``mca``
+    (built from a dict), from the checkout: the finished process."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "ompi_tpu_torch", *args[:1]]
+    for k, v in mca.items():
+        cmd += ["--mca", k, v]
+    res = subprocess.run(cmd + [str(a) for a in args[1:]], capture_output=True, text=True,
+                         timeout=timeout, env=env, cwd=str(repo))
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    return res
+
+
+@pytest.fixture(scope="module")
+def devices_respawn():
+    """A 2 × 4 ``--ft --respawn`` job of ``ft_smoke.py`` on the devices
+    layout at 1 MiB per rank (plane on from 4 KiB): its FTJSON rows by
+    kind and process."""
+    import json
+    from pathlib import Path
+
+    if not torch.cuda.is_available() or not ck.kernel_available():
+        pytest.skip("needs a Hopper CUDA device")
+    worker = Path(__file__).resolve().parent.parent / "ompi_tpu_torch" / "examples" / "ft_smoke.py"
+    res = _port_run(["run", "-np", 2, "--nranks", 4, "--ft", "--respawn", worker,
+                     "--mode", "respawn", "--bytes", 1 << 20],
+                    {"accelerator_cuda_layout": "devices", "dcn_device_min_size": "4096",
+                     "metrics_enable": "1"})
+    by: dict = {}
+    for ln in res.stdout.splitlines():
+        if "FTJSON " in ln:
+            rec = json.loads(ln.split("FTJSON ", 1)[1])
+            by.setdefault(rec.pop("kind"), {})[rec["proc"]] = rec
+    assert "respawning (incarnation 1)" in res.stdout, res.stdout[-3000:]
+    return by
+
+
+def _block_cards(proc: int) -> list:
+    from ompi_tpu_torch.mesh.mesh import block_devices
+
+    return [f"cuda:{c}" for c in block_devices(list(range(torch.cuda.device_count())), 4,
+                                                proc, 2)]
+
+
+def test_devices_respawn_reborn_shards_lie_on_their_cards(dev, devices_respawn):
+    """The survivor's and the reborn process's results after ``replace()``
+    are ``RankShards`` on their ranks' cards (the reborn process's ranks
+    where its predecessor's were), equal to the results before the
+    failure, with one put and two waits per card per hop in each call."""
+    by = devices_respawn
+    rec = by["recovered"]
+    assert [rec[p]["incarnation"] for p in (0, 1)] == [0, 1]
+    assert [rec[p]["size"] for p in (0, 1)] == [8, 8]
+    want = {0: _block_cards(0), 1: _block_cards(1)}
+    digests = {d for kind in ("pre", "post") for r in by[kind].values() for d in r["digests"]}
+    assert len(digests) == 1, by
+    for p in (0, 1):
+        assert rec[p]["rank_devices"] == want[p], rec[p]
+        assert by["post"][p]["placement"] == {"devices": want[p], "ok": True}
+        cards, calls = len(set(want[p])), len(by["post"][p]["digests"])
+        assert by["post"][p]["launches"] == {"ring_hop": 0, "ring_hop_fold": 0,
+                                             "ring_hop_peer": calls * 6 * cards,
+                                             "ring_hop_wait": calls * 12 * cards}
+        assert rec[p]["device"]["device_fallbacks"] == 0 and rec[p]["heal_ms"] is not None
+
+
+def test_reborn_process_lands_on_cards_2_2_3_3(dev, devices_respawn):
+    """Four cards: process 1's ranks were on cards 2, 2, 3, 3, and so are
+    its reborn incarnation's and their results, though its current card is
+    ``cuda:0``."""
+    if torch.cuda.device_count() != 4:
+        pytest.skip("needs four cards")
+    rec = devices_respawn["recovered"][1]
+    assert rec["incarnation"] == 1
+    assert rec["rank_devices"] == ["cuda:2", "cuda:2", "cuda:3", "cuda:3"]
+    assert devices_respawn["post"][1]["placement"]["devices"] == rec["rank_devices"]
+
+
+def test_devices_tpud_record_lists_every_card(dev, tmp_path):
+    """A tpud of 2 × 4 ranks on the devices layout: a sweep job's results
+    lie on their ranks' cards, and each process's completion record lists
+    its ranks' devices and the allocator's bytes on each of its cards."""
+    import json
+    import os
+    import re
+    import subprocess
+    import sys
+    import threading
+    import time
+    from pathlib import Path
+
+    from ompi_tpu_torch.serve import client
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + (":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "ompi_tpu_torch", "tpud", "-np", "2", "--nranks", "4"]
+    for k, v in {"accelerator_cuda_layout": "devices", "dcn_device_min_size": "4096"}.items():
+        cmd += ["--mca", k, v]
+    d = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         env=env, cwd=str(repo), start_new_session=True)
+    lines: list = []
+    t = threading.Thread(target=lambda: lines.extend(iter(d.stdout.readline, "")), daemon=True)
+    t.start()
+    try:
+        url = None
+        for _ in range(1200):
+            m = next((re.search(r"\[tpud\] ops: (\S+)/jobs", ln) for ln in list(lines)
+                      if "[tpud] ops: " in ln), None)
+            if m:
+                url = m.group(1)
+                break
+            time.sleep(0.1)
+        assert url, "".join(lines)[-3000:]
+        job = repo / "ompi_tpu_torch" / "examples" / "serve_job.py"
+        j = client.submit(url, str(job), args=["--sizes", str(1 << 20)], tenant="ops")
+        rec = client.wait(url, j["id"], timeout=300)
+        assert rec["state"] == "done", (rec, "".join(lines)[-3000:])
+        client.shutdown(url)
+        assert d.wait(timeout=120) == 0
+    finally:
+        if d.poll() is None:
+            os.killpg(d.pid, 9)
+            d.wait()
+        t.join(timeout=10)
+    for p in ("0", "1"):
+        want = _block_cards(int(p))
+        r = rec["ranks"][p]
+        assert r["rank_devices"] == want and r["device"] == want[0], r
+        assert [c["device"] for c in r["cards"]] == list(dict.fromkeys(want)), r
+        assert all(c["cuda_allocated"] >= 0 for c in r["cards"])
+        assert (r["cuda_allocated"], r["cuda_reserved"]) == (
+            r["cards"][0]["cuda_allocated"], r["cards"][0]["cuda_reserved"])
+    sizes = [json.loads(ln.split(" SJSON ", 1)[1]) for ln in lines if " SJSON " in ln]
+    sizes = [r for r in sizes if r["kind"] == "size"]
+    assert len(sizes) == 2, sizes
+    assert all(r["placement"]["ok"] and r["bitwise_vs_plain"] for r in sizes), sizes

@@ -26,14 +26,12 @@ reference's ``run`` jobs, on the CPU.
 * ``c_suite`` and ``devsum`` at ``--nranks 1`` on the devices layout
   (``devsum`` on the Python planes: its digest against numpy's from the
   formula in ``native/examples/devsum.c``).
-* tpud serving and ULFM recovery raise ``DevicesLayoutUnsupported``
-  naming themselves.
+* tpud serving and ULFM recovery on this layout are held to the
+  reference in ``tests/test_torch_devices_recovery.py`` and
+  ``tests/test_torch_devices_serve.py``.
 
 Each reference job runs once, in a module-scoped fixture.
 """
-
-import sys
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -42,8 +40,7 @@ import torch
 from torch_mp_common import (PRELUDE, REPO, assert_bitwise_equal, load, mirrored_worker,
                              run_job)
 
-from ompi_tpu_torch.coll.cuda import DevicesLayoutUnsupported
-from ompi_tpu_torch.mesh.mesh import CommMesh, block_devices
+from ompi_tpu_torch.mesh.mesh import block_devices
 from ompi_tpu_torch.mesh.shards import RankShards
 
 DEVICES = {"accelerator_cuda_layout": "devices"}
@@ -395,32 +392,6 @@ def test_c_suite_and_devsum_on_the_devices_layout(c_bins, tmp_path):
     res = run_c(2, c_bins["devsum"], cwd=tmp_path, mca={**DEVICES, "btl": "tcp"})
     assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
     assert _digests(res.stdout) == {devsum_digest(COUNT, 2)}, res.stdout
-
-
-# -- what still raises -------------------------------------------------------
-
-
-def test_tpud_worker_refuses_a_devices_world(monkeypatch):
-    import ompi_tpu_torch.api as api
-    from ompi_tpu_torch.serve import worker
-
-    monkeypatch.setattr(sys, "stdout", sys.stdout)
-    monkeypatch.setattr(sys, "stderr", sys.stderr)
-    monkeypatch.setattr(api, "init", lambda **_: SimpleNamespace(
-        local_mesh=CommMesh("cpu", 2, layout="devices")))
-    with pytest.raises(DevicesLayoutUnsupported, match="tpud serving"):
-        worker.main()
-
-
-@pytest.mark.parametrize("call", ["shrink", "replace", "replace_partial"])
-def test_recovery_refuses_a_devices_comm(call):
-    from ompi_tpu_torch.api.multiproc import MultiProcComm
-
-    comm = MultiProcComm.__new__(MultiProcComm)
-    comm.local_mesh = CommMesh("cpu", 2, layout="devices")
-    comm.procctx = SimpleNamespace(incarnation=1)  # replace_partial is the reborn's call
-    with pytest.raises(DevicesLayoutUnsupported, match=rf"ULFM recovery \({call}\)"):
-        getattr(comm, call)()
 
 
 def test_memchecker_guards_every_shard():

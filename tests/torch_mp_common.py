@@ -189,3 +189,53 @@ def assert_bitwise_equal(a: list[dict], b: list[dict]) -> None:
             assert x.shape == y.shape and x.dtype == y.dtype, (p, k, x.shape, y.shape,
                                                                x.dtype, y.dtype)
             assert x.tobytes() == y.tobytes(), (p, k)
+
+
+def fake_cards(monkeypatch, count: int) -> None:
+    """Make ``torch.cuda`` report ``count`` cards, every two of them
+    peers (the placement code asks nothing more; no kernel runs)."""
+    import types
+
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer", lambda a, b: True)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda i: types.SimpleNamespace(
+        pci_domain_id=0, pci_bus_id=i, pci_device_id=0))
+
+
+def reborn_init(monkeypatch, proc: int, nprocs: int, nranks: int, device,
+                incarnation: int = 1):
+    """The port's ``init()`` in a process the launcher respawned (process
+    ``proc`` of ``nprocs``, ``OMPI_TPU_INCARNATION`` set) on the devices
+    layout, with the modex and the DCN engine left out: returns the world
+    mesh the multi-process communicator would be built on."""
+    import ompi_tpu_torch.api as tapi
+    from ompi_tpu_torch.api import multiproc
+    from ompi_tpu_torch.boot import proc as bproc
+
+    built = {}
+
+    class World:
+        procctx = None
+        local_offset = 0
+
+        def __init__(self, ctx, wm, name=""):
+            built["mesh"], self.size, self.proc = wm, wm.size, proc
+
+        def free(self):
+            pass
+
+    monkeypatch.setattr(bproc, "ProcContext", lambda local_size=None: None)
+    monkeypatch.setattr(multiproc, "MultiProcComm", World)
+    monkeypatch.setenv(bproc.ENV_PROC, str(proc))
+    monkeypatch.setenv(bproc.ENV_NPROCS, str(nprocs))
+    monkeypatch.setenv(bproc.ENV_INCARNATION, str(incarnation))
+    tapi.finalize()
+    try:
+        tapi.init({"accelerator_cuda_layout": "devices"}, device=device, nranks=nranks)
+    finally:
+        tapi.finalize()
+    return built["mesh"]
