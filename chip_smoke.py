@@ -6,13 +6,17 @@
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
 
-1. environment — build the ring-hop kernels, the cross-device hop and
-   the device-window library from ``ompi_tpu_torch/csrc`` with nvcc (one
-   nvcc per source, all three side by side) and time them; the card,
-   torch and CUDA versions;
+1. environment — build the ring-hop kernels (and, with ``--old-ring-hop
+   PATH``, an earlier tree's ``ring_hop.cu``), the cross-device hop and the
+   device-window library from ``ompi_tpu_torch/csrc`` with nvcc (one
+   nvcc per source, all side by side) and time them; the card, torch and
+   CUDA versions;
 2. kernels — ``ring_hop`` and ``ring_hop_fold`` against their plain torch
    twins, bit for bit, over every supported op × dtype, n ∈ {2, 3, 8},
-   chunk lengths 1, odd, misaligned and aligned, with inputs spanning
+   chunk lengths 1, odd, aligned, one tile of the kernels' grid ± 1
+   element and 2^20 + 3 (many tiles, a ragged end), sources at element
+   offset 0 and 1, destinations at the source's offset (the ends agree
+   modulo 16) and at 0, in place and out of place, with inputs spanning
    1e-3…1e3 plus denormals, ±0 and NaN;
 3. main path — ``init(device="cuda", nranks=8)`` with the ``cuda_ring``
    algorithms forced through the MCA store, then ``osu_allreduce`` (f32
@@ -383,6 +387,19 @@ exits non-zero:
     process's ranks back on cards 2, 2, 3, 3; its rows go to
     ``chiprun_out/chip_smoke_cross_device.json``.
 
+Last, the kernel rows: each rows kernel at a 1 GiB/rank allreduce's
+chunk (128 MiB per rank) beside its byte bound, its plain twin and one
+torch call on the same bytes (``dst.copy_(src)`` over a contiguous
+``(n, m)`` pair for the hop, ``torch.roll`` as ``roll_ms``;
+``torch.add(A, B, out=C)`` for the fold; ``ring_calls_ms``: the same
+moves as n torch calls in the ring's own places); the fold also at
+bf16, f16 and f64 SUM and both kernels at an unaligned chunk (2^25 − 1
+f32) in each row's ``variants``, every row with the card and its power
+limit.  With ``--old-ring-hop PATH`` an earlier tree's kernels are timed
+in turns (a, b, b, a) in the same rows, and ``ring_split`` times a
+1 GiB/rank f32 ``ring_allreduce`` on both trees' kernels in turns, its
+p50 and device time split into ring kernels and the rest.
+
 Every phase's wall time goes into ``chiprun_out/chip_smoke.json``
 (``phase_wall_s``) and onto one ``{"phase_wall_s": ...}`` line.
 
@@ -410,6 +427,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import math
 import os
 import re
 import shutil
@@ -425,6 +443,8 @@ REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, FLOP/s
 F32_FLOPS = 67e12
+#: H100 SXM float64 rate outside the tensor cores, FLOP/s (NVIDIA data sheet)
+F64_FLOPS = 34e12
 #: H100 SXM NVLink 4 rate each way, bytes/s (NVIDIA data sheet: 900 GB/s both ways)
 NVLINK_BYTES_PER_S = 450e9
 N = 8
@@ -452,8 +472,8 @@ def rows_of(launches: dict) -> dict:
     return {k: launches.get(k, 0) for k in ROWS}
 
 
-def event_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median of per-call CUDA-event times of ``fn`` (ms)."""
+def event_times(fn, iters: int, warmup: int = 2) -> list:
+    """Per-call CUDA-event times of ``fn`` (ms), sorted."""
     import torch
 
     for _ in range(warmup):
@@ -467,7 +487,12 @@ def event_ms(fn, iters: int, warmup: int = 2) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    times.sort()
+    return sorted(times)
+
+
+def event_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median of per-call CUDA-event times of ``fn`` (ms)."""
+    times = event_times(fn, iters, warmup)
     return times[len(times) // 2]
 
 
@@ -481,7 +506,12 @@ def bits(t):
 # -- phase 1 ----------------------------------------------------------------
 
 
-def phase_env(ck):
+def phase_env(ck, old_src: str | None = None):
+    """Build every kernel library (one nvcc per source, all at once): the
+    ring-hop kernels and, when ``old_src`` names an earlier tree's
+    ``ring_hop.cu``, that one, the cross-device hop and the device
+    windows.  Returns the card's ``nvidia-smi`` name and power limit, and
+    the earlier tree's ring-hop library as ``{"old": lib}`` (else ``{}``)."""
     import torch
     from concurrent.futures import ThreadPoolExecutor
 
@@ -489,27 +519,32 @@ def phase_env(ck):
     from ompi_tpu_torch.dcn import device
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, all at once
+    sources = hop_sources(old_src)
+    with ThreadPoolExecutor(3 + len(sources)) as pool:
         hop = pool.submit(ck.build)
         peer = pool.submit(ck.build_peer)
         window = pool.submit(native.build_cuda, device._CUDA_SRC)
+        extra = {k: pool.submit(native.build_cuda, v) for k, v in sources.items()}
         lib, peer_lib, window_lib = hop.result(), peer.result(), window.result()[0]
+        extra = {k: ck.bind(f.result()[0]) for k, f in extra.items()}
     build_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    regs = [ln.strip() for ln in ck.build_log.splitlines() if "registers" in ln]
+    regs = sorted({ln.split(":", 1)[-1].strip() for ln in ck.build_log.splitlines()
+                   if "registers" in ln})
     peer_regs = [ln.strip() for ln in ck.peer_build_log.splitlines() if "registers" in ln]
     emit({"phase": "env", "build_s": build_s, "library": lib.name,
+          "extra_hop_libraries": {k: v.name for k, v in sources.items()},
           "peer_library": peer_lib.name, "peer_ptxas_registers": peer_regs,
           "window_library": window_lib.name,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0),
           "capability": list(torch.cuda.get_device_capability()),
-          "kernel_available": ck.kernel_available(), "ptxas_registers": regs[:4]})
+          "kernel_available": ck.kernel_available(), "ptxas_registers": regs})
     if not ck.kernel_available():
         raise SystemExit("the card is not compute capability 9.0")
-    return smi
+    return smi, extra
 
 
 # -- phase 2 ----------------------------------------------------------------
@@ -542,6 +577,26 @@ def make_input(numel, m, dtype, gen, dev):
     return x.view(dtype)
 
 
+def kernel_lengths(ck, dtype) -> tuple:
+    """Chunk lengths of the kernels phase for ``dtype``: 1, short, odd
+    and aligned, one tile of the kernels' grid less and more one
+    element, and many tiles with a ragged end."""
+    tile = ck.HOP_TILE_BYTES // dtype.itemsize
+    return (1, 7, 1003, 4096, tile - 1, tile + 1, (1 << 20) + 3)
+
+
+def offset_view(shape, dtype, offset: int, like=None):
+    """A card tensor of ``shape`` and ``dtype`` starting ``offset``
+    elements into a fresh allocation: zeros, or a copy of ``like``."""
+    import torch
+
+    buf = torch.zeros(math.prod(shape) + offset, dtype=dtype, device="cuda")
+    out = buf[offset:].view(shape)
+    if like is not None:
+        out.copy_(like)
+    return out
+
+
 def phase_kernels(ck, ops):
     import torch
 
@@ -553,11 +608,14 @@ def phase_kernels(ck, ops):
     dtypes = list(ck._FOLD_DTYPES)
     for n in (2, 3, N):
         tbl = ck._index_table(n, dev)
-        for m in (1, 7, 1003, 4096):
-            for misalign in (0, 1):
-                for dtype in dtypes + [torch.uint8, torch.complex64]:
-                    # hop: out of place with random indices, and in place
-                    # with the allgather step's indices
+        for dtype in dtypes + [torch.uint8, torch.complex64]:
+            for m in kernel_lengths(ck, dtype):
+                for misalign in (0, 1):
+                    # hop: out of place with random indices, the destination
+                    # at the source's element offset (the ends agree modulo
+                    # 16) and at 0 (they disagree unless misalign is 0), and
+                    # in place with the allgather step's indices; the fold
+                    # in place and into a destination at both offsets
                     numel = n * n * m
                     if dtype in ck._FOLD_DTYPES:
                         src = make_input(numel + 1, m, dtype, gen, dev)
@@ -570,15 +628,21 @@ def phase_kernels(ck, ops):
                                        dtype=torch.int32)
                     di = torch.randint(0, n, (n,), generator=gen, device=dev,
                                        dtype=torch.int32)
-                    dk, dp = torch.zeros_like(src), torch.zeros_like(src)
-                    ck.ring_hop(src, si, dk, di)
-                    ck.ring_hop_plain(src, si, dp, di)
-                    ik, ip = src.clone(), src.clone()
+                    ok = True
+                    for dst_off in sorted({0, misalign}):
+                        dk = offset_view(src.shape, dtype, dst_off)
+                        dp = offset_view(src.shape, dtype, dst_off)
+                        ck.ring_hop(src, si, dk, di)
+                        ck.ring_hop_plain(src, si, dp, di)
+                        ok = ok and torch.equal(bits(dk), bits(dp))
+                        hop_cases += 1
+                    ik = offset_view(src.shape, dtype, misalign, src)
+                    ip = src.clone()
                     ck.ring_hop(ik, tbl[1 % n], ik, tbl[0])
                     ck.ring_hop_plain(ip, tbl[1 % n], ip, tbl[0])
                     torch.cuda.synchronize()
-                    hop_cases += 2
-                    if not (torch.equal(bits(dk), bits(dp)) and torch.equal(bits(ik), bits(ip))):
+                    hop_cases += 1
+                    if not (ok and torch.equal(bits(ik), bits(ip))):
                         failures.append(("ring_hop", n, m, misalign, str(dtype)))
                     if dtype not in ck._FOLD_DTYPES:
                         continue
@@ -586,17 +650,22 @@ def phase_kernels(ck, ops):
                         for recv_first in (False, True):
                             s = 1 % n
                             ri, sent = tbl[(-s - 1) % n], tbl[(-s) % n]
-                            fk, fp = src.clone(), src.clone()
+                            fk = offset_view(src.shape, dtype, misalign, src)
+                            fp = src.clone()
                             ck.ring_hop_fold(fk, ri, fk, sent, fk, ri, op, recv_first)
                             ck.ring_hop_fold_plain(fp, ri, fp, sent, fp, ri, op, recv_first)
-                            ok_ = torch.empty((n, 1, m), dtype=dtype, device=dev)
-                            op_ = torch.empty_like(ok_)
-                            ck.ring_hop_fold(src, si, src, di, ok_, tbl[n], op, recv_first)
-                            ck.ring_hop_fold_plain(src, si, src, di, op_, tbl[n], op, recv_first)
+                            ok = True
+                            for dst_off in sorted({0, misalign}):
+                                ok_ = offset_view((n, 1, m), dtype, dst_off)
+                                op_ = offset_view((n, 1, m), dtype, dst_off)
+                                ck.ring_hop_fold(src, si, src, di, ok_, tbl[n], op, recv_first)
+                                ck.ring_hop_fold_plain(src, si, src, di, op_, tbl[n], op,
+                                                       recv_first)
+                                ok = ok and torch.equal(bits(ok_), bits(op_))
+                                fold_cases += 1
                             torch.cuda.synchronize()
-                            fold_cases += 2
-                            if not (torch.equal(bits(fk), bits(fp))
-                                    and torch.equal(bits(ok_), bits(op_))):
+                            fold_cases += 1
+                            if not (ok and torch.equal(bits(fk), bits(fp))):
                                 bad = (bits(fk) != bits(fp)).view(-1).nonzero()[:1]
                                 at = int(bad[0]) if len(bad) else -1
                                 failures.append((
@@ -615,28 +684,40 @@ def phase_kernels(ck, ops):
 # -- phase 3 ----------------------------------------------------------------
 
 
+def profile_call(fn, reps: int) -> tuple[float, dict]:
+    """``fn``'s CUDA-event p50 and its device time by kernel name (ms
+    per call, ``torch.profiler`` over ``reps`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p50 = event_ms(fn, reps)
+    kernels = {}
+    for _ in range(2):  # a session that recorded no device activity is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+                name = name.split("(")[0].split("<")[0].split("::")[-1].strip()[:60]
+                kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+        if kernels:
+            break
+    return p50, kernels
+
+
 def profile_allreduce(world, nbytes, gen):
     """Device time of one cuda_ring allreduce by kernel (torch.profiler),
     beside its CUDA-event latency: the device's busy share of a call."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from ompi_tpu_torch.op import SUM
 
     x = torch.randn((N, nbytes // 4), generator=gen, device="cuda")
     reps = 10 if nbytes <= (64 << 20) else 3
-    p50 = event_ms(lambda: world.allreduce(x, SUM), reps)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            world.allreduce(x, SUM)
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
-            name = name.split("(")[0].split("<")[0].split("::")[-1].strip()[:60]
-            kernels[name] = kernels.get(name, 0.0) + e.self_device_time_total / 1e3 / reps
+    p50, kernels = profile_call(lambda: world.allreduce(x, SUM), reps)
     device_ms = sum(kernels.values()) if kernels else None
     row = {"phase": "profile", "bytes": nbytes, "p50_ms": p50, "device_ms": device_ms,
            "device_busy_share": device_ms / p50 if device_ms is not None else None,
@@ -761,56 +842,181 @@ def phase_main(ck, max_bytes):
     return rows, profiles, launches
 
 
-def kernel_rows(ck, launches):
-    """Each kernel at the 1 GiB allreduce's chunk shape: its time, its
-    plain twin's, one library call's, and the bound."""
+def hop_sources(old_src: str | None) -> dict:
+    """An earlier tree's ``ring_hop.cu``, copied under
+    ``build/ompi_tpu_torch/`` as ``old`` to be timed beside this tree's
+    kernels, when one is given."""
+    from ompi_tpu_torch.native import BUILD_DIR
+
+    if not old_src:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / "ring_hop_old.cu"
+    out.write_text(Path(old_src).read_text())
+    return {"old": out}
+
+
+def max_abs_err(a, b) -> float:
+    """Largest |a - b| in float64, one rank's rows at a time."""
+    return max((x.double() - y.double()).abs().max().item() for x, y in zip(a, b))
+
+
+def on_lib(ck, lib, fn):
+    """``fn`` with the ring-hop wrappers launching ``lib``'s kernels."""
+    def run():
+        prev, ck._lib = ck._lib, lib
+        try:
+            return fn()
+        finally:
+            ck._lib = prev
+    return run
+
+
+def in_turns(fns: dict, iters: int) -> dict:
+    """Each callable's median CUDA-event time over two turns taken in
+    the order a, b, …, …, b, a (the two turns' calls pooled)."""
+    times = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        times[k] += event_times(fns[k], iters)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def kernel_rows(ck, launches, smi, libs=None):
+    """Each rows kernel at the 1 GiB/rank allreduce's chunk (128 MiB per
+    rank): its time beside its bound, its plain twin's and one torch
+    call's on the same bytes (``library_ms``).  ``libs`` (``{"old":
+    lib}``: an earlier tree's kernels) are timed in turns with this
+    tree's (``old_ms``), in the same call.  The
+    hop at f32 and the fold at f32, bf16, f16 and f64 SUM, both at an
+    unaligned chunk too (2^25 − 1 f32, ≡ 12 mod 16 bytes) in
+    ``variants``."""
     import torch
 
     from ompi_tpu_torch.op import SUM
 
     dev = torch.device("cuda")
-    m = (1 << 30) // 4 // N  # f32 elements in one chunk of a 1 GiB/rank ring
-    chunks = torch.randn((N, N, m), device=dev)
     tbl = ck._index_table(N, dev)
-    chunk_bytes = m * 4
-    out = []
+    chunk_bytes = (1 << 30) // N
+    libs = libs or {}
 
-    hk, hp = chunks.clone(), chunks.clone()
-    ck.ring_hop(hk, tbl[1], hk, tbl[0])
-    ck.ring_hop_plain(hp, tbl[1], hp, tbl[0])
-    hop_err = (hk - hp).abs().max().item()
-    del hk, hp
-    src_rows = chunks[:, 0]
-    hop_ms = event_ms(lambda: ck.ring_hop(chunks, tbl[1], chunks, tbl[0]), 10)
-    hop_plain = event_ms(lambda: ck.ring_hop_plain(chunks, tbl[1], chunks, tbl[0]), 5)
-    roll_ms = event_ms(lambda: torch.roll(src_rows, 1, 0), 10)
-    hop_bytes = 2 * N * chunk_bytes
-    out.append({"name": "ring_hop", "route": "cuda",
-                "source": "ompi_tpu_torch/csrc/ring_hop.cu",
-                "replaces": "ompi_tpu/coll/pallas_kernels.py:95",
-                "launches": launches["ring_hop"], "max_abs_err": hop_err,
-                "ms": hop_ms, "plain_ms": hop_plain,
-                "bound_ms": hop_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                "library_ms": roll_ms, "shape": [N, N, m], "dtype": "float32"})
+    kinds = {"new": ck._load(), **libs}
 
-    ri, sent = tbl[N - 1], tbl[0]
-    fk, fp = chunks.clone(), chunks.clone()
-    ck.ring_hop_fold(fk, ri, fk, sent, fk, ri, SUM)
-    ck.ring_hop_fold_plain(fp, ri, fp, sent, fp, ri, SUM)
-    fold_err = (fk - fp).abs().max().item()
-    del fk, fp
-    fold_ms = event_ms(lambda: ck.ring_hop_fold(chunks, ri, chunks, sent, chunks, ri, SUM), 10)
-    fold_plain = event_ms(
-        lambda: ck.ring_hop_fold_plain(chunks, ri, chunks, sent, chunks, ri, SUM), 5)
-    fold_bytes = 3 * N * chunk_bytes
-    bound = max(fold_bytes / HBM_BYTES_PER_S, N * m / F32_FLOPS) * 1e3
-    out.append({"name": "ring_hop_fold", "route": "cuda",
-                "source": "ompi_tpu_torch/csrc/ring_hop.cu",
-                "replaces": "ompi_tpu/coll/pallas_kernels.py:95",
-                "launches": launches["ring_hop_fold"], "max_abs_err": fold_err,
-                "ms": fold_ms, "plain_ms": fold_plain, "bound_ms": bound,
-                "bound_by": "bytes", "library_ms": None, "shape": [N, N, m],
-                "dtype": "float32", "op": "MPI_SUM"})
+    def checked(launch, chunks, want) -> tuple[float, dict]:
+        """Each library's launch on a copy of ``chunks`` against the plain
+        twin's ``want``: this tree's max |error|, each one's equality."""
+        err, same = None, {}
+        for k, lib in kinds.items():
+            got = chunks.clone()
+            on_lib(ck, lib, launch(got))()
+            same[k] = torch.equal(bits(got), bits(want))
+            err = max_abs_err(got, want) if k == "new" else err
+            del got
+        if not all(same.values()):
+            raise SystemExit(f"kernel rows: a kernel differs from the plain twin: {same}")
+        return err, same
+
+    def timed(call) -> dict:
+        return in_turns({k: on_lib(ck, lib, call) for k, lib in kinds.items()}, 10)
+
+    def common(times, bound, plain, library, err, same, shape, dtype) -> dict:
+        ms = times["new"]
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+                "library_ms": library, "max_abs_err": err, "bitwise": same["new"],
+                "old_bitwise": same.get("old"), "bound_share": bound / ms,
+                "vs_library": ms / library, "old_ms": times.get("old"),
+                "shape": list(shape), "dtype": str(dtype)[6:], "card": smi}
+
+    def hop(m) -> dict:
+        chunks = torch.randn((N, N, m), device=dev)
+        want = chunks.clone()
+        ck.ring_hop_plain(want, tbl[1], want, tbl[0])
+        err, same = checked(lambda t: lambda: ck.ring_hop(t, tbl[1], t, tbl[0]), chunks, want)
+        del want
+        times = timed(lambda: ck.ring_hop(chunks, tbl[1], chunks, tbl[0]))
+        plain = event_ms(lambda: ck.ring_hop_plain(chunks, tbl[1], chunks, tbl[0]), 5)
+        roll = event_ms(lambda: torch.roll(chunks[:, 0], 1, 0), 10)
+        # the same moves as n torch calls, one a rank, in the ring's own places
+        ring_calls = event_ms(lambda: [chunks[(r + 1) % N, (r + 1) % N].copy_(
+            chunks[r, (r + 1) % N]) for r in range(N)], 10)
+        del chunks
+        a, b = torch.randn((N, m), device=dev), torch.empty((N, m), device=dev)
+        library = event_ms(lambda: b.copy_(a), 10)
+        del a, b
+        torch.cuda.empty_cache()
+        bound = 2 * N * m * 4 / HBM_BYTES_PER_S * 1e3
+        return {**common(times, bound, plain, library, err, same, (N, N, m), torch.float32),
+                "roll_ms": roll, "ring_calls_ms": ring_calls}
+
+    def fold(m, dtype, op=SUM) -> dict:
+        chunks = torch.randn((N, N, m), device=dev, dtype=dtype)
+        ri, sent = tbl[N - 1], tbl[0]
+        want = chunks.clone()
+        ck.ring_hop_fold_plain(want, ri, want, sent, want, ri, op)
+        err, same = checked(lambda t: lambda: ck.ring_hop_fold(t, ri, t, sent, t, ri, op),
+                            chunks, want)
+        del want
+        times = timed(lambda: ck.ring_hop_fold(chunks, ri, chunks, sent, chunks, ri, op))
+        plain = event_ms(
+            lambda: ck.ring_hop_fold_plain(chunks, ri, chunks, sent, chunks, ri, op), 5)
+        one_call = {"MPI_SUM": torch.add, "MPI_PROD": torch.mul, "MPI_MAX": torch.maximum,
+                    "MPI_MIN": torch.minimum}[op.name]
+        # the same folds as n torch calls, one a rank, in the ring's own places
+        ring_calls = event_ms(lambda: [one_call(
+            chunks[r, (r - 1) % N], chunks[(r - 1) % N, (r - 1) % N],
+            out=chunks[r, (r - 1) % N]) for r in range(N)], 10)
+        del chunks
+        a, b = torch.randn((N, m), device=dev, dtype=dtype), torch.randn((N, m), device=dev,
+                                                                           dtype=dtype)
+        c = torch.empty_like(a)
+        library = event_ms(lambda: one_call(a, b, out=c), 10)
+        del a, b, c
+        torch.cuda.empty_cache()
+        rate = F64_FLOPS if dtype == torch.float64 else F32_FLOPS
+        bound = max(3 * N * m * dtype.itemsize / HBM_BYTES_PER_S, N * m / rate) * 1e3
+        return {**common(times, bound, plain, library, err, same, (N, N, m), dtype),
+                "op": op.name, "ring_calls_ms": ring_calls}
+
+    def unaligned(row, aligned) -> dict:
+        return {**row, "chunk": "unaligned", "vs_aligned": row["ms"] / aligned["ms"]}
+
+    m32 = chunk_bytes // 4
+    odd = m32 - 1  # 4 * (2^25 - 1) bytes: ≡ 12 mod 16
+    hop_row = hop(m32)
+    hop_odd = unaligned(hop(odd), hop_row)
+    fold_row = fold(m32, torch.float32)
+    fold_rows = [{**fold(chunk_bytes // dt.itemsize, dt), "chunk": "aligned"}
+                 for dt in (torch.bfloat16, torch.float16, torch.float64)]
+    fold_rows.append(unaligned(fold(odd, torch.float32), fold_row))
+    replaces = "ompi_tpu/coll/pallas_kernels.py:95"
+    source = "ompi_tpu_torch/csrc/ring_hop.cu"
+    return [
+        {"name": "ring_hop", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches["ring_hop"], **hop_row, "variants": [hop_odd]},
+        {"name": "ring_hop_fold", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches["ring_hop_fold"], **fold_row, "variants": fold_rows},
+    ]
+
+
+def ring_split(ck, old) -> dict:
+    """A 1 GiB/rank f32 SUM ``ring_allreduce`` (the ``cuda_ring`` body)
+    on this tree's kernels and on ``old``, an earlier tree's, in turns:
+    p50 and the device time of the ring kernels against the rest (the
+    input copy).  Phase ``profile`` gives this tree's split alone."""
+    import torch
+
+    from ompi_tpu_torch.op import SUM
+
+    x = torch.randn((N, (1 << 30) // 4), device="cuda")
+    libs = {"new": ck._load(), "old": old}
+    out = {k: [] for k in libs}
+    for k in list(libs) + list(libs)[::-1]:
+        p50, kernels = profile_call(
+            on_lib(ck, libs[k], lambda: ck.ring_allreduce(x, SUM, _mode="cuda")), 3)
+        ring = sum(v for n, v in kernels.items() if "ring_hop" in n)
+        out[k].append({"p50_ms": p50, "device_ms": sum(kernels.values()), "ring_ms": ring,
+                       "other_ms": sum(kernels.values()) - ring, "kernels_ms": kernels})
+    del x
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5006,6 +5212,10 @@ def main() -> int:
                     help="run the analysis phase's lockdep child (internal)")
     ap.add_argument("--lockdep-worker", action="store_true",
                     help="one process of the analysis phase's lockdep job (internal)")
+    ap.add_argument("--old-ring-hop", metavar="PATH",
+                    help="an earlier tree's ring_hop.cu: its kernels are timed in turns "
+                    "with this tree's in the kernel rows, and phase ring_split splits "
+                    "a 1 GiB ring allreduce on both")
     ap.add_argument("--cross-device-only", action="store_true",
                     help="run only the environment and cross_device phases, the "
                     "devices layout's 2 x 4 job and its respawn leg: the devices layout on "
@@ -5042,7 +5252,7 @@ def main() -> int:
         finally:
             walls[name] = time.perf_counter() - t0
 
-    smi = phase("env", phase_env, ck)
+    smi, hop_libs = phase("env", phase_env, ck, args.old_ring_hop)
     if args.cross_device_only:
         from ompi_tpu_torch import native as native_lib
 
@@ -5110,7 +5320,11 @@ def main() -> int:
     peer_rows = cross.pop("kernel_rows")
     for r in peer_rows:
         r["launches"] = launches[r["name"]]
-    kernels = phase("kernel_rows", kernel_rows, ck, launches) + peer_rows
+    kernels = phase("kernel_rows", kernel_rows, ck, launches, smi, hop_libs) + peer_rows
+    split = None
+    if hop_libs:  # --old-ring-hop: the 1 GiB call on both trees' kernels
+        split = phase("ring_split", ring_split, ck, hop_libs["old"])
+        emit({"phase": "ring_split", **split})
     walls["script"] = time.perf_counter() - t_script  # analysis overlaps recovery
     (outdir / "chip_smoke.json").write_text(json.dumps(
         {"nvidia_smi": smi, "osu_allreduce": rows, "profiles": profiles,
@@ -5120,7 +5334,7 @@ def main() -> int:
          "diag_pp": diag_pp,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
          "bench": bench, "bench_np2": bench_np2, "tools": tools, "analysis": analysis,
-         "kernels": kernels, "phase_wall_s": walls}, indent=1))
+         "kernels": kernels, "ring_split": split, "phase_wall_s": walls}, indent=1))
     print(smi, flush=True)
     emit({"phase_wall_s": walls})
     emit({"kernels": kernels})

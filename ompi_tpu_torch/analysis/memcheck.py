@@ -7,25 +7,28 @@ The child program (run on a card)::
 launches ``ring_hop`` and ``ring_hop_fold`` (``csrc/ring_hop.cu``) on
 ``(8, 8, m)`` tensors, in place and out of place:
 
-* ``ring_hop`` at chunk lengths and base offsets (views into a larger
-  buffer) that make ``ompi_ring_hop`` pick each of its five load widths
-  — 16, 8, 4, 2 and 1 bytes, the largest that divides both pointers and
-  the chunk's byte count;
+* ``ring_hop`` at chunk lengths and source and destination offsets
+  (views into a larger buffer) chosen by the kernel's split rule, as
+  ``cuda_kernels.hop_split`` mirrors it, so that the ranks' bodies move
+  in each of the five word widths — 16, 8, 4, 2 and 1 bytes, the widest
+  that a rank's two ends agree modulo — and some rank peels a head and
+  some rank a tail, at each of the chunk lengths 4100, 4097, 4104 and
+  4096;
 * ``ring_hop_fold`` over each of its 8 dtypes and 4 ops;
 * one 8-rank ``ring_allreduce``, ``ring_allgather`` and
   ``ring_reduce_scatter`` at a size that does not split into 8 equal
   chunks (the padded path);
 * ``ring_hop_peer`` and ``ring_hop_wait`` (``csrc/ring_hop_peer.cu``)
   over 8 ranks that each own a buffer, all on this card: one hop at each
-  of the hop cases' sizes and offsets, with the destination at the same
-  offset and at offset 0, then the three shard rings at the padded size;
-  the launches are held to one put and two waits per hop.
+  of the hop cases' sizes and source offsets, with the destination at
+  the same offset and at the case's, then the three shard rings at the
+  padded size; the launches are held to one put and two waits per hop.
 
 Every result is held bit for bit against the plain twins
 (``ring_hop_plain``, ``ring_hop_fold_plain``, the rings' interpret
-rung).  It prints one ``MEMCHECK {json}`` line (cases, widths, launches,
-``bitwise``, ``peer_launches``) and exits 1 on any mismatch or a wrong
-peer launch count.
+rung).  It prints one ``MEMCHECK {json}`` line (cases, widths, paths,
+launches, ``bitwise``, ``peer_launches``) and exits 1 on any mismatch,
+a path of the split not taken or a wrong peer launch count.
 
 :func:`run_leg` is the ``cuda-memcheck`` leg of the sanitize pass: the
 child under ``compute-sanitizer --tool memcheck --kernel-name
@@ -47,11 +50,13 @@ from pathlib import Path
 from ompi_tpu_torch.native import BUILD_DIR
 
 N = 8
-#: (chunk bytes, base offset in bytes) of the hop cases, with the load
-#: width ``ompi_ring_hop`` picks for them (the buffers themselves are
-#: 256-byte aligned)
-HOP_CASES = ((4096, 0), (4104, 0), (4100, 0), (4098, 0), (4097, 0),
-             (4096, 8), (4096, 4), (4096, 2), (4096, 1))
+#: (chunk bytes, source offset, destination offset) to choose the hop
+#: cases from, offsets in bytes into 256-byte aligned buffers; ragged
+#: chunk lengths first (their ends are where an overrun would land)
+HOP_CANDIDATES = tuple((nbytes, so, do) for nbytes in (4100, 4097, 4104, 4096)
+                       for so in (0, 1, 2, 4, 8) for do in (so, 0))
+#: every path of the hop's split: each body width, a peeled head, a tail
+PATHS = frozenset({16, 8, 4, 2, 1, "head", "tail"})
 FOLD_M = 1031
 RING_SIZE = N * 1021 + 3
 
@@ -59,14 +64,44 @@ RING_SIZE = N * 1021 + 3
 SUMMARY = BUILD_DIR / "san-cuda-memcheck" / "memcheck.json"
 
 
-def load_width(*ptrs_and_bytes: int) -> int:
-    """The load width (bytes) ``ompi_ring_hop`` picks: the largest of
-    16, 8, 4, 2 that divides every pointer and the chunk's byte count,
-    else 1 — the dispatch of ``ring_hop.cu``."""
-    align = 0
-    for v in ptrs_and_bytes:
-        align |= v
-    return next(w for w in (16, 8, 4, 2, 1) if align % w == 0)
+def rank_splits(src_addr: int, dst_addr: int, nbytes: int) -> list:
+    """Each rank's ``(head, width, tail)`` in a hop of ``(N, N, nbytes)``
+    byte tensors at these addresses, with the child's indices (rank r
+    sends its chunk r into chunk r of row r+1): ``hop_split`` of the
+    rank's two ends."""
+    from ompi_tpu_torch.coll.cuda_kernels import hop_split
+
+    return [hop_split(src_addr + (r * N + r) * nbytes,
+                      dst_addr + ((r + 1) % N * N + r) * nbytes, nbytes)
+            for r in range(N)]
+
+
+def split_paths(splits) -> set:
+    """The paths of :data:`PATHS` that the ranks of ``splits`` take."""
+    paths = set()
+    for head, w, tail in splits:
+        paths |= {w} | ({"head"} if head else set()) | ({"tail"} if tail else set())
+    return paths
+
+
+def case_paths(nbytes: int, so: int, do: int) -> set:
+    """The paths a hop case takes out of place and in place (the
+    destination is the source) on 256-byte aligned buffers."""
+    return (split_paths(rank_splits(so, 256 + do, nbytes))
+            | split_paths(rank_splits(so, so, nbytes)))
+
+
+def hop_cases() -> tuple:
+    """The hop cases: from :data:`HOP_CANDIDATES` in order, each that
+    takes a path no earlier case of its chunk length took, so that every
+    length takes every path it can."""
+    cases, seen = [], set()
+    for case in HOP_CANDIDATES:
+        new = {(path, case[0]) for path in case_paths(*case)} - seen
+        if new:
+            cases.append(case)
+            seen |= new
+    return tuple(cases)
 
 
 def _view(nbytes: int, off: int, dev):
@@ -87,16 +122,16 @@ def _fill(t, gen) -> None:
 def _hop_cases(ck, tbl, gen, dev) -> tuple[list, set]:
     import torch
 
-    rows, widths = [], set()
+    rows, paths = [], set()
     src_idx, dst_idx = tbl[0], tbl[N - 1]
-    for nbytes, off in HOP_CASES:
+    for nbytes, so, do in hop_cases():
         for in_place in (False, True):
-            src = _view(nbytes, off, dev)
+            src = _view(nbytes, so, dev)
             _fill(src, gen)
-            dst = src if in_place else _view(nbytes, off, dev)
+            dst = src if in_place else _view(nbytes, do, dev)
             if not in_place:
                 _fill(dst, gen)
-            width = load_width(src.data_ptr(), dst.data_ptr(), nbytes)
+            taken = split_paths(rank_splits(src.data_ptr(), dst.data_ptr(), nbytes))
             want_src, want_dst = src.clone(), dst.clone()
             ck.ring_hop_plain(want_src, src_idx,
                               want_src if in_place else want_dst, dst_idx)
@@ -104,11 +139,12 @@ def _hop_cases(ck, tbl, gen, dev) -> tuple[list, set]:
             torch.cuda.synchronize()
             want = want_src if in_place else want_dst
             ok = bool(torch.equal(dst, want))
-            widths.add(width)
+            paths |= taken
             rows.append({"kernel": "ring_hop", "chunk_bytes": nbytes,
-                         "offset": off, "in_place": in_place,
-                         "width": width, "bitwise": ok})
-    return rows, widths
+                         "offset": so, "dst_offset": dst.data_ptr() - src.data_ptr()
+                         if in_place else do, "in_place": in_place,
+                         "paths": sorted(map(str, taken)), "bitwise": ok})
+    return rows, paths
 
 
 def _fold_input(shape, dtype, gen, dev):
@@ -185,8 +221,8 @@ def _peer_cases(ck, gen, dev) -> list:
     rows = []
     before = dict(ck.LAUNCHES)
     hops = 0
-    for nbytes, off in HOP_CASES:
-        for dst_off in (off, 0):  # the ends agree, or disagree, modulo 16
+    for nbytes, off, case_dst_off in hop_cases():
+        for dst_off in sorted({off, case_dst_off}):  # the ends agree, or disagree, modulo 16
             srcs = [_view(nbytes, off, dev)[0, 0] for _ in range(N)]
             dsts = [_view(nbytes, dst_off, dev)[0, 0] for _ in range(N)]
             for t in srcs + dsts:
@@ -229,12 +265,13 @@ def drive() -> dict:
     gen = torch.Generator().manual_seed(20261017)
     tbl = ck._index_table(N, dev)
     ck.reset_launches()
-    hops, widths = _hop_cases(ck, tbl, gen, dev)
+    hops, paths = _hop_cases(ck, tbl, gen, dev)
     folds = _fold_cases(ck, tbl, gen, dev)
     rings = _ring_cases(ck, gen, dev)
     peers, peer_launches = _peer_cases(ck, gen, dev)
     cases = hops + folds + rings + peers
-    return {"cases": len(cases), "widths": sorted(widths),
+    return {"cases": len(cases), "widths": sorted(p for p in paths if isinstance(p, int)),
+            "paths": sorted(map(str, paths)), "all_paths": paths >= PATHS,
             "fold_pairs": len({(r["dtype"], r["op"]) for r in folds}),
             "launches": dict(ck.LAUNCHES),
             "bitwise": all(r["bitwise"] for r in cases),
@@ -251,7 +288,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.json:
         Path(args.json).write_text(json.dumps(summary))
     print("MEMCHECK " + json.dumps(summary), flush=True)
-    return 0 if (summary["bitwise"] and summary["widths"] == [1, 2, 4, 8, 16]
+    return 0 if (summary["bitwise"] and summary["all_paths"]
                  and summary["peer_launches"]["ok"]) else 1
 
 

@@ -110,6 +110,10 @@ PEER_MAX_ENTRIES = 16
 #: bytes one block of the put moves in one unrolled pass (256 threads x
 #: 8 words of 16 bytes): a put gets no more blocks than it has such passes
 PEER_BLOCK_BYTES = 256 * 8 * 16
+#: body bytes of one tile of ``ring_hop`` and ``ring_hop_fold`` (of each
+#: operand): the unit of their grids, one block's pass of 128 threads
+#: over 2 words of 16 bytes (``kTile`` in ``ring_hop.cu``)
+HOP_TILE_BYTES = 128 * 2 * 16
 _U64 = (1 << 64) - 1
 
 _FOLD_DTYPES = {
@@ -179,18 +183,24 @@ def build() -> Path:
     return out
 
 
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a library built from ``csrc/ring_hop.cu`` (this tree's, or
+    another tree's for a comparison) and declare its two entry points."""
+    lib = ctypes.CDLL(str(path))
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.ompi_ring_hop.argtypes = [p, p, p, p, ll, ll, ll, ll, p]
+    lib.ompi_ring_hop.restype = i
+    lib.ompi_ring_hop_fold.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll,
+                                       ll, i, i, i, p]
+    lib.ompi_ring_hop_fold.restype = i
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-            lib.ompi_ring_hop.argtypes = [p, p, p, p, ll, ll, ll, ll, p]
-            lib.ompi_ring_hop.restype = i
-            lib.ompi_ring_hop_fold.argtypes = [p, p, p, p, p, p, ll, ll, ll, ll,
-                                               ll, i, i, i, p]
-            lib.ompi_ring_hop_fold.restype = i
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 
@@ -707,12 +717,29 @@ class PeerLaunch(NamedTuple):
 _COUNTER_OFFSET = {"recv": 0, "consumed": 8}
 
 
-def put_word_bytes(src_addr: int, dst_addr: int) -> int:
+def put_word_bytes(src_addr: int, dst_addr: int, *more_addrs: int) -> int:
     """The word width of a put's body (``ring_hop_put_kernel``'s rule):
-    16 when the two addresses agree modulo 16, else the widest power of
-    two they agree modulo; the head and tail are peeled byte by byte."""
+    16 when the addresses agree modulo 16, else the widest power of two
+    they agree modulo; the head and tail are peeled byte by byte."""
     mis = src_addr ^ dst_addr
+    for a in more_addrs:
+        mis |= src_addr ^ a
     return next(w for w in (16, 8, 4, 2, 1) if mis % w == 0)
+
+
+def hop_split(src_addr: int, dst_addr: int, nbytes: int,
+              *more_addrs: int) -> tuple[int, int, int]:
+    """One rank's ``(head, width, tail)`` in ``ring_hop``,
+    ``ring_hop_fold`` and ``ring_hop_put_kernel`` (``split_of`` in
+    ``csrc/ring_hop.cu``): the body moves in ``width``-byte words
+    (:func:`put_word_bytes` of every end: the fold passes its second
+    operand and its destination), after a head of fewer than ``width``
+    bytes that brings ``src_addr`` to a multiple of it, and before a tail
+    of fewer than ``width`` bytes."""
+    w = put_word_bytes(src_addr, dst_addr, *more_addrs)
+    head = min(-src_addr % w, nbytes)
+    words = (nbytes - head) // w
+    return head, w, nbytes - head - words * w
 
 
 def _peer_plan(cards: Sequence[int], hop: int, expected: Sequence[int], nbytes: int,

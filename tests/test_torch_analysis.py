@@ -822,17 +822,42 @@ def test_cuda_memcheck_leg_is_a_logged_skip_without_a_card():
 
 
 def test_memcheck_cases_cover_all_five_load_widths():
-    """The hop cases' (chunk bytes, offset) pairs on 256-byte aligned
-    buffers make the ``.cu`` dispatch pick each width, in the order it
-    tests them."""
+    """``ring_hop.cu`` splits each rank by ``split_of``: the widest of
+    16, 8, 4, 2, 1 that the ends' XOR is a multiple of, a head up to the
+    first end's next multiple of it, whole words, a tail.  The mirror
+    ``hop_split`` is that rule, and the memcheck child's cases, chosen
+    by it on 256-byte aligned buffers, take every width and a peeled
+    head and tail at every candidate chunk length."""
     text = (REPO / PKG / "csrc" / "ring_hop.cu").read_text()
-    dispatch = text[text.index("int ompi_ring_hop("):text.index("int ompi_ring_hop_fold(")]
+    rule = text[text.index("Split split_of("):text.index("template <int W> struct WordOf;")]
     import re
 
-    assert [int(w) for w in re.findall(r"align % (\d+) == 0", dispatch)] == [16, 8, 4, 2]
-    widths = {memcheck.load_width(4096 + off, 8192 + off, nbytes)
-              for nbytes, off in memcheck.HOP_CASES}
-    assert widths == {16, 8, 4, 2, 1}
+    chain = re.findall(r"\(mis & (\d+)\) == 0 \? (\d+)", rule)
+    assert [(int(a), int(b)) for a, b in chain] == [(15, 16), (7, 8), (3, 4), (1, 2)]
+    assert ": 1;" in rule and "(w - (s & (w - 1))) & (w - 1)" in rule
+    assert "if (head > nbytes) head = nbytes;" in rule
+    from ompi_tpu_torch.coll import cuda_kernels as ck
+
+    # the tile the card tests edge on: one pass of a block's threads
+    assert "constexpr long long kTile = static_cast<long long>(kThreads) * kUnroll * 16;" in text
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", text).group(1))
+    unroll = int(re.search(r"constexpr int kUnroll = (\d+);", text).group(1))
+    assert ck.HOP_TILE_BYTES == threads * unroll * 16
+    from ompi_tpu_torch.coll.cuda_kernels import hop_split
+
+    for s_, d_, nbytes in ((0, 0, 4100), (3, 19, 40), (5, 6, 3), (8, 20, 7), (8, 24, 7)):
+        head, w, tail = hop_split(s_, d_, nbytes)
+        assert (w, head, tail) == {(0, 0): (16, 0, 4), (3, 19): (16, 13, 11),
+                                   (5, 6): (1, 0, 0), (8, 20): (4, 0, 3),
+                                   (8, 24): (16, 7, 0)}[(s_, d_)]
+    assert memcheck.PATHS == {16, 8, 4, 2, 1, "head", "tail"}
+    taken = set().union(*(memcheck.case_paths(*c) for c in memcheck.hop_cases()))
+    assert taken == memcheck.PATHS
+    lengths = {nbytes for nbytes, _, _ in memcheck.HOP_CANDIDATES}
+    assert {4097, 4096} < lengths and any(nbytes % 16 for nbytes in lengths)  # ragged, odd
+    for nbytes in lengths:  # every length takes every path
+        assert set().union(*(memcheck.case_paths(*c) for c in memcheck.hop_cases()
+                             if c[0] == nbytes)) == memcheck.PATHS
     assert memcheck.RING_SIZE % memcheck.N  # the rings' padded path
 
 

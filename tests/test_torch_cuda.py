@@ -72,6 +72,96 @@ def test_ring_hop_fold_matches_plain(dev, op, dtype):
         assert torch.equal(_bits(got), _bits(want)), recv_first
 
 
+def _edge_lengths(dtype):
+    """One tile of the kernels' grid less and more one element, and
+    several tiles and stages with a ragged end."""
+    tile = ck.HOP_TILE_BYTES // dtype.itemsize
+    return (tile - 1, tile + 1, (1 << 20) + 3)
+
+
+def _at(shape, dtype, dev, offset, like=None):
+    """``shape`` of ``dtype`` starting ``offset`` elements into a fresh
+    allocation: zeros, or a copy of ``like``."""
+    numel = 1
+    for d in shape:
+        numel *= d
+    out = torch.zeros(numel + offset, dtype=dtype, device=dev)[offset:].view(shape)
+    if like is not None:
+        out.copy_(like)
+    return out
+
+
+def _edge_input(shape, dtype, g, dev):
+    if dtype.is_floating_point:
+        a = (torch.randn(shape, generator=g, device=dev, dtype=torch.float64) * 100).to(dtype)
+        a[..., ::7] = float("nan")
+        a[..., 3::7] = -0.0
+        a[..., 5::7] = torch.finfo(dtype).tiny / 4
+        return a
+    wide = torch.int64 if dtype.itemsize == 8 else torch.int32
+    return torch.randint(-(1 << 30), 1 << 30, shape, generator=g, device=dev,
+                         dtype=torch.int64).to(wide).view(dtype)
+
+
+#: element offsets of (source, destination): the ends agree modulo 16
+#: (aligned or not) and disagree
+_OFFSETS = ((0, 0), (1, 1), (1, 0), (0, 1))
+
+
+@pytest.mark.parametrize("n", [3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8, torch.float64],
+                         ids=str)
+def test_ring_hop_tiles_and_offsets(dev, dtype, n):
+    """Chunks across tile and stage edges, at offsets that make a rank's
+    ends agree (16-byte body, peeled head and tail) or disagree
+    (narrower words), out of place and in place: bit-equal to the twin."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    tbl = ck._index_table(n, dev)
+    for m in _edge_lengths(dtype):
+        raw = torch.randint(0, 256, (n * n * m * dtype.itemsize,), generator=g, device=dev,
+                            dtype=torch.uint8).view(dtype).view(n, n, m)
+        si = torch.randint(0, n, (n,), generator=g, device=dev, dtype=torch.int32)
+        di = torch.randint(0, n, (n,), generator=g, device=dev, dtype=torch.int32)
+        for so, do in _OFFSETS:
+            src = _at(raw.shape, dtype, dev, so, raw)
+            got, want = _at(raw.shape, dtype, dev, do), _at(raw.shape, dtype, dev, do)
+            ck.ring_hop(src, si, got, di)
+            ck.ring_hop_plain(src, si, want, di)
+            ip = src.clone()
+            ck.ring_hop(src, tbl[1], src, tbl[0])
+            ck.ring_hop_plain(ip, tbl[1], ip, tbl[0])
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(got), _bits(want)), (m, so, do)
+            assert torch.equal(_bits(src), _bits(ip)), (m, so, "in place")
+
+
+@pytest.mark.parametrize("op", [SUM, PROD, MAX, MIN], ids=lambda o: o.name)
+@pytest.mark.parametrize("dtype", list(ck._FOLD_DTYPES), ids=str)
+def test_ring_hop_fold_tiles_and_offsets(dev, dtype, op):
+    """The fold across tile and stage edges, in place at an offset and
+    out of place into a destination whose ends agree or disagree with
+    the operands' modulo 16, both operand orders: bit-equal to the twin."""
+    n = 8
+    g = torch.Generator(device=dev).manual_seed(5)
+    tbl = ck._index_table(n, dev)
+    ri, sent = tbl[n - 1], tbl[0]
+    for m in _edge_lengths(dtype):
+        x = _edge_input((n, n, m), dtype, g, dev)
+        for so, do in _OFFSETS[:3]:
+            for recv_first in (False, True):
+                a = _at(x.shape, dtype, dev, so, x)
+                want = x.clone()
+                ck.ring_hop_fold(a, ri, a, sent, a, ri, op, recv_first)
+                ck.ring_hop_fold_plain(want, ri, want, sent, want, ri, op, recv_first)
+                d, dw = _at((n, 1, m), dtype, dev, do), _at((n, 1, m), dtype, dev, do)
+                src = _at(x.shape, dtype, dev, so, x)
+                ck.ring_hop_fold(src, ri, src, sent, d, tbl[n], op, recv_first)
+                ck.ring_hop_fold_plain(src, ri, src, sent, dw, tbl[n], op, recv_first)
+                torch.cuda.synchronize()
+                assert torch.equal(_bits(a), _bits(want)), (m, so, recv_first)
+                assert torch.equal(_bits(d), _bits(dw)), (m, so, do, recv_first)
+
+
 def test_cuda_ring_allreduce_counts_its_launches(dev):
     from ompi_tpu_torch.api.comm import Comm
     from ompi_tpu_torch.api.group import Group
