@@ -152,9 +152,9 @@ exits non-zero:
     name left; then (c) on that layout (``recovery_devices_shrink``),
     bit-equal to a fresh devices 2 × 4 job and to (c);
     and a probe of a CUDA IPC mapping whose exporter was killed (read
-    through it, then a fresh open).  After (b) and (f)'s respawn, (c)
-    and (f)'s shrink in one lane and (d) plus the probe in another run
-    side by side (each is a pass/fail check), and the analysis phase
+    through it, then a fresh open).  After (b) and (f)'s respawn, (c),
+    (f)'s shrink, and (d) plus the probe run in three lanes side by side
+    (each is a pass/fail check), and the analysis phase
     runs beside the whole phase.  It prints the time to heal and the
     64 MiB p50 before and after recovery beside the card's name and
     power limit.  Output: ``chiprun_out/recovery_*.log``.
@@ -165,11 +165,8 @@ exits non-zero:
     workers up, the daemon's ``torch.cuda.is_initialized()`` false (its
     ``/json`` line), its pid not among ``nvidia-smi``'s compute apps and
     no ``/dev/nvidia*`` file open in its ``/proc/<pid>/fd`` (where each
-    worker's are);
-    ``warm_cold`` — submit→``FIRSTCOLL`` of
-    ``ompi_tpu_torch/examples/serve_firstcoll.py``, one fresh ``run -np
-    2 --nranks 4`` job and one submission to the daemon
-    (``FIRSTCOLL_RUNS`` each); ``jobs`` — two submissions of the f32 SUM sweep at 8 B,
+    worker's are (the warm-against-cold first collective is phase bench's
+    serve join); ``jobs`` — two submissions of the f32 SUM sweep at 8 B,
     2 MiB, 64 MiB and 256 MiB per rank with ``cuda_ring`` forced: each
     size bit-equal to the plain ring, the same SHA-256 in both jobs, job
     2 with zero new dials, 3 + 3 launches per call from 2 MiB, the p50
@@ -181,9 +178,11 @@ exits non-zero:
     bit-equal to its plain ring; ``repair`` — process 1's worker
     SIGKILLed between jobs, the daemon's respawn, ``heal_ms`` of both
     processes, the next job's 64 MiB results equal job 1's,
-    ``device_fallbacks`` 0; ``shutdown`` — drain, shutdown, no worker
-    alive and no ``/dev/shm`` name left; ``telemetry`` — the same sweep
-    as plain ``run`` jobs of 20 calls per size, with ``--mca
+    ``device_fallbacks`` 0 (a process that counts any prints its
+    fallbacks by cause and its plane-health transitions); ``shutdown`` —
+    drain, shutdown, no worker alive and no ``/dev/shm`` name left;
+    ``telemetry`` — the same sweep as plain ``run`` jobs of 20 calls per
+    size, with ``--mca
     telemetry_enable 1`` (scraped, ``/metrics`` and ``/critical``, while
     it runs), with the daemon's worker settings (telemetry and the
     failure detector) and with neither; every size's p50 and quartiles
@@ -259,7 +258,7 @@ exits non-zero:
     ``chiprun_out/analysis_lockdep.log``,
     ``chiprun_out/analysis_lockdep_job.log``.
 
-19. tools (after bench_np2, last) — the port's operator tools on
+19. tools (after bench, last) — the port's operator tools on
     the card, no ``--cpu``, in four lanes side by side: ``python -m
     ompi_tpu_torch chaos --np 2 --seed 12 --ops 18 --runs 2 --out``
     (the default plan; both runs' injected counts equal each other and
@@ -308,35 +307,32 @@ exits non-zero:
     line, its ``rt_us`` quartiles and its histogram, and how many round
     trips sit at +2 ms multiples of the fastest (the missed-doorbell
     cadence; reported, not a gate).  Output: ``chiprun_out/diag_pp.log``.
-22. bench (after capi, before tools) — the reference's single-process
-    measurement tools, each in its own process on ``cuda:0``: ``python
-    -m ompi_tpu_torch bench-algos --check`` (every entry of ``coll/base``'s
-    seven families held against the same entry on the CPU on seeded
-    rows at both payloads — bit for bit, ``allclose`` rtol 1e-6 for
-    ``psum`` and ``reduce_scatter_direct`` — then ``ALGOS8``),
-    ``bench-hostpath --check`` (numpy in and out through ``allreduce`` at
-    64 KiB, 1 MiB and 16 MiB per rank, every row within the rounding
-    bound of the numpy sum, ``stage_calls`` rising by the calls made,
-    then ``HOSTPATH8`` with the overlap row) and ``run -np 1 --nranks 1``
-    of ``ompi_tpu_torch/tools/bench_pyapi.py`` (``PYAPI device=cuda:0``,
-    then the rows to 4 KiB).  Each leg's ring launches go into the
-    totals.  Output: ``chiprun_out/bench_*.log``.
-23. bench_np2 (right after bench) — the reference's np=2 measurement
-    workers through their joins, each its own command on ``cuda:0`` at
-    the reference's iteration counts: ``python -m ompi_tpu_torch
-    bench-dispatch-floor`` (``native/bench/dispatch_floor.c`` built with
-    ``mpicc`` and ``ompi_tpu_torch/tools/bench_dispatch_floor.py`` at np
-    1 and 2; every C line with its 17 rows and its ``persistent`` block,
-    every row joined with its Python twin, each Python process's last
-    results exact, every C rank with CUDA up), ``bench-dcn`` (ping-pong
-    and han's allreduce over ``btl`` native, tcp and sm) and
-    ``bench-device-plane`` (osu_bw with the buffer on the card and
-    allreduce, plane on and off; the reference's arbitration-counter
-    check).  Every Python worker must name ``cuda:0``; the ring launches
-    of every process go into the totals.  Output:
-    ``chiprun_out/bench_{dispatch_floor,dcn,device_plane}.log``.
+22. bench (after capi, before tools) — ``python -m ompi_tpu_torch bench
+    --check`` (``ompi_tpu_torch/tools/bench.py``, the port of the
+    reference's ``bench.py``) on ``cuda:0`` at full width, its detail in
+    ``chiprun_out/bench_detail.json``: the osu_allreduce sweep from 8 B to
+    1 GiB per rank (15 sizes) and the blocking suite (bcast, allgather,
+    reduce_scatter_block, alltoall at 64 B … 2 MiB), each call paired
+    with its raw torch primitive and held against it (the copies bit for
+    bit, the sums within twice an 8-term f32 rounding bound), barrier,
+    the persistent row, gather/scatter, the 4 MiB overlap row and the
+    numpy host-path rows; then the nine joins: ``dcn`` (btl native, tcp
+    and sm on ``cuda:0``), ``capi`` (``osu_allreduce.c`` against
+    ``bench_pyapi.py``: rows 4 B … 4 KiB, ``PYAPI device=cuda:0``),
+    ``capi_p2p``, ``osu_bw_sweep``, ``dispatch_floor`` (17 C rows per np
+    with ``persistent``, every row joined, the Python worker on
+    ``cuda:0``), ``device_plane`` (both legs' devices and buffers on
+    ``cuda:0``), ``algos_cpu8`` and ``hostpath_cpu8`` in their
+    ``--check`` form on ``cuda:0`` (``stage_calls`` equal to the calls
+    made), and ``serve`` (cold ``run`` against warm ``tpud`` submissions,
+    ``BENCH_SERVE_RUNS`` each, alone after the other joins, which run
+    ``BENCH_LANES`` at a time); every C rank with CUDA up, no join with
+    an error, the headline JSON the call's last line.  It prints the
+    headline, each size's framework and raw p50, the overlap saving and
+    the serve medians; the ring launches of every process go into the
+    totals.  Output: ``chiprun_out/bench.log``.
 
-24. cross_device (right after golden) — the reference's one rank per
+23. cross_device (right after golden) — the reference's one rank per
     device: ``init()`` with ``accelerator_cuda_layout devices`` puts rank
     r on card ``r * count // 8`` (all eight on ``cuda:0`` with one card:
     printed, with each neighbour pair's link, same card or peer);
@@ -378,7 +374,7 @@ exits non-zero:
     MiB-per-rank checkpoint ``save``/``restore`` of ``RankShards`` under
     ``build/``; the p2p round and the fence epoch timed (median of 20)
     beside their copy bounds.  With
-    ``--cross-device-only`` the script runs phases 1 and 24 and the
+    ``--cross-device-only`` the script runs phases 1 and 23 and the
     ``mp_devices`` job of phase 12 alone, for a machine of four cards:
     rank r on card ``r // 2``, four of the eight hops across NVLink,
     timed on the host clock over every card, and the job's ranks on
@@ -409,8 +405,8 @@ those of the main path, the golden phase, the tuned phase, the ddt phase, the
 multiproc and native workers, the shmem phase (its single-controller
 path, its worker and its C ranks), the recovery phase, the serve
 phase's jobs (each job prints its own), the C ranks of the capi
-phase (none: a C rank holds one row), the bench phase's three legs, the
-bench_np2 phase's workers and C ranks, the tools phase's workers and
+phase (none: a C rank holds one row), the bench phase's own calls, its
+joins' workers and C ranks, the tools phase's workers and
 the analysis phase's two children (for ``ring_hop`` and
 ``ring_hop_fold``), and the cross_device phase's ``Comm`` rings, its
 checked collectives and its ``surfaces`` leg's typed allreduce on the
@@ -3419,12 +3415,14 @@ def phase_recovery(smi, ck) -> dict:
     # leg recovery_devices: the same job on the one-rank-per-device layout
     devices = recovery_respawn(smi, "devices", respawn)
     emit({"phase": "recovery_devices", **devices})
-    # the pass/fail jobs, in two lanes side by side (the devices layout's
-    # shrink and fresh jobs after the rows layout's)
-    with ThreadPoolExecutor(2) as pool:
-        shrink_f = pool.submit(lambda: (recovery_shrink(), recovery_shrink("devices")))
+    # the pass/fail jobs, in three lanes side by side: each layout's shrink
+    # and fresh jobs, and the spawn and the dead-exporter probe
+    with ThreadPoolExecutor(3) as pool:
+        shrink_f = pool.submit(recovery_shrink)
+        dshrink_f = pool.submit(recovery_shrink, "devices")
         spawn_f = pool.submit(lambda: (recovery_spawn(), ipc_dead_exporter()))
-        (shrink, dshrink), (spawn, probe) = shrink_f.result(), spawn_f.result()
+        shrink, dshrink, (spawn, probe) = (shrink_f.result(), dshrink_f.result(),
+                                           spawn_f.result())
     dshrink["bitwise_vs_rows"] = dshrink["digests"] == shrink["digests"]
     dshrink["ok"] = dshrink["ok"] and dshrink["bitwise_vs_rows"]
     emit({"phase": "recovery_shrink_procs", "nvidia_smi": smi, **shrink})
@@ -3461,11 +3459,6 @@ def phase_recovery(smi, ck) -> dict:
 #: at 8 global ranks, cut to 256 MiB per rank)
 SERVE_SIZES = [8, 2 << 20, 64 << 20, 256 << 20]
 SERVE_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_job.py"
-FIRSTCOLL_JOB = REPO / "ompi_tpu_torch" / "examples" / "serve_firstcoll.py"
-#: cold and warm launch→first-collective samples per leg: each cold
-#: ``run`` boot costs 14–20 s of the script's time (3 → 2 paid for the
-#: bench_np2 phase, 2 → 1 for phase native's mp_devices leg)
-FIRSTCOLL_RUNS = 1
 
 
 def sjson_rows(lines, job_id: str | None = None) -> list:
@@ -3479,19 +3472,6 @@ def sjson_rows(lines, job_id: str | None = None) -> list:
             if job_id is None or rec.get("job") == job_id:
                 rows.append(rec)
     return rows
-
-
-def firstcoll_ns(lines) -> int:
-    """The later process's ``FIRSTCOLL`` wall clock."""
-    got = [int(m.group(1)) for m in (re.search(r"FIRSTCOLL ns=(\d+)", l) for l in lines) if m]
-    if len(got) != MP_PROCS:
-        raise SystemExit(f"expected {MP_PROCS} FIRSTCOLL lines, got {got}")
-    return max(got)
-
-
-def span(times) -> dict:
-    t = sorted(times)
-    return {"ms": t, "median_ms": t[len(t) // 2], "min_ms": t[0], "max_ms": t[-1]}
 
 
 class Tpud:
@@ -3593,39 +3573,6 @@ def nvidia_fds(pid: int) -> list:
     return sorted(set(out))
 
 
-def serve_cold() -> list:
-    """Launch→first collective of a fresh ``run -np 2 --nranks 4`` job."""
-    out = []
-    for i in range(FIRSTCOLL_RUNS):
-        cmd = [sys.executable, "-m", "ompi_tpu_torch", "run", "-np", str(MP_PROCS),
-               "--nranks", str(MP_RANKS), str(FIRSTCOLL_JOB)]
-        t = time.time_ns()
-        res = subprocess.run(cmd, capture_output=True, text=True, env=pkg_env(),
-                             cwd=str(REPO), timeout=300)
-        if res.returncode != 0:
-            print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
-            raise SystemExit(f"cold first-collective run {i} failed (rc={res.returncode})")
-        out.append((firstcoll_ns(res.stdout.splitlines()) - t) / 1e6)
-    return out
-
-
-def serve_warm(d: Tpud) -> list:
-    """Submit→first collective of the same script in the warm daemon."""
-    from ompi_tpu_torch.serve import client
-
-    out = []
-    for i in range(FIRSTCOLL_RUNS):
-        n0 = len(d.lines)
-        t = time.time_ns()
-        j = client.submit(d.url, str(FIRSTCOLL_JOB), tenant="bench")
-        rec = client.wait(d.url, j["id"], timeout=300)
-        if rec["state"] != "done":
-            raise SystemExit(f"warm first-collective job {i} failed: {rec}")
-        time.sleep(0.2)  # the forwarded lines trail the completion record
-        out.append((firstcoll_ns(d.lines[n0:]) - t) / 1e6)
-    return out
-
-
 def serve_job(d: Tpud, args, tenant: str, nprocs: int | None = None) -> tuple:
     """Submit ``serve_job.py`` with ``args`` and wait: its completion
     record and its ``SJSON`` rows."""
@@ -3670,6 +3617,23 @@ def size_rows(rows) -> dict:
 
 def launch_rows(rows) -> list:
     return [r for r in rows if r["kind"] == "launches"]
+
+
+def fallback_report(leg: str, rows, smi) -> list:
+    """The launches rows of ``serve_job.py`` whose device plane counted a
+    fallback, each process's causes and plane-health transitions printed
+    (the check on ``device_fallbacks`` is unchanged)."""
+    out = []
+    for r in rows:
+        n = (r["device"] or {}).get("device_fallbacks")
+        if n:
+            out.append({"job": r["job"], "proc": r["proc"], "device_fallbacks": n,
+                        "causes": r.get("device_fallback_causes"),
+                        "transitions": r.get("plane_transitions")})
+            print(f"{leg}: job {r['job']} process {r['proc']}: {n} device-plane fallbacks, "
+                  f"causes {r.get('device_fallback_causes')}, plane transitions "
+                  f"{r.get('plane_transitions')} ({smi})", flush=True)
+    return out
 
 
 def heal_lines(lines) -> dict:
@@ -3792,6 +3756,9 @@ def serve_devices(smi, rows_digests: dict) -> dict:
                                  (r2["device"] or {}).get("device_fallbacks")
                                  for rec, rr in jobs + [(rec3, r3)]
                                  for r2 in launch_rows(rr)}})
+        row["fallback_detail"] = fallback_report(
+            "serve_devices", [r2 for _rec, rr in jobs + [(rec3, r3)]
+                              for r2 in launch_rows(rr)], smi)
         client.drain(d.url)
         client.shutdown(d.url)
         rc = d.proc.wait(timeout=120)
@@ -3914,7 +3881,6 @@ def phase_serve(smi) -> dict:
 
     t_phase = time.perf_counter()
     sizes, big = SERVE_SIZES, 64 << 20
-    cold = serve_cold()
     d = Tpud("serve_tpud")
     rows: dict = {}
     try:
@@ -3939,8 +3905,6 @@ def phase_serve(smi) -> dict:
         # the fd witness must see the workers' contexts to count for the daemon
         rb["ok"] = (not rb["daemon_in_compute_apps"] and not rb["daemon_cuda_initialized"]
                     and not rb["daemon_nvidia_fds"] and all(rb["workers_nvidia_fds"]))
-        warm = serve_warm(d)
-        rows["warm_cold"] = {"cold": span(cold), "warm": span(warm)}
         # jobs: two submissions of the sweep, /metrics, /json and
         # /waitgraph scraped while the first runs
         stop, scraped = threading.Event(), []
@@ -4046,6 +4010,8 @@ def phase_serve(smi) -> dict:
             "device_fallbacks": {r2["proc"]: (r2["device"] or {}).get("device_fallbacks")
                                  for _rec, rr in jobs + [(rec3, r3)]
                                  for r2 in launch_rows(rr)}}
+        rows["repair"]["fallback_detail"] = fallback_report(
+            "serve", [r2 for _rec, rr in jobs + [(rec3, r3)] for r2 in launch_rows(rr)], smi)
         rr = rows["repair"]
         rr["ok"] = (rr["respawned"] and rr["repair_complete"] and sorted(heal) == [0, 1]
                     and rr["bitwise_vs_before"] and rr["bitwise_vs_plain"]
@@ -4084,9 +4050,7 @@ def phase_serve(smi) -> dict:
     launches += [r2 for leg in legs.values() for r2 in leg["launches"]]
     total = {k: sum(r2[k] for r2 in launches) + rows["devices"]["launches"][k]
              for k in KERNEL_NAMES}
-    print(f"serve: cold {rows['warm_cold']['cold']['median_ms']:.1f} ms, warm "
-          f"{rows['warm_cold']['warm']['median_ms']:.1f} ms submit->first collective; "
-          f"heal_ms {rows['repair']['heal_ms']}; telemetry on/off p50 "
+    print(f"serve: heal_ms {rows['repair']['heal_ms']}; telemetry on/off p50 "
           f"{rtl['p50_on_ms']}/{rtl['p50_off_ms']} ms ({smi})", flush=True)
     for name, row in rows.items():
         emit({"phase": f"serve_{name}", "nvidia_smi": smi, **row})
@@ -4286,145 +4250,134 @@ def phase_capi(smi, native) -> dict:
 
 # -- phase 22 ---------------------------------------------------------------
 
-BENCH_PYAPI = REPO / "ompi_tpu_torch" / "tools" / "bench_pyapi.py"
-PYAPI_DEVICE = re.compile(r"\[0\] PYAPI device=(\S+) max_bytes=(\d+) iters=(\d+)")
-
-
-def marked(out: str, marker: str):
-    """The JSON of the one ``<marker> {...}`` or ``<marker> [...]`` line
-    (a launcher's ``[p] `` prefix dropped); fails unless there is one."""
-    from ompi_tpu_torch.tools import bench_joins
-
-    return bench_joins.marked(out, marker, strict=True)
-
-
-def phase_bench(smi) -> dict:
-    """The reference's single-process measurement tools on the card, each
-    leg in its own process, no ``--cpu``: ``bench-algos --check`` (every
-    entry of the seven families on ``cuda:0`` against the CPU on seeded
-    rows, bit for bit but ``psum`` and ``reduce_scatter_direct``, then
-    ``ALGOS8``), ``bench-hostpath --check`` (every row within the
-    rounding bound of the numpy sum, ``stage_calls`` equal to the calls
-    made, then ``HOSTPATH8``) and ``run -np 1 --nranks 1`` of
-    ``ompi_tpu_torch/tools/bench_pyapi.py`` with its defaults (``PYAPI``;
-    the metrics export on, for its launches and CUDA bring-up).  Each leg
-    must print its marker line from ``cuda:0``; the row holds the lines,
-    each leg's ring launches and wall time.  Output:
-    ``chiprun_out/bench_*.log``."""
-    t0 = time.perf_counter()
-    out, _err, algos_s = port_cli("bench_algos", ["bench-algos", "--check"], timeout=300)
-    algos_chk, algos = marked(out, "ALGOS8_CHECK"), marked(out, "ALGOS8")
-    out, _err, hostpath_s = port_cli("bench_hostpath", ["bench-hostpath", "--check"],
-                                     timeout=300)
-    host_chk, hostpath = marked(out, "HOSTPATH8_CHECK"), marked(out, "HOSTPATH8")
-    base = REPO / "chiprun_out" / "bench_pyapi"
-    out, _err, pyapi_s = port_cli("bench_pyapi", [
-        "run", "-np", 1, "--nranks", 1, "--mca", "metrics_enable", 1,
-        "--mca", "metrics_output", base, BENCH_PYAPI], timeout=300)
-    pyapi = marked(out, "PYAPI")
-    dev = next((m for m in map(PYAPI_DEVICE.fullmatch, out.splitlines()) if m), None)
-    pyapi_metrics = metrics_rows(base, 1)[0]
-    failures = []
-    if not (algos_chk["ok"] and algos_chk["device"] == algos["device"] == "cuda:0"):
-        failures.append("algos")
-    if not (host_chk["ok"] and host_chk["stage_calls"] == host_chk["calls"]
-            and hostpath["arena"]["stage_calls"] == host_chk["calls"]
-            and hostpath["device"] == "cuda:0"):
-        failures.append("hostpath")
-    if not (dev and dev.group(1) == "cuda:0" and pyapi_metrics["cuda_initialized"]
-            and [r["bytes"] for r in pyapi] == [4 << (2 * i) for i in range(6)]):
-        failures.append("pyapi")
-    legs = {"algos": algos_chk["launches"], "hostpath": host_chk["launches"],
-            "pyapi": pyapi_metrics["kernel_launches"]}
-    launches = {k: sum(leg.get(k, 0) for leg in legs.values())
-                for k in ("ring_hop", "ring_hop_fold")}
-    order = {family: sorted(algs, key=lambda n, algs=algs: algs[n]["large_us"])
-             for family, algs in algos.items()
-             if isinstance(algs, dict) and family != "barrier"}  # barriers: small only
-    row = {"phase": "bench", "nvidia_smi": smi, "algos": algos,
-           "algos_check": algos_chk["entries"], "algos_large_us_order": order,
-           "hostpath": hostpath, "hostpath_check": host_chk["rows"], "pyapi": pyapi,
-           "launches_per_leg": legs, "launches": launches,
-           "wall_s": {"algos": algos_s, "hostpath": hostpath_s, "pyapi": pyapi_s,
-                      "phase": time.perf_counter() - t0},
-           "failures": failures, "ok": not failures}
-    r16 = hostpath["rows"][-1]
-    print(f"bench: ALGOS8 large_us order {order}; HOSTPATH8 {r16['bytes']} B "
-          f"{r16['fw_GBs']:.4f} GB/s p50 {r16['fw_us_p50']:.1f} us; PYAPI "
-          + ", ".join(f"{r['bytes']} B {r['py_us']:.2f} us" for r in pyapi)
-          + f"; walls {algos_s:.1f} / {hostpath_s:.1f} / {pyapi_s:.1f} s ({smi})", flush=True)
-    emit(row)
-    if failures:
-        raise SystemExit(f"bench checks failed: {failures}")
-    return row
-
-
-# -- phase 23 ---------------------------------------------------------------
-
+#: the bench's per-rank sweep (8 B … 1 GiB in ×4 steps) and suite sizes
+#: (64 B … 4 MiB in ×32 steps) at its defaults
+BENCH_SWEEP = [8 << (2 * i) for i in range(14)] + [1 << 30]
+BENCH_SUITE = [64, 2048, 65536, 2097152]
+#: cold and warm samples of the bench's serve join (the reference's 3; a
+#: depth cut, PERF.md §6) and the joins before it run at a time (their
+#: rows are pass/fail here; the serve join and run() stay alone)
+BENCH_SERVE_RUNS = 1
+BENCH_LANES = 3
+BENCH_JOINS = ("dcn", "capi", "capi_p2p", "osu_bw_sweep", "dispatch_floor", "device_plane",
+               "algos_cpu8", "hostpath_cpu8", "serve")
+#: the C ranks each join starts: capi np 1; capi_p2p two jobs of np 2;
+#: osu_bw_sweep np 2; dispatch_floor np 1 and np 2
+BENCH_C_RANKS = {"capi": 1, "capi_p2p": 4, "osu_bw_sweep": 2, "dispatch_floor": 3}
+PYAPI_SIZES = [4 << (2 * i) for i in range(6)]
 #: ``(op, bytes)`` of the rows ``native/bench/dispatch_floor.c`` prints
 DISPATCH_ROWS = [(op, n) for n in (8, 64, 512, 4096)
                  for op in ("allreduce", "bcast", "reduce", "allgather")] + [("barrier", 0)]
 PERSISTENT_KEYS = ["bytes", "percall_us", "start_us", "start_speedup"]
+HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline", "n_ranks", "platform", "max_bytes",
+                 "min_size_ratio", "min_size_ratio_bytes", "suite_min_ratio",
+                 "overlap_saving_pct", "detail_file", "device"]
 
 
-def phase_bench_np2(smi) -> dict:
-    """The np=2 measurement workers on the card through their joins, one
-    command each, no ``--cpu``: ``bench-dispatch-floor``, ``bench-dcn``,
-    ``bench-device-plane``.  A join fails on a failed job (a Python
-    dispatch worker exits 1 on an inexact result) and on the device
-    plane's counter check; this phase also fails unless every Python
-    worker names ``cuda:0``, each C ``DISPATCH`` line has its 17 rows and
-    its ``persistent`` block with every row joined, and every C rank
-    brought up CUDA.  Output: ``chiprun_out/bench_*.log``."""
-    t0 = time.perf_counter()
-    out, _err, dispatch_s = port_cli("bench_dispatch_floor", ["bench-dispatch-floor"],
-                                     timeout=600)
-    dispatch = marked(out, "DISPATCHFLOOR")
-    out, _err, dcn_s = port_cli("bench_dcn", ["bench-dcn"], timeout=600)
-    dcn = marked(out, "DCNBENCH_ALL")
-    dcn_launches = dcn.pop("launches")
-    out, _err, plane_s = port_cli("bench_device_plane", ["bench-device-plane"], timeout=900)
-    plane = marked(out, "DEVBENCH_ALL")
+def bench_failures(detail: dict, stdout: str, device: str = "cuda:0",
+                   sweep=BENCH_SWEEP, suite=BENCH_SUITE) -> list:
+    """What a ``bench --check`` call's detail and stdout fail of the bench
+    phase's checks (every check of the former ``bench`` and ``bench_np2``
+    phases, on the joins' blocks, and the sweep's own)."""
     failures = []
+    try:
+        head = json.loads(stdout.strip().splitlines()[-1])
+        if not (list(head) == HEADLINE_KEYS and head["device"] == device
+                and head["metric"] == "osu_allreduce_latency_ratio_vs_raw_psum"
+                and len(json.dumps(head)) < 1500):
+            failures.append("headline")
+    except (ValueError, IndexError, TypeError):
+        failures.append("headline not the last line")
+    if detail.get("device") != device:
+        failures.append("device")
+    if [r["bytes"] for r in detail.get("sizes", [])] != list(sweep):
+        failures.append("sweep sizes")
+    colls = detail.get("colls", {})
+    if sorted(colls) != sorted(("bcast", "allgather", "reduce_scatter", "alltoall")) or any(
+            [r["bytes"] for r in rows] != list(suite) for rows in colls.values()):
+        failures.append("suite sizes")
+    if not (detail.get("check") or {}).get("ok"):
+        failures.append("check")
+    errors = [k for k in BENCH_JOINS if "error" in detail.get(k, {"error": "missing"})]
+    if errors:
+        return failures + [f"joins {errors}"]
+    algos, host = detail["algos_cpu8"], detail["hostpath_cpu8"]
+    if not (algos["check"]["ok"] and algos["check"]["device"] == algos["device"] == device):
+        failures.append("algos")
+    hc = host["check"]
+    if not (hc["ok"] and hc["stage_calls"] == hc["calls"]
+            and host["arena"]["stage_calls"] == hc["calls"] and host["device"] == device):
+        failures.append("hostpath")
+    capi = detail["capi"]
+    if not (capi["py_device"] == device and [r["bytes"] for r in capi["rows"]] == PYAPI_SIZES
+            and all("py_us" in r for r in capi["rows"])):
+        failures.append("pyapi")
     for np_ in ("np1", "np2"):
-        leg = dispatch[np_]
-        if not (leg["py_device"] == "cuda:0"
+        leg = detail["dispatch_floor"][np_]
+        if not (leg["py_device"] == device
                 and [(r["op"], r["bytes"]) for r in leg["rows"]] == DISPATCH_ROWS
                 and all("c_over_py" in r for r in leg["rows"])
                 and list(leg["persistent"] or {}) == PERSISTENT_KEYS):
             failures.append(f"dispatch_floor {np_}")
-    if dispatch["c_cuda_initialized"] != [True] * 3:
-        failures.append("dispatch_floor C ranks without CUDA")
-    if sorted(dcn) != ["native", "sm", "tcp"] or any(v["device"] != "cuda:0"
+    cuda = device.startswith("cuda")
+    for key, ranks in BENCH_C_RANKS.items():
+        if detail[key].get("c_cuda_initialized") != [cuda] * ranks:
+            failures.append(f"{key} C ranks' CUDA")
+    dcn = {k: v for k, v in detail["dcn"].items()
+           if k not in ("launches", "c_cuda_initialized")}
+    if sorted(dcn) != ["native", "sm", "tcp"] or any(v["device"] != device
                                                      for v in dcn.values()):
         failures.append("dcn")
-    if plane["device"] != {"device": "cuda:0", "host": "cuda:0"} or plane["buffer"] != {
-            "device": "cuda:0", "host": "cuda:0"}:
+    plane = detail["device_plane"]
+    if plane["device"] != {"device": device, "host": device} or plane["buffer"] != {
+            "device": device, "host": device}:
         failures.append("device_plane")
-    legs = {"dispatch_floor": dispatch["launches"], "dcn": dcn_launches,
-            "device_plane": plane["launches"]}
-    launches = {k: sum(leg[k] for leg in legs.values()) for k in ("ring_hop", "ring_hop_fold")}
-    row = {"phase": "bench_np2", "nvidia_smi": smi, "dispatch_floor": dispatch, "dcn": dcn,
-           "device_plane": plane, "launches_per_leg": legs, "launches": launches,
-           "wall_s": {"dispatch_floor": dispatch_s, "dcn": dcn_s, "device_plane": plane_s,
-                      "phase": time.perf_counter() - t0},
+    if detail["serve"]["device"] != {"cold": [device], "warm": [device]}:
+        failures.append("serve")
+    return failures
+
+
+def phase_bench(smi) -> dict:
+    """One ``python -m ompi_tpu_torch bench --check`` call on the card at
+    full width (the serve join at ``BENCH_SERVE_RUNS`` samples, the joins
+    before it ``BENCH_LANES`` at a time), its
+    detail read from ``chiprun_out/bench_detail.json`` and held to
+    :func:`bench_failures`.  Output: ``chiprun_out/bench.log``."""
+    t0 = time.perf_counter()
+    detail_path = REPO / "chiprun_out" / "bench_detail.json"
+    out, _err, wall_s = port_cli("bench", ["bench", "--check", "--serve-runs",
+                                           BENCH_SERVE_RUNS, "--lanes", BENCH_LANES,
+                                           "--out", detail_path], timeout=900)
+    detail = json.loads(detail_path.read_text())
+    failures = bench_failures(detail, out)
+    head = json.loads(out.strip().splitlines()[-1])
+    sweep = [{k: r[k] for k in ("bytes", "fw_us_p25", "fw_us_p50", "fw_us_p75", "raw_us_p25",
+                                "raw_us_p50", "raw_us_p75", "ratio", "launches")}
+             for r in detail["sizes"]]
+    suite = {c: [{k: r[k] for k in ("bytes", "fw_us_p50", "raw_us_p50", "ratio")} for r in rows]
+             for c, rows in detail["colls"].items()}
+    serve = {k: detail["serve"].get(k) for k in (
+        "runs", "cold_submit_to_first_coll_us", "warm_submit_to_first_coll_us",
+        "cold_us_all", "warm_us_all", "warm_speedup")}
+    launches = {k: detail["launches"].get(k, 0) for k in ROWS}
+    row = {"phase": "bench", "nvidia_smi": smi, "headline": head, "sweep": sweep,
+           "suite": suite, "overlap": detail["overlap"], "serve": serve,
+           "launches_per_join": detail["launches_per_join"], "launches": launches,
+           "wall_s": {"call": wall_s, "phase": time.perf_counter() - t0,
+                      "parts": detail["wall_s"]},
            "failures": failures, "ok": not failures}
-    by_op = {np_: {(r["op"], r["bytes"]): r for r in dispatch[np_]["rows"]}
-             for np_ in ("np1", "np2")}
-    print("bench_np2: DISPATCHFLOOR " + "; ".join(
-        f"{np_} allreduce 8 B c {by_op[np_][('allreduce', 8)]['c_us']} us py "
-        f"{by_op[np_][('allreduce', 8)]['py_us']:.2f} us, c_over_py geomean "
-        f"{dispatch[np_]['c_over_py_geomean']}, persistent start_speedup "
-        f"{dispatch[np_]['persistent']['start_speedup']}" for np_ in ("np1", "np2"))
-          + "; DCNBENCH 4 MiB p2p " + ", ".join(
-              f"{btl} {dcn[btl]['p2p'][-1]['p2p_MBs']:.1f} MB/s" for btl in sorted(dcn))
-          + "; DEVBENCH 4 MiB bw_vs_host "
-          + f"{plane['rows'][-1].get('bw_vs_host')} allreduce_vs_host "
-          + f"{plane['rows'][-1].get('allreduce_vs_host')}; walls {dispatch_s:.1f} / "
-          + f"{dcn_s:.1f} / {plane_s:.1f} s ({smi})", flush=True)
+    print(f"bench: {json.dumps(head)} ({smi})", flush=True)
+    print("bench: allreduce p50 fw/raw us " + ", ".join(
+        f"{r['bytes']} B {r['fw_us_p50']}/{r['raw_us_p50']}" for r in sweep) + f" ({smi})",
+        flush=True)
+    print(f"bench: overlap saving {detail['overlap']['saving_pct']}% "
+          f"(max possible {detail['overlap']['max_possible_saving_pct']}%); serve cold "
+          f"{serve['cold_submit_to_first_coll_us']} us, warm "
+          f"{serve['warm_submit_to_first_coll_us']} us median of {serve['runs']}; "
+          f"wall {wall_s:.1f} s ({smi})", flush=True)
     emit(row)
     if failures:
-        raise SystemExit(f"bench_np2 checks failed: {failures}")
+        raise SystemExit(f"bench checks failed: {failures}")
     return row
 
 
@@ -5305,13 +5258,12 @@ def main() -> int:
     serve = phase("serve", phase_serve, smi)
     capi = phase("capi", phase_capi, smi, native)
     bench = phase("bench", phase_bench, smi)
-    bench_np2 = phase("bench_np2", phase_bench_np2, smi)
     tools = phase("tools", phase_tools, smi)
     # the rows layout's kernels run on every path but cross_device's, the
     # peer kernels on that one alone
     launches = {k: launches.get(k, 0) + sum(
         ph["launches"].get(k, 0) for ph in (golden, tuned, ddt, multiproc, native, shmem,
-                                            recovery, serve, capi, bench, bench_np2, tools,
+                                            recovery, serve, capi, bench, tools,
                                             analysis)) for k in ROWS}
     # the peer kernels: cross_device's, then the devices leg of phase native
     launches.update({k: cross["launches"][k] + native["mp_devices"]["launches"][k]
@@ -5333,7 +5285,7 @@ def main() -> int:
          "osc": osc, "ddt": ddt, "io": io, "multiproc": multiproc, "native": native,
          "diag_pp": diag_pp,
          "shmem": shmem, "recovery": recovery, "serve": serve, "capi": capi,
-         "bench": bench, "bench_np2": bench_np2, "tools": tools, "analysis": analysis,
+         "bench": bench, "tools": tools, "analysis": analysis,
          "kernels": kernels, "ring_split": split, "phase_wall_s": walls}, indent=1))
     print(smi, flush=True)
     emit({"phase_wall_s": walls})

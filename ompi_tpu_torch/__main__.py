@@ -39,6 +39,13 @@ Commands:
             btl native, tcp and sm (``DCNBENCH_ALL``); ``--cpu``
   bench-device-plane — np=2 osu_bw and allreduce with the device plane on
             and off, its arbitration counters checked (``DEVBENCH_ALL``); ``--cpu``
+  bench   — the framework against a raw torch primitive (``bench.py``'s
+            port): the osu_allreduce sweep to 1 GiB per rank, the blocking
+            suite, barrier, persistent, gather/scatter, the overlap and
+            host-path rows, then the nine joins; detail in
+            build/ompi_tpu_torch/BENCH_DETAIL.json, the headline as the last
+            line; ``--cpu``, ``--check``, ``--no-subproc``, ``--max-bytes``
+            (see ``bench --help``)
   (the workers are ``run`` targets: ``run -np 1 --nranks 1 [--cpu]
    ompi_tpu_torch/tools/bench_pyapi.py``, and ``run -np 2 --nranks 1 [--cpu]``
    of ``bench_dispatch_floor.py``, ``bench_dcn.py``, ``bench_device_plane.py``)
@@ -56,7 +63,8 @@ TOOLS = {"chaos": "chaos", "metrics-report": "metrics_report",
          "bench-hostpath": "bench_hostpath",
          "bench-dispatch-floor": "bench_joins:dispatch_floor_main",
          "bench-dcn": "bench_joins:dcn_main",
-         "bench-device-plane": "bench_joins:device_plane_main"}
+         "bench-device-plane": "bench_joins:device_plane_main",
+         "bench": "bench"}
 
 
 def main() -> int:
@@ -97,7 +105,7 @@ def main() -> int:
     print(f"unknown command {cmd!r}; try 'info', 'run', 'tpud', 'ctl', 'mpicc', "
           "'check', 'chaos', 'metrics-report', 'trace-report', 'top', "
           "'golden-capture', 'bench-algos', 'bench-hostpath', "
-          "'bench-dispatch-floor', 'bench-dcn' or 'bench-device-plane'",
+          "'bench-dispatch-floor', 'bench-dcn', 'bench-device-plane' or 'bench'",
           file=sys.stderr)
     return 2
 

@@ -104,6 +104,14 @@ STATS_KEYS = (
     "plane_demotions", "plane_promotions", "plane_heal_probes",
 )
 
+#: the causes of a ``device_fallbacks`` count, one per site of
+#: :meth:`DevicePlane.stage` (:attr:`DevicePlane.fallback_causes`): the
+#: peer already marked failed, an injected drop, a window that could not
+#: open, a staging copy that failed, a failure mark that landed while the
+#: window was being staged, a close that raced the publish
+FALLBACK_CAUSES = ("peer_failed", "injected_drop", "open_failed", "place_failed",
+                   "failed_while_staging", "closing")
+
 #: descriptor key the control frame carries (collops attaches it to the
 #: coll envelope; the native plane rides the meta JSON under the same key)
 DESC_KEY = "dev"
@@ -659,6 +667,9 @@ class DevicePlane:
         #: per-process host index when the launcher published a host map
         self.hosts = hosts
         self.stats: dict[str, int] = {k: 0 for k in STATS_KEYS}
+        #: ``device_fallbacks`` by cause (kept out of the counter block,
+        #: whose keys are the reference's)
+        self.fallback_causes: dict[str, int] = dict.fromkeys(FALLBACK_CAUSES, 0)
         self._wids = itertools.count(1)
         #: sender-owned windows awaiting the consumed signal:
         #: wid → (window, dst root proc, staging op key, probe)
@@ -747,7 +758,7 @@ class DevicePlane:
             # (where the failure surfaces through the normal escalation)
             if probe:
                 self.health.probe_outcome(dst_proc, False, "peer_failed")
-            self.stats["device_fallbacks"] += 1
+            self._fallback("peer_failed")
             return None
         trunc = False
         if _fsim._enabled:
@@ -766,7 +777,7 @@ class DevicePlane:
                             dst_proc, False, "injected_drop")
                     else:
                         self.health.strike(dst_proc, "injected_drop")
-                    self.stats["device_fallbacks"] += 1
+                    self._fallback("injected_drop")
                     return None
                 elif act.kind == "trunc":
                     trunc = True  # short DMA length published below
@@ -779,7 +790,7 @@ class DevicePlane:
         except OSError:
             if probe:
                 self.health.probe_outcome(dst_proc, False, "open_failed")
-            self.stats["device_fallbacks"] += 1
+            self._fallback("open_failed")
             return None
         from ompi_tpu_torch.trace import causal as _causal
 
@@ -806,7 +817,7 @@ class DevicePlane:
                 raise
             if probe:
                 self.health.probe_outcome(dst_proc, False, "place_failed")
-            self.stats["device_fallbacks"] += 1
+            self._fallback("place_failed")
             return None
         with self._lock:
             self._tx[wid] = (win, dst_proc, okey, probe)
@@ -814,7 +825,7 @@ class DevicePlane:
             # the failure mark landed while we were staging: the reclaim
             # scan ran before our publish — retire it ourselves
             self.reclaim_failed(dst_proc)
-            self.stats["device_fallbacks"] += 1
+            self._fallback("failed_while_staging")
             return None
         if not self._running:
             # close() raced our publish: retire it ourselves and degrade
@@ -824,7 +835,7 @@ class DevicePlane:
                 win.close(unlink=True)
             if probe:
                 self.health.probe_outcome(dst_proc, False, "closing")
-            self.stats["device_fallbacks"] += 1
+            self._fallback("closing")
             return None
         if cuda:
             desc = {"w": name, "n": nbytes, "dt": _tensor_wire_dtype(arr.dtype),
@@ -836,6 +847,11 @@ class DevicePlane:
         self.stats["device_sends"] += 1
         self.stats["device_bytes_placed"] += nbytes
         return desc
+
+    def _fallback(self, cause: str) -> None:
+        """One degrade to the host plane, counted with its cause."""
+        self.stats["device_fallbacks"] += 1
+        self.fallback_causes[cause] += 1
 
     def reap(self) -> int:
         """Send-semaphore wait, non-blocking form: retire every window the

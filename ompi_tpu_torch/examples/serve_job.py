@@ -30,9 +30,11 @@ from its own seed), ``--calls`` (5) timed calls with ``cuda_ring`` forced
 (enum 2); each process prints one ``SJSON`` line per size with the p50,
 the ring-hop launches per call, the SHA-256 of its result and whether
 it is bit-equal to the plain ring, and a last ``SJSON`` line with the
-job's launches and its DCN device plane's counters.  ``--repeat-sleep
-S`` sleeps S seconds before each timed call (untimed: tenant overlap, a
-scrape window).
+job's launches, its DCN device plane's counters, its fallbacks by cause
+(``device_fallback_causes``) and the plane's health transitions
+(``plane_transitions``: event, peer, cause) since the process started.
+``--repeat-sleep S`` sleeps S seconds before each timed call (untimed:
+tenant overlap, a scrape window).
 
 On the one-rank-per-device layout (a daemon started with ``--mca
 "accelerator_cuda_layout" devices``) the sweep makes the same rows on
@@ -162,6 +164,10 @@ def main() -> int:
         plane = getattr(world.dcn._root_engine(), "_device_plane", None)
         emit("launches", job=str(job.get("id", "run")), proc=p,
              device=dict(plane.stats) if plane is not None else None,
+             device_fallback_causes=(dict(plane.fallback_causes) if plane is not None
+                                     else None),
+             plane_transitions=([list(t) for t in plane.health.transitions]
+                                if plane is not None else None),
              **{name: ck.LAUNCHES[name] - launches0.get(name, 0) for name in ck.LAUNCHES})
     if sleep_s:
         time.sleep(sleep_s)

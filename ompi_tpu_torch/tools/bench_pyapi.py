@@ -15,7 +15,8 @@ device per process.  The world is on ``cuda:0`` unless the launcher's
 fails).  Process 0 first prints ``PYAPI device=<device> max_bytes=<n>
 iters=<n>``, so a log shows where the buffers went; each size's last
 result is held to the exact sum (the values are small integers) and a
-wrong one exits 1.
+wrong one exits 1.  Every process ends with a ``LAUNCHES {json}`` line,
+its ring kernels' launches, which ``bench``'s capi join sums.
 """
 
 import json
@@ -25,6 +26,7 @@ import time
 import numpy as np
 
 import ompi_tpu_torch.api as api
+from ompi_tpu_torch.coll import cuda_kernels as ck
 from ompi_tpu_torch.op import SUM
 
 world = api.init()
@@ -55,4 +57,5 @@ while count * 4 <= max_bytes:
 
 if world.proc == 0:
     print("PYAPI " + json.dumps(rows), flush=True)
+print("LAUNCHES " + json.dumps(dict(ck.LAUNCHES)), flush=True)
 api.finalize()

@@ -17,7 +17,10 @@ reference's expectations on the port's record:
   its windows reclaimed; without an engine hook the typed error stays;
 * plane health: probe staleness, heal interval 0, the MCA overrides,
   ``clear_failed``, a reclaimed probe;
-* lifecycle: the close drain, the bounded close, stage after close.
+* lifecycle: the close drain, the bounded close, stage after close;
+* the port's own tally of ``device_fallbacks`` by cause (one name per
+  degrade site of ``stage``), in one process and in the ``launches`` row
+  of ``examples/serve_job.py`` beside the plane's health transitions.
 
 The reference's np=2 ``tools/chaos.py --planes`` soak is ported as
 ``python -m ompi_tpu_torch chaos --planes`` (``tests/test_torch_chaos.py``:
@@ -440,3 +443,75 @@ def test_np2_demotion_mid_allreduce_stays_bit_exact(tmp_path):
     assert tr0[-1][0] == "promote"
     assert rows[1]["stats"]["device_fallbacks"] == 0
     assert all(r["stats"] is None for r in off.values())
+
+
+# -- the port's fallback causes -----------------------------------------------------------
+
+
+def _cause_injected_drop(dp, monkeypatch):
+    pfsim.configure("drop:site=device;n=2", seed=7, proc=0)
+    return [dp.stage(np.zeros(64, np.uint8), dst_proc=1) for _ in range(2)]
+
+
+def _cause_peer_failed(dp, monkeypatch):
+    dp.reclaim_failed(1)
+    return [dp.stage(np.zeros(64, np.uint8), dst_proc=1)]
+
+
+def _cause_open_failed(dp, monkeypatch):
+    def refuse(*a, **k):
+        raise OSError("no shared memory")
+
+    monkeypatch.setattr(pdev, "DeviceWindow", refuse)
+    return [dp.stage(np.zeros(64, np.uint8), dst_proc=1)]
+
+
+def _cause_closing(dp, monkeypatch):
+    dp.close(drain_timeout=0)
+    return [dp.stage(np.zeros(64, np.uint8), dst_proc=1)]
+
+
+CAUSES = {"injected_drop": (_cause_injected_drop, 2), "peer_failed": (_cause_peer_failed, 1),
+          "open_failed": (_cause_open_failed, 1), "closing": (_cause_closing, 1)}
+
+
+@pytest.mark.parametrize("cause", list(CAUSES))
+def test_fallbacks_counted_by_cause(monkeypatch, cause):
+    scenario, count = CAUSES[cause]
+    dp = _plane("port")
+    assert list(dp.fallback_causes) == list(pdev.FALLBACK_CAUSES)
+    assert scenario(dp, monkeypatch) == [None] * count
+    assert dp.stats["device_fallbacks"] == count
+    assert dp.fallback_causes == dict.fromkeys(pdev.FALLBACK_CAUSES, 0) | {cause: count}
+    assert set(pdev.STATS_KEYS) == set(rdev.STATS_KEYS)  # the counter block stays the reference's
+    dp.close(drain_timeout=0)
+
+
+def test_serve_job_row_names_injected_drops():
+    """``examples/serve_job.py --sizes`` under ``run -np 2 --nranks 1 --cpu``
+    with three device stages of process 0 dropped (a seeded plan): its
+    ``launches`` row counts them under ``injected_drop``, beside the
+    plane's demotion of process 1 for that cause; process 1 counts none."""
+    from torch_mp_common import REPO
+
+    res = run_job("port", 2, 1, REPO / "ompi_tpu_torch" / "examples" / "serve_job.py",
+                  ["--sizes", "65536", "--calls", "2"], mca={
+                      "dcn_device_min_size": "4096", "faultsim_enable": "1",
+                      "faultsim_seed": "7", "faultsim_plan": "drop:site=device;n=3;proc=0"},
+                  timeout=150, flags=("--cpu",))
+    assert res.returncode == 0, res.stdout[-4000:] + res.stderr[-4000:]
+    rows = {}
+    for line in res.stdout.splitlines():
+        if "SJSON " in line:
+            rec = json.loads(line.split("SJSON ", 1)[1])
+            if rec["kind"] == "launches":
+                rows[rec["proc"]] = rec
+    assert sorted(rows) == [0, 1], res.stdout[-3000:]
+    r0, r1 = rows[0], rows[1]
+    assert r0["device"]["device_fallbacks"] == 3
+    assert r0["device_fallback_causes"] == dict.fromkeys(pdev.FALLBACK_CAUSES, 0) | {
+        "injected_drop": 3}
+    assert ["demote", 1, "injected_drop"] in r0["plane_transitions"]
+    assert r1["device"]["device_fallbacks"] == 0
+    assert r1["device_fallback_causes"] == dict.fromkeys(pdev.FALLBACK_CAUSES, 0)
+    assert r1["plane_transitions"] == []

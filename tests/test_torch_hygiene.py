@@ -179,6 +179,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import ompi_tpu_torch.tools.workers, ompi_tpu_torch.tools.golden_capture\n"
         "import ompi_tpu_torch.tools.bench_joins, ompi_tpu_torch.tools.bench_dispatch_floor\n"
         "import ompi_tpu_torch.tools.bench_dcn, ompi_tpu_torch.tools.bench_device_plane\n"
+        "import ompi_tpu_torch.tools.bench\n"
         "from ompi_tpu_torch.core import mca\n"
         "mca.default_context().open_all()\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
