@@ -2,6 +2,7 @@
 """Drive the PyTorch/H100 port (``ompi_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py [--max-bytes N] [--cross-device-only]
+    python3 chip_smoke.py --serve-only N
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
@@ -181,8 +182,12 @@ exits non-zero:
     ``device_fallbacks`` 0 (a process that counts any prints its
     fallbacks by cause and its plane-health transitions); ``shutdown`` —
     drain, shutdown, no worker alive and no ``/dev/shm`` name left;
-    ``telemetry`` — the same sweep as plain ``run`` jobs of 20 calls per
-    size, with ``--mca
+    before these, each worker's first call is printed: the first 8 B
+    call, the one-time legs it timed (the runtime's start, the world's
+    bring-up, the window and ring libraries, the first IPC open and ring
+    launch) and where each layer held a peer failed at the job's end;
+    ``telemetry`` — the same sweep as plain ``run`` jobs of 10 calls per
+    size, the three side by side, with ``--mca
     telemetry_enable 1`` (scraped, ``/metrics`` and ``/critical``, while
     it runs), with the daemon's worker settings (telemetry and the
     failure detector) and with neither; every size's p50 and quartiles
@@ -198,6 +203,13 @@ exits non-zero:
     rows daemon's, the reborn process's ranks on its predecessor's
     cards.  Output: ``chiprun_out/serve_tpud.log``,
     ``chiprun_out/serve_devices.log``, ``chiprun_out/serve_plain_*.log``.
+    ``--serve-only N`` runs the environment and this phase alone, N
+    times (0: not at all), then leg ``serve_stall``: both resident workers of a third
+    daemon stopped at once past the failure detector's timeout (SIGSTOP
+    for 3.5 s, then SIGCONT), ``STALL_ROUNDS`` times, each stall followed
+    by a sweep job at 8 B, 2 MiB and 64 MiB per rank, whose every process
+    must count no device-plane fallback and hold no peer failed in any
+    layer.  Output: ``chiprun_out/serve_stall.log``.
 16. capi (after serve) — the MPI C ABI: the port's ``libtpumpi`` built
     from ``ompi_tpu_torch/csrc/capi/shim.c`` (gcc, embedding the running
     interpreter), ``native/examples/c_suite.c``, ``devsum.c``,
@@ -2825,8 +2837,10 @@ def phase_native(smi, tcp):
     the forced ``cuda_ring`` PROD and one call set with the causal tracer
     and the straggler profiler on; then a second job whose processes take
     distinct ``TDCN_HOST_ID``s (the C engine's framed TCP leg) for the
-    64 MiB call.  Every worker must be on ``NativeDcnEngine`` and none may
-    print the fallback line; the tcp phase's numbers are set beside."""
+    64 MiB call, the plane-off job and the devices layout's job
+    (``mp_devices_leg``), the three side by side.  Every worker must be on
+    ``NativeDcnEngine`` and none may print the fallback line; the tcp
+    phase's numbers are set beside."""
     from ompi_tpu_torch import native as native_lib
 
     t0 = time.perf_counter()
@@ -2835,11 +2849,19 @@ def phase_native(smi, tcp):
     by, wall_s, err = run_job("native", ["--native", "--max-bytes", MP_MAX_BYTES])
     require(by, "native", ("modules", "osu", "prod", "split", "p2p", "win", "causal",
                            "engine", "device", "launches"))
-    tby, twall_s, terr = run_job("native_tcp_leg", ["--only", "tcp-leg"], plane=False)
+    from concurrent.futures import ThreadPoolExecutor
+
+    # lanes, not depth: the two plane-off jobs and the devices layout's
+    # job side by side
+    with ThreadPoolExecutor(3) as lanes:
+        tcp_job = lanes.submit(run_job, "native_tcp_leg", ["--only", "tcp-leg"], plane=False)
+        off_job = lanes.submit(run_job, "native_plane_off",
+                               ["--only", "plane-off", "--max-bytes", MP_MAX_BYTES],
+                               plane=False)
+        dev_job = lanes.submit(mp_devices_leg, smi, by)
+        (tby, twall_s, terr), (oby, owall_s, oerr) = tcp_job.result(), off_job.result()
+        mp_devices = dev_job.result()
     require(tby, "native_tcp_leg", ("modules", "split", "engine", "launches"))
-    oby, owall_s, oerr = run_job("native_plane_off",
-                                 ["--only", "plane-off", "--max-bytes", MP_MAX_BYTES],
-                                 plane=False)
     require(oby, "native_plane_off", ("modules", "osu", "prod", "split", "engine", "device",
                                       "launches"))
     procs = range(MP_PROCS)
@@ -2896,7 +2918,7 @@ def phase_native(smi, tcp):
         raise SystemExit(f"native checks failed: {row}")
     if not plane["ok"]:
         raise SystemExit(f"device_plane checks failed: {plane}")
-    row["mp_devices"] = mp_devices_leg(smi, by)
+    row["mp_devices"] = mp_devices
     return row
 
 
@@ -3636,6 +3658,93 @@ def fallback_report(leg: str, rows, smi) -> list:
     return out
 
 
+def first_call_report(leg: str, lines, rows, smi) -> dict:
+    """Each resident worker's first call, printed per process: the first
+    timed 8 B call of the first job, the one-time legs the worker timed at
+    boot (the runtime's start, the world's bring-up with the card's
+    context) and since (the window library, the first IPC open, the ring
+    library and its first launch), and where each layer held a peer
+    failed when the job ended."""
+    boot = {}
+    for line in lines:
+        m = re.match(r"\[(\d+)\] serve: resident worker up .*first use (\{.*\})\)$",
+                     line.rstrip())
+        if m:
+            boot[int(m.group(1))] = json.loads(m.group(2))
+    out = {}
+    first = min((r["bytes"] for r in rows if r["kind"] == "size"), default=None)
+    for r in launch_rows(rows):
+        p = r["proc"]
+        call = next((s["times_ms"][0] for s in rows
+                     if s["kind"] == "size" and s["proc"] == p and s["bytes"] == first), None)
+        out[p] = {"first_call_ms": call, "bytes": first, "boot": boot.get(p),
+                  "first_use": r.get("first_use"), "marks": r.get("marks")}
+        print(f"{leg}: process {p} first {first} B call {call} ms; one-time legs at boot "
+              f"{boot.get(p)}, by the job's end {r.get('first_use')}; failure marks "
+              f"{r.get('marks')} ({smi})", flush=True)
+    return out
+
+
+#: seconds leg serve_stall stops both workers for: past the failure
+#: detector's 2 s timeout, so each process marks the other as it wakes;
+#: and how many times (while the detector's mark and heal fanned out
+#: unserialized, 2 of 10 stalls on an H100 left a peer marked in a
+#: process's engine and device plane)
+STALL_S, STALL_ROUNDS = 3.5, 10
+
+
+def serve_stall(smi, rounds: int) -> dict:
+    """Leg ``serve_stall``: both resident workers of ``tpud -np 2 --nranks
+    4`` stopped at once for ``STALL_S`` (the host stall that leaves each
+    detector marking the other just as the other's heartbeat arrives),
+    ``rounds`` times; after each, a sweep job at 8 B, 2 MiB and 64 MiB per
+    rank, bit-equal to the plain ring, whose processes count no
+    device-plane fallback and hold no peer failed in any layer."""
+    from ompi_tpu_torch.serve import client
+
+    t0 = time.perf_counter()
+    d = Tpud("serve_stall")
+    out = []
+    try:
+        for p in range(MP_PROCS):
+            d.wait_line(lambda l, p=p: l.startswith(f"[{p}] serve: resident worker up"), 300)
+        st = client.status(d.url)
+        pids = [int(st["procs"][str(p)]["pid"]) for p in range(MP_PROCS)]
+        args = ["--sizes", ",".join(str(b) for b in SERVE_DEVICES_SIZES), "--calls", "2"]
+        for k in range(rounds + 1):
+            if k:
+                for pid in pids:
+                    os.kill(pid, signal.SIGSTOP)
+                time.sleep(STALL_S)
+                for pid in pids:
+                    os.kill(pid, signal.SIGCONT)
+                time.sleep(1.0)
+            _rec, rows = serve_job(d, args, "ops")
+            per = size_rows(rows)
+            procs = {r["proc"]: {"device_fallbacks": (r["device"] or {}).get("device_fallbacks"),
+                                 "causes": {c: n for c, n in
+                                            (r.get("device_fallback_causes") or {}).items() if n},
+                                 "marks": r.get("marks")} for r in launch_rows(rows)}
+            out.append({"round": k, "stalled": bool(k), "procs": procs,
+                        "bitwise_vs_plain": all(e["bitwise_vs_plain"] for e in per.values())})
+            print(f"serve_stall: round {k}: {procs} ({smi})", flush=True)
+        client.drain(d.url)
+        client.shutdown(d.url)
+        d.proc.wait(timeout=120)
+    finally:
+        d.close()
+    marks = [m for r in out for v in r["procs"].values() for m in [v["marks"] or {}]]
+    row = {"phase": "serve_stall", "nvidia_smi": smi, "rounds": out, "stall_s": STALL_S,
+           "false_positive_heals": {p: v["marks"]["false_positive_heals"]
+                                    for p, v in out[-1]["procs"].items()},
+           "wall_s": time.perf_counter() - t0}
+    row["ok"] = (all(r["bitwise_vs_plain"] for r in out)
+                 and all(v["device_fallbacks"] == 0 for r in out for v in r["procs"].values())
+                 and all(not m.get(k) for m in marks for k in ("detector", "engine", "plane")))
+    emit(row)
+    return row
+
+
 def heal_lines(lines) -> dict:
     """``heal_ms`` per process from the workers' repair and rejoin lines."""
     heal = {}
@@ -3809,7 +3918,7 @@ PLAIN_LEGS = {
     "tpud_mca": ["telemetry_enable", "1", "ft_detector_enable", "1"],
 }
 #: timed calls per size in a plain leg
-PLAIN_CALLS = 20
+PLAIN_CALLS = 10
 
 
 def plain_leg(name: str) -> dict:
@@ -3952,6 +4061,7 @@ def phase_serve(smi) -> dict:
             "windows_released": all(rec["ranks"][p].get("windows_left") == 0
                                     for rec, _r in jobs for p in rec["ranks"])}
         rj = rows["jobs"]
+        rj["first_call"] = first_call_report("serve", d.lines, jobs[0][1], smi)
         rj["ok"] = (rj["bitwise_vs_plain"] and rj["sha256_equal_across_jobs"]
                     and rj["dials_flat_across_jobs"] and rj["launches_ok"] and rj["memory_flat"]
                     and rj["windows_released"]
@@ -4035,8 +4145,12 @@ def phase_serve(smi) -> dict:
     # 64 MiB digests
     rows["devices"] = serve_devices(smi, per[0][big]["digests"])
     # the plain jobs: the live plane on, the daemon's worker settings,
-    # off (each leg is a cold boot of ~20 s)
-    legs = {name: plain_leg(name) for name in ("telemetry", "tpud_mca", "off")}
+    # off (each leg is a cold boot of ~20 s; lanes, not depth: the three
+    # side by side, so their p50s are taken under each other's load)
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(PLAIN_LEGS)) as lanes:
+        legs = dict(zip(PLAIN_LEGS, lanes.map(plain_leg, PLAIN_LEGS)))
     rows["telemetry"] = {
         "p50_on_ms": legs["telemetry"]["p50_ms"][big], "p50_off_ms": legs["off"]["p50_ms"][big],
         "legs": {name: {k: leg[k] for k in ("p50_ms", "quartiles_ms")}
@@ -5169,6 +5283,9 @@ def main() -> int:
                     help="an earlier tree's ring_hop.cu: its kernels are timed in turns "
                     "with this tree's in the kernel rows, and phase ring_split splits "
                     "a 1 GiB ring allreduce on both")
+    ap.add_argument("--serve-only", type=int, default=None, metavar="N",
+                    help="run only the environment phase, phase serve (the tpud cell) "
+                    "N times (0: none) and leg serve_stall")
     ap.add_argument("--cross-device-only", action="store_true",
                     help="run only the environment and cross_device phases, the "
                     "devices layout's 2 x 4 job and its respawn leg: the devices layout on "
@@ -5206,6 +5323,27 @@ def main() -> int:
             walls[name] = time.perf_counter() - t0
 
     smi, hop_libs = phase("env", phase_env, ck, args.old_ring_hop)
+    if args.serve_only is not None:
+        from ompi_tpu_torch import native as native_lib
+
+        native_lib.build()
+        failed = []
+        for k in range(args.serve_only):
+            try:
+                phase(f"serve_{k + 1}", phase_serve, smi)
+            except SystemExit as e:
+                failed.append(f"serve run {k + 1}: {e}")
+                print(failed[-1], flush=True)
+        if not phase("serve_stall", serve_stall, smi, STALL_ROUNDS)["ok"]:
+            failed.append("serve_stall")
+        print(smi, flush=True)
+        emit({"phase_wall_s": walls})
+        if failed:
+            raise SystemExit(f"--serve-only: {failed}")
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     if args.cross_device_only:
         from ompi_tpu_torch import native as native_lib
 

@@ -713,7 +713,10 @@ class MultiProcComm(PersistentP2PMixin):
     def revoke(self) -> None:
         """MPIX_Comm_revoke: poison this comm everywhere — the local
         mark plus a ``rvk`` control frame to every member process (the
-        out-of-band broadcast that beats the failure news)."""
+        out-of-band broadcast that beats the failure news).  A frame is
+        sent once, so it is retried while its peer is held live
+        (:meth:`_send_revoke`); a peer marked failed gets none, and the
+        revoke stands locally."""
         from ompi_tpu_torch.ft import ulfm
 
         ulfm.state(self).revoked = True
@@ -721,11 +724,40 @@ class MultiProcComm(PersistentP2PMixin):
         # on the comm's private stream must abort promptly
         self.dcn._root_engine().coll_revoke(self.cid)
         for p in range(self.nprocs):
-            if p != self.proc and not self.dcn.proc_failed(p):
-                try:
-                    self.dcn.send_ctrl(p, {"kind": "rvk", "cid": self.cid})
-                except (ConnectionError, OSError, _errors.MPIError):
-                    pass  # peer may be dying: the revoke stands locally
+            if p != self.proc:
+                self._send_revoke(p)
+
+    def _send_revoke(self, p: int) -> None:
+        """One ``rvk`` frame to local proc ``p``, retried until it is sent
+        or ``p`` is marked failed: the native plane refuses a control
+        frame while the peer's send path is busy (a heartbeat or a data
+        send holds it), so a live peer's first attempt may fail.  Past
+        ``dcn_connect_timeout`` of failed attempts the peer is marked
+        failed, as an in-band send error marks it.  Every failed attempt
+        and every skipped peer is counted on the root engine's
+        ``revoke_counts``."""
+        from ompi_tpu_torch.core.var import Deadline
+
+        root = self.dcn._root_engine()
+        counts = root.revoke_counts
+        deadline = Deadline.for_timeout("connect")
+        pause = 0.001
+        while not self.dcn.proc_failed(p):
+            try:
+                self.dcn.send_ctrl(p, {"kind": "rvk", "cid": self.cid})
+                return
+            except (ConnectionError, OSError, _errors.MPIError):
+                counts["send_failed"] += 1
+            if deadline.expired():
+                rp = self.dcn.root_proc_of(p)
+                if root._detector is not None:
+                    root._detector.mark_failed(rp)
+                else:
+                    root.note_proc_failed(rp)
+                return
+            time.sleep(min(pause, deadline.remaining()))
+            pause = min(0.05, 2 * pause)
+        counts["skipped_failed"] += 1
 
     def is_revoked(self) -> bool:
         from ompi_tpu_torch.ft import ulfm

@@ -72,12 +72,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
+import time
 import weakref
 from pathlib import Path
 from typing import NamedTuple, Sequence
 
 import torch
 
+from ompi_tpu_torch import native
 from ompi_tpu_torch.core.errors import MPIArgError, MPIInternalError
 from ompi_tpu_torch.ddt.datatype import SIGNED_TWIN
 from ompi_tpu_torch.op.op import MAX, MIN, PROD, SUM, Op, on_carrier
@@ -173,8 +175,6 @@ def build() -> Path:
     """Compile ``csrc/ring_hop.cu`` (once per source content) and return
     the shared library's path."""
     global build_log
-    from ompi_tpu_torch import native
-
     try:
         out, log = native.build_cuda(_SRC)
     except native.NativeBuildError as e:
@@ -200,7 +200,8 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = bind(build())
+            with native.first_use("ring_hop_lib"):
+                _lib = bind(build())
         return _lib
 
 
@@ -208,8 +209,6 @@ def build_peer() -> Path:
     """Compile ``csrc/ring_hop_peer.cu`` (once per source content) and
     return the shared library's path."""
     global peer_build_log
-    from ompi_tpu_torch import native
-
     try:
         out, log = native.build_cuda(_PEER_SRC)
     except native.NativeBuildError as e:
@@ -306,9 +305,16 @@ def _launch_hop(src, src_idx, dst, dst_idx) -> None:
     chunk_bytes = src.shape[2] * src.element_size()
     if chunk_bytes == 0:
         return
-    rc = _load().ompi_ring_hop(
+    lib = _load()
+    # the process's first launch is timed (native.FIRST_USE), at the cost
+    # of one dict lookup on every later one
+    timed = "ring_hop_launch" not in native.FIRST_USE
+    t0 = time.perf_counter() if timed else 0.0
+    rc = lib.ompi_ring_hop(
         src.data_ptr(), dst.data_ptr(), src_idx.data_ptr(), dst_idx.data_ptr(),
         src.shape[0], src.shape[1], dst.shape[1], chunk_bytes, _stream(src))
+    if timed:
+        native.FIRST_USE["ring_hop_launch"] = time.perf_counter() - t0
     if rc != 0:
         raise KernelUnavailable(f"ring_hop launch failed: cudaError {rc}")
     LAUNCHES["ring_hop"] += 1

@@ -55,6 +55,12 @@ from ompi_tpu_torch.trace import waitgraph as _waitgraph
 from . import tcp as tcp_mod
 from .tcp import TcpTransport
 
+#: the keys of an engine's ``revoke_counts``: ``rvk`` send attempts that
+#: raised (each one retried), peers a revoke sent nothing to because they
+#: were held failed, and ``rvk`` frames that arrived for a cid with no
+#: live comm
+REVOKE_COUNTS = ("send_failed", "skipped_failed", "unmatched")
+
 
 class AddressTable(list):
     """Peer-address table with **lazy per-entry resolution** — the
@@ -120,6 +126,9 @@ class DcnCollEngine:
         self._failed_procs: set[int] = set()
         self._detector = None
         self._comms: dict = {}  # cid → weakref to MultiProcComm
+        #: the revoke frames of this engine's comms (ft/ulfm): sends that
+        #: raised, peers skipped as failed, frames that found no live comm
+        self.revoke_counts = dict.fromkeys(REVOKE_COUNTS, 0)
         #: cid → handler: p2p frames are routed per-communicator so
         #: dup'd comms keep isolated matching (MPI comm isolation)
         self._p2p_handlers: dict[int, Callable] = {}
@@ -499,6 +508,8 @@ class DcnCollEngine:
                 # private stream (the Python plane's _check_revoked
                 # mirrored into cctx_recv_msg)
                 self._root_engine().coll_revoke(env["cid"])
+            else:
+                self.revoke_counts["unmatched"] += 1
             return
         if env.get("kind") == "p2p":
             cid = env.get("cid")

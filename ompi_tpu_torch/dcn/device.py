@@ -224,8 +224,9 @@ def _cuda_lib():
             from ompi_tpu_torch import native
 
             try:
-                path, _log = native.build_cuda(_CUDA_SRC)
-                lib = ctypes.CDLL(str(path))
+                with native.first_use("device_window_lib"):
+                    path, _log = native.build_cuda(_CUDA_SRC)
+                    lib = ctypes.CDLL(str(path))
             except (native.NativeBuildError, OSError) as e:
                 raise DeviceWindowError(
                     f"device_window library unavailable: {e}") from e
@@ -419,8 +420,11 @@ def _cuda_read(desc: dict, into, shape, dtype: torch.dtype, nbytes: int):
         out = torch.empty(shape, dtype=dtype, device=landing_device(into))
     dev = out.device.index
     ptr = ctypes.c_void_p()
-    _cuda_check(lib, lib.ompi_dw_ipc_open(dev, bytes.fromhex(desc[IPC_KEY]),
-                                          ctypes.byref(ptr)), "cudaIpcOpenMemHandle")
+    from ompi_tpu_torch import native
+
+    with native.first_use("ipc_open"):
+        rc = lib.ompi_dw_ipc_open(dev, bytes.fromhex(desc[IPC_KEY]), ctypes.byref(ptr))
+    _cuda_check(lib, rc, "cudaIpcOpenMemHandle")
     try:
         _cuda_check(lib, lib.ompi_dw_copy(ctypes.c_void_p(out.data_ptr()), ptr,
                                           nbytes, ctypes.c_void_p(_stream(dev))),
@@ -902,6 +906,11 @@ class DevicePlane:
         with self._lock:
             self._failed.discard(int(dst_proc))
         self.health.clear(int(dst_proc))
+
+    def failed_peers(self) -> list[int]:
+        """The peers new windows are refused toward (sorted)."""
+        with self._lock:
+            return sorted(self._failed)
 
     def pending_windows(self) -> int:
         with self._lock:

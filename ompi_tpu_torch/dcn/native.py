@@ -58,7 +58,7 @@ from ompi_tpu_torch.core.errors import (
 from ompi_tpu_torch.faultsim import core as _fsim
 from ompi_tpu_torch.metrics import core as _metrics
 from ompi_tpu_torch.trace import causal as _causal
-from .collops import DcnCollEngine, DcnJoinEngine, DcnSubEngine
+from .collops import REVOKE_COUNTS, DcnCollEngine, DcnJoinEngine, DcnSubEngine
 from .tcp import BF16_HOST, BF16_WIRE
 
 FK_COLL, FK_P2P, FK_PY = 0, 1, 2
@@ -630,6 +630,7 @@ class NativeDcnEngine(_NativeOpsMixin, DcnCollEngine):
         self._failed_procs: set[int] = set()
         self._detector = None
         self._comms: dict = {}
+        self.revoke_counts = dict.fromkeys(REVOKE_COUNTS, 0)
         self._p2p_handlers: dict[object, Callable] = {}
         self._p2p_pending: dict = {}
         self._p2p_closed: set = set()

@@ -32,7 +32,10 @@ the ring-hop launches per call, the SHA-256 of its result and whether
 it is bit-equal to the plain ring, and a last ``SJSON`` line with the
 job's launches, its DCN device plane's counters, its fallbacks by cause
 (``device_fallback_causes``) and the plane's health transitions
-(``plane_transitions``: event, peer, cause) since the process started.
+(``plane_transitions``: event, peer, cause) since the process started,
+where each layer holds a peer failed (``marks``: the detector, its
+false-positive heals, the engine, the device plane) and the seconds of
+the process's one-time legs (``first_use``: ``native.FIRST_USE``).
 ``--repeat-sleep S`` sleeps S seconds before each timed call (untimed:
 tenant overlap, a scrape window).
 
@@ -59,7 +62,7 @@ import numpy as np
 import torch
 
 import ompi_tpu_torch.api as api
-from ompi_tpu_torch import serve
+from ompi_tpu_torch import native, serve
 from ompi_tpu_torch.coll import cuda_kernels as ck
 from ompi_tpu_torch.core import mca
 from ompi_tpu_torch.examples.layout import digest, on_ranks, placement, sync
@@ -120,6 +123,19 @@ def sweep(world, job_id: str, sizes: list[int], calls: int, pause: float) -> Non
         store.set("coll_cuda_allreduce_algorithm", 0)
 
 
+def failure_marks(world, root, plane) -> dict:
+    """Where this process holds a peer failed, layer by layer: the
+    detector's set and its false-positive heals, the engine's set, the
+    device plane's set.  A peer held by one layer and not by the others
+    is a mark that did not lift with the rest."""
+    det = getattr(world.procctx, "detector", None)
+    return {"detector": sorted(det.failed()) if det is not None else None,
+            "false_positive_heals": (det.counters["false_positive_heals"]
+                                     if det is not None else None),
+            "engine": sorted(root._failed_procs),
+            "plane": plane.failed_peers() if plane is not None else None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sizes", default="", help="comma-separated bytes per rank")
@@ -161,8 +177,11 @@ def main() -> int:
         sweep(world, str(job.get("id", "run")),
               [int(s) for s in args.sizes.split(",") if s], args.calls,
               args.repeat_sleep)
-        plane = getattr(world.dcn._root_engine(), "_device_plane", None)
+        root = world.dcn._root_engine()
+        plane = getattr(root, "_device_plane", None)
         emit("launches", job=str(job.get("id", "run")), proc=p,
+             marks=failure_marks(world, root, plane),
+             first_use=dict(native.FIRST_USE),
              device=dict(plane.stats) if plane is not None else None,
              device_fallback_causes=(dict(plane.fallback_causes) if plane is not None
                                      else None),

@@ -170,6 +170,13 @@ class HeartbeatDetector:
         self._lead_cbs: list[Callable[[bool], None]] = []
         self._was_leader: bool | None = None
         self._lock = threading.Lock()
+        #: held across a mark's or a heal's change of state AND its fan-out
+        #: to the communicators and the engine (whose device plane keeps
+        #: a failed set of its own): a heal that lands while a mark is
+        #: still fanning out waits for it, so every layer ends in the
+        #: state of the last transition.  Reentrant: a fan-out callback
+        #: may mark or heal.  Gossip sends run outside it.
+        self._fan_lock = threading.RLock()
         self._stop = threading.Event()
         engine.attach_detector(self)
         self._thread = threading.Thread(
@@ -352,9 +359,25 @@ class HeartbeatDetector:
         floor are themselves stale and dropped.  Fans out to the
         engine and the registered heal callbacks (communicator ULFM
         state), and gossips/relays like a failure record."""
+        with self._fan_lock:
+            targets, rec = self._heal_fan_out(proc, inc, epoch, origin, src)
+        if targets is None:
+            return False
+        for p in targets:
+            if p not in self.failed():
+                try:
+                    self.engine.send_ctrl(p, rec)
+                except Exception:  # noqa: BLE001 — peer may be dead
+                    pass
+        return True
+
+    def _heal_fan_out(self, proc: int, inc, epoch, origin: bool, src):
+        """The state change and fan-out half of :meth:`_heal` (under
+        ``_fan_lock``): the gossip targets and record, or ``(None,
+        None)`` when nothing was healed."""
         with self._lock:
             if proc in self._retired or proc == self.engine.proc:
-                return False
+                return None, None
             floor_e = self._epoch.get(proc, 0)
             if origin:
                 epoch = floor_e + 1
@@ -368,7 +391,7 @@ class HeartbeatDetector:
                     # stale clear racing fresher knowledge
                     if proc in self._failed:
                         self.counters["stale_gossip_dropped"] += 1
-                    return False
+                    return None, None
             was_failed = proc in self._failed
             self._failed.discard(proc)
             self._epoch[proc] = max(floor_e, int(epoch))
@@ -377,7 +400,7 @@ class HeartbeatDetector:
                 self._last[proc] = time.monotonic()
                 self._strikes[proc] = 0
             if not was_failed:
-                return False  # floor adopted; nothing to fan out
+                return None, None  # floor adopted; nothing to fan out
             if origin:
                 self.counters["false_positive_heals"] += 1
             cbs = list(self._heal_cbs)
@@ -399,13 +422,7 @@ class HeartbeatDetector:
                 import traceback  # kill the caller
 
                 traceback.print_exc()
-        for p in targets:
-            if p not in self.failed():
-                try:
-                    self.engine.send_ctrl(p, rec)
-                except Exception:  # noqa: BLE001 — peer may be dead
-                    pass
-        return True
+        return targets, rec
 
     def on_clear(self, env: dict) -> None:
         """A received ``flc`` heal record — versioned like ``flr``:
@@ -474,8 +491,10 @@ class HeartbeatDetector:
         stale on arrival and can never re-mark the healed peer.  The
         engine's address table must already point at the reborn
         incarnation's endpoint (the caller's job), or the resumed
-        heartbeats would re-detect the corpse."""
-        with self._lock:
+        heartbeats would re-detect the corpse.  Waits for a mark's
+        fan-out in flight, so the engine's clear that follows this call
+        comes after it."""
+        with self._fan_lock, self._lock:
             self._failed.discard(proc)
             self._epoch[proc] = self._epoch.get(proc, 0) + 1
             if incarnation is not None:
@@ -516,11 +535,38 @@ class HeartbeatDetector:
         floor are stale and dropped (counted).  ``gossip``: True =
         originate (flood group + leaders), ``"relay"`` = received news
         (a leader relays it into its group, a member does not), False
-        = silent.  Returns True when the proc was newly marked."""
+        = silent.  Returns True when the proc was newly marked.
+
+        A ``timeout`` mark stands only if the proc is still silent when
+        it is taken: a frame that arrived after the heartbeat loop's scan
+        proves it alive."""
+        with self._fan_lock:
+            targets, rec = self._mark_fan_out(proc, gossip, inc, epoch, src, how)
+        if targets is None:
+            return False
+        if targets:
+            key = "gossip_relayed" if gossip == "relay" else "gossip_tx"
+            with self._lock:
+                self.counters[key] += 1
+            for p in targets:
+                if p not in self.failed():
+                    try:
+                        self.engine.send_ctrl(p, rec)
+                    except Exception:  # noqa: BLE001 — peer may be dead
+                        pass
+        return True
+
+    def _mark_fan_out(self, proc: int, gossip, inc, epoch, src, how: str):
+        """The state change and fan-out half of :meth:`mark_failed`
+        (under ``_fan_lock``): the gossip targets and record, or
+        ``(None, None)`` when nothing was marked."""
         with self._lock:
             if (proc in self._failed or proc == self.engine.proc
                     or proc in self._retired):
-                return False
+                return None, None
+            if (how == "timeout" and proc in self._last
+                    and time.monotonic() - self._last[proc] <= self.timeout):
+                return None, None
             floor_e = self._epoch.get(proc, 0)
             floor_i = self._inc.get(proc, 0)
             if inc is None:
@@ -529,7 +575,7 @@ class HeartbeatDetector:
                 epoch = floor_e
             if epoch < floor_e or inc < floor_i:
                 self.counters["stale_gossip_dropped"] += 1
-                return False
+                return None, None
             self._failed.add(proc)
             self._inc[proc] = int(inc)
             self._epoch[proc] = int(epoch)
@@ -554,19 +600,8 @@ class HeartbeatDetector:
 
                 traceback.print_exc()
         self.engine.note_proc_failed(proc)
-        if targets:
-            rec = {"kind": "flr", "proc": int(proc), "inc": int(inc),
-                   "epoch": int(epoch), "src": self.engine.proc}
-            key = "gossip_relayed" if gossip == "relay" else "gossip_tx"
-            with self._lock:
-                self.counters[key] += 1
-            for p in targets:
-                if p not in self.failed():
-                    try:
-                        self.engine.send_ctrl(p, rec)
-                    except Exception:  # noqa: BLE001 — peer may be dead
-                        pass
-        return True
+        return targets, {"kind": "flr", "proc": int(proc), "inc": int(inc),
+                         "epoch": int(epoch), "src": self.engine.proc}
 
     # -- heartbeat loop --------------------------------------------------
 

@@ -44,6 +44,8 @@ import subprocess
 import sys
 import sysconfig
 import threading
+import time
+from contextlib import contextmanager
 from functools import lru_cache
 from pathlib import Path
 
@@ -299,6 +301,26 @@ def load_convertor() -> ctypes.CDLL | None:
         lib.tpuconv_version.restype = ctypes.c_int
         _convertor = lib
         return lib
+
+
+#: seconds each one-time leg of this process took the first time it ran
+#: (a library's build or load, a card's context, the first IPC open, the
+#: first ring launch), by name; later runs are not timed
+FIRST_USE: dict[str, float] = {}
+
+
+@contextmanager
+def first_use(name: str):
+    """Time the body into :data:`FIRST_USE` under ``name`` the first time
+    it runs in this process, and not after."""
+    if name in FIRST_USE:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        FIRST_USE.setdefault(name, time.perf_counter() - t0)
 
 
 #: nvcc flags of every CUDA source: sm_90a code with a plain C interface

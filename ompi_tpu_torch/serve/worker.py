@@ -66,6 +66,7 @@ orphans, ever** — the same path a daemon-initiated SIGTERM stop takes.
 from __future__ import annotations
 
 import collections
+import json
 import os
 import runpy
 import signal
@@ -664,9 +665,20 @@ def main() -> int:
     from ompi_tpu_torch.boot.proc import respawn_timeout as _respawn_timeout
     from ompi_tpu_torch.core import mca
 
+    from ompi_tpu_torch import native
+
     # CUDA unless the daemon was asked for the CPU (``--cpu``); the
-    # boot raises where there is no card — never a quiet CPU fallback
-    world = api.init(device=os.environ.get(ENV_DEVICE) or "cuda")
+    # boot raises where there is no card — never a quiet CPU fallback.
+    # The runtime's start and the world's bring-up (the card's context
+    # with it) are timed: the first legs of the worker's first call
+    device = os.environ.get(ENV_DEVICE) or "cuda"
+    import torch
+
+    if device.startswith("cuda") and torch.cuda.is_available():
+        with native.first_use("cuda_init"):
+            torch.cuda.init()
+    with native.first_use("init"):
+        world = api.init(device=device)
     ctx = world.procctx
     # warm compiled-schedule cache: the
     # process-wide plan store (ompi_tpu_torch/coll/sched.CACHE) lives exactly
@@ -738,8 +750,11 @@ def _serve_loop(api, ctx, link: DaemonLink, current: dict,
                                           wait=False))
         except (KeyError, ConnectionError, OSError):
             pass
+        from ompi_tpu_torch import native
+
         print(f"serve: resident worker up (proc {ctx.proc}/"
-              f"{ctx.nprocs}, cursor {link.cursor})", flush=True)
+              f"{ctx.nprocs}, cursor {link.cursor}, first use "
+              f"{json.dumps(native.FIRST_USE)})", flush=True)
     # concurrent serving plane: each admitted job runs on its OWN
     # thread so this loop keeps consuming directives mid-job — a
     # deadline ``revoke`` for the running gang, a ``repair`` for a

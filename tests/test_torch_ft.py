@@ -79,6 +79,8 @@ def test_agree_and_revoke_across_two_procs(tmp_path):
         "from ompi_tpu_torch.op import SUM\n"
         "w = api.init(device='cpu')\n"
         "assert w.procctx.detector is not None\n"
+        "det, root = w.procctx.detector, w.dcn._root_engine()\n"
+        "print(f'T_BOOT proc={w.proc} t_boot={det.t_boot!r}', flush=True)\n"
         "a = w.agree(0b1111 if w.proc == 0 else 0b0110)\n"
         "assert a == 0b0110, a\n"
         "sub = w.dup()\n"
@@ -88,6 +90,9 @@ def test_agree_and_revoke_across_two_procs(tmp_path):
         "deadline = time.monotonic() + 10\n"
         "while not sub.is_revoked() and time.monotonic() < deadline:\n"
         "    time.sleep(0.01)\n"
+        "print(f'REVOKE proc={w.proc} seen={sub.is_revoked()} counts={root.revoke_counts} '\n"
+        "      f'detector_failed={sorted(det.failed())} engine_failed={sorted(root._failed_procs)} '\n"
+        "      f'heals={det.counters[\"false_positive_heals\"]}', flush=True)\n"
         "assert sub.is_revoked()\n"
         "try:\n"
         "    sub.allreduce(np.ones((1, 2)), SUM)\n"
