@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--max-bytes N] [--cross-device-only]
     python3 chip_smoke.py --serve-only N
+    python3 chip_smoke.py --ft-only
 
 Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
@@ -153,9 +154,21 @@ exits non-zero:
     name left; then (c) on that layout (``recovery_devices_shrink``),
     bit-equal to a fresh devices 2 × 4 job and to (c);
     and a probe of a CUDA IPC mapping whose exporter was killed (read
-    through it, then a fresh open).  After (b) and (f)'s respawn, (c),
-    (f)'s shrink, and (d) plus the probe run in three lanes side by side
-    (each is a pass/fail check), and the analysis phase
+    through it, then a fresh open);
+    (g) leg ``mutual_mark``: a ``-np 2 --nranks 4 --ft`` job of
+    ``chip_smoke.py --mutual-worker`` (default ``btl/native``, device
+    plane on), five rounds in which both processes mark each other
+    through the detector's ``mark_failed(how="engine")`` after a barrier;
+    every round must heal in the detector, the engine, the device plane
+    and the world communicator of both processes within 2 × the
+    detector's timeout, then a
+    64 MiB-per-rank f32 SUM under ``auto`` and a 64 MiB PROD with
+    ``cuda_ring`` forced must equal the plain ring bit for bit, with no
+    device-plane fallback; it prints each process's probes and heals and
+    the leg's wall time (``--ft-only`` runs the environment phase, this
+    leg and the analysis phase's ``btl/native`` lockdep job alone).  After (b) and (f)'s respawn, (c), (f)'s shrink,
+    and (d) plus the probe and (g) run in three lanes side by side (each
+    is a pass/fail check), and the analysis phase
     runs beside the whole phase.  It prints the time to heal and the
     64 MiB p50 before and after recovery beside the card's name and
     power limit.  Output: ``chiprun_out/recovery_*.log``.
@@ -265,10 +278,15 @@ exits non-zero:
     plane off, ``chip_smoke.py --lockdep-worker``: its ``i*``
     collectives run on the ``nbc_pool`` threads and its 8 MiB message's
     rendezvous grant on the ``rts_pool`` threads, whose locks must be
-    among those witnessed).  The phase's wall time is on its line.
+    among those witnessed), and of a second job on the default
+    ``btl/native`` with ``--ft`` and the device plane on, whose worker
+    adds one mutual mark and heal and must witness the detector's
+    ``_lock`` and ``_fan_lock``, the native engine's and the device
+    plane's locks.  The phase's wall time is on its line.
     Output: ``chiprun_out/tpucheck_sanitize.{json,log}``,
     ``chiprun_out/analysis_lockdep.log``,
-    ``chiprun_out/analysis_lockdep_job.log``.
+    ``chiprun_out/analysis_lockdep_job.log``,
+    ``chiprun_out/analysis_lockdep_native.log``.
 
 19. tools (after bench, last) — the port's operator tools on
     the card, no ``--cpu``, in four lanes side by side: ``python -m
@@ -3316,6 +3334,151 @@ def recovery_spawn() -> dict:
     return row
 
 
+#: leg mutual_mark: rounds, and the per-rank bytes of its two calls
+MUTUAL_ROUNDS, MUTUAL_BYTES = 5, 64 << 20
+
+
+def layer_marks(w, det, root, plane) -> dict:
+    """Where each layer of a process holds a peer failed: the detector,
+    the root engine, the device plane and the world communicator (its
+    failed ranks; a heal clears them last)."""
+    from ompi_tpu_torch.ft import ulfm
+
+    st = ulfm.peek(w)
+    return {"detector": sorted(det.failed()), "engine": sorted(root._failed_procs),
+            "plane": plane.failed_peers(), "comm": sorted(st.failed) if st else []}
+
+
+def mutual_round(w, det, root, plane) -> dict:
+    """After a barrier, mark the other process failed through the
+    detector's public ``mark_failed(how="engine")`` (the timeout re-check
+    cannot refuse it), then wait up to 2 × ``timeout`` until no layer
+    holds a peer failed (:func:`layer_marks`): the seconds it took and
+    what each layer held at the end."""
+    w.barrier()
+    t0 = time.perf_counter()
+    det.mark_failed(1 - w.proc, how="engine")
+    while any(layer_marks(w, det, root, plane).values()) \
+            and time.perf_counter() - t0 < 2 * det.timeout:
+        time.sleep(0.002)
+    return {"heal_s": time.perf_counter() - t0, "marks": layer_marks(w, det, root, plane)}
+
+
+def mutual_worker() -> int:
+    """``chip_smoke.py --mutual-worker``, one process of leg
+    ``mutual_mark``'s ``run -np 2 --nranks 4 --ft`` job (default
+    ``btl/native``, device plane on): :data:`MUTUAL_ROUNDS` rounds in
+    which both processes mark each other at once (:func:`mutual_round`);
+    a round that healed in every layer then runs a 64 MiB-per-rank f32
+    SUM under ``auto`` (integer-valued, so that every order of the sum is
+    exact) and a 64 MiB PROD with ``cuda_ring`` forced, each bit-equal to
+    the plain ring (enum 2) on the same inputs.  A round that did not heal
+    is recorded, and its mark is lifted by hand (the detector's, the
+    engine's and the communicators') so that the next round can run: the
+    leg fails on it.  Prints one ``MUTUAL`` line per round and one at the
+    end with the detector's counters, the device plane's and the kernel
+    launches."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import ompi_tpu_torch.api as api
+    from ompi_tpu_torch.coll import cuda_kernels as ck
+    from ompi_tpu_torch.core import mca
+    from ompi_tpu_torch.op import PROD, SUM
+
+    w = api.init()
+    det, root = w.procctx.detector, w.dcn._root_engine()
+    plane = root._device_plane
+    if det is None or plane is None:
+        raise SystemExit("leg mutual_mark needs --ft and the device plane")
+    store = mca.default_context().store
+    k, dev, count = w.local_size, w.device, MUTUAL_BYTES // 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(97 + w.proc)
+    xs = torch.randint(-1024, 1024, (k, count), generator=gen, device=dev).float()
+    xp = 1 + 0.01 * torch.randn((k, count), generator=gen, device=dev)
+    ck.reset_launches()
+
+    def same(a, b) -> bool:
+        return all(torch.equal(bits(a[i]), bits(b[i])) for i in range(k))
+
+    def pinned(algo: int, x, op):
+        store.set("coll_cuda_allreduce_algorithm", algo)
+        try:
+            return w.allreduce(x, op)
+        finally:
+            store.set("coll_cuda_allreduce_algorithm", 0)
+
+    t0 = time.perf_counter()
+    for r in range(MUTUAL_ROUNDS):
+        row = {"round": r + 1, **mutual_round(w, det, root, plane)}
+        row["healed"] = not any(row["marks"].values())
+        if row["healed"]:
+            row["sum_bitwise_vs_plain"] = same(w.allreduce(xs, SUM), pinned(2, xs, SUM))
+            row["prod_bitwise_vs_plain"] = same(pinned(7, xp, PROD), pinned(2, xp, PROD))
+        else:
+            peer = 1 - w.proc
+            det.clear_failed(peer)
+            root.note_proc_healed(peer)
+            w.procctx._fan_out_heal(peer)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        print("MUTUAL " + json.dumps(row), flush=True)
+    wall_s = time.perf_counter() - t0
+    w.barrier()
+    end = {"end": True, "wall_s": wall_s, "detector": dict(det.counters),
+           "device_sends": plane.stats["device_sends"],
+           "device_fallbacks": plane.stats["device_fallbacks"],
+           "fallback_causes": {c: n for c, n in plane.fallback_causes.items() if n},
+           "launches": dict(ck.LAUNCHES)}
+    print("MUTUAL " + json.dumps(end), flush=True)
+    api.finalize()
+    return 0
+
+
+def mutual_mark(smi) -> dict:
+    """Leg ``mutual_mark``: :func:`mutual_worker`'s job; every round
+    healed in every layer of both processes, every result bit-equal to
+    the plain ring, no device-plane fallback; the probes and heals of
+    each process and the job's wall time."""
+    out, _err, wall_s = port_cli("recovery_mutual_mark", [
+        "run", "-np", MP_PROCS, "--nranks", MP_RANKS, "--ft",
+        REPO / "chip_smoke.py", "--mutual-worker"], timeout=300)
+    rows: dict[int, list] = {}
+    for m in re.finditer(r"^\[(\d+)\] MUTUAL (.*)$", out, re.M):
+        rows.setdefault(int(m.group(1)), []).append(json.loads(m.group(2)))
+    ends = {p: r[-1] for p, r in rows.items() if r and r[-1].get("end")}
+    rounds = {p: [x for x in r if "round" in x] for p, r in rows.items()}
+    if sorted(ends) != list(range(MP_PROCS)):
+        raise SystemExit(f"recovery_mutual_mark: no end line from every process: {rows}")
+    counters = ("probes", "probe_heals", "false_positive_heals", "digest_heals",
+                "gossip_retries")
+    row = {"wall_s": wall_s, "rounds": MUTUAL_ROUNDS,
+           "rounds_marked": sorted({x["round"] for r in rounds.values() for x in r
+                                    if not x["healed"]}),
+           "heal_s": {p: [x["heal_s"] for x in r] for p, r in rounds.items()},
+           "detector": {p: {c: e["detector"].get(c) for c in counters} for p, e in ends.items()},
+           "device_sends": {p: e["device_sends"] for p, e in ends.items()},
+           "device_fallbacks": {p: e["device_fallbacks"] for p, e in ends.items()},
+           "fallback_causes": {p: e["fallback_causes"] for p, e in ends.items()},
+           "bitwise_vs_plain": all(x.get("sum_bitwise_vs_plain") and x.get("prod_bitwise_vs_plain")
+                                   for r in rounds.values() for x in r if x["healed"]),
+           "worker_wall_s": {p: e["wall_s"] for p, e in ends.items()},
+           "launches": [e["launches"] for e in ends.values()]}
+    row["ok"] = (not row["rounds_marked"]
+                 and all(len(r) == MUTUAL_ROUNDS for r in rounds.values())
+                 and row["bitwise_vs_plain"]
+                 and all(v == 0 for v in row["device_fallbacks"].values())
+                 and all(v > 0 for v in row["device_sends"].values())
+                 and all(min(rows_of(lc).values()) > 0 for lc in row["launches"]))
+    print(f"recovery_mutual_mark: {MUTUAL_ROUNDS - len(row['rounds_marked'])} of "
+          f"{MUTUAL_ROUNDS} rounds healed in every layer; probes / probe heals per process "
+          + ", ".join(f"{p}: {d['probes']} / {d['probe_heals']}"
+                      for p, d in sorted(row["detector"].items()))
+          + f"; fallbacks {row['device_fallbacks']}; wall {wall_s:.3f} s ({smi})", flush=True)
+    return row
+
+
 def dense_attention_f64(q, k, v):
     """Dense attention in float64 on the card, one head at a time (the
     oracle of ``ompi_tpu_torch/examples/ring_attention.py``'s
@@ -3442,15 +3605,17 @@ def phase_recovery(smi, ck) -> dict:
     with ThreadPoolExecutor(3) as pool:
         shrink_f = pool.submit(recovery_shrink)
         dshrink_f = pool.submit(recovery_shrink, "devices")
-        spawn_f = pool.submit(lambda: (recovery_spawn(), ipc_dead_exporter()))
-        shrink, dshrink, (spawn, probe) = (shrink_f.result(), dshrink_f.result(),
-                                           spawn_f.result())
+        spawn_f = pool.submit(lambda: (recovery_spawn(), ipc_dead_exporter(),
+                                       mutual_mark(smi)))
+        shrink, dshrink, (spawn, probe, mutual) = (shrink_f.result(), dshrink_f.result(),
+                                                   spawn_f.result())
     dshrink["bitwise_vs_rows"] = dshrink["digests"] == shrink["digests"]
     dshrink["ok"] = dshrink["ok"] and dshrink["bitwise_vs_rows"]
     emit({"phase": "recovery_shrink_procs", "nvidia_smi": smi, **shrink})
     emit({"phase": "recovery_devices_shrink", "nvidia_smi": smi, **dshrink})
     emit({"phase": "recovery_spawn", "nvidia_smi": smi, **spawn})
     emit({"phase": "recovery_ipc_dead_exporter", "nvidia_smi": smi, **probe})
+    emit({"phase": "recovery_mutual_mark", "nvidia_smi": smi, **mutual})
     sys.stdout.write(f"recovery: heal_ms {respawn['heal_ms']} (survivor, reborn); 64 MiB p50 "
                      f"{respawn['pre_p50_ms']} ms before the failure, "
                      f"{respawn['post_p50_ms']} ms after; devices layout heal_ms "
@@ -3458,18 +3623,19 @@ def phase_recovery(smi, ck) -> dict:
                      f"{devices['post_p50_ms']} ms ({smi})\n")
     sys.stdout.flush()
     job_launches = [lc for lc in respawn["post_launches"] + devices["post_launches"]
-                    + spawn["launches"]]
+                    + spawn["launches"] + mutual["launches"]]
     launches = {name: single["launches"][name] + attn["launches_per_call"][name]
                 + sum(lc[name] for lc in job_launches) for name in single["launches"]}
     row = {"phase": "recovery", "nvidia_smi": smi, "wall_s": time.perf_counter() - t0,
            "shrink_single_ok": single["ok"], "ring_attention_ok": attn["ok"],
            "respawn_ok": respawn["ok"], "shrink_procs_ok": shrink["ok"],
            "spawn_ok": spawn["ok"], "devices_respawn_ok": devices["ok"],
-           "devices_shrink_ok": dshrink["ok"], "launches": launches}
+           "devices_shrink_ok": dshrink["ok"], "mutual_mark_ok": mutual["ok"],
+           "launches": launches}
     emit(row)
     failed = [k for k in ("shrink_single_ok", "ring_attention_ok", "respawn_ok",
                           "shrink_procs_ok", "spawn_ok", "devices_respawn_ok",
-                          "devices_shrink_ok") if not row[k]]
+                          "devices_shrink_ok", "mutual_mark_ok") if not row[k]]
     if failed:
         raise SystemExit(f"recovery checks failed: {failed}")
     return row
@@ -5110,15 +5276,37 @@ def lockdep_child() -> int:
 #: whose grants run on the ``rts_pool`` threads
 LOCKDEP_JOB = ("-np", "2", "--nranks", "4", "--mca", "btl", "tcp",
                "--mca", "dcn_device_enable", "0")
+#: the second lockdep job: the default ``btl/native`` with the device plane
+#: on and the failure detector armed, so that the native engine's, the
+#: device plane's and the detector's locks are witnessed, the detector's
+#: mark and heal fan-out (``_fan_lock``) among them
+LOCKDEP_NATIVE_JOB = ("-np", "2", "--nranks", "4", "--ft")
+#: (file, text of the allocation) of every lock the native job must witness
+LOCKDEP_NATIVE_SITES = (
+    ("ft/detector.py", "self._lock = threading.Lock()"),
+    ("ft/detector.py", "self._fan_lock = threading.RLock()"),
+    ("dcn/native.py", "self._p2p_lock = threading.Lock()"),
+    ("dcn/native.py", "self._qlock = threading.Lock()"),
+    ("dcn/native.py", "self._hlock = threading.Lock()"),
+    ("dcn/device.py", "self._lock = threading.Lock()"))
+
+
+def lock_sites(rel: str, text: str) -> list:
+    """The witness's names (``file:line``) of the locks allocated by
+    ``text`` in ``ompi_tpu_torch/<rel>``."""
+    path = REPO / "ompi_tpu_torch" / rel
+    return [f"{path.name}:{i}" for i, line in enumerate(path.read_text().splitlines(), 1)
+            if line.strip() == text]
 
 
 def lockdep_worker() -> int:
     """``chip_smoke.py --lockdep-worker``, one process of the
-    :data:`LOCKDEP_JOB` job: the witness armed before the port is
-    imported; blocking and ``i*`` allreduces at 8 B, 1 MiB and 16 MiB per
-    rank, a persistent allreduce started three times, an 8 MiB message
-    from process 0 to process 1; then ``assert_clean()``.  Prints one
-    ``LOCKDEP`` line per process."""
+    :data:`LOCKDEP_JOB` job or of the :data:`LOCKDEP_NATIVE_JOB` job: the
+    witness armed before the port is imported; blocking and ``i*``
+    allreduces at 8 B, 1 MiB and 16 MiB per rank, a persistent allreduce
+    started three times, an 8 MiB message from process 0 to process 1;
+    under ``--ft`` one mutual mark and heal (:func:`mutual_round`); then
+    ``assert_clean()``.  Prints one ``LOCKDEP`` line per process."""
     import torch
 
     sys.path.insert(0, str(REPO))
@@ -5146,13 +5334,19 @@ def lockdep_worker() -> int:
         elif lo <= dst < lo + k:
             got, _st = w.recv(dst, src, tag=9)
             exact &= bool(torch.equal(torch.as_tensor(got).to(dev), act))
+        det = w.procctx.detector
+        mutual = None
+        if det is not None:
+            root = w.dcn._root_engine()
+            mutual = mutual_round(w, det, root, root._device_plane)
+            exact &= not any(mutual["marks"].values())
         w.barrier()
         api.finalize()
         sites = lockdep.witnessed_locks()
         row = {"proc": w.proc, "locks": len(sites), "edges": len(lockdep.current_edges()),
                "inversions": len(lockdep.violations()), "exact": exact,
                "pools": sorted(x for x in sites if x.startswith("threads.py")),
-               "lock_sites": sites}
+               "mutual": mutual, "lock_sites": sites}
         print("LOCKDEP " + json.dumps(row), flush=True)
         lockdep.assert_clean()
     finally:
@@ -5213,18 +5407,44 @@ def analysis_children() -> dict:
     lock = json.loads(lines[-1][len("LOCKDEP "):])
     if lock["inversions"] or not lock["locks"] or not lock["edges"] or not lock["p2p_ok"]:
         raise SystemExit(f"lockdep child: {lock}")
-    job = subprocess.run([sys.executable, "-m", "ompi_tpu_torch", "run", *LOCKDEP_JOB,
+    procs, _wall = lockdep_job(LOCKDEP_JOB, "analysis_lockdep_job")
+    if any(not r["pools"] for r in procs):
+        raise SystemExit(f"lockdep job: no pool lock witnessed: {procs}")
+    return {"plain": plain, "lock": lock, "procs": procs, "native": lockdep_native()}
+
+
+def lockdep_job(job, log_name: str) -> tuple[list, float]:
+    """One ``run`` of ``chip_smoke.py --lockdep-worker`` (``job``: the
+    launcher's options): each process's ``LOCKDEP`` row, which must count
+    no inversion and exact results; and the job's wall time."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "ompi_tpu_torch", "run", *job,
                           str(REPO / "chip_smoke.py"), "--lockdep-worker"],
                          cwd=str(REPO), env=pkg_env(), capture_output=True, text=True,
                          timeout=600)
-    (REPO / "chiprun_out" / "analysis_lockdep_job.log").write_text(job.stdout + job.stderr)
+    wall_s = time.perf_counter() - t0
+    (REPO / "chiprun_out" / f"{log_name}.log").write_text(res.stdout + res.stderr)
     procs = [json.loads(m.group(1)) for m in
-             re.finditer(r"^\[\d+\] LOCKDEP (.*)$", job.stdout, re.M)]
-    if job.returncode != 0 or len(procs) != 2 or any(
-            r["inversions"] or not r["exact"] or not r["pools"] for r in procs):
-        print(job.stdout[-4000:] + job.stderr[-4000:], file=sys.stderr)
-        raise SystemExit(f"lockdep job: rc={job.returncode}, rows {procs}")
-    return {"plain": plain, "lock": lock, "procs": procs}
+             re.finditer(r"^\[\d+\] LOCKDEP (.*)$", res.stdout, re.M)]
+    if res.returncode != 0 or len(procs) != 2 or any(
+            r["inversions"] or not r["exact"] for r in procs):
+        print(res.stdout[-4000:] + res.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"{log_name}: rc={res.returncode}, rows {procs}")
+    return procs, wall_s
+
+
+def lockdep_native() -> dict:
+    """The :data:`LOCKDEP_NATIVE_JOB` job: every lock of
+    :data:`LOCKDEP_NATIVE_SITES` witnessed in both processes, no
+    inversion, the mutual mark healed; the counts per process."""
+    procs, wall_s = lockdep_job(LOCKDEP_NATIVE_JOB, "analysis_lockdep_native")
+    want = sorted(x for rel, text in LOCKDEP_NATIVE_SITES for x in lock_sites(rel, text))
+    missing = {r["proc"]: sorted(set(want) - set(r["lock_sites"])) for r in procs}
+    if len(want) < len(LOCKDEP_NATIVE_SITES) or any(missing.values()):
+        raise SystemExit(f"lockdep native job: sites {want}, missing {missing}")
+    return {"wall_s": wall_s, "sites": want,
+            "procs": [{k: v for k, v in r.items() if k not in ("lock_sites", "pools")}
+                      for r in procs]}
 
 
 def phase_analysis(smi) -> dict:
@@ -5265,6 +5485,7 @@ def phase_analysis(smi) -> dict:
            "memcheck": memcheck_row,
            "lockdep": {k: v for k, v in lock.items() if k != "lock_sites"},
            "lockdep_job": [{k: v for k, v in r.items() if k != "lock_sites"} for r in procs],
+           "lockdep_native": kids["native"],
            "launches": launches, "wall_s": time.perf_counter() - t0}
     emit(row)
     return row
@@ -5278,7 +5499,12 @@ def main() -> int:
     ap.add_argument("--lockdep-child", action="store_true",
                     help="run the analysis phase's lockdep child (internal)")
     ap.add_argument("--lockdep-worker", action="store_true",
-                    help="one process of the analysis phase's lockdep job (internal)")
+                    help="one process of the analysis phase's lockdep jobs (internal)")
+    ap.add_argument("--mutual-worker", action="store_true",
+                    help="one process of the recovery phase's leg mutual_mark (internal)")
+    ap.add_argument("--ft-only", action="store_true",
+                    help="run only the environment phase, the recovery phase's leg "
+                    "mutual_mark and the analysis phase's btl/native lockdep job")
     ap.add_argument("--old-ring-hop", metavar="PATH",
                     help="an earlier tree's ring_hop.cu: its kernels are timed in turns "
                     "with this tree's in the kernel rows, and phase ring_split splits "
@@ -5305,6 +5531,8 @@ def main() -> int:
         return lockdep_child()
     if args.lockdep_worker:
         return lockdep_worker()
+    if args.mutual_worker:
+        return mutual_worker()
     from concurrent.futures import ThreadPoolExecutor
 
     sys.path.insert(0, str(REPO))
@@ -5340,6 +5568,22 @@ def main() -> int:
         emit({"phase_wall_s": walls})
         if failed:
             raise SystemExit(f"--serve-only: {failed}")
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if args.ft_only:
+        from ompi_tpu_torch import native as native_lib
+
+        native_lib.build()
+        mutual = phase("mutual_mark", mutual_mark, smi)
+        emit({"phase": "recovery_mutual_mark", "nvidia_smi": smi, **mutual})
+        native = phase("lockdep_native", lockdep_native)
+        emit({"phase": "analysis_lockdep_native", "nvidia_smi": smi, **native})
+        print(smi, flush=True)
+        emit({"phase_wall_s": walls})
+        if not mutual["ok"]:
+            raise SystemExit(f"recovery_mutual_mark checks failed: {mutual}")
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})

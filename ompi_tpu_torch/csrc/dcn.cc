@@ -761,9 +761,23 @@ struct ShmRing {
 // busy draining, nobody is parked, and the per-record wake syscalls
 // that serialized the old send path collapse into
 // TS_DOORBELLS_SUPPRESSED bumps.
+//
+// word[1]'s top bit (kWakePending) says a wake is already in flight:
+// the sender that pays the futex_wake sets it in the same atomic step
+// that reads the count, and every sleeper clears it in the same atomic
+// step that registers it (park()).  So a set bit means every sleeper
+// now registered was parked before a futex_wake that followed its
+// registration (a woken consumer the scheduler has not run yet), and
+// the senders behind it skip the syscall too: the woken consumer
+// drains their records with the rest.  word[3] = kPendingMagic marks a
+// segment whose sleepers clear the bit; on any other segment (the
+// reference engine's) a sender keeps the plain count rule.
 struct Doorbell {
+  static constexpr uint32_t kWakePending = 0x80000000u;
+  static constexpr uint32_t kPendingMagic = 0x50454e44u;  // "PEND"
   std::atomic<uint32_t> *word = nullptr;
   std::atomic<uint32_t> *parked = nullptr;
+  bool pending_ok = false;  // the segment's sleepers clear kWakePending
   std::string name;
   int fd = -1;
 
@@ -778,6 +792,8 @@ struct Doorbell {
     parked = word + 1;
     word->store(0);
     parked->store(0);
+    word[3].store(kPendingMagic, std::memory_order_release);
+    pending_ok = true;
     return true;
   }
 
@@ -789,15 +805,36 @@ struct Doorbell {
     if (m == MAP_FAILED) return false;
     word = (std::atomic<uint32_t> *)m;
     parked = word + 1;
+    pending_ok = word[3].load(std::memory_order_acquire) == kPendingMagic;
     return true;
   }
+
+  // A sleeper's registration before its futex_wait on word[0]: one
+  // more parked, and no wake in flight that predates it.
+  void park() {
+    uint32_t old = parked->load(std::memory_order_relaxed);
+    while (!parked->compare_exchange_weak(old, (old & ~kWakePending) + 1,
+                                          std::memory_order_seq_cst))
+      ;
+  }
+
+  void unpark() { parked->fetch_sub(1, std::memory_order_relaxed); }
 
   // `coalesce` off restores the unconditional wake (the
   // dcn_doorbell_coalesce escape hatch); `stats` may be null.
   void ring(TdcnStats *stats = nullptr, bool coalesce = true) {
     word->fetch_add(1, std::memory_order_release);
     std::atomic_thread_fence(std::memory_order_seq_cst);
-    if (!coalesce || parked->load(std::memory_order_relaxed)) {
+    bool wake;
+    if (!coalesce) {
+      wake = true;
+    } else if (pending_ok) {
+      uint32_t old = parked->fetch_or(kWakePending, std::memory_order_seq_cst);
+      wake = (old & ~kWakePending) && !(old & kWakePending);
+    } else {
+      wake = parked->load(std::memory_order_relaxed) != 0;
+    }
+    if (wake) {
       if (stats) stats->add(TS_DOORBELLS, 1);
       // wake everyone: inline-progress waiters AND the backstop poller
       // race via try_lock; waking only one risks handing the frame to
@@ -2052,9 +2089,9 @@ static bool progress_wait(Engine *eng, std::unique_lock<std::mutex> &g,
       }
       if (!changed) {
         struct timespec ts = {0, 2000000};  // 2 ms: deadline cadence
-        eng->my_db.parked->fetch_add(1, std::memory_order_seq_cst);
+        eng->my_db.park();
         futex_wait(eng->my_db.word, seen, &ts);
-        eng->my_db.parked->fetch_sub(1, std::memory_order_relaxed);
+        eng->my_db.unpark();
       }
     }
     g.lock();
@@ -2087,9 +2124,9 @@ static void ring_poll_loop(Engine *eng) {
       // publish must wake, so it registers as parked (senders pay the
       // futex_wake) and sleeps the long backstop quantum
       struct timespec ts = {0, 50000000};  // 50 ms: close() sensitivity
-      eng->my_db.parked->fetch_add(1, std::memory_order_seq_cst);
+      eng->my_db.park();
       futex_wait(eng->my_db.word, seen, &ts);
-      eng->my_db.parked->fetch_sub(1, std::memory_order_relaxed);
+      eng->my_db.unpark();
     } else {
       // an inline-progress waiter is driving: it parks itself when it
       // runs dry, so the poller sleeps UNREGISTERED — under a windowed

@@ -502,7 +502,16 @@ class DcnCollEngine:
             comm = ref() if ref is not None else None
             if comm is not None:
                 from ompi_tpu_torch.ft import ulfm
+                from ompi_tpu_torch.trace import waitgraph as _waitgraph
 
+                if _waitgraph._enabled and _waitgraph.busy():
+                    # the revoke is about to wake a blocked wait: flush the
+                    # post-mortem export with the blocked state first, as
+                    # the local revoke paths do (a peer's revoke can beat
+                    # this process's own to the wait)
+                    from ompi_tpu_torch.metrics import export as _mexport
+
+                    _mexport.crash_dump("revoke")
                 ulfm.state(comm).revoked = True
                 # wake any C fast-path schedule parked on this comm's
                 # private stream (the Python plane's _check_revoked

@@ -43,17 +43,44 @@ when the launcher published one (``OMPI_TPU_HOST_IDS``), else into
   ULFM state, and gossips as a versioned ``flc`` clear record, so the
   cluster converges back on LIVE and survivors' dead-set views cannot
   permanently diverge over a scheduler-starved rank;
+* a proc held failed is still **probed**, unless it is retired or a
+  newer incarnation has announced itself (its wired-in incarnation is
+  a known corpse): a heartbeat flagged ``probe``, at most once a
+  period, the gap doubling up to ``timeout``.  The topology drops a
+  marked proc from the heartbeat targets, so without the probe two
+  processes that mark each other (both stalled past the timeout)
+  never send each other a frame that could heal them.  A live
+  receiver that holds the prober failed heals it on the probe (the
+  branch above), and answers every probe with a heartbeat flagged
+  ``ack``, which heals the prober's mark the same way.  A refused
+  probe is no news: no strike, no mark.  A corpse answers nothing; a
+  reborn incarnation answers with its newer incarnation, the rebirth
+  branch;
 * gossip converges hierarchically: a detector floods its own group's
   live members plus every live leader; a *leader* that accepts new
-  gossip relays it into its group.  As the lost-message backstop,
-  heartbeats piggyback an **anti-entropy digest** of the
-  failure-record set (``ft_gossip_digest``) — leader↔leader, and on a
+  gossip relays it into its group.  An ``flr``/``flc`` frame the
+  transport refuses (the native plane refuses a control frame while
+  the peer's send path is busy) is retried from the heartbeat loop,
+  once a period, while its target is held live, for at most
+  ``dcn_connect_timeout``.  As the lost-message backstop, heartbeats
+  piggyback an **anti-entropy digest** — leader↔leader, and on a
   member's heartbeats to its leader and successor too (the reference
   digests only leaders' heartbeats: a member whose one relay frame was
-  lost stayed ignorant of the death for good); a digest mismatch
-  triggers one ``flrsync`` frame carrying the full (tiny) record set,
-  so survivor knowledge converges in O(log groups) heartbeat periods
-  even under gossip loss — instead of full-mesh flooding.
+  lost stayed ignorant of the death for good).  The digest covers
+  marks AND heals: a ``(proc, inc, epoch, failed)`` record for every
+  proc held failed or healed at least once (epoch > 0), leaving out
+  the heartbeat's two ends (each hears the other directly).  On a
+  mismatch either side ships one ``flrsync`` frame: ``recs``, its
+  marks (the reference's field), and ``heals``, the ``(proc, inc,
+  epoch)`` floors of the procs it holds live.  A heal floor above the
+  receiver's epoch for a proc lifts its mark, exactly as an ``flc``
+  does (the reference digests marks alone, and a healer with no mark
+  left never answered, so a member whose ``flc`` was lost kept a live
+  peer failed for good).  Per proc the records are totally ordered,
+  (e, live) < (e, failed) < (e + 1, live), so a stale mark loses to a
+  newer clear and a stale clear to a newer mark, and survivor
+  knowledge converges in O(log groups) heartbeat periods even under
+  gossip loss — instead of full-mesh flooding.
 
 In-band detection is unchanged: a failed heartbeat *send* marks only
 on the second consecutive strike (one transport reconnect/backoff
@@ -76,6 +103,7 @@ import time
 from typing import Callable, Sequence
 
 from ompi_tpu_torch.core.registry import Component, register_component
+from ompi_tpu_torch.core.var import Deadline
 
 
 def compute_groups(nprocs: int, group_size: int = 8,
@@ -157,10 +185,28 @@ class HeartbeatDetector:
         #: mismatch (a partial-replace bystander's frozen view) costs
         #: one flrsync, not one per period
         self._synced: dict[int, tuple[str, str]] = {}
-        #: observability counters (telemetry frames pick these up)
+        #: probe schedule per proc held failed: the monotonic instant of
+        #: the next probe and the gap after it (doubling, capped at
+        #: ``timeout``); none = due now, at a gap of one period
+        self._probe: dict[int, tuple[float, float]] = {}
+        #: procs a newer incarnation has announced (the rebirth branch):
+        #: the wired-in incarnation is a corpse, so it is not probed;
+        #: cleared when replace() integrates the newer incarnation
+        self._superseded: set[int] = set()
+        #: gossip records the transport refused, by (target, proc): the
+        #: record and the deadline of its retries (a newer record about
+        #: the proc takes the older one's place)
+        self._resend: dict[tuple[int, int], tuple[dict, Deadline]] = {}
+        #: observability counters (telemetry frames pick these up);
+        #: ``probes`` counts probe heartbeats sent, ``probe_heals`` the
+        #: heals a probe or its answer drove, ``digest_heals`` the marks
+        #: lifted by an anti-entropy heal floor, ``gossip_retries`` the
+        #: refused gossip sends tried again
         self.counters = {"gossip_tx": 0, "gossip_relayed": 0,
                          "stale_gossip_dropped": 0, "digest_syncs": 0,
-                         "rebirth_detects": 0, "false_positive_heals": 0}
+                         "rebirth_detects": 0, "false_positive_heals": 0,
+                         "probes": 0, "probe_heals": 0, "digest_heals": 0,
+                         "gossip_retries": 0}
         self._cbs: list[Callable[[int], None]] = []
         self._heal_cbs: list[Callable[[int], None]] = []
         #: leadership-transition callbacks (telemetry relay failover):
@@ -243,15 +289,43 @@ class HeartbeatDetector:
         out.discard(about)
         return sorted(out)
 
-    def _digest_locked(self) -> str:
-        """Anti-entropy digest of the versioned failure-record set."""
-        recs = sorted((p, self._inc.get(p, 0), self._epoch.get(p, 0))
-                      for p in self._failed)
+    def _state_locked(self, peer: int | None) -> list[tuple[int, int, int, bool]]:
+        """The versioned record set: ``(proc, inc, epoch, failed)`` for
+        every proc held failed or healed at least once, leaving out this
+        process, ``peer`` (the other end of the heartbeat) and retired
+        procs."""
+        me = self.engine.proc
+        procs = self._failed | {p for p, e in self._epoch.items() if e > 0}
+        return sorted((p, self._inc.get(p, 0), self._epoch.get(p, 0),
+                       p in self._failed)
+                      for p in procs - self._retired - {me, peer})
+
+    def _digest_locked(self, peer: int | None = None) -> str:
+        """Anti-entropy digest of the versioned record set, marks and
+        heals, as the heartbeat to ``peer`` carries it."""
+        recs = [list(r) for r in self._state_locked(peer)]
         return hashlib.md5(json.dumps(recs).encode()).hexdigest()[:12]
 
-    def _records_locked(self) -> list[list[int]]:
-        return [[p, self._inc.get(p, 0), self._epoch.get(p, 0)]
-                for p in sorted(self._failed)]
+    def _records_locked(self, peer: int | None = None
+                        ) -> tuple[list[list[int]], list[list[int]]]:
+        """The ``flrsync`` payload for ``peer``: the marks (``recs``) and
+        the heal floors of the procs held live (``heals``)."""
+        marks, heals = [], []
+        for p, inc, epoch, failed in self._state_locked(peer):
+            (marks if failed else heals).append([p, inc, epoch])
+        return marks, heals
+
+    def _hb_locked(self, dst: int, flag: str | None = None) -> dict:
+        """A heartbeat to ``dst``: this incarnation, the digest as
+        ``dst`` compares it, and ``flag`` (``probe`` or ``ack``)."""
+        env = {"kind": "hb", "src": self.engine.proc}
+        if self.incarnation:
+            env["inc"] = self.incarnation
+        if self.digest_enabled:
+            env["dg"] = self._digest_locked(dst)
+        if flag is not None:
+            env[flag] = 1
+        return env
 
     # -- inbound events (engine receiver thread) ------------------------
 
@@ -267,12 +341,15 @@ class HeartbeatDetector:
                 # beats the silence timeout, which the reborn's frames
                 # would otherwise mask by refreshing the corpse's
                 # liveness clock forever)
+                with self._lock:
+                    self._superseded.add(src)
                 if self.mark_failed(src, how="rebirth"):
                     with self._lock:
                         self.counters["rebirth_detects"] += 1
             # inc < floor: a zombie frame from a replaced incarnation —
             # it must not resurrect the healed slot's liveness clock
             return
+        probed = bool(env and (env.get("probe") or env.get("ack")))
         with self._lock:
             falsely_marked = (src in self._failed
                               and src not in self._retired)
@@ -287,35 +364,50 @@ class HeartbeatDetector:
             # arrival.  A REAL death cannot flap this way: a corpse
             # sends nothing, and a reborn incarnation's frames take
             # the rebirth branch above.
-            self._heal(src, origin=True)
+            self._heal(src, origin=True, how="probe" if probed else None)
         self.note_activity(src)
+        if env is not None and env.get("probe"):
+            # the prober holds us failed: answer, so that its mark lifts
+            # even where we send it no heartbeat of the topology's
+            with self._lock:
+                ack = (None if src in self._failed or src in self._retired
+                       else self._hb_locked(src, "ack"))
+            if ack is not None:
+                try:
+                    self.engine.send_ctrl(src, ack)
+                except Exception:  # noqa: BLE001 — the next probe asks again
+                    pass
         if env is None or not self.digest_enabled:
             return
         dg = env.get("dg")
         if dg is None:
             return
-        # anti-entropy: a digest mismatch means the
-        # sender's failure-record set differs from ours — ship ours
-        # once per (their digest, our digest) pair; stale records are
-        # dropped by the receiver's version floor, so a persistent
-        # honest disagreement (partial-replace bystander) costs one
-        # frame, not a storm
+        # anti-entropy: a digest mismatch means the sender's record set
+        # (marks and heal floors) differs from ours — ship ours once per
+        # (their digest, our digest) pair, whichever side is behind;
+        # stale records are dropped by the receiver's version floor, so
+        # a persistent honest disagreement (partial-replace bystander)
+        # costs one frame, not a storm
         with self._lock:
-            mine = self._digest_locked()
-            if dg == mine or not self._failed:
+            mine = self._digest_locked(src)
+            if dg == mine:
                 self._synced.pop(src, None)
                 return
             if self._synced.get(src) == (dg, mine):
                 return
+            recs, heals = self._records_locked(src)
+            if not recs and not heals:
+                return
             self._synced[src] = (dg, mine)
-            recs = self._records_locked()
             self.counters["digest_syncs"] += 1
         try:
             self.engine.send_ctrl(src, {"kind": "flrsync",
                                         "src": self.engine.proc,
-                                        "recs": recs})
-        except Exception:  # noqa: BLE001 — peer may be dying
-            pass
+                                        "recs": recs, "heals": heals})
+        except Exception:  # noqa: BLE001 — refused: the next heartbeat
+            with self._lock:  # from src asks again
+                if self._synced.get(src) == (dg, mine):
+                    del self._synced[src]
 
     def note_activity(self, src: int) -> None:
         """Refresh a peer's liveness clock.  Called for ``hb`` frames
@@ -338,40 +430,47 @@ class HeartbeatDetector:
                          src=env.get("src"), how="gossip")
 
     def on_flrsync(self, env: dict) -> None:
-        """Anti-entropy payload: merge every record through the same
-        versioned validation gossip uses."""
-        for rec in env.get("recs") or ():
-            try:
-                proc, inc, epoch = int(rec[0]), int(rec[1]), int(rec[2])
-            except (TypeError, ValueError, IndexError):
-                continue
-            self.mark_failed(proc, gossip="relay", inc=inc, epoch=epoch,
-                             src=env.get("src"), how="digest")
+        """Anti-entropy payload: merge every mark through the same
+        versioned validation gossip uses, and every heal floor through
+        the one an ``flc`` takes."""
+        for key in ("recs", "heals"):
+            for rec in env.get(key) or ():
+                try:
+                    proc, inc, epoch = int(rec[0]), int(rec[1]), int(rec[2])
+                except (TypeError, ValueError, IndexError):
+                    continue
+                if key == "recs":
+                    self.mark_failed(proc, gossip="relay", inc=inc,
+                                     epoch=epoch, src=env.get("src"),
+                                     how="digest")
+                else:
+                    self._heal(proc, inc=inc, epoch=epoch,
+                               src=env.get("src"), how="digest")
 
     def _heal(self, proc: int, inc: int | None = None,
               epoch: int | None = None, origin: bool = False,
-              src=None) -> bool:
+              src=None, how: str | None = None) -> bool:
         """Un-mark a falsely-failed peer (the live-heartbeat proof
-        above, or a received ``flc`` clear record).  An ORIGIN heal
-        bumps the epoch past the false mark's — the same versioning
-        ``clear_failed`` uses — so the clear wins over every copy of
-        the stale ``flr`` still circulating; remote clears below the
-        floor are themselves stale and dropped.  Fans out to the
-        engine and the registered heal callbacks (communicator ULFM
-        state), and gossips/relays like a failure record."""
+        above, a received ``flc`` clear record, or an anti-entropy heal
+        floor).  An ORIGIN heal bumps the epoch past the false mark's —
+        the same versioning ``clear_failed`` uses — so the clear wins
+        over every copy of the stale ``flr`` still circulating; remote
+        clears below the floor are themselves stale and dropped.  Fans
+        out to the engine and the registered heal callbacks
+        (communicator ULFM state), and gossips/relays like a failure
+        record.  ``how``: ``probe`` (a probe or its answer drove the
+        heal) or ``digest`` (an ``flrsync`` heal floor), for the
+        counters."""
         with self._fan_lock:
-            targets, rec = self._heal_fan_out(proc, inc, epoch, origin, src)
+            targets, rec = self._heal_fan_out(proc, inc, epoch, origin, src,
+                                              how)
         if targets is None:
             return False
-        for p in targets:
-            if p not in self.failed():
-                try:
-                    self.engine.send_ctrl(p, rec)
-                except Exception:  # noqa: BLE001 — peer may be dead
-                    pass
+        self._gossip(targets, rec)
         return True
 
-    def _heal_fan_out(self, proc: int, inc, epoch, origin: bool, src):
+    def _heal_fan_out(self, proc: int, inc, epoch, origin: bool, src,
+                      how: str | None = None):
         """The state change and fan-out half of :meth:`_heal` (under
         ``_fan_lock``): the gossip targets and record, or ``(None,
         None)`` when nothing was healed."""
@@ -401,8 +500,12 @@ class HeartbeatDetector:
                 self._strikes[proc] = 0
             if not was_failed:
                 return None, None  # floor adopted; nothing to fan out
+            self._probe.pop(proc, None)
+            self._superseded.discard(proc)
             if origin:
                 self.counters["false_positive_heals"] += 1
+            if how is not None:
+                self.counters[f"{how}_heals"] += 1
             cbs = list(self._heal_cbs)
             relay = origin or (self._leader_of(self._group)
                                == self.engine.proc)
@@ -503,6 +606,8 @@ class HeartbeatDetector:
             if proc in self._last:
                 self._last[proc] = time.monotonic()
                 self._strikes[proc] = 0
+            self._probe.pop(proc, None)
+            self._superseded.discard(proc)
 
     def retire_peer(self, proc: int) -> None:
         """Stop watching a peer entirely (partial-communicator rejoin,
@@ -517,6 +622,9 @@ class HeartbeatDetector:
             self._last.pop(proc, None)
             self._strikes.pop(proc, None)
             self._failed.discard(proc)
+            self._probe.pop(proc, None)
+            for key in [k for k in self._resend if k[0] == proc]:
+                del self._resend[key]
 
     def mark_failed(self, proc: int, gossip=True, inc: int | None = None,
                     epoch: int | None = None, src=None,
@@ -548,13 +656,50 @@ class HeartbeatDetector:
             key = "gossip_relayed" if gossip == "relay" else "gossip_tx"
             with self._lock:
                 self.counters[key] += 1
-            for p in targets:
-                if p not in self.failed():
-                    try:
-                        self.engine.send_ctrl(p, rec)
-                    except Exception:  # noqa: BLE001 — peer may be dead
-                        pass
+            self._gossip(targets, rec)
         return True
+
+    def _gossip(self, targets, rec: dict) -> None:
+        """Send one ``flr``/``flc`` record to every target held live.  A
+        send the transport refuses is left to :meth:`_retry_gossip`; a
+        sent one supersedes a refused older record about the proc."""
+        for p in targets:
+            if p in self.failed():
+                continue
+            try:
+                self.engine.send_ctrl(p, rec)
+            except Exception:  # noqa: BLE001 — refused, or the peer is dead
+                with self._lock:
+                    self._resend[(p, rec["proc"])] = (
+                        rec, Deadline.for_timeout("connect"))
+                continue
+            with self._lock:
+                self._resend.pop((p, rec["proc"]), None)
+
+    def _retry_gossip(self) -> None:
+        """Try every refused gossip record again (the heartbeat loop,
+        once a period): dropped once its target is held failed or
+        retired, or past ``dcn_connect_timeout`` of refusals; the
+        anti-entropy digest makes good what is dropped."""
+        with self._lock:
+            pending = list(self._resend.items())
+        for key, (rec, deadline) in pending:
+            with self._lock:
+                if self._resend.get(key, (None,))[0] is not rec:
+                    continue  # sent, or superseded, meanwhile
+                p = key[0]
+                if (p in self._failed or p in self._retired
+                        or deadline.expired()):
+                    del self._resend[key]
+                    continue
+                self.counters["gossip_retries"] += 1
+            try:
+                self.engine.send_ctrl(p, rec)
+            except Exception:  # noqa: BLE001 — refused again
+                continue
+            with self._lock:
+                if self._resend.get(key, (None,))[0] is rec:
+                    del self._resend[key]
 
     def _mark_fan_out(self, proc: int, gossip, inc, epoch, src, how: str):
         """The state change and fan-out half of :meth:`mark_failed`
@@ -579,6 +724,7 @@ class HeartbeatDetector:
             self._failed.add(proc)
             self._inc[proc] = int(inc)
             self._epoch[proc] = int(epoch)
+            self._probe.pop(proc, None)  # probe at the next period
             cbs = list(self._cbs)
             relay = (gossip is True
                      or (gossip == "relay"
@@ -605,16 +751,33 @@ class HeartbeatDetector:
 
     # -- heartbeat loop --------------------------------------------------
 
+    def _probes_locked(self) -> dict[int, dict]:
+        """The probes due this period (see the module docstring), their
+        schedule advanced: one heartbeat flagged ``probe`` to each proc
+        held failed, not retired and not superseded, whose gap has run
+        out."""
+        now = time.monotonic()
+        due = {}
+        for p in sorted(self._failed):
+            at, gap = self._probe.get(p, (now, self.period))
+            if (p in self._retired or p in self._superseded
+                    or p not in self._last or now < at):
+                continue
+            self._probe[p] = (now + gap, min(2 * gap, self.timeout))
+            due[p] = self._hb_locked(p, "probe")
+            self.counters["probes"] += 1
+        return due
+
     def _run(self) -> None:
         while not self._stop.wait(self.period):
             with self._lock:
                 targets, watch, is_leader = self._topology_locked()
                 # every heartbeat carries the digest, a member's too:
                 # a member hears of a death only through its leader's
-                # one gossip frame (control frames are sent once and
-                # fail fast), and the leader's push on a mismatch is
-                # the only way a lost one is made good
-                dg = self._digest_locked() if self.digest_enabled else None
+                # one gossip frame, and the push on a mismatch is the
+                # only way a lost one is made good
+                beats = {p: self._hb_locked(p) for p in targets}
+                probes = self._probes_locked()
                 flipped = (self._lead_cbs and self._was_leader is not None
                            and is_leader != self._was_leader)
                 if self._was_leader is not None or self._lead_cbs:
@@ -627,14 +790,10 @@ class HeartbeatDetector:
                     import traceback  # not kill the heartbeat loop
 
                     traceback.print_exc()
-            for p in targets:
+            self._retry_gossip()
+            for p, env in beats.items():
                 if p in self._failed or p not in self._strikes:
                     continue  # failed, or retired mid-iteration
-                env = {"kind": "hb", "src": self.engine.proc}
-                if self.incarnation:
-                    env["inc"] = self.incarnation
-                if dg is not None:
-                    env["dg"] = dg
                 try:
                     self.engine.send_ctrl(p, env)
                     self._strikes[p] = 0
@@ -660,6 +819,11 @@ class HeartbeatDetector:
                                      > 2 * self.period)
                         if quiet:
                             self.mark_failed(p, how="strike")
+            for p, env in probes.items():
+                try:
+                    self.engine.send_ctrl(p, env)
+                except Exception:  # noqa: BLE001 — a refused probe to a
+                    pass  # proc already held failed is no news
             now = time.monotonic()
             with self._lock:
                 late = [p for p in watch

@@ -11,14 +11,15 @@ base path:
   final snapshot.
 
 :func:`crash_dump` writes the same files early, marked ``partial``,
-from the escalation paths (a deadline, a dead peer) and at exit of a
-process that never reached finalize.
+from the escalation paths (a deadline, a dead peer, a revoke that wakes
+a blocked wait) and at exit of a process that never reached finalize.
 """
 
 from __future__ import annotations
 
 import json
 import sys
+import threading
 
 from . import core as _core
 from . import flight as _flight
@@ -168,6 +169,7 @@ def write(path_base: str, proc: int = 0,
 #: crash-path once-latch: a dying process flushes at most once (the
 #: escalation sites and the atexit hook may all fire on one death)
 _crashed = False
+_crash_lock = threading.RLock()
 
 
 def crash_dump(reason: str = "crash") -> list[str]:
@@ -176,34 +178,41 @@ def crash_dump(reason: str = "crash") -> list[str]:
     layer's atexit hook, so a dying or aborting process still leaves
     its metrics and trace files (a clean finalize later overwrites
     them).  Never raises; a no-op when nothing is configured (the latch
-    stays armed then) and on every call after the first."""
+    stays armed then) and on every call after the first.  A call made
+    while the first one writes returns once the files are written: a
+    caller that is about to change the state the export records (a
+    revoke about to wake a blocked wait) changes it after the export."""
     global _crashed
     if _crashed:
-        return []
-    paths: list[str] = []
-    try:
-        import os
-
-        from ompi_tpu_torch.core import mca
-        from ompi_tpu_torch.trace import chrome as _tchrome
-        from ompi_tpu_torch.trace import core as _tcore
-
-        store = mca.default_context().store
-        proc = int(os.environ.get("OMPI_TPU_PROC", "0"))
-        mout = store.get("metrics_output", "") if _core._enabled else ""
-        tout = store.get("trace_output", "") if _tcore.enabled() else ""
-        if not mout and not tout:
+        with _crash_lock:  # a dump in progress: wait until it is written
             return []
-        _crashed = True
-        if mout:
-            _flight.record("crash_export", cause=reason)
-            paths += write(str(mout), proc=proc, partial=True)
-        if tout:
-            paths.append(_tchrome.dump(f"{tout}.{proc}.json", pid=proc,
-                                       partial=True))
-    except Exception:  # noqa: BLE001 — the dump rides failure paths
-        pass
-    return paths
+    with _crash_lock:
+        if _crashed:
+            return []
+        paths: list[str] = []
+        try:
+            import os
+
+            from ompi_tpu_torch.core import mca
+            from ompi_tpu_torch.trace import chrome as _tchrome
+            from ompi_tpu_torch.trace import core as _tcore
+
+            store = mca.default_context().store
+            proc = int(os.environ.get("OMPI_TPU_PROC", "0"))
+            mout = store.get("metrics_output", "") if _core._enabled else ""
+            tout = store.get("trace_output", "") if _tcore.enabled() else ""
+            if not mout and not tout:
+                return []
+            _crashed = True
+            if mout:
+                _flight.record("crash_export", cause=reason)
+                paths += write(str(mout), proc=proc, partial=True)
+            if tout:
+                paths.append(_tchrome.dump(f"{tout}.{proc}.json", pid=proc,
+                                           partial=True))
+        except Exception:  # noqa: BLE001 — the dump rides failure paths
+            pass
+        return paths
 
 
 def reset_crash_latch() -> None:
