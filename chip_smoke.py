@@ -138,8 +138,13 @@ exits non-zero:
     SIGKILLed inside the sixth, ``revoke`` + ``replace()`` (the reborn
     incarnation ``replace()``s after ``init``), five calls again:
     bit-equal to the first five at size 8, ring launches after recovery,
-    ``respawns`` ≥ 1, ``device_fallbacks`` 0, ``heal_ms`` of both
-    processes and no ``/dev/shm`` name of either incarnation left;
+    ``respawns`` ≥ 1, ``heal_ms`` of both processes and no ``/dev/shm``
+    name of either incarnation left; the device plane falls back nowhere
+    before the failure or after recovery, and inside the failing call
+    only toward the corpse, refused (``peer_failed``) or retired
+    (``failed_while_staging``) after its mark landed (a line before the
+    last prints these fallbacks and the reclaimed windows of each
+    stretch);
     (c) ``-np 3 --ft``: process 2 dies, the survivors ``shrink()`` and
     run 1 MiB and 64 MiB calls, bit-equal to a fresh 2 × 4 job;
     (d) a 2 × 4 job spawns 2 children; the merged 4-process comm's 1 MiB
@@ -150,7 +155,7 @@ exits non-zero:
     [8, 8] and incarnations [0, 1], every result shard on its rank's
     card for the survivor and the reborn process, one put and two waits
     per card per hop in each call after recovery, ``device_sends`` > 0
-    and ``device_fallbacks`` 0, ``heal_ms`` on both processes, no shm
+    and the fallbacks of (b), ``heal_ms`` on both processes, no shm
     name left; then (c) on that layout (``recovery_devices_shrink``),
     bit-equal to a fresh devices 2 × 4 job and to (c);
     and a probe of a CUDA IPC mapping whose exporter was killed (read
@@ -165,8 +170,9 @@ exits non-zero:
     64 MiB-per-rank f32 SUM under ``auto`` and a 64 MiB PROD with
     ``cuda_ring`` forced must equal the plain ring bit for bit, with no
     device-plane fallback; it prints each process's probes and heals and
-    the leg's wall time (``--ft-only`` runs the environment phase, this
-    leg and the analysis phase's ``btl/native`` lockdep job alone).  After (b) and (f)'s respawn, (c), (f)'s shrink,
+    the leg's wall time (``--ft-only`` runs the environment phase, (b),
+    (f)'s respawn, this leg, the analysis phase's ``btl/native`` lockdep
+    job and the tools phase's leg ``daemon_restart`` alone).  After (b) and (f)'s respawn, (c), (f)'s shrink,
     and (d) plus the probe and (g) run in three lanes side by side (each
     is a pass/fail check), and the analysis phase
     runs beside the whole phase.  It prints the time to heal and the
@@ -301,7 +307,9 @@ exits non-zero:
     windows, every result's SHA-256 equal to the exact sum computed
     here, no window left, ``memory_allocated`` not above its start) and
     ``chaos --daemon-restart`` (zero re-dials, the queued job once, zero
-    orphans, the daemon CUDA-free); ``chaos --kill-in-repair``, then
+    orphans, the daemon CUDA-free; a line before the last prints job B's
+    journal records in order, a ``submit`` alone at the crash and one
+    ``publish`` after it once restarted); ``chaos --kill-in-repair``, then
     ``top --once`` against a live telemetry job; and ``chaos
     --traffic`` (p50/p99 submit→start, the 429 shed and its restore),
     then ``chaos --respawn`` (full size, the reborn incarnation on
@@ -3219,12 +3227,28 @@ def peer_launches_per_call(devices) -> dict:
 RESPAWN_CALLS = 5
 
 
+def split_ok(split: dict | None, dev: dict | None, corpse: set) -> bool:
+    """A respawn worker's device-plane fallbacks by stretch (``ft_smoke.py``'s
+    ``fallback_split``): none before the failure or after recovery; in the
+    failing call only ``peer_failed`` or ``failed_while_staging`` toward a
+    proc of ``corpse`` (a send staged after the corpse's mark landed); and
+    the plane's whole count is that call's."""
+    if split is None or dev is None or None in split.values():
+        return False
+    failing = split["failing"]
+    return (not split["before"]["causes"] and not split["after"]["causes"]
+            and set(failing["causes"]) <= {"peer_failed", "failed_while_staging"}
+            and set(failing["peers"]) <= corpse
+            and dev["device_fallbacks"] == sum(failing["causes"].values()))
+
+
 def recovery_respawn(smi, layout: str = "rows", rows: dict | None = None) -> dict:
     """(b) ``-np 2 --nranks 4 --ft --respawn``: five 64 MiB f32 SUM calls,
     process 1 SIGKILLs itself inside the sixth, revoke + ``replace()`` on
     the survivor, ``replace()`` on the reborn incarnation, the five calls
     again: bit-equal to the pre-failure results at size 8, ring launches
-    after recovery, no device fallbacks, no shm names left.  With
+    after recovery, device fallbacks only in the failing call and toward
+    the corpse (``split_ok``), no shm names left.  With
     ``layout="devices"`` (leg ``recovery_devices``) the same job runs on
     the one-rank-per-device layout and must also give the rows leg's
     (``rows``) digests, every result shard on its rank's card (the reborn
@@ -3254,8 +3278,13 @@ def recovery_respawn(smi, layout: str = "rows", rows: dict | None = None) -> dic
            "sizes": [rec[p]["size"] for p in (0, 1)],
            "respawns": sum(rec[p]["respawns"] for p in (0, 1)),
            "device": [rec[p]["device"] for p in (0, 1)],
+           "fallback_split": [rec[p].get("fallback_split") for p in (0, 1)],
            "bitwise_vs_pre_failure": bitwise, "shm_leftovers": left, "layout": layout,
            "digest": want}
+    row["fallbacks_ok"] = all(split_ok(row["fallback_split"][p], row["device"][p],
+                                       {"1"} if p == 0 else set()) for p in (0, 1))
+    print(f"{log} fallbacks by stretch (survivor, reborn): "
+          + json.dumps(row["fallback_split"]) + f" ({smi})", flush=True)
     if layout == "rows":
         launches_ok = all(min(rows_of(lc).values()) > 0 for lc in row["post_launches"])
     else:
@@ -3276,8 +3305,8 @@ def recovery_respawn(smi, layout: str = "rows", rows: dict | None = None) -> dic
     row["launches_ok"] = launches_ok
     row["ok"] = (row["respawned"] and bitwise and row["sizes"] == [8, 8]
                  and row["incarnations"] == [0, 1] and row["respawns"] >= 1 and launches_ok
-                 and all(d is not None and d["device_sends"] > 0 and d["device_fallbacks"] == 0
-                         for d in row["device"])
+                 and all(d is not None and d["device_sends"] > 0 for d in row["device"])
+                 and row["fallbacks_ok"]
                  and all(h is not None for h in row["heal_ms"]) and not left
                  and row.get("rank_devices_ok", True) and row.get("placement_ok", True)
                  and row.get("bitwise_vs_rows_job", True))
@@ -5035,11 +5064,23 @@ def tools_respawn() -> dict:
 
 
 def tools_daemon(name: str, flag: str) -> dict:
+    """A daemon soak of ``chaos``; ``daemon_restart`` also prints job B's
+    journal records in order, at the crash and after the restart (its
+    ``submit`` before any ``publish``, one ``publish`` in all)."""
     leg = chaos_leg(name, flag)
     tally = leg["runs"][-1]["tally"]
     if tally["orphans"] or tally.get("daemon_cuda"):
         raise SystemExit(f"tools {name}: {tally}")
-    return {"wall_s": leg["wall_s"], "tally": tally}
+    row = {"wall_s": leg["wall_s"], "tally": tally}
+    if name == "daemon_restart":
+        order = leg["runs"][-1].get("journal_order")
+        print(f"tools daemon_restart: job B's journal order {json.dumps(order)}", flush=True)
+        after = (order or {}).get("after_restart") or []
+        if (not order or order["at_crash"] != ["submit"] or after.count("publish") != 1
+                or after.index("submit") > after.index("publish")):
+            raise SystemExit(f"tools {name}: journal order {order}")
+        row["journal_order"] = order
+    return row
 
 
 def tools_top() -> dict:
@@ -5503,8 +5544,10 @@ def main() -> int:
     ap.add_argument("--mutual-worker", action="store_true",
                     help="one process of the recovery phase's leg mutual_mark (internal)")
     ap.add_argument("--ft-only", action="store_true",
-                    help="run only the environment phase, the recovery phase's leg "
-                    "mutual_mark and the analysis phase's btl/native lockdep job")
+                    help="run only the environment phase, the recovery phase's legs "
+                    "recovery_respawn, recovery_devices and mutual_mark, the analysis "
+                    "phase's btl/native lockdep job and the tools phase's leg "
+                    "daemon_restart")
     ap.add_argument("--old-ring-hop", metavar="PATH",
                     help="an earlier tree's ring_hop.cu: its kernels are timed in turns "
                     "with this tree's in the kernel rows, and phase ring_split splits "
@@ -5576,14 +5619,23 @@ def main() -> int:
         from ompi_tpu_torch import native as native_lib
 
         native_lib.build()
+        respawn = phase("recovery_respawn", recovery_respawn, smi)
+        emit({"phase": "recovery_respawn", **respawn})
+        devices = phase("recovery_devices", recovery_respawn, smi, "devices", respawn)
+        emit({"phase": "recovery_devices", **devices})
         mutual = phase("mutual_mark", mutual_mark, smi)
         emit({"phase": "recovery_mutual_mark", "nvidia_smi": smi, **mutual})
         native = phase("lockdep_native", lockdep_native)
         emit({"phase": "analysis_lockdep_native", "nvidia_smi": smi, **native})
+        restart = phase("daemon_restart", tools_daemon, "daemon_restart", "--daemon-restart")
+        emit({"phase": "tools_daemon_restart", "nvidia_smi": smi, **restart})
         print(smi, flush=True)
         emit({"phase_wall_s": walls})
-        if not mutual["ok"]:
-            raise SystemExit(f"recovery_mutual_mark checks failed: {mutual}")
+        failed = [name for name, row in (("recovery_respawn", respawn),
+                                         ("recovery_devices", devices),
+                                         ("recovery_mutual_mark", mutual)) if not row["ok"]]
+        if failed:
+            raise SystemExit(f"--ft-only checks failed: {failed}")
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
                                      "count": torch.cuda.device_count()}})

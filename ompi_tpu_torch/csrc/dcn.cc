@@ -2688,16 +2688,18 @@ static int stream_turn(Engine *eng, Peer *p, bool *blocked,
         eng->stream_depth_now.fetch_sub(1, std::memory_order_relaxed);
         eng->stats.gauge(TS_STREAM_DEPTH, eng->stream_depth_now.load(
                                               std::memory_order_relaxed));
+        // counted before `done` is published: a stats read right after
+        // the woken _send returns must already include this message
+        if (!eager) {
+          eng->stats.add(TS_CHUNKED_MSGS, 1);
+          eng->stats.add(TS_CHUNKED_BYTES, bytes);
+        }
         d->rc = 0;
         d->done = true;  // a blocking waiter may delete d from here on
       }
       if (complete || p->cap_waiters) p->stream_cv.notify_all();
     }
     if (complete) {
-      if (!eager) {
-        eng->stats.add(TS_CHUNKED_MSGS, 1);
-        eng->stats.add(TS_CHUNKED_BYTES, bytes);
-      }
       if (det) {
         free(owned);
         delete d;

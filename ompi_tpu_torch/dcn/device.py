@@ -674,6 +674,9 @@ class DevicePlane:
         #: ``device_fallbacks`` by cause (kept out of the counter block,
         #: whose keys are the reference's)
         self.fallback_causes: dict[str, int] = dict.fromkeys(FALLBACK_CAUSES, 0)
+        #: the same fallbacks by destination root proc, then by cause
+        #: (-1: a send with no destination)
+        self.fallback_peers: dict[int, dict[str, int]] = {}
         self._wids = itertools.count(1)
         #: sender-owned windows awaiting the consumed signal:
         #: wid → (window, dst root proc, staging op key, probe)
@@ -762,7 +765,7 @@ class DevicePlane:
             # (where the failure surfaces through the normal escalation)
             if probe:
                 self.health.probe_outcome(dst_proc, False, "peer_failed")
-            self._fallback("peer_failed")
+            self._fallback("peer_failed", dst_proc)
             return None
         trunc = False
         if _fsim._enabled:
@@ -781,7 +784,7 @@ class DevicePlane:
                             dst_proc, False, "injected_drop")
                     else:
                         self.health.strike(dst_proc, "injected_drop")
-                    self._fallback("injected_drop")
+                    self._fallback("injected_drop", dst_proc)
                     return None
                 elif act.kind == "trunc":
                     trunc = True  # short DMA length published below
@@ -794,7 +797,7 @@ class DevicePlane:
         except OSError:
             if probe:
                 self.health.probe_outcome(dst_proc, False, "open_failed")
-            self._fallback("open_failed")
+            self._fallback("open_failed", dst_proc)
             return None
         from ompi_tpu_torch.trace import causal as _causal
 
@@ -821,7 +824,7 @@ class DevicePlane:
                 raise
             if probe:
                 self.health.probe_outcome(dst_proc, False, "place_failed")
-            self._fallback("place_failed")
+            self._fallback("place_failed", dst_proc)
             return None
         with self._lock:
             self._tx[wid] = (win, dst_proc, okey, probe)
@@ -829,7 +832,7 @@ class DevicePlane:
             # the failure mark landed while we were staging: the reclaim
             # scan ran before our publish — retire it ourselves
             self.reclaim_failed(dst_proc)
-            self._fallback("failed_while_staging")
+            self._fallback("failed_while_staging", dst_proc)
             return None
         if not self._running:
             # close() raced our publish: retire it ourselves and degrade
@@ -839,7 +842,7 @@ class DevicePlane:
                 win.close(unlink=True)
             if probe:
                 self.health.probe_outcome(dst_proc, False, "closing")
-            self._fallback("closing")
+            self._fallback("closing", dst_proc)
             return None
         if cuda:
             desc = {"w": name, "n": nbytes, "dt": _tensor_wire_dtype(arr.dtype),
@@ -852,10 +855,13 @@ class DevicePlane:
         self.stats["device_bytes_placed"] += nbytes
         return desc
 
-    def _fallback(self, cause: str) -> None:
-        """One degrade to the host plane, counted with its cause."""
+    def _fallback(self, cause: str, dst_proc: int | None) -> None:
+        """One degrade to the host plane, counted with its cause and the
+        peer it was staged toward."""
         self.stats["device_fallbacks"] += 1
         self.fallback_causes[cause] += 1
+        by = self.fallback_peers.setdefault(-1 if dst_proc is None else int(dst_proc), {})
+        by[cause] = by.get(cause, 0) + 1
 
     def reap(self) -> int:
         """Send-semaphore wait, non-blocking form: retire every window the

@@ -38,7 +38,11 @@ whether each is its rank's.
   (``post``: digests, times and the ring-hop launches of those calls)
   and report ``recovered``: the incarnation,
   the restored size, the ``respawns`` counter, the device plane's
-  counters and ``heal_ms`` from the ``replace`` flight record;
+  counters, ``heal_ms`` from the ``replace`` flight record, and
+  ``fallback_split``: the plane's fallbacks by cause and by destination
+  proc, and its reclaimed windows, before the failure, in the failing
+  call with its ``revoke()``/``replace()`` (the reborn incarnation: its
+  ``replace()``), and in the calls after recovery;
 * ``shrink`` — (run under ``--ft`` with 3 processes, no respawn)
   process 2 SIGKILLs itself after a barrier; the survivors wait until
   they see it failed, revoke, ``shrink()`` to 2 processes × K ranks and
@@ -93,6 +97,38 @@ def counters(w) -> dict:
     return {"respawns": int(snap.get("respawns", 0)), "device": dev}
 
 
+def plane_mark(w) -> dict:
+    """The device plane's cumulative fallbacks by cause, the same by
+    destination proc, and its reclaimed windows at one instant (empty
+    without a plane)."""
+    dp = getattr(w.dcn._root_engine(), "_device_plane", None)
+    if dp is None:
+        return {}
+    return {"causes": dict(dp.fallback_causes),
+            "peers": {str(q): dict(c) for q, c in dp.fallback_peers.items()},
+            "reclaimed": int(dp.stats["device_window_reclaimed"])}
+
+
+def _moved(new: dict, old: dict) -> dict:
+    return {c: n - old.get(c, 0) for c, n in new.items() if n - old.get(c, 0)}
+
+
+def plane_split(marks: list) -> dict:
+    """The counts between consecutive ``plane_mark``s: ``before`` the
+    failure, in the ``failing`` call with its ``revoke()``/``replace()``,
+    and ``after`` recovery; only the causes that moved are kept."""
+    out = {}
+    for name, a, b in zip(("before", "failing", "after"), marks, marks[1:]):
+        if not b:
+            out[name] = None
+            continue
+        peers = {q: _moved(c, a["peers"].get(q, {})) for q, c in b["peers"].items()}
+        out[name] = {"causes": _moved(b["causes"], a["causes"]),
+                     "peers": {q: c for q, c in peers.items() if c},
+                     "reclaimed": b["reclaimed"] - a["reclaimed"]}
+    return out
+
+
 def timed_calls(comm, x, calls: int) -> tuple[list, list, dict]:
     """``calls`` SUM allreduces: their digests, host-clock times and the
     first result's placement."""
@@ -119,10 +155,14 @@ def run_respawn(w, ck, nbytes: int, calls: int) -> None:
     p, inc, k, dev = w.proc, w.procctx.incarnation, w.local_size, w.device
     x = on_ranks(w, rank_rows(range(w.local_offset, w.local_offset + k), nbytes // 4, dev))
     comm = w
+    # marks at init, at the failure's start, after replace() and at the end
+    marks = [plane_mark(w)]
     if w.respawned:
+        marks.append(plane_mark(w))
         comm = w.replace()
     else:
         digests, times, where = timed_calls(w, x, calls)
+        marks.append(plane_mark(w))
         emit("pre", proc=p, pid=os.getpid(), digests=digests, times_ms=times,
              placement=where)
         extra = 0
@@ -142,13 +182,16 @@ def run_respawn(w, ck, nbytes: int, calls: int) -> None:
             comm = w.replace()
     heal = [r["detail"]["heal_ms"] for r in flight.records()
             if r.get("reason") == "replace" and "heal_ms" in r.get("detail", {})]
+    marks.append(plane_mark(w))
     ck.reset_launches()
     digests, times, where = timed_calls(comm, x, calls)
+    marks.append(plane_mark(w))
     emit("post", proc=p, digests=digests, times_ms=times, launches=dict(ck.LAUNCHES),
          placement=where)
     emit("recovered", proc=p, pid=os.getpid(), incarnation=inc, size=comm.size, name=comm.name,
          heal_ms=heal[-1] if heal else None, layout=comm.local_mesh.layout,
-         rank_devices=[str(d) for d in comm.local_mesh.devices], **counters(w))
+         rank_devices=[str(d) for d in comm.local_mesh.devices],
+         fallback_split=plane_split(marks), **counters(w))
 
 
 def shrink_calls(comm, nbytes: int) -> None:

@@ -194,9 +194,12 @@ class TelemetryAggregator:
                     return False
                 _, fn = max(hits, key=lambda h: len(h[0]))
                 hdrs: dict | None = None
+                after = None
                 try:
                     resp = fn(path, body)
-                    if len(resp) == 4:  # (status, ctype, body, headers)
+                    if len(resp) == 5:  # (status, ctype, body, headers, after)
+                        status, ctype, out, hdrs, after = resp
+                    elif len(resp) == 4:  # (status, ctype, body, headers)
                         status, ctype, out, hdrs = resp
                     else:
                         status, ctype, out = resp
@@ -204,7 +207,12 @@ class TelemetryAggregator:
                     status, ctype = 500, "application/json"
                     out = json.dumps(
                         {"error": f"{type(e).__name__}: {e}"}).encode()
-                self._reply(status, ctype, out, hdrs)
+                try:
+                    self._reply(status, ctype, out, hdrs)
+                    self.wfile.flush()
+                finally:
+                    if after is not None:
+                        after()
                 return True
 
             def do_POST(self):
@@ -254,9 +262,12 @@ class TelemetryAggregator:
     def add_route(self, method: str, path: str, fn) -> None:
         """Mount ``fn(path, body_bytes) -> (status, ctype, body_bytes)``
         — or the 4-tuple form with a trailing ``headers`` dict (how the
-        admission controller's 429 carries a real ``Retry-After``) —
-        at ``(method, path)``; extension routes win over the built-in
-        endpoints, so a daemon can serve a richer ``/jobs``."""
+        admission controller's 429 carries a real ``Retry-After``), or
+        the 5-tuple form with a trailing ``after()`` the handler calls
+        once the reply is written, or failed to be (how the daemon's
+        ``/submit`` keeps a job from its scheduler until the client has
+        its reply) — at ``(method, path)``; extension routes win over the
+        built-in endpoints, so a daemon can serve a richer ``/jobs``."""
         self._routes[(method.upper(), path)] = fn
 
     # -- job scoping (serve plane) --------------------------------------

@@ -840,7 +840,8 @@ class TpuDaemon:
 
     def _mount_routes(self) -> None:
         agg = self.aggregator
-        agg.add_route("POST", "/submit", self._r_submit)
+        agg.add_route("POST", "/submit",
+                      lambda path, body: self._r_submit(path, body, on_reply=True))
         agg.add_route("GET", "/jobs", self._r_jobs)
         agg.add_route("GET", "/job", self._r_job)
         agg.add_route("POST", "/drain", self._r_drain)
@@ -851,7 +852,15 @@ class TpuDaemon:
     def _json(status: int, obj) -> tuple[int, str, bytes]:
         return status, "application/json", json.dumps(obj).encode()
 
-    def _r_submit(self, path, body):
+    def _r_submit(self, path, body, on_reply: bool = False):
+        """Admit one job.  The scheduler cannot pick it until its
+        ``submit`` record is journaled and its reply is handed out: the
+        job is enqueued held and journaled under the daemon's lock, so no
+        ``publish`` record (nor a ``daemonkill`` at the publish) can come
+        before them.  With ``on_reply`` (the HTTP route) the reply carries
+        a trailing callback the HTTP layer runs once the reply is
+        written, which releases the job; a direct call releases it before
+        returning."""
         try:
             req = json.loads(body.decode() or "{}")
         except ValueError:
@@ -860,10 +869,12 @@ class TpuDaemon:
             return self._json(400, {"error": "missing 'script'"})
         tenant = req.get("tenant") or str(serve_var(self.mca, "tenant"))
         try:
-            job = self.queue.submit(
-                req["script"], args=req.get("args") or (),
-                tenant=tenant, nprocs=req.get("nprocs"),
-                env=req.get("env"))
+            with self._lock:
+                job = self.queue.submit(
+                    req["script"], args=req.get("args") or (),
+                    tenant=tenant, nprocs=req.get("nprocs"),
+                    env=req.get("env"), held=True)
+                self._journal_ev("submit", job=job)
         except AdmissionError as e:
             body: dict = {"error": str(e)}
             if e.retry_after is not None:
@@ -874,7 +885,10 @@ class TpuDaemon:
                 return (*self._json(e.status, body),
                         {"Retry-After": str(int(e.retry_after))})
             return self._json(e.status, body)
-        self._journal_ev("submit", job=job)
+        if on_reply:
+            return (*self._json(200, job), None,
+                    lambda: self.queue.release(job["id"]))
+        self.queue.release(job["id"])
         return self._json(200, job)
 
     def _r_jobs(self, path, body):

@@ -171,16 +171,22 @@ class JobQueue:
         #: tenant → monotonic pick counter (round-robin fairness state)
         self._served: dict[str, int] = {}
         self._pick = 0
+        #: queued job ids the scheduler must not pick yet: the daemon
+        #: holds a submission until its reply is written
+        self._held: set[str] = set()
         self.draining = False
 
     # -- admission -------------------------------------------------------
 
     def submit(self, script: str, args=(), tenant: str = "default",
-               nprocs: int | None = None, env: dict | None = None) -> dict:
+               nprocs: int | None = None, env: dict | None = None,
+               held: bool = False) -> dict:
         """Admission control + enqueue.  Raises :class:`AdmissionError`
         when the daemon is draining (503) or the tenant already has
         ``max_pending`` jobs queued or running (429) — the queue-depth
-        feed the ops surface reports per tenant."""
+        feed the ops surface reports per tenant.  A ``held`` job counts
+        as queued but :meth:`next_runnable` skips it until
+        :meth:`release`."""
         with self._lock:
             if self.draining:
                 raise AdmissionError("daemon is draining: no new jobs",
@@ -222,7 +228,14 @@ class JobQueue:
                 "submit_ns": time.time_ns(),
             }
             self._queue.append(job)
+            if held:
+                self._held.add(job["id"])
             return dict(job)
+
+    def release(self, job_id: str) -> None:
+        """Let the scheduler pick a ``held`` job."""
+        with self._lock:
+            self._held.discard(job_id)
 
     def _tenant_depth(self, tenant: str) -> int:
         return (sum(1 for j in self._queue if j["tenant"] == tenant)
@@ -256,7 +269,7 @@ class JobQueue:
             for tenant in sorted(
                     by_tenant, key=lambda t: (self._served.get(t, -1), t)):
                 for job in by_tenant[tenant]:  # FIFO scan, first FIT
-                    if job["nprocs"] > len(free):
+                    if job["nprocs"] > len(free) or job["id"] in self._held:
                         continue
                     self._queue.remove(job)
                     self._pick += 1
@@ -357,6 +370,7 @@ class JobQueue:
                 job["end_ns"] = time.time_ns()
                 self._done[job["id"]] = job
             self._queue.clear()
+            self._held.clear()
 
     # -- introspection ---------------------------------------------------
 

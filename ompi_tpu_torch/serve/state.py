@@ -481,6 +481,17 @@ class Journal:
                     clean = True
         outstanding = {i: d for i, d in published.items()
                        if i not in finished and d.get("kind") != "noop"}
+        # an outstanding job directive with no submit record (a takeover
+        # compaction keeps a running job as its publish alone) is that
+        # job's one run: its record comes from the directive
+        for d in outstanding.values():
+            if d.get("kind", "job") == "job" and d.get("id") \
+                    and d["id"] not in jobs:
+                jobs[d["id"]] = {
+                    **{k: d[k] for k in ("id", "tenant", "script", "args",
+                                         "env") if k in d},
+                    "nprocs": len(d.get("procs") or ()),
+                    "state": "running"}
         published_job_ids = {d.get("id") for d in published.values()
                              if d.get("kind", "job") == "job"}
         queued, running, done = [], [], []

@@ -705,9 +705,29 @@ def _journal_pids(journal: str) -> list[int]:
     return [p for p in pids.values() if p > 0]
 
 
+def _job_events(journal: str, job_id: str) -> list[str]:
+    """The journal's ``submit``/``publish``/``finish`` records about one
+    job, in journal order (the soak's order evidence)."""
+    out = []
+    try:
+        with open(journal) as f:
+            for line in f:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                job = rec.get("job") or rec.get("d") or {}
+                if isinstance(job, dict) and job.get("id") == job_id:
+                    out.append(rec.get("ev"))
+    except OSError:
+        pass
+    return out
+
+
 def run_daemon_restart_soak(np_: int, seed: int, kill_at: int,
                             extra_mca: list[str],
-                            timeout: float, cpu: bool = False) -> dict:
+                            timeout: float, cpu: bool = False,
+                            orders: list | None = None) -> dict:
     """The restart-hygiene headline, deterministically from one seed:
     a tpud with ``daemonkill:at=N`` armed SIGKILLs itself at the Nth
     directive-publish attempt — mid-job for the rank-1 submission, the
@@ -717,7 +737,8 @@ def run_daemon_restart_soak(np_: int, seed: int, kill_at: int,
     0 — the warm CIDs never went away), run the journal-recovered
     queued job exactly once (journal publish count per id == 1: the
     cursor dedup, not luck), and leave zero orphaned processes after
-    the final shutdown."""
+    the final shutdown.  ``orders`` (a list) receives job B's journal
+    records in order, at the crash and before the final shutdown."""
     import tempfile
 
     from ompi_tpu_torch.serve import client
@@ -767,6 +788,7 @@ def run_daemon_restart_soak(np_: int, seed: int, kill_at: int,
         worker_pids = _journal_pids(journal)
         survivors = [p for p in worker_pids if _sstate.pid_alive(p)]
         replay = _sstate.Journal.replay(journal)
+        at_crash = _job_events(journal, jb["id"])
         d2, lines2, url2 = _spawn_daemon(np_, base_mca, cpu=cpu)
         ra = client.wait(url2, ja["id"], timeout=90)
         rb = client.wait(url2, jb["id"], timeout=90)
@@ -789,6 +811,9 @@ def run_daemon_restart_soak(np_: int, seed: int, kill_at: int,
                         and rec.get("d", {}).get("kind", "job") == "job"):
                     jid = rec["d"].get("id", "?")
                     pubs[jid] = pubs.get(jid, 0) + 1
+        if orders is not None:
+            orders.append({"job": jb["id"], "at_crash": at_crash,
+                           "after_restart": _job_events(journal, jb["id"])})
         client.shutdown(url2)
         rc2 = d2.wait(timeout=60)
         time.sleep(0.5)
@@ -2521,9 +2546,12 @@ def _run(ns, record: list[dict]) -> int:
         baseline = None
         for run in range(ns.runs):
             t_run = time.time()
+            orders: list = []
             tally = run_daemon_restart_soak(ns.np_, ns.seed, ns.kill_at,
-                                            ns.mca, ns.timeout, cpu=ns.cpu)
-            record.append({"wall_s": time.time() - t_run, "tally": tally})
+                                            ns.mca, ns.timeout, cpu=ns.cpu,
+                                            orders=orders)
+            record.append({"wall_s": time.time() - t_run, "tally": tally,
+                           "journal_order": orders[0] if orders else None})
             render_daemon_restart(tally)
             if baseline is None:
                 baseline = tally

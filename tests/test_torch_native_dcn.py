@@ -283,16 +283,50 @@ def test_recv_blocking_fast_path_and_recv_into():
 
 def test_large_payload_ring_chunking(host_plane_only):
     """40 MiB through the 64 MiB shared-memory ring: beyond half the ring
-    it streams as chunked records; the bytes survive exactly."""
+    it streams as chunked records; the bytes survive exactly.  The port's
+    engine counts the message before it marks the stream done, so the
+    sender's stats read right after ``_send`` returns hold it once; the
+    reference's counts it after waking the sender, so its count is read
+    once both threads have ended."""
     big = RNG.integers(0, 255, size=40 << 20, dtype=np.uint8)
 
     def scenario(pkg, a, b):
-        out = _threads([a, b], lambda p, e: e._send(1, 11, 0, big) if p == 0
-                       else e._recv_full(0, 11, 0, timeout=60.0)[1])
+        def work(p, e):
+            if p == 1:
+                return e._recv_full(0, 11, 0, timeout=60.0)[1]
+            e._send(1, 11, 0, big)
+            return e.stats_snapshot()
+
+        out = _threads([a, b], work)
         assert np.array_equal(out[1], big)
+        if pkg == "port":
+            assert (out[0]["chunked_msgs"], out[0]["chunked_bytes"]) == (1, big.nbytes)
         return [a.stats_snapshot()["chunked_msgs"] >= 1]
 
     assert _both(scenario) == [True]
+
+
+def test_chunked_count_lands_before_send_returns(host_plane_only):
+    """On a 1 MiB ring, 400 sends of 600 KiB each stream as chunked
+    records; the sender's stats read as each ``_send`` returns already
+    count it (``csrc/dcn.cc`` adds ``TS_CHUNKED_MSGS`` and
+    ``TS_CHUNKED_BYTES`` under the stream lock, before ``done``)."""
+    msg = RNG.integers(0, 255, size=600 << 10, dtype=np.uint8)
+    n = 400
+    with _pair("port", ring_bytes=1 << 20) as (a, b):
+        def work(p, e):
+            if p == 1:
+                return [e._recv_full(0, 11, i, timeout=60.0)[1] for i in range(n)]
+            seen = []
+            for i in range(n):
+                e._send(1, 11, i, msg)
+                st = e.stats_snapshot()
+                seen.append((st["chunked_msgs"], st["chunked_bytes"]))
+            return seen
+
+        seen, got = _threads([a, b], work)
+    assert all(np.array_equal(g, msg) for g in got)
+    assert seen == [(i + 1, (i + 1) * msg.nbytes) for i in range(n)]
 
 
 def test_py_dispatcher_routes_ctrl_frames():

@@ -827,8 +827,13 @@ def test_ft_smoke_respawn_rehearsal():
     plane carrying the DCN leg in shm windows: the SIGKILL lands inside a
     call, ``replace()`` restores 8 ranks, the five calls after it give the
     bits of the five before, the survivor reclaims the window it had
-    staged toward the corpse and falls back nowhere, and the launcher
-    leaves no shared-memory name of either incarnation."""
+    staged toward the corpse, and the launcher leaves no shared-memory
+    name of either incarnation.  The device plane falls back nowhere
+    before the failure or after recovery; inside the failing call the
+    survivor may stage a send toward the corpse after its mark landed,
+    which the plane refuses (``peer_failed``) or retires
+    (``failed_while_staging``), as the reference's ``stage()`` does; the
+    reborn incarnation falls back nowhere."""
     from ompi_tpu_torch.boot.tpurun import _SHM_PREFIXES
 
     by, out = _ft_smoke(2, ["--ft", "--respawn", "--mca", "metrics_enable", "1"], "respawn")
@@ -840,8 +845,14 @@ def test_ft_smoke_respawn_rehearsal():
     assert [rec[p]["size"] for p in (0, 1)] == [8, 8]
     assert [rec[p]["incarnation"] for p in (0, 1)] == [0, 1] and rec[0]["respawns"] == 1
     assert all(rec[p]["heal_ms"] > 0 for p in (0, 1))
-    assert all(rec[p]["device"]["device_sends"] > 0 and rec[p]["device"]["device_fallbacks"] == 0
-               for p in (0, 1))
+    for p in (0, 1):
+        dev, split = rec[p]["device"], rec[p]["fallback_split"]
+        assert dev["device_sends"] > 0
+        assert not split["before"]["causes"] and not split["after"]["causes"], split
+        failing = split["failing"]
+        assert set(failing["causes"]) <= {"peer_failed", "failed_while_staging"}, split
+        assert set(failing["peers"]) <= ({"1"} if p == 0 else set()), split
+        assert dev["device_fallbacks"] == sum(failing["causes"].values()), split
     pids = {by["pre"][p]["pid"] for p in (0, 1)} | {rec[p]["pid"] for p in (0, 1)}
     assert len(pids) == 3  # the corpse, its reborn incarnation, the survivor
     prefixes = tuple(f.format(pid) for pid in pids for f in _SHM_PREFIXES)
